@@ -15,3 +15,11 @@ def rng():
 @pytest.fixture
 def key():
     return jax.random.key(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card and nvcc; skips without them "
+        "(on a card: python -m pytest --noconftest tests/test_torch_cuda.py)",
+    )

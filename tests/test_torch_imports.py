@@ -1,0 +1,73 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+without a CUDA card its entry points refuse to run instead of falling back
+to the CPU.
+
+Each check runs in a fresh interpreter, since this test process has JAX
+and ``repro`` loaded already.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+
+def _run(args, **kw) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.run(
+        args, env=env, capture_output=True, text=True, timeout=300, **kw
+    )
+
+
+def _port_modules() -> list[str]:
+    mods = []
+    for path in sorted((SRC / "repro_torch").rglob("*.py")):
+        parts = path.relative_to(SRC).with_suffix("").parts
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_port_imports_no_jax_and_no_reference_module():
+    mods = _port_modules()
+    assert "repro_torch.core.engine" in mods and "repro_torch.kernels.matmul" in mods
+    script = textwrap.dedent(f"""
+        import importlib, sys
+        for name in {mods!r}:
+            importlib.import_module(name)
+        from repro_torch.core.registry import all_benchmarks
+        all_benchmarks()  # registers every ported benchmark
+        bad = sorted(m for m in sys.modules
+                     if m in ("jax", "jaxlib", "repro")
+                     or m.startswith(("jax.", "jaxlib.", "repro.")))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    out = _run([sys.executable, "-c", script])
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_suite_without_cuda_exits_2_instead_of_running_on_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the check is for hosts without one")
+    out = _run([sys.executable, "-m", "repro_torch.core.suite",
+                "--names", "gemm_f32_nn", "--preset", "0"])
+    assert out.returncode == 2, out.stdout + out.stderr
+    assert "cuda" in out.stderr.lower()
+    assert "gemm" not in out.stdout  # no row was measured anywhere
+
+
+def test_chip_smoke_fails_without_cuda_and_prints_no_result():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the check is for hosts without one")
+    out = _run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=str(ROOT))
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -98,44 +98,76 @@ def _matmul_case(torch, matmul, gen, dt, m, k, n, trans):
     else:
         a = torch.randn(m, k, generator=gen, device="cuda").to(dt)
     b = torch.randn(k, n, generator=gen, device="cuda").to(dt)
-    out = matmul.matmul_cuda(a, b)
+    out = matmul.matmul_cuda(a, b).float()
     torch.cuda.synchronize()
-    want = matmul.matmul_plain(a, b).float()
-    diff = (out.float() - want).abs()
+    plain = matmul.matmul_plain(a, b).float()
+    diff = (out - plain).abs()
     if max(m, k, n) <= 512:
         atol = rtol = REF_TOL[_dtname(dt)]
-        why = "reference tolerance"
+        ok = bool((diff <= atol + rtol * plain.abs()).all())
+        print(f"  matmul {_dtname(dt):8s} {trans} ({m},{k},{n}) max_abs "
+              f"{diff.max().item():.3e} [reference tolerance {atol:g} abs and rel] "
+              f"{'ok' if ok else 'FAIL'}")
     else:
-        # Two f32 sums of K products in different orders each lie within
-        # K*u*(|A||B|) of the exact product (Higham's bound), so they lie
-        # within twice that of each other; a bf16 output adds one bf16 ulp
-        # (2^-7 relative) of rounding on top.
-        bound = torch.matmul(a.float().abs(), b.float().abs()).max().item()
-        atol = 2 * k * U_F32 * bound
-        rtol = 0.0 if dt == torch.float32 else 2.0**-7
-        why = f"2*K*u*max(|A||B|) = {atol:.3e}, rtol {rtol:g}"
-    ok = bool((diff <= atol + rtol * want.abs()).all())
-    max_abs = diff.max().item()
-    max_rel = (diff / want.abs().clamp_min(1e-6)).max().item()
-    print(f"  matmul {_dtname(dt):8s} {trans} ({m},{k},{n}) max_abs {max_abs:.3e} "
-          f"max_rel {max_rel:.3e} [{why}] {'ok' if ok else 'FAIL'}")
+        # Held first against the exact product: f64 holds every product of
+        # two f32 or bf16 inputs exactly and sums K=4096 of them far below
+        # f32's round-off. The kernel adds the K products one after another
+        # in f32; each rounding errs by at most u times the running sum,
+        # whose rms after k terms is sqrt(k)*sigma (sigma = rms(A)*rms(B)),
+        # so the error's rms is about u*sigma*K/sqrt(12). Outputs far from
+        # zero carry larger running sums and larger errors: on an H100 the
+        # largest of 16M outputs came to 4.7*u*sigma*K (1.15e-3 at unit
+        # inputs), for cuBLAS's f32 product too. ATOL = 16*u*K*sigma
+        # (3.9e-3) leaves 3.4x on that, while a kernel that rounded its
+        # inputs to TF32 (2^-11) or bf16 errs by about sqrt(K)*2^-11*sigma*
+        # 0.8 ~ 0.026 on a typical output (0.25 at most) and fails. A bf16
+        # output adds its own rounding, 2^-8 of the value.
+        exact = torch.matmul(a.double(), b.double())
+        sigma = (a.double().square().mean().sqrt() * b.double().square().mean().sqrt()).item()
+        atol = 16 * k * U_F32 * sigma
+        rtol = 0.0 if dt == torch.float32 else 2.0**-8
+        err = (out.double() - exact).abs()
+        plain_err = (plain.double() - exact).abs()
+        ok_exact = bool((err <= atol + rtol * exact.abs()).all())
+        ok_plain_exact = bool((plain_err <= atol + rtol * exact.abs()).all())
+        # Both within ATOL (+ rounding) of the exact product, so within
+        # twice that of each other; two bf16 roundings differ by at most one
+        # bf16 ulp, 2^-7 of the value.
+        ok_plain = bool((diff <= 2 * atol + 2 * rtol * plain.abs()).all())
+        ok = ok_exact and ok_plain_exact and ok_plain
+        print(f"  matmul {_dtname(dt):8s} {trans} ({m},{k},{n}) vs f64: kernel max_abs "
+              f"{err.max().item():.3e}, plain max_abs {plain_err.max().item():.3e} "
+              f"[16*K*u*sigma = {atol:.3e}, rtol {rtol:g}]; vs plain max_abs "
+              f"{diff.max().item():.3e} [2x that] {'ok' if ok else 'FAIL'}")
     if not ok:
         _fail(f"matmul {dt} {trans} {(m, k, n)} disagrees with its plain version")
-    return max_abs
+    return diff.max().item()
 
 
-def _softmax_case(torch, softmax, gen, dt, r, c):
-    x = (5 * torch.randn(r, c, generator=gen, device="cuda")).to(dt)
+def _softmax_agrees(out, want, dt):
+    """Softmax outputs compared by relative error: ``|out - want| <=
+    tol*|want| + 1e-30`` with the reference's tolerance as ``tol``. In a row
+    of 5*randn logits most outputs lie far below 1e-5, so an absolute term
+    of the reference's size would let them be anything. The 1e-30 only
+    spares outputs that underflow. Returns (ok, max_abs, max_rel), max_rel
+    unclamped (inf where the plain version gives 0 and the kernel does not).
+    """
+    tol = REF_TOL[_dtname(dt)]
+    out, want = out.float(), want.float()
+    diff = (out - want).abs()
+    ok = bool((diff <= tol * want.abs() + 1e-30).all())
+    rel = (diff / want.abs()).nan_to_num(nan=0.0, posinf=float("inf"))
+    return ok, diff.max().item(), rel.max().item()
+
+
+def _softmax_case(torch, softmax, gen, dt, r, c, scale=5.0):
+    x = (scale * torch.randn(r, c, generator=gen, device="cuda")).to(dt)
     out = softmax.softmax_cuda(x)
     torch.cuda.synchronize()
-    want = softmax.softmax_plain(x).float()
-    diff = (out.float() - want).abs()
-    tol = REF_TOL[_dtname(dt)]
-    ok = bool((diff <= tol + tol * want.abs()).all())
-    max_abs = diff.max().item()
-    max_rel = (diff / want.abs().clamp_min(1e-6)).max().item()
-    print(f"  softmax {_dtname(dt):8s} ({r},{c}) max_abs {max_abs:.3e} "
-          f"max_rel {max_rel:.3e} [reference tolerance {tol:g}] {'ok' if ok else 'FAIL'}")
+    ok, max_abs, max_rel = _softmax_agrees(out, softmax.softmax_plain(x), dt)
+    print(f"  softmax {_dtname(dt):8s} ({r},{c}) logits {scale:g}*randn max_abs "
+          f"{max_abs:.3e} max_rel {max_rel:.3e} [rtol {REF_TOL[_dtname(dt)]:g}, "
+          f"atol 1e-30] {'ok' if ok else 'FAIL'}")
     if not ok:
         _fail(f"softmax {dt} {(r, c)} disagrees with its plain version")
     return max_abs
@@ -163,9 +195,11 @@ def phase_kernels(torch) -> dict:
     for dt in (torch.float32, torch.bfloat16):
         for r, c in SOFTMAX_SMALL:
             _softmax_case(torch, softmax, gen, dt, r, c)
+            _softmax_case(torch, softmax, gen, dt, r, c, scale=1.0)
         e = _softmax_case(torch, softmax, gen, dt, 32768, 16384)
         if dt == torch.float32:
             err["softmax_f32"] = e
+            _softmax_case(torch, softmax, gen, dt, 32768, 16384, scale=1.0)
     return err
 
 
@@ -197,9 +231,8 @@ def phase_main_path(torch) -> dict:
 
     print("== phase 4: main path (suite, preset 4, --impl kernel)")
     for mod in (matmul, softmax):
-        mod.launches = 0
-        for key in mod.launches_by_kernel:
-            mod.launches_by_kernel[key] = 0
+        for key in mod.launches:
+            mod.launches[key] = 0
     with tempfile.TemporaryDirectory() as tmp:
         jsonl = os.path.join(tmp, "main_path.jsonl")
         t0 = time.perf_counter()
@@ -209,10 +242,9 @@ def phase_main_path(torch) -> dict:
             "--timing-window", str(WINDOW), "--jsonl", jsonl,
         ])
         wall = time.perf_counter() - t0
-        launches = {**matmul.launches_by_kernel, **softmax.launches_by_kernel}
-        totals = {"matmul": matmul.launches, "softmax": softmax.launches}
+        launches = {**matmul.launches, **softmax.launches}
         meta, records = load_run(jsonl)
-    print(f"suite exit {rc} in {wall:.1f} s; launches {launches} totals {totals}")
+    print(f"suite exit {rc} in {wall:.1f} s; launches {launches}")
     if rc != 0:
         _fail(f"the suite exited {rc}")
     if meta is None or meta.backend != "cuda" or meta.allow_tf32_matmul:
@@ -260,17 +292,20 @@ def phase_small_agreement(torch) -> None:
         args = commit_args(wl.make_inputs(0), "cuda")
         out_k = bind_impl(wl.fn, wl, "kernel")(*args).float()
         out_t = bind_impl(wl.fn, wl, "torch")(*args).float()
-        # f32 rows sum 256 products per output in another order than the
-        # plain version: 1e-4 holds them (the Higham bound 2*K*u*max(|A||B|)
-        # is about 6e-3 here); bf16 rows keep the reference's 2e-2.
-        tol = 2e-2 if "bf16" in name else 1e-4
-        ok = (
-            out_k.shape == out_t.shape
-            and bool(torch.isfinite(out_k).all())
-            and torch.allclose(out_k, out_t, rtol=tol, atol=tol)
-        )
+        if name == "softmax":
+            close, _, max_rel = _softmax_agrees(out_k, out_t, args[0].dtype)
+            why = f"max_rel {max_rel:.3e} rtol {REF_TOL[_dtname(args[0].dtype)]:g} atol 1e-30"
+        else:
+            # f32 rows sum 256 products per output in another order than the
+            # plain version: 1e-4 holds them (the Higham bound
+            # 2*K*u*max(|A||B|) is about 6e-3 here); bf16 rows keep the
+            # reference's 2e-2.
+            tol = 2e-2 if "bf16" in name else 1e-4
+            close = torch.allclose(out_k, out_t, rtol=tol, atol=tol)
+            why = f"tol {tol:g}"
+        ok = out_k.shape == out_t.shape and bool(torch.isfinite(out_k).all()) and close
         print(f"  {name:14s} shape {tuple(out_k.shape)} max_abs "
-              f"{(out_k - out_t).abs().max().item():.3e} tol {tol:g} {'ok' if ok else 'FAIL'}")
+              f"{(out_k - out_t).abs().max().item():.3e} {why} {'ok' if ok else 'FAIL'}")
         if not ok:
             _fail(f"{name} at preset 0: kernel and torch disagree")
 

@@ -14,9 +14,11 @@ fraction, and ``utilization_scale10`` maps fractions onto the paper's 0–10
 bars. Peaks are per dtype: bf16 and fp16 rows are held against the
 tensor-core peak, f32 rows against the f32 peak *without* tensor cores
 (the port keeps f32 true f32, TF32 off). The table is keyed by
-``torch.cuda.get_device_name()``, since the SXM and PCIe parts differ;
-names it does not list (a CPU run, another card) are held against the
-H100 SXM, the suite's roofline target.
+``torch.cuda.get_device_name()``, since the SXM and PCIe parts differ.
+A CPU run (no card name) is held against the H100 SXM, the suite's
+roofline target, and its rows say so in ``CompiledInfo.peaks``; a card the
+table does not list is refused rather than held against another card's
+peaks.
 """
 
 from __future__ import annotations
@@ -70,8 +72,18 @@ PEAKS = {p.name: p for p in (H100_SXM, H100_PCIE)}
 
 
 def peaks_for(device_name: str | None) -> GpuPeaks:
-    """The peak row for a card name; unlisted names get the H100 SXM."""
-    return PEAKS.get(device_name or "", H100_SXM)
+    """The peak row for a card name; ``None`` (a CPU run) gets the H100 SXM.
+
+    Raises ``ValueError`` for a card name the table does not list.
+    """
+    if device_name is None:
+        return H100_SXM
+    if device_name not in PEAKS:
+        raise ValueError(
+            f"no peak table row for {device_name!r} (listed: {sorted(PEAKS)}); "
+            "add its data-sheet peaks to repro_torch.core.metrics.PEAKS"
+        )
+    return PEAKS[device_name]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -246,34 +246,23 @@ cudaError_t launch_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
 }  // namespace
 
 // C entry points (bound with ctypes). Pointers are device pointers, strides
-// are in elements, C is a contiguous M x N output. (block_m, block_n) picks
-// one of the compiled tile shapes; any other pair is refused with
-// cudaErrorInvalidValue. Each returns cudaGetLastError() after its launch.
+// are in elements, C is a contiguous M x N output. Both use 128 x 128 tiles.
+// Each returns cudaGetLastError() after its launch.
 
 extern "C" int matmul_f32(const void* a, const void* b, void* c, int M, int N,
                           int K, long long sam, long long sak, long long sbk,
-                          long long sbn, int block_m, int block_n, void* stream) {
-  const auto* A = static_cast<const float*>(a);
-  const auto* B = static_cast<const float*>(b);
-  auto* C = static_cast<float*>(c);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (block_m == 128 && block_n == 128)
-    return launch_f32<128, 128>(A, B, C, M, N, K, sam, sak, sbk, sbn, s);
-  if (block_m == 64 && block_n == 64)
-    return launch_f32<64, 64>(A, B, C, M, N, K, sam, sak, sbk, sbn, s);
-  return cudaErrorInvalidValue;
+                          long long sbn, void* stream) {
+  return launch_f32<128, 128>(static_cast<const float*>(a),
+                              static_cast<const float*>(b), static_cast<float*>(c),
+                              M, N, K, sam, sak, sbk, sbn,
+                              static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int matmul_bf16(const void* a, const void* b, void* c, int M, int N,
                            int K, long long sam, long long sak, long long sbk,
-                           long long sbn, int block_m, int block_n, void* stream) {
-  const auto* A = static_cast<const __nv_bfloat16*>(a);
-  const auto* B = static_cast<const __nv_bfloat16*>(b);
-  auto* C = static_cast<__nv_bfloat16*>(c);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (block_m == 128 && block_n == 128)
-    return launch_bf16<128, 128>(A, B, C, M, N, K, sam, sak, sbk, sbn, s);
-  if (block_m == 64 && block_n == 64)
-    return launch_bf16<64, 64>(A, B, C, M, N, K, sam, sak, sbk, sbn, s);
-  return cudaErrorInvalidValue;
+                           long long sbn, void* stream) {
+  return launch_bf16<128, 128>(static_cast<const __nv_bfloat16*>(a),
+                               static_cast<const __nv_bfloat16*>(b),
+                               static_cast<__nv_bfloat16*>(c), M, N, K, sam, sak,
+                               sbk, sbn, static_cast<cudaStream_t>(stream));
 }

@@ -15,10 +15,9 @@ view is taken in place, never copied.
   tensor goes to :func:`matmul_cuda`, a CPU tensor to the plain version
   (:func:`matmul_plain`, the ``ref.py`` oracle), the way the reference runs
   its Pallas kernel interpreted off-TPU.
-- ``launches`` counts launches of the kernel (``matmul_cuda`` only), and
-  ``launches_by_kernel`` the same per C entry point (f32, bf16);
-  ``plain_calls`` counts kernel-route calls that ran the plain version
-  because their tensors lay on the CPU.
+- ``launches`` counts launches of the kernel (``matmul_cuda`` only) per C
+  entry point (f32, bf16); ``plain_calls`` counts kernel-route calls that
+  ran the plain version because their tensors lay on the CPU.
 """
 
 from __future__ import annotations
@@ -36,18 +35,16 @@ __all__ = [
     "matmul_plain",
     "tune_space",
     "launches",
-    "launches_by_kernel",
     "plain_calls",
 ]
 
-launches = 0
-launches_by_kernel = {"matmul_f32": 0, "matmul_bf16": 0}
+launches = {"matmul_f32": 0, "matmul_bf16": 0}
 plain_calls = 0
 
 _DTYPES = {torch.float32: "matmul_f32", torch.bfloat16: "matmul_bf16"}
-_TILES = ((128, 128), (64, 64))  # the (block_m, block_n) pairs csrc compiles
+_TILE = {"block_m": 128, "block_n": 128}  # the one tile csrc compiles
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 4 + [
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p,
 ]
 
 
@@ -57,13 +54,10 @@ def tune_space() -> tuple[dict, ...]:
     The reference sweeps 128/256 blocks sized for the TPU's 128x128 matrix
     unit. On Hopper a block is one CTA: 128x128 (256 threads for f32, eight
     warps of WMMA fragments for bf16) fills the SMs at the suite's large
-    shapes, 64x64 puts more blocks in flight when M or N is small. Any tile
-    is safe at any shape: the kernel masks the edges.
+    shapes. It is the only tile compiled until a tune stage has a shape
+    where another one wins.
     """
-    return (
-        {"block_m": 128, "block_n": 128},
-        {"block_m": 64, "block_n": 64},
-    )
+    return (dict(_TILE),)
 
 
 def _strides(t: torch.Tensor, name: str) -> tuple[int, int]:
@@ -81,7 +75,6 @@ def matmul_cuda(
     a: torch.Tensor, b: torch.Tensor, *, block_m: int = 128, block_n: int = 128
 ) -> torch.Tensor:
     """Launch the CUDA kernel on ``a`` (M, K) and ``b`` (K, N)."""
-    global launches
     if not (a.is_cuda and b.is_cuda):
         raise ValueError(
             f"matmul_cuda needs CUDA tensors, got {a.device} and {b.device}"
@@ -98,9 +91,9 @@ def matmul_cuda(
             f"matmul kernel takes (M, K) @ (K, N), got {tuple(a.shape)} @ "
             f"{tuple(b.shape)}"
         )
-    if (block_m, block_n) not in _TILES:
+    if {"block_m": block_m, "block_n": block_n} != _TILE:
         raise ValueError(
-            f"no compiled tile ({block_m}, {block_n}); compiled: {_TILES}"
+            f"no compiled tile ({block_m}, {block_n}); compiled: {_TILE}"
         )
     m, k = a.shape
     n = b.shape[1]
@@ -116,11 +109,10 @@ def matmul_cuda(
     stream = torch.cuda.current_stream(a.device).cuda_stream
     status = fn(
         a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-        sam, sak, sbk, sbn, block_m, block_n, stream,
+        sam, sak, sbk, sbn, stream,
     )
     _build.check(status, name)
-    launches += 1
-    launches_by_kernel[name] += 1
+    launches[name] += 1
     return c
 
 

@@ -13,7 +13,8 @@ back from shared memory when it fits.
 - :func:`softmax_kernel` is the kernel route: CUDA tensors launch, CPU
   tensors run the plain version (:func:`softmax_plain`, the ``ref.py``
   oracle).
-- ``launches`` and ``plain_calls`` count as in ``kernels/matmul.py``.
+- ``launches`` (per C entry point) and ``plain_calls`` count as in
+  ``kernels/matmul.py``.
 """
 
 from __future__ import annotations
@@ -31,12 +32,10 @@ __all__ = [
     "softmax_plain",
     "tune_space",
     "launches",
-    "launches_by_kernel",
     "plain_calls",
 ]
 
-launches = 0
-launches_by_kernel = {"softmax_f32": 0, "softmax_bf16": 0}
+launches = {"softmax_f32": 0, "softmax_bf16": 0}
 plain_calls = 0
 
 _DTYPES = {torch.float32: "softmax_f32", torch.bfloat16: "softmax_bf16"}
@@ -52,7 +51,6 @@ def tune_space() -> tuple[dict, ...]:
 
 def softmax_cuda(x: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel: softmax over the last axis of ``x``."""
-    global launches
     if not x.is_cuda:
         raise ValueError(f"softmax_cuda needs a CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPES:
@@ -82,8 +80,7 @@ def softmax_cuda(x: torch.Tensor) -> torch.Tensor:
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = fn(x2.data_ptr(), y.data_ptr(), r, c, x2.stride(0), y.stride(0), stream)
     _build.check(status, name)
-    launches += 1
-    launches_by_kernel[name] += 1
+    launches[name] += 1
     return y.view(x.shape)
 
 

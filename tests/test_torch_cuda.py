@@ -35,8 +35,7 @@ def _tol(dtype) -> float:
 @pytest.mark.parametrize("m,k,n", MATMUL_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("layout", ["nn", "tn"])
-@pytest.mark.parametrize("tile", [(128, 128), (64, 64)])
-def test_matmul_kernel_matches_plain(card, m, k, n, dtype, layout, tile):
+def test_matmul_kernel_matches_plain(card, m, k, n, dtype, layout):
     rng = np.random.default_rng(0)
     a_np = rng.standard_normal((m, k), dtype=np.float32)
     if layout == "tn":  # a transposed view, as the gemm "tn" specs pass
@@ -44,7 +43,7 @@ def test_matmul_kernel_matches_plain(card, m, k, n, dtype, layout, tile):
     else:
         a = torch.from_numpy(a_np).to(card, dtype)
     b = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).to(card, dtype)
-    got = matmul.matmul_cuda(a, b, block_m=tile[0], block_n=tile[1])
+    got = matmul.matmul_cuda(a, b)
     torch.cuda.synchronize()
     want = matmul.matmul_plain(a, b)
     assert got.dtype == dtype and got.shape == (m, n)
@@ -60,9 +59,10 @@ def test_softmax_kernel_matches_plain(card, rows, cols, dtype):
     x = x.to(card, dtype)
     got = softmax.softmax_cuda(x)
     torch.cuda.synchronize()
-    tol = _tol(dtype)
+    # Relative only: most outputs of a 5*randn row lie far below any
+    # absolute tolerance of the reference's size.
     torch.testing.assert_close(
-        got.float(), softmax.softmax_plain(x).float(), rtol=tol, atol=tol
+        got.float(), softmax.softmax_plain(x).float(), rtol=_tol(dtype), atol=1e-30
     )
 
 
@@ -77,7 +77,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
 
 
 def test_kernel_rows_on_the_card_launch_the_kernels(card):
-    before = matmul.launches, softmax.launches
+    before = sum(matmul.launches.values()), sum(softmax.launches.values())
     res = Engine().run(ExecutionPlan(
         names=("gemm_bf16_tn", "softmax"), preset=0, iters=2, warmup=1,
         include_backward=False, impl="kernel",
@@ -85,4 +85,5 @@ def test_kernel_rows_on_the_card_launch_the_kernels(card):
     assert [r.status for r in res.records] == ["ok", "ok"]
     assert all(r.impl_interpret is False for r in res.records)
     calls = 1 + 1 + 1 + 2 * (1 + 4)
-    assert (matmul.launches - before[0], softmax.launches - before[1]) == (calls, calls)
+    after = sum(matmul.launches.values()), sum(softmax.launches.values())
+    assert (after[0] - before[0], after[1] - before[1]) == (calls, calls)

@@ -30,11 +30,16 @@ from typing import Literal
 
 import torch
 
+from repro_torch.kernels import avgpool as _avgpool_mod
+from repro_torch.kernels import lrn as _lrn_mod
 from repro_torch.kernels import matmul as _matmul_mod
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import softmax as _softmax_mod
 
-__all__ = ["matmul", "softmax", "force_impl", "tune_space", "KERNEL_OPS", "MODES"]
+__all__ = [
+    "matmul", "softmax", "lrn", "avgpool", "force_impl", "tune_space", "KERNEL_OPS",
+    "MODES",
+]
 
 Mode = Literal["auto", "kernel", "ref"]
 MODES = ("auto", "kernel", "ref")
@@ -44,6 +49,8 @@ MODES = ("auto", "kernel", "ref")
 KERNEL_OPS = {
     "matmul": _matmul_mod,
     "softmax": _softmax_mod,
+    "lrn": _lrn_mod,
+    "avgpool": _avgpool_mod,
 }
 
 # (mode, op-or-None, params) set by force_impl; consulted only for
@@ -95,6 +102,8 @@ def tune_space(op: str) -> tuple[dict, ...]:
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, mode: Mode = "auto", **blocks):
+    """(M, K) or (B, M, K) @ (K, N) or (B, K, N), batches broadcast as in
+    ``torch.matmul``."""
     use, blocks = _resolve("matmul", mode, a, blocks)
     if use:
         return _matmul_mod.matmul_kernel(a, b, **blocks)
@@ -106,3 +115,17 @@ def softmax(x: torch.Tensor, *, mode: Mode = "auto"):
     if use:
         return _softmax_mod.softmax_kernel(x)
     return _ref.softmax_ref(x)
+
+
+def lrn(x: torch.Tensor, *, size=5, alpha=1e-4, beta=0.75, k=2.0, mode: Mode = "auto"):
+    use, _ = _resolve("lrn", mode, x, {})  # no block parameters
+    if use:
+        return _lrn_mod.lrn_kernel(x, size=size, alpha=alpha, beta=beta, k=k)
+    return _ref.lrn_ref(x, size=size, alpha=alpha, beta=beta, k=k)
+
+
+def avgpool(x: torch.Tensor, *, ksize=2, mode: Mode = "auto"):
+    use, _ = _resolve("avgpool", mode, x, {})  # no block parameters
+    if use:
+        return _avgpool_mod.avgpool_kernel(x, ksize=ksize)
+    return _ref.avgpool_ref(x, ksize=ksize)

@@ -10,24 +10,31 @@ hold them against these plain versions there.
 
 import inspect
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.avgpool import avgpool_pallas
+from repro.kernels.lrn import lrn_pallas
 from repro.kernels.matmul import matmul_pallas
 from repro.kernels.softmax import softmax_pallas
 from repro_torch.convert import from_reference
 from repro_torch.core import metrics
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels import avgpool as tavgpool
+from repro_torch.kernels import lrn as tlrn
 from repro_torch.kernels import matmul as tmatmul
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import softmax as tsoftmax
 
-# tests/test_kernels_matmul.py:11-17 and tests/test_kernels_misc.py:17-18
+# tests/test_kernels_matmul.py:11-17 and tests/test_kernels_misc.py:17-18,29-30,38
 MATMUL_SHAPES = [(8, 8, 8), (128, 128, 128), (130, 70, 50), (1, 256, 33), (257, 1, 128)]
 SOFTMAX_SHAPES = [(1, 8), (33, 257), (64, 64), (7, 1031)]
+LRN_SHAPES = [(1, 5, 4, 4), (2, 13, 9, 11), (3, 64, 8, 8)]
+AVGPOOL_CASES = [((1, 3, 4, 4), 2), ((2, 5, 8, 12), 2), ((1, 8, 9, 9), 3)]
 DTYPES = [np.float32, jnp.bfloat16]
 
 
@@ -66,6 +73,79 @@ def test_softmax_kernel_route_matches_pallas(rng, rows, cols, dtype):
     # Relative only: most outputs of a 5*randn row lie far below any
     # absolute tolerance of the reference's size.
     np.testing.assert_allclose(_np32(got), _np32(want), rtol=_tol(dtype), atol=1e-30)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 8, 8), (130, 70, 50), (1, 256, 33)])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shared", ["shared_a", "both_batched"])
+def test_batched_matmul_kernel_route_matches_vmapped_pallas(rng, m, k, n, dtype, shared):
+    """Convolution's im2col path: the reference vmaps the Pallas GEMM over a
+    batch; the port makes one batched call of its kernel route."""
+    batch = 3
+    a_shape = (m, k) if shared == "shared_a" else (batch, m, k)
+    a = jnp.asarray(rng.normal(size=a_shape).astype(np.float32)).astype(dtype)
+    b = jnp.asarray(rng.normal(size=(batch, k, n)).astype(np.float32)).astype(dtype)
+
+    def one(x, y):
+        return matmul_pallas(x, y, block_m=64, block_n=64, block_k=32, interpret=True)
+
+    in_axes = (None, 0) if shared == "shared_a" else (0, 0)
+    want = jax.vmap(one, in_axes=in_axes)(a, b)
+    ta, tb = from_reference([np.asarray(a), np.asarray(b)], "cpu")
+    got = ops.matmul(ta, tb, mode="kernel")
+    assert got.dtype == ta.dtype and tuple(got.shape) == (batch, m, n)
+    tol = _tol(dtype)
+    np.testing.assert_allclose(_np32(got), _np32(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("n,c,h,w", LRN_SHAPES)
+@pytest.mark.parametrize("size", [3, 5])
+def test_lrn_kernel_route_matches_pallas(rng, n, c, h, w, size):
+    x = jnp.asarray(rng.normal(size=(n, c, h, w)).astype(np.float32))
+    want = lrn_pallas(x, size=size, block_s=16, interpret=True)
+    (tx,) = from_reference([np.asarray(x)], "cpu")
+    got = ops.lrn(tx, size=size, mode="kernel")
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    # tests/test_kernels_misc.py:35
+    np.testing.assert_allclose(_np32(got), _np32(want), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape,ks", AVGPOOL_CASES)
+def test_avgpool_kernel_route_matches_pallas(rng, shape, ks):
+    x = jnp.asarray(rng.normal(size=shape).astype(np.float32))
+    want = avgpool_pallas(x, ksize=ks, block_c=4, interpret=True)
+    (tx,) = from_reference([np.asarray(x)], "cpu")
+    got = ops.avgpool(tx, ksize=ks, mode="kernel")
+    assert got.dtype == tx.dtype and tuple(got.shape) == tuple(want.shape)
+    # tests/test_kernels_misc.py:43
+    np.testing.assert_allclose(_np32(got), _np32(want), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_lrn_kernel_route_refuses_even_size_before_dispatch(device):
+    """The reference's kernel sums size+1 channels for an even size and its
+    oracle size: the port's kernel route refuses even sizes on any device,
+    before it picks the kernel or the plain version."""
+    x = torch.zeros(2, 8, 4, 4, device=device)
+    plain = tlrn.plain_calls
+    for size in (2, 4):
+        with pytest.raises(ValueError, match="odd window size"):
+            ops.lrn(x, size=size, mode="kernel")
+    assert tlrn.plain_calls == plain
+    if device == "cpu":
+        ops.lrn(x, size=3, mode="kernel")  # an odd size goes on to the plain version
+        assert tlrn.plain_calls == plain + 1
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_avgpool_kernel_route_refuses_untiled_windows_before_dispatch(device):
+    plain = tavgpool.plain_calls
+    for shape, ks in (((1, 2, 9, 8), 2), ((1, 2, 8, 10), 3), ((1, 2, 8, 8), 0)):
+        with pytest.raises(ValueError, match="divisible by ksize"):
+            ops.avgpool(torch.zeros(shape, device=device), ksize=ks, mode="kernel")
+    with pytest.raises(ValueError, match=r"\(N, C, H, W\)"):
+        ops.avgpool(torch.zeros(4, 4, device=device), mode="kernel")
+    assert tavgpool.plain_calls == plain
 
 
 def _oracle_cases(rng):
@@ -143,30 +223,46 @@ def test_tune_space_contract(op):
             assert type(value) is int and value > 0
     # The first entry is the kernel's defaults: the CUDA entry point's
     # keyword defaults.
-    launcher = {"matmul": tmatmul.matmul_cuda, "softmax": tsoftmax.softmax_cuda}[op]
+    launcher = {
+        "matmul": tmatmul.matmul_cuda,
+        "softmax": tsoftmax.softmax_cuda,
+        "lrn": tlrn.lrn_cuda,
+        "avgpool": tavgpool.avgpool_cuda,
+    }[op]
     params = inspect.signature(launcher).parameters
     assert space[0] == {k: params[k].default for k in space[0]}
 
 
 def test_kernel_ops_lists_only_ported_kernels():
-    assert set(ops.KERNEL_OPS) == {"matmul", "softmax"}
+    assert set(ops.KERNEL_OPS) == {"matmul", "softmax", "lrn", "avgpool"}
     with pytest.raises(KeyError, match="unknown kernel op"):
         ops.tune_space("attention")
 
 
 def test_cuda_entry_points_raise_cleanly_on_cpu_tensors():
-    a = torch.ones(4, 4)
+    a, x = torch.ones(4, 4), torch.ones(1, 4, 4, 4)
     with pytest.raises(ValueError, match="CUDA"):
         tmatmul.matmul_cuda(a, a)
     with pytest.raises(ValueError, match="CUDA"):
+        tmatmul.matmul_cuda(torch.ones(2, 4, 4), torch.ones(2, 4, 4))
+    with pytest.raises(ValueError, match="CUDA"):
         tsoftmax.softmax_cuda(a)
+    with pytest.raises(ValueError, match="CUDA"):
+        tlrn.lrn_cuda(x)
+    with pytest.raises(ValueError, match="CUDA"):
+        tavgpool.avgpool_cuda(x)
     # The kernel route on CPU tensors runs the plain version, counts it as
     # such, and launches nothing.
-    launches, plain = dict(tmatmul.launches), tmatmul.plain_calls
+    mods = (tmatmul, tlrn, tavgpool)
+    launches = [dict(m.launches) for m in mods]
+    plain = [m.plain_calls for m in mods]
     out = ops.matmul(a, a, mode="kernel")
     torch.testing.assert_close(out, a @ a)
-    assert tmatmul.launches == launches
-    assert tmatmul.plain_calls == plain + 1
+    ops.matmul(a, torch.ones(2, 4, 4), mode="kernel")
+    ops.lrn(x, mode="kernel")
+    ops.avgpool(x, mode="kernel")
+    assert [dict(m.launches) for m in mods] == launches
+    assert [m.plain_calls for m in mods] == [plain[0] + 2, plain[1] + 1, plain[2] + 1]
 
 
 def test_matmul_layout_check_takes_views_and_refuses_other_strides():

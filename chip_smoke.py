@@ -13,7 +13,7 @@ exits nonzero without printing its result line:
 2. build: every ``src/repro_torch/kernels/csrc/*.cu`` compiled by nvcc;
 3. kernels against their plain versions on the card, at the reference's
    test shapes, at ragged shapes and at the main paths' shapes, with the
-   stated tolerances;
+   stated tolerances (the sort bit for bit, the scan of 0/1 flags exactly);
 4. the main path: the port's suite at preset 4 with ``--impl kernel`` over
    the 8 benchmarks of the first slice (forward), with every launch counter
    set to 0 just before and read just after (each kernel must have
@@ -21,11 +21,16 @@ exits nonzero without printing its result line:
 4a. the DNN section: the same at preset 4 over Convolution (both paths),
    LRN, Pooling, Activation, Batchnorm, RNN and Dropout, forward and
    backward, counters again set to 0 just before and read just after;
-4b. the kernel rows of both paths at preset 0, kernel against torch on the
+4c. Sort, Where and SRAD: the same at preset 4 over the three, forward,
+   then SRAD again with ``fused=False``, counters set to 0 just before and
+   read just after each run;
+4b. the kernel rows of all paths at preset 0, kernel against torch on the
    same inputs, f32 products against an f64 evaluation;
 5. yardstick: each kernel of the paths, its plain version and the one
-   PyTorch call that computes the same function, timed with CUDA events at
-   the paths' shapes, beside the card's bound for the same work.
+   PyTorch call that computes the same function (where there is one),
+   timed with CUDA events at the paths' shapes (and the kernel's own device
+   time from ``torch.profiler``), beside the card's bound for the same
+   work; and SRAD's cooperative launch beside ordinary ones.
 
 It prints a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. It needs a CUDA card and the rest of the
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import os
 import sys
 import tempfile
@@ -57,6 +63,11 @@ DNN_PATH = (
 DNN_KERNELS = {
     "convolution_im2col": "matmul_f32_batched", "lrn": "lrn_f32", "pooling": "avgpool_f32",
 }
+LEVELS_PATH = ("sort", "where", "srad")
+# Kernels no path launches: the f32-key sort (the Sort benchmark's keys are
+# int32). Phase 3 checks it and phase 5 times it; the kernels line, which
+# carries each kernel's launches on its path, leaves it out.
+OFF_PATH = ("sort_kv_f32",)
 PRESET, ITERS, WARMUP, WINDOW = 4, 5, 2, 4
 # Calls of each pass's function on the main path: the compile stage's first
 # call, the validation call, the sync-mode warm-up and timed calls, and the
@@ -81,6 +92,20 @@ CONV_PRESET4 = (64, 256, 2304, 900)  # images, O, C*KH*KW, OH*OW
 GEMM_N = 4096  # gemm_* and maxflops_* at preset 4
 CONNECTED_PRESET4 = (1024, 4096, 4096)  # batch, din, dout
 SOFTMAX_PRESET4 = (32768, 16384)  # batch, classes
+# Sort: lengths from one key to the preset-4 2^24, key kinds with negatives,
+# many duplicates, f32 ties and both zeros. Scan: the reference's lengths
+# (tests/test_kernels_misc.py:55) and one of many tiles, N(0,1); 0/1 flags
+# at the preset-4 length and one less. SRAD: the reference's shapes
+# (tests/test_kernels_misc.py:46), ragged ones, the preset-4 image, and one
+# that needs more blocks than are resident at once.
+SORT_LENGTHS = [1, 2, 1000, 4096, 2**20 + 3, 2**24]
+SORT_KINDS = ("int32_full", "int32_dups", "float32_ties")
+SCAN_LENGTHS = [8, 1000, 4096, 5, 2**20 + 3]
+FLAG_LENGTHS = [2**24 - 1, 2**24]
+SRAD_SHAPES = [(8, 8), (32, 48), (65, 33), (1000, 1030), (1024, 1024), (4096, 4096)]
+SORT_PRESET4 = 2**24  # keys
+WHERE_PRESET4 = 2**24  # records: the scan's length
+SRAD_PRESET4 = (1024, 1024)
 KERNEL_SOURCES = {
     "matmul_f32": ("src/repro_torch/kernels/csrc/matmul.cu", "src/repro/kernels/matmul.py:55"),
     "matmul_bf16": ("src/repro_torch/kernels/csrc/matmul.cu", "src/repro/kernels/matmul.py:55"),
@@ -90,6 +115,18 @@ KERNEL_SOURCES = {
     "lrn_f32": ("src/repro_torch/kernels/csrc/lrn.cu", "src/repro/kernels/lrn.py:39"),
     "avgpool_f32": ("src/repro_torch/kernels/csrc/avgpool.cu",
                     "src/repro/kernels/avgpool.py:34"),
+    "sort_kv_i32": ("src/repro_torch/kernels/csrc/radix_sort.cu",
+                    "src/repro/kernels/bitonic_sort.py:65"),
+    "sort_kv_f32": ("src/repro_torch/kernels/csrc/radix_sort.cu",
+                    "src/repro/kernels/bitonic_sort.py:65"),
+    "prefix_scan_f32": ("src/repro_torch/kernels/csrc/prefix_scan.cu",
+                        "src/repro/kernels/prefix_scan.py:39"),
+    "srad_fused_f32": ("src/repro_torch/kernels/csrc/srad_stencil.cu",
+                       "src/repro/kernels/srad_stencil.py:82"),
+    "srad_phase1_f32": ("src/repro_torch/kernels/csrc/srad_stencil.cu",
+                        "src/repro/kernels/srad_stencil.py:94"),
+    "srad_phase2_f32": ("src/repro_torch/kernels/csrc/srad_stencil.cu",
+                        "src/repro/kernels/srad_stencil.py:94"),
 }
 
 
@@ -102,9 +139,17 @@ def _dtname(dt) -> str:
 
 
 def _kernel_modules():
-    from repro_torch.kernels import avgpool, lrn, matmul, softmax
+    from repro_torch.kernels import (
+        avgpool,
+        bitonic_sort,
+        lrn,
+        matmul,
+        prefix_scan,
+        softmax,
+        srad_stencil,
+    )
 
-    return (matmul, softmax, lrn, avgpool)
+    return (matmul, softmax, lrn, avgpool, bitonic_sort, prefix_scan, srad_stencil)
 
 
 def _zero_launches() -> None:
@@ -302,8 +347,101 @@ def _avgpool_case(torch, avgpool, gen, shape, ks, offset=0):
                        avgpool.avgpool_plain(x, ksize=ks), 1e-6, 1e-6)
 
 
+def _sort_keys(torch, kind, n, gen):
+    if kind == "int32_full":  # the whole int32 range, negatives included
+        return torch.randint(-2**31, 2**31, (n,), generator=gen, device="cuda",
+                             dtype=torch.int64).int()
+    if kind == "int32_dups":  # [0, 2^30), as the benchmark, drawn from 1000 values
+        pool = torch.randint(0, 1 << 30, (1000,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        return pool[torch.randint(0, 1000, (n,), generator=gen, device="cuda")]
+    # f32 on a grid of 1/8: negatives, ties, and -0.0 beside +0.0
+    return torch.round(8 * torch.randn(n, generator=gen, device="cuda")) / 8
+
+
+def _sort_case(torch, sort, gen, kind, n):
+    """The radix sort against the stable plain version, bit for bit: keys
+    (as their bits) and values (each key's input position)."""
+    keys = _sort_keys(torch, kind, n, gen)
+    vals = torch.arange(n, dtype=torch.int32, device="cuda")
+    key = "sort_kv_f32" if keys.dtype == torch.float32 else "sort_kv_i32"
+    before = sort.launches[key]
+    ko, vo = sort.sort_kv_cuda(keys, vals)
+    torch.cuda.synchronize()
+    if sort.launches[key] != before + 1:
+        _fail(f"sort {kind} n={n} counted {sort.launches[key] - before} launches under {key}")
+    pk, pv = sort.sort_kv_plain(keys, vals)
+    wrong_keys = int((ko.view(torch.int32) != pk.view(torch.int32)).sum())
+    wrong_vals = int((vo != pv).sum())
+    max_abs = (ko.double() - pk.double()).abs().max().item()
+    ok = wrong_keys == 0 and wrong_vals == 0 and ko.dtype == keys.dtype
+    print(f"  sort {kind:12s} n={n:<9d} keys differing in bits {wrong_keys}, values "
+          f"differing {wrong_vals} [bit-equal to torch.sort(stable=True)] "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        _fail(f"sort {kind} n={n} differs from its stable plain version")
+    return max_abs
+
+
+def _scan_case(torch, scan, gen, n):
+    """N(0,1) inputs against an f64 cumsum. An output sums up to n inputs
+    through at most n f32 roundings, each of a partial sum whose rms is at
+    most sqrt(n)*rms(x): ATOL = 16*n*u*rms(x), as the GEMM checks'
+    16*K*u*sigma. The plain version (torch.cumsum) is held to it too."""
+    x = torch.randn(n, generator=gen, device="cuda")
+    out = scan.prefix_scan_cuda(x)
+    torch.cuda.synchronize()
+    plain = scan.prefix_scan_plain(x)
+    exact = torch.cumsum(x.double(), 0)
+    atol = 16 * n * U_F32 * _rms(x)
+    err = (out.double() - exact).abs().max().item()
+    plain_err = (plain.double() - exact).abs().max().item()
+    diff = (out - plain).abs().max().item()
+    ok = err <= atol and plain_err <= atol and bool(torch.isfinite(out).all())
+    print(f"  prefix_scan f32 n={n:<8d} vs f64: kernel max_abs {err:.3e}, "
+          f"plain max_abs {plain_err:.3e} [16*n*u*rms = {atol:.3e}]; vs plain max_abs "
+          f"{diff:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        _fail(f"prefix_scan n={n} outside its f64 bound")
+    return diff
+
+
+def _flags_case(torch, scan, gen, n, ones=False):
+    """0/1 flags (Where's): every prefix is an integer below 2^24 + 1, exact
+    in f32 in any order of addition, so the kernel must equal the count."""
+    flags = torch.ones(n, device="cuda") if ones else (
+        torch.rand(n, generator=gen, device="cuda") < 0.5).float()
+    out = scan.prefix_scan_cuda(flags)
+    torch.cuda.synchronize()
+    want = torch.cumsum(flags.long(), 0)
+    wrong = int((out.long() != want).sum())
+    plain_wrong = int((scan.prefix_scan_plain(flags).long() != want).sum())
+    print(f"  prefix_scan f32 n={n} {'all ones' if ones else '0/1 flags'}: outputs off "
+          f"the exact count {wrong} (plain {plain_wrong}) [exact] "
+          f"{'ok' if wrong == 0 else 'FAIL'}")
+    if wrong:
+        _fail(f"prefix_scan of flags n={n} is not exact")
+    return (out - want.float()).abs().max().item()
+
+
+def _srad_case(torch, srad, gen, shape, fused):
+    img = 0.2 + 0.8 * torch.rand(*shape, generator=gen, device="cuda")
+    key = "srad_fused_f32" if fused else "srad_phase1_f32"
+    before = srad.launches[key]
+    out = srad.srad_step_cuda(img, fused=fused)
+    if srad.launches[key] != before + 1:
+        _fail(f"srad {shape} fused={fused}: {srad.launches[key] - before} launches under {key}")
+    # tests/test_kernels_misc.py:52: rtol 1e-5, atol 1e-6
+    return _close_case(torch, f"srad {'fused' if fused else 'split'} f32 {shape}", out,
+                       srad.srad_step_plain(img), 1e-5, 1e-6)
+
+
 def phase_kernels(torch) -> dict:
     from repro_torch.kernels import avgpool, lrn, matmul, softmax
+    from repro_torch.kernels import bitonic_sort as sort
+    from repro_torch.kernels import prefix_scan as scan
+    from repro_torch.kernels import srad_stencil as srad
+    from repro_torch.kernels._build import function
 
     print("== phase 3: kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -343,6 +481,35 @@ def phase_kernels(torch) -> dict:
         _avgpool_case(torch, avgpool, gen, shape, ks)
     _avgpool_case(torch, avgpool, gen, (2, 3, 8, 8), 2, offset=1)  # no float2 path
     err["avgpool_f32"] = _avgpool_case(torch, avgpool, gen, AVGPOOL_PRESET4, 2)
+    for n in SORT_LENGTHS:
+        for kind in SORT_KINDS:
+            e = _sort_case(torch, sort, gen, kind, n)
+            key = "sort_kv_f32" if kind.startswith("float32") else "sort_kv_i32"
+            err[key] = max(err[key], e)
+    for n in SCAN_LENGTHS:
+        _scan_case(torch, scan, gen, n)
+    for n in FLAG_LENGTHS:
+        err["prefix_scan_f32"] = max(err["prefix_scan_f32"], _flags_case(torch, scan, gen, n))
+    _flags_case(torch, scan, gen, FLAG_LENGTHS[-1], ones=True)
+    resident = function("srad_fused_resident_blocks", [])()
+    print(f"  srad fused grid: at most {resident} blocks of 256 resident at once; "
+          f"{SRAD_SHAPES[-1]} needs {SRAD_SHAPES[-1][0] * SRAD_SHAPES[-1][1] // 256} tiles")
+    if resident <= 0:
+        _fail(f"the cooperative SRAD kernel fits no block on the card ({resident})")
+    for shape in SRAD_SHAPES:
+        for fused in (True, False):
+            e = _srad_case(torch, srad, gen, shape, fused)
+            if shape == SRAD_PRESET4 and fused:
+                err["srad_fused_f32"] = e
+    # The split phases one by one at the preset-4 shape, each against its
+    # plain phase on the same inputs.
+    img = 0.2 + 0.8 * torch.rand(*SRAD_PRESET4, generator=gen, device="cuda")
+    c = srad.srad_phase1_cuda(img)
+    err["srad_phase1_f32"] = _close_case(torch, f"srad phase 1 f32 {SRAD_PRESET4}", c,
+                                         srad.srad_phase1_plain(img), 1e-5, 1e-6)
+    err["srad_phase2_f32"] = _close_case(torch, f"srad phase 2 f32 {SRAD_PRESET4}",
+                                         srad.srad_phase2_cuda(img, c),
+                                         srad.srad_phase2_plain(img, c), 1e-5, 1e-6)
     return err
 
 
@@ -365,9 +532,10 @@ def _expected_launches() -> dict:
     return want
 
 
-def _run_suite(torch, names, label, backward):
-    """One suite run at preset 4 with ``--impl kernel``, launch counters set
-    to 0 just before and read just after. -> (launches, records, wall s)."""
+def _run_suite(torch, names, label, backward, overrides=()):
+    """One suite run at preset 4 with ``--impl kernel`` (and ``--override``
+    for each of ``overrides``), launch counters set to 0 just before and read
+    just after. -> (launches, records, wall s)."""
     from repro_torch.core import suite
     from repro_torch.core.results import load_run
 
@@ -379,6 +547,7 @@ def _run_suite(torch, names, label, backward):
             "--names", *names, "--preset", str(PRESET), "--impl", "kernel",
             *(() if backward else ("--no-backward",)), "--iters", str(ITERS),
             "--warmup", str(WARMUP), "--timing-window", str(WINDOW), "--jsonl", jsonl,
+            *(arg for o in overrides for arg in ("--override", o)),
         ])
         wall = time.perf_counter() - t0
         launches = _read_launches()
@@ -469,6 +638,45 @@ def phase_dnn(torch) -> dict:
     return launches
 
 
+def phase_levels(torch) -> dict:
+    from repro_torch.core.metrics import peaks_for
+    from repro_torch.core.registry import get_benchmark
+
+    print("== phase 4c: Sort, Where, SRAD (suite, preset 4, --impl kernel, forward), "
+          "then SRAD with fused=False")
+    hw = peaks_for(torch.cuda.get_device_name(0))
+    iters = get_benchmark("srad").presets[PRESET]["iters"]
+    runs = (
+        (LEVELS_PATH, (), {"sort_kv_i32": CALLS_PER_PASS, "prefix_scan_f32": CALLS_PER_PASS,
+                           "srad_fused_f32": iters * CALLS_PER_PASS}),
+        (("srad",), ("srad.fused=false",), {"srad_phase1_f32": iters * CALLS_PER_PASS,
+                                            "srad_phase2_f32": iters * CALLS_PER_PASS}),
+    )
+    total = {}
+    for names, overrides, counts in runs:
+        label = "SRAD split" if overrides else "Sort, Where, SRAD"
+        launches, records, _ = _run_suite(torch, names, label, backward=False,
+                                          overrides=overrides)
+        if len(records) != len(names):
+            _fail(f"{len(records)} records, expected {len(names)}")
+        workloads = {}
+        for name in names:
+            wl = get_benchmark(name).build_preset(
+                PRESET, **({"fused": False} if overrides else {}))
+            workloads[wl.name] = wl
+        for rec in records:
+            if (rec.status != "ok" or rec.impl != "kernel" or rec.impl_interpret is not False
+                    or rec.name not in workloads):
+                _fail(f"row {rec.name}: status={rec.status} impl={rec.impl} "
+                      f"interpret={rec.impl_interpret} {rec.error}")
+            _print_row(torch, rec, workloads[rec.name], False, hw)
+        want = {k: counts.get(k, 0) for k in launches}
+        if launches != want:
+            _fail(f"launch counts {launches} differ from the expected {want}")
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+    return total
+
+
 def _order(name: str):
     from repro_torch.core.registry import get_benchmark
 
@@ -531,6 +739,28 @@ def phase_small_agreement(torch) -> None:
               f"{(out_k - out_t).abs().max().item():.3e} {why} {'ok' if ok else 'FAIL'}")
         if not ok:
             _fail(f"{name} at preset 0: kernel and torch disagree")
+    for name, overrides in (("sort", {}), ("where", {}), ("srad", {}), ("srad", {"fused": False})):
+        wl = get_benchmark(name).build_preset(0, **overrides)
+        args = commit_args(wl.make_inputs(0), "cuda")
+        out_k = bind_impl(wl.fn, wl, "kernel")(*args)
+        out_t = bind_impl(wl.fn, wl, "torch")(*args)
+        torch.cuda.synchronize()
+        if name == "sort":  # both stable: equal to the bit
+            ok = all(torch.equal(k, t) for k, t in zip(out_k, out_t, strict=True))
+            why, max_abs = "keys and values equal", 0.0 if ok else float("nan")
+        elif name == "where":  # the count exactly, the records as the reference's validate
+            (rec_k, count_k), (rec_t, count_t) = out_k, out_t
+            ok = (torch.equal(count_k, count_t)
+                  and torch.allclose(rec_k, rec_t, rtol=1e-6, atol=0.0))
+            why = f"count {int(count_k)} = {int(count_t)}, records rtol 1e-6"
+            max_abs = (rec_k - rec_t).abs().max().item()
+        else:  # tests/test_kernels_misc.py:52
+            ok = (bool(torch.isfinite(out_k).all())
+                  and torch.allclose(out_k, out_t, rtol=1e-5, atol=1e-6))
+            why, max_abs = "rtol 1e-05 atol 1e-06", (out_k - out_t).abs().max().item()
+        print(f"  {wl.name:18s} max_abs {max_abs:.3e} {why} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"{wl.name} at preset 0: kernel and torch disagree")
 
 
 def _time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -553,6 +783,9 @@ def _yardstick_cases(torch, gen, hw):
 
     from repro_torch.core.metrics import roofline_terms
     from repro_torch.kernels import avgpool, lrn, matmul, softmax
+    from repro_torch.kernels import bitonic_sort as sort
+    from repro_torch.kernels import prefix_scan as scan
+    from repro_torch.kernels import srad_stencil as srad
 
     rows = []
     for dt, key in ((torch.float32, "matmul_f32"), (torch.bfloat16, "matmul_bf16")):
@@ -615,7 +848,96 @@ def _yardstick_cases(torch, gen, hw):
              functools.partial(avgpool.avgpool_plain, x, ksize=2), library)
     roof = roofline_terms(numel, 4.0 * numel * (1 + 1 / 4), dtype=torch.float32, hw=hw)
     rows.append(("avgpool_f32", "x".join(map(str, AVGPOOL_PRESET4)) + " k2", roof, cases))
+    # Sort at preset 4: each pair read once and written once, 16 bytes; the
+    # operations are the reference's count (its bitonic compare-exchanges).
+    # The library call, a stable torch.sort, returns the keys and the
+    # permutation: carrying the values takes a gather more.
+    n = SORT_PRESET4
+    log2n = max(1, math.ceil(math.log2(n)))
+    roof = roofline_terms(n * log2n * (log2n + 1) / 2, 16.0 * n, dtype=torch.float32, hw=hw)
+    vals = torch.randint(0, 1 << 30, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    for key, keys, what in (
+        ("sort_kv_i32", torch.randint(0, 1 << 30, (n,), generator=gen, device="cuda",
+                                      dtype=torch.int32), "int32 keys in [0, 2^30)"),
+        ("sort_kv_f32", torch.randn(n, generator=gen, device="cuda"), "f32 N(0,1) keys"),
+    ):
+        cases = (functools.partial(sort.sort_kv_cuda, keys, vals),
+                 functools.partial(sort.sort_kv_plain, keys, vals),
+                 functools.partial(torch.sort, keys, stable=True))
+        rows.append((key, f"{n} pairs, {what}", roof, cases))
+    # Where's scan at preset 4: its 0/1 flags; 8 bytes and one add each.
+    n = WHERE_PRESET4
+    r = torch.rand(n, generator=gen, device="cuda")
+    flags = ((r > 0.25) & (r < 0.75)).float()
+    cases = (functools.partial(scan.prefix_scan_cuda, flags),
+             functools.partial(scan.prefix_scan_plain, flags),
+             functools.partial(torch.cumsum, flags, 0))
+    roof = roofline_terms(n, 8.0 * n, dtype=torch.float32, hw=hw)
+    rows.append(("prefix_scan_f32", f"{n} 0/1 flags", roof, cases))
+    # One SRAD step at preset 4 (1024^2), an exp(0.1 N(0,1)) image as the
+    # benchmark's. Fused: img read, out written (8 bytes a pixel), 45
+    # operations a pixel; phase 1: img read, c written (8 bytes), 32
+    # operations; phase 2: img and c read, out written (12 bytes), 13
+    # operations. No one PyTorch call computes a step.
+    h, w = SRAD_PRESET4
+    img = torch.exp(0.1 * torch.randn(h, w, generator=gen, device="cuda"))
+    c = srad.srad_phase1_cuda(img)
+    px = h * w
+    for key, kernel, plain, ops, nbytes in (
+        ("srad_fused_f32", functools.partial(srad.srad_step_cuda, img),
+         functools.partial(srad.srad_step_plain, img), 45, 8),
+        ("srad_phase1_f32", functools.partial(srad.srad_phase1_cuda, img),
+         functools.partial(srad.srad_phase1_plain, img), 32, 8),
+        ("srad_phase2_f32", functools.partial(srad.srad_phase2_cuda, img, c),
+         functools.partial(srad.srad_phase2_plain, img, c), 13, 12),
+    ):
+        roof = roofline_terms(ops * px, nbytes * px, dtype=torch.float32, hw=hw)
+        rows.append((key, f"{h}x{w}, one step", roof, (kernel, plain, None)))
     return rows
+
+
+def _srad_launches(torch, gen) -> None:
+    """The cooperative launch beside ordinary ones, at a launch-bound size
+    and at the preset-4 size: a fused step (one cooperative launch and a
+    grid barrier), phase 1 alone (one ordinary launch) and a split step (two
+    ordinary launches), each timed over 200 back-to-back calls."""
+    from repro_torch.kernels import srad_stencil as srad
+
+    for shape in ((8, 8), SRAD_PRESET4):
+        img = 0.2 + 0.8 * torch.rand(*shape, generator=gen, device="cuda")
+        fused, phase1, split = (
+            _time_ms(torch, f, reps=200, warmup=10) for f in (
+                functools.partial(srad.srad_step_cuda, img),
+                functools.partial(srad.srad_phase1_cuda, img),
+                functools.partial(srad.srad_step_cuda, img, fused=False),
+            )
+        )
+        print(f"  srad {shape}: fused step (cooperative launch + grid.sync) {fused:.4f} ms, "
+              f"phase 1 alone (ordinary launch) {phase1:.4f} ms, split step (two "
+              f"ordinary launches) {split:.4f} ms")
+
+
+def _device_ms(torch, fn, calls: int = 20) -> float:
+    """The device's own time per call of ``fn`` (the kernels and memsets it
+    launches), from ``torch.profiler`` (CUPTI) over ``calls`` calls after a
+    warm-up call. A profiler that fails or sees no device activity fails
+    the run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(
+        getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+    )
+    if us <= 0:
+        _fail("torch.profiler saw no device activity")
+    return us / 1e3 / calls
 
 
 def phase_yardstick(torch, launches: dict, errors: dict) -> list:
@@ -627,8 +949,14 @@ def phase_yardstick(torch, launches: dict, errors: dict) -> list:
     out = []
     for key, shape, roof, (kernel, plain, library) in _yardstick_cases(torch, gen, hw):
         # plain, kernel, library, kernel, plain: each side timed twice, in turns
-        p1, k1, lib, k2, p2 = (_time_ms(torch, f) for f in (plain, kernel, library, kernel, plain))
+        p1, k1, lib, k2, p2 = (
+            _time_ms(torch, f) if f is not None else None
+            for f in (plain, kernel, library, kernel, plain)
+        )
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        # The device's own time per call, beside the event time above, which
+        # also holds any wait on the host between back-to-back calls.
+        device_ms = _device_ms(torch, kernel)
         src, replaces = KERNEL_SOURCES[key]
         entry = {
             "name": key, "route": "cuda", "source": src, "replaces": replaces,
@@ -636,12 +964,17 @@ def phase_yardstick(torch, launches: dict, errors: dict) -> list:
             "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             "bound_ms": roof.bound_s * 1e3,
             "bound_by": "operations" if roof.compute_s >= roof.memory_s else "bytes",
-            "library_ms": lib,
+            "library_ms": lib, "device_ms": device_ms,
         }
-        print(f"  {key:18s} {shape:24s} kernel {ms:.4f} ms (runs {k1:.4f}, {k2:.4f}) "
-              f"plain {plain_ms:.4f} ms library {lib:.4f} ms bound {entry['bound_ms']:.4f} ms "
-              f"({entry['bound_by']}) = {entry['bound_ms'] / ms:.3f} of bound")
-        out.append(entry)
+        lib_txt = "none" if lib is None else f"{lib:.4f} ms"
+        print(f"  {key:18s} {shape:24s} kernel {ms:.4f} ms (runs {k1:.4f}, {k2:.4f}; "
+              f"device {device_ms:.4f} ms) "
+              f"plain {plain_ms:.4f} ms library {lib_txt} bound {entry['bound_ms']:.4f} ms "
+              f"({entry['bound_by']}) = {entry['bound_ms'] / ms:.3f} of bound"
+              + (" [on no path]" if key in OFF_PATH else ""))
+        if key not in OFF_PATH:
+            out.append(entry)
+    _srad_launches(torch, gen)
     return out
 
 
@@ -660,13 +993,18 @@ def main() -> int:
     errors = phase_kernels(torch)
     main_launches = phase_main_path(torch)
     dnn_launches = phase_dnn(torch)
+    level_launches = phase_levels(torch)
     phase_small_agreement(torch)
-    # Each kernel launched on one path only (both counts were checked), so
+    # Each kernel launched on one path only (every count was checked), so
     # the sum is each kernel's count on its path.
-    launches = {k: main_launches[k] + dnn_launches[k] for k in main_launches}
+    launches = {k: main_launches[k] + dnn_launches[k] + level_launches[k]
+                for k in main_launches}
     kernels = phase_yardstick(torch, launches, errors)
-    if sorted(k["name"] for k in kernels) != sorted(KERNEL_SOURCES):
+    if sorted(k["name"] for k in kernels) != sorted(set(KERNEL_SOURCES) - set(OFF_PATH)):
         _fail("the kernels line does not list every kernel of the paths")
+    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    if idle:
+        _fail(f"kernels of the paths that launched no time there: {idle}")
     leaked = sorted(
         m for m in sys.modules
         if m in ("jax", "repro") or m.startswith(("jax.", "jaxlib", "repro."))

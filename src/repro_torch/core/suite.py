@@ -79,15 +79,20 @@ def _parse_overrides(items: Sequence[str]) -> dict[str, dict[str, Any]]:
             name, param = target.rsplit(".", 1)
         except ValueError:
             raise PlanError(f"bad --override {item!r}; expected name.param=value") from None
-        try:
-            parsed: Any = int(value)
-        except ValueError:
-            try:
-                parsed = float(value)
-            except ValueError:
-                parsed = value
-        out.setdefault(name, {})[param] = parsed
+        out.setdefault(name, {})[param] = _parse_value(value)
     return out
+
+
+def _parse_value(value: str) -> Any:
+    """An override's value: an int, a float, a bool (``true``/``false``, any
+    case), or else the string itself. The reference has no bool case, so
+    there ``srad.fused=False`` arrives as the (true) string ``"False"``."""
+    for parse in (int, float):
+        try:
+            return parse(value)
+        except ValueError:
+            pass
+    return {"true": True, "false": False}.get(value.lower(), value)
 
 
 def main(argv: Sequence[str] | None = None) -> int:

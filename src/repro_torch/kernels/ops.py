@@ -31,14 +31,17 @@ from typing import Literal
 import torch
 
 from repro_torch.kernels import avgpool as _avgpool_mod
+from repro_torch.kernels import bitonic_sort as _sort_mod
 from repro_torch.kernels import lrn as _lrn_mod
 from repro_torch.kernels import matmul as _matmul_mod
+from repro_torch.kernels import prefix_scan as _scan_mod
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import softmax as _softmax_mod
+from repro_torch.kernels import srad_stencil as _srad_mod
 
 __all__ = [
-    "matmul", "softmax", "lrn", "avgpool", "force_impl", "tune_space", "KERNEL_OPS",
-    "MODES",
+    "matmul", "softmax", "lrn", "avgpool", "srad_step", "prefix_scan", "sort_kv",
+    "force_impl", "tune_space", "KERNEL_OPS", "MODES",
 ]
 
 Mode = Literal["auto", "kernel", "ref"]
@@ -51,6 +54,9 @@ KERNEL_OPS = {
     "softmax": _softmax_mod,
     "lrn": _lrn_mod,
     "avgpool": _avgpool_mod,
+    "srad_step": _srad_mod,
+    "prefix_scan": _scan_mod,
+    "sort_kv": _sort_mod,
 }
 
 # (mode, op-or-None, params) set by force_impl; consulted only for
@@ -129,3 +135,28 @@ def avgpool(x: torch.Tensor, *, ksize=2, mode: Mode = "auto"):
     if use:
         return _avgpool_mod.avgpool_kernel(x, ksize=ksize)
     return _ref.avgpool_ref(x, ksize=ksize)
+
+
+def srad_step(img: torch.Tensor, *, lam=0.5, q0sqr=0.05, fused: bool = True,
+              mode: Mode = "auto"):
+    """One SRAD step: the cooperative fused kernel, or its two phases."""
+    use, _ = _resolve("srad_step", mode, img, {})  # no block parameters
+    if use:
+        return _srad_mod.srad_step_kernel(img, lam=lam, q0sqr=q0sqr, fused=fused)
+    return _ref.srad_step_ref(img, lam=lam, q0sqr=q0sqr)
+
+
+def prefix_scan(x: torch.Tensor, *, mode: Mode = "auto", **blocks):
+    use, blocks = _resolve("prefix_scan", mode, x, blocks)
+    if use:
+        return _scan_mod.prefix_scan_kernel(x, **blocks)
+    return _ref.prefix_scan_ref(x)
+
+
+def sort_kv(keys: torch.Tensor, values: torch.Tensor, *, mode: Mode = "auto"):
+    """Ascending key sort carrying values. The kernel route needs no padding
+    (the reference pads to a power of two for its bitonic network)."""
+    use, _ = _resolve("sort_kv", mode, keys, {})  # no block parameters
+    if use:
+        return _sort_mod.sort_kv_kernel(keys, values)
+    return _ref.sort_kv_ref(keys, values)

@@ -100,32 +100,45 @@ def avgpool_ref(x: torch.Tensor, *, ksize: int = 2) -> torch.Tensor:
     return xf.mean(dim=(3, 5)).to(x.dtype)
 
 
-def _srad_coeff(img: torch.Tensor, q0sqr: float):
-    """Phase 1: diffusion coefficient from clamped 4-neighbour gradients."""
+def _srad_diffs(img: torch.Tensor):
+    """Clamped 4-neighbour differences (north, south, west, east)."""
     north = torch.cat([img[:1], img[:-1]], dim=0)
     south = torch.cat([img[1:], img[-1:]], dim=0)
     west = torch.cat([img[:, :1], img[:, :-1]], dim=1)
     east = torch.cat([img[:, 1:], img[:, -1:]], dim=1)
-    d_n, d_s, d_w, d_e = north - img, south - img, west - img, east - img
+    return north - img, south - img, west - img, east - img
+
+
+def srad_phase1_ref(img: torch.Tensor, *, q0sqr: float = 0.05) -> torch.Tensor:
+    """SRAD phase 1: the diffusion coefficient (f32) from clamped
+    4-neighbour gradients, clipped to [0, 1]."""
+    img = img.float()
+    d_n, d_s, d_w, d_e = _srad_diffs(img)
     g2 = (d_n * d_n + d_s * d_s + d_w * d_w + d_e * d_e) / (img * img)
     lap = (d_n + d_s + d_w + d_e) / img
     num = 0.5 * g2 - 0.0625 * lap * lap
     den = 1.0 + 0.25 * lap
     qsqr = num / (den * den)
     c = 1.0 / (1.0 + (qsqr - q0sqr) / (q0sqr * (1.0 + q0sqr)))
-    return c.clamp(0.0, 1.0), (d_n, d_s, d_w, d_e)
+    return c.clamp(0.0, 1.0)
+
+
+def srad_phase2_ref(img: torch.Tensor, c: torch.Tensor, *, lam: float = 0.5) -> torch.Tensor:
+    """SRAD phase 2: the divergence update by the coefficient ``c``, with c at
+    the south and east neighbours clamped at the edges."""
+    imgf, c = img.float(), c.float()
+    d_n, d_s, d_w, d_e = _srad_diffs(imgf)
+    c_s = torch.cat([c[1:], c[-1:]], dim=0)  # c at the south neighbour
+    c_e = torch.cat([c[:, 1:], c[:, -1:]], dim=1)  # c at the east neighbour
+    div = c * d_n + c_s * d_s + c * d_w + c_e * d_e
+    return (imgf + 0.25 * lam * div).to(img.dtype)
 
 
 def srad_step_ref(
     img: torch.Tensor, *, lam: float = 0.5, q0sqr: float = 0.05
 ) -> torch.Tensor:
     """One SRAD diffusion step (phases 1 and 2) on a 2-D image."""
-    imgf = img.float()
-    c, (d_n, d_s, d_w, d_e) = _srad_coeff(imgf, q0sqr)
-    c_s = torch.cat([c[1:], c[-1:]], dim=0)  # c at the south neighbour
-    c_e = torch.cat([c[:, 1:], c[:, -1:]], dim=1)  # c at the east neighbour
-    div = c * d_n + c_s * d_s + c * d_w + c_e * d_e
-    return (imgf + 0.25 * lam * div).to(img.dtype)
+    return srad_phase2_ref(img, srad_phase1_ref(img, q0sqr=q0sqr), lam=lam)
 
 
 def prefix_scan_ref(x: torch.Tensor) -> torch.Tensor:

@@ -39,6 +39,12 @@ def _port_modules() -> list[str]:
 def test_port_imports_no_jax_and_no_reference_module():
     mods = _port_modules()
     assert "repro_torch.core.engine" in mods and "repro_torch.kernels.matmul" in mods
+    # The discovery finds modules by itself, in namespace packages too.
+    assert {
+        "repro_torch.kernels.prefix_scan", "repro_torch.kernels.srad_stencil",
+        "repro_torch.kernels.bitonic_sort", "repro_torch.bench.level1.sort",
+        "repro_torch.bench.level2.where", "repro_torch.bench.level2.srad",
+    } <= set(mods)
     script = textwrap.dedent(f"""
         import importlib, sys
         for name in {mods!r}:

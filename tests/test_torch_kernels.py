@@ -16,25 +16,36 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.avgpool import avgpool_pallas
+from repro.kernels.bitonic_sort import bitonic_sort_pallas
 from repro.kernels.lrn import lrn_pallas
 from repro.kernels.matmul import matmul_pallas
+from repro.kernels.prefix_scan import prefix_scan_pallas
 from repro.kernels.softmax import softmax_pallas
+from repro.kernels.srad_stencil import srad_step_fused, srad_step_split
 from repro_torch.convert import from_reference
 from repro_torch.core import metrics
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import avgpool as tavgpool
+from repro_torch.kernels import bitonic_sort as tsort
 from repro_torch.kernels import lrn as tlrn
 from repro_torch.kernels import matmul as tmatmul
+from repro_torch.kernels import prefix_scan as tscan
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import softmax as tsoftmax
+from repro_torch.kernels import srad_stencil as tsrad
 
 # tests/test_kernels_matmul.py:11-17 and tests/test_kernels_misc.py:17-18,29-30,38
 MATMUL_SHAPES = [(8, 8, 8), (128, 128, 128), (130, 70, 50), (1, 256, 33), (257, 1, 128)]
 SOFTMAX_SHAPES = [(1, 8), (33, 257), (64, 64), (7, 1031)]
 LRN_SHAPES = [(1, 5, 4, 4), (2, 13, 9, 11), (3, 64, 8, 8)]
 AVGPOOL_CASES = [((1, 3, 4, 4), 2), ((2, 5, 8, 12), 2), ((1, 8, 9, 9), 3)]
+# tests/test_kernels_misc.py:46,55,63
+SRAD_SHAPES = [(8, 8), (32, 48), (65, 33)]
+SCAN_CASES = [(8, 8), (1000, 128), (4096, 512), (5, 3)]
+SORT_SIZES = [2, 8, 64, 1024]
 DTYPES = [np.float32, jnp.bfloat16]
 
 
@@ -119,6 +130,132 @@ def test_avgpool_kernel_route_matches_pallas(rng, shape, ks):
     assert got.dtype == tx.dtype and tuple(got.shape) == tuple(want.shape)
     # tests/test_kernels_misc.py:43
     np.testing.assert_allclose(_np32(got), _np32(want), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("h,w", SRAD_SHAPES)
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "split"])
+def test_srad_kernel_route_matches_pallas(rng, h, w, fused):
+    img = jnp.asarray(rng.uniform(0.2, 1.0, size=(h, w)).astype(np.float32))
+    want = (srad_step_fused if fused else srad_step_split)(img, interpret=True)
+    (timg,) = from_reference([np.asarray(img)], "cpu")
+    plain = tsrad.plain_calls
+    got = ops.srad_step(timg, fused=fused, mode="kernel")
+    assert tsrad.plain_calls == plain + 1
+    assert got.dtype == timg.dtype and got.shape == timg.shape
+    # tests/test_kernels_misc.py:52
+    np.testing.assert_allclose(_np32(got), _np32(want), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,bn", SCAN_CASES)
+def test_prefix_scan_kernel_route_matches_pallas(rng, n, bn):
+    x = jnp.asarray(rng.normal(size=(n,)).astype(np.float32))
+    want = prefix_scan_pallas(x, block_n=bn, interpret=True)
+    (tx,) = from_reference([np.asarray(x)], "cpu")
+    got = ops.prefix_scan(tx, mode="kernel")
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    # tests/test_kernels_misc.py:60
+    np.testing.assert_allclose(_np32(got), _np32(want), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", SORT_SIZES)
+def test_sort_kernel_route_matches_pallas(rng, n):
+    keys = jnp.asarray(rng.integers(0, 1 << 20, n).astype(np.int32))
+    vals = jnp.arange(n, dtype=jnp.int32)
+    ko, vo = bitonic_sort_pallas(keys, vals, interpret=True)
+    tk, tv = from_reference([np.asarray(keys), np.asarray(vals)], "cpu")
+    gk, gv = ops.sort_kv(tk, tv, mode="kernel")
+    assert gk.dtype == torch.int32 and gv.dtype == torch.int32
+    np.testing.assert_array_equal(gk.numpy(), np.asarray(ko))
+    # Same pairing: keys[vo] == ko (tests/test_kernels_misc.py:71-72).
+    np.testing.assert_array_equal(np.asarray(keys)[gv.numpy()], gk.numpy())
+    # Stable, as the reference's oracle: equal keys keep their input order.
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(jref.sort_kv_ref(keys, vals)[1]))
+
+
+def test_sort_kernel_route_matches_pallas_on_float_keys(rng):
+    keys = jnp.asarray(rng.normal(size=(256,)).astype(np.float32))
+    vals = jnp.arange(256, dtype=jnp.int32)
+    ko, _ = bitonic_sort_pallas(keys, vals, interpret=True)
+    tk, tv = from_reference([np.asarray(keys), np.asarray(vals)], "cpu")
+    gk, gv = ops.sort_kv(tk, tv, mode="kernel")
+    assert np.all(np.diff(gk.numpy()) >= 0)
+    np.testing.assert_array_equal(gk.numpy(), np.asarray(ko))
+    np.testing.assert_array_equal(np.asarray(keys)[gv.numpy()], gk.numpy())
+
+
+def test_sort_kv_needs_no_padding_at_a_ragged_length(rng):
+    """1000 is no power of two: the reference pads to 1024 with the largest
+    key and slices back; the port's kernel route sorts the 1000 as they are."""
+    keys = jnp.asarray(rng.integers(0, 1 << 20, 1000).astype(np.int32))
+    vals = jnp.asarray(rng.permutation(1000).astype(np.int32))
+    ko, vo = jops.sort_kv(keys, vals, mode="pallas")
+    tk, tv = from_reference([np.asarray(keys), np.asarray(vals)], "cpu")
+    gk, gv = ops.sort_kv(tk, tv, mode="kernel")
+    assert tuple(gk.shape) == tuple(gv.shape) == (1000,)
+    np.testing.assert_array_equal(gk.numpy(), np.asarray(ko))
+    # Both carry each key's own value (the values are distinct).
+    pair = dict(zip(np.asarray(vals).tolist(), np.asarray(keys).tolist()))
+    assert [pair[v] for v in gv.numpy().tolist()] == gk.numpy().tolist()
+    assert [pair[v] for v in np.asarray(vo).tolist()] == np.asarray(ko).tolist()
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_prefix_scan_kernel_route_refuses_uncompiled_blocks_before_dispatch(device):
+    x = torch.zeros(100, device=device)
+    plain = tscan.plain_calls
+    for bn in (8, 512, 1024, 3000, 4096):
+        with pytest.raises(ValueError, match="block_n"):
+            ops.prefix_scan(x, block_n=bn, mode="kernel")
+    assert tscan.plain_calls == plain
+    space = tscan.tune_space()
+    assert space == ({"block_n": 2048},)  # the reference's key and default
+    for cand in space:  # every candidate the tune stage may pick
+        if device == "cpu":
+            ops.prefix_scan(x, mode="kernel", **cand)
+    assert tscan.plain_calls == plain + (len(space) if device == "cpu" else 0)
+
+
+def test_new_cuda_entry_points_raise_cleanly_on_cpu_tensors():
+    img, x, k = torch.ones(8, 8), torch.ones(100), torch.ones(10, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsrad.srad_step_cuda(img)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsrad.srad_step_cuda(img, fused=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsrad.srad_phase2_cuda(img, img)
+    with pytest.raises(ValueError, match="CUDA"):
+        tscan.prefix_scan_cuda(x)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsort.sort_kv_cuda(k, k)
+    # The kernel route on CPU tensors runs the plain version, counts it as
+    # such, and launches nothing.
+    mods = (tsrad, tscan, tsort)
+    launches = [dict(m.launches) for m in mods]
+    plain = [m.plain_calls for m in mods]
+    torch.testing.assert_close(ops.srad_step(img, mode="kernel"), tref.srad_step_ref(img))
+    ops.srad_step(img, fused=False, mode="kernel")
+    torch.testing.assert_close(ops.prefix_scan(x, mode="kernel"), torch.cumsum(x, 0))
+    ko, vo = ops.sort_kv(k, torch.arange(10, dtype=torch.int32), mode="kernel")
+    assert torch.equal(vo, torch.arange(10, dtype=torch.int32))  # stable on ties
+    assert [dict(m.launches) for m in mods] == launches
+    assert [m.plain_calls for m in mods] == [plain[0] + 2, plain[1] + 1, plain[2] + 1]
+
+
+def test_srad_phases_compose_to_the_plain_step(rng):
+    img = torch.from_numpy(rng.uniform(0.2, 1.0, size=(13, 17)).astype(np.float32))
+    c = tsrad.srad_phase1_plain(img, q0sqr=0.1)
+    assert c.dtype == torch.float32 and bool(((c >= 0) & (c <= 1)).all())
+    torch.testing.assert_close(
+        tsrad.srad_phase2_plain(img, c, lam=0.25),
+        tref.srad_step_ref(img, lam=0.25, q0sqr=0.1), rtol=0, atol=0,
+    )
+
+
+def test_srad_scalars_are_rounded_as_the_plain_version_rounds_them():
+    q0, inv_qden = tsrad._coeff_scalars(0.05)
+    assert q0 == float(np.float32(0.05))
+    assert inv_qden == float(np.float32(1.0) / np.float32(0.05 * 1.05))
+    assert tsrad._update_scalar(0.5) == 0.125
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -228,13 +365,18 @@ def test_tune_space_contract(op):
         "softmax": tsoftmax.softmax_cuda,
         "lrn": tlrn.lrn_cuda,
         "avgpool": tavgpool.avgpool_cuda,
+        "srad_step": tsrad.srad_step_cuda,
+        "prefix_scan": tscan.prefix_scan_cuda,
+        "sort_kv": tsort.sort_kv_cuda,
     }[op]
     params = inspect.signature(launcher).parameters
     assert space[0] == {k: params[k].default for k in space[0]}
 
 
 def test_kernel_ops_lists_only_ported_kernels():
-    assert set(ops.KERNEL_OPS) == {"matmul", "softmax", "lrn", "avgpool"}
+    assert set(ops.KERNEL_OPS) == {
+        "matmul", "softmax", "lrn", "avgpool", "srad_step", "prefix_scan", "sort_kv",
+    }
     with pytest.raises(KeyError, match="unknown kernel op"):
         ops.tune_space("attention")
 

@@ -27,9 +27,12 @@ from repro_torch.core.plan import ExecutionPlan, Placement, PlanError
 from repro_torch.core.registry import BenchmarkSpec, Workload, all_benchmarks, get_benchmark
 from repro_torch.core.results import SCHEMA_VERSION, BenchmarkRecord, load_run
 from repro_torch.kernels import avgpool as tavgpool
+from repro_torch.kernels import bitonic_sort as tsort
 from repro_torch.kernels import lrn as tlrn
 from repro_torch.kernels import matmul as tmatmul
+from repro_torch.kernels import prefix_scan as tscan
 from repro_torch.kernels import softmax as tsoftmax
+from repro_torch.kernels import srad_stencil as tsrad
 
 FIRST_SLICE = (
     "gemm_f32_nn", "gemm_f32_tn", "gemm_bf16_nn", "gemm_bf16_tn",
@@ -40,7 +43,9 @@ DNN = (
     "convolution_xla", "convolution_im2col", "lrn", "pooling", "activation",
     "batchnorm", "rnn", "dropout",
 )
-SLICE = FIRST_SLICE + DNN
+# Sort, Where and SRAD: the level-1/2 benchmarks that have a kernel.
+KERNEL_LEVELS = ("sort", "where", "srad")
+SLICE = FIRST_SLICE + DNN + KERNEL_LEVELS
 # Dropout's mask comes from another generator than the reference's: it is
 # held by statistics (test_dropout_*), not element by element.
 PARITY = tuple(name for name in SLICE if name != "dropout")
@@ -63,12 +68,20 @@ def _np32(x) -> np.ndarray:
 
 
 def _tol(name: str) -> float:
-    # The reference's kernel tolerances: 2e-2 for bf16, 1e-5 for f32; its
-    # convolution validate's 2e-4 (a 144-term f32 sum in another order than
-    # XLA's convolution, bench/dnn/convolution.py:66).
+    # The reference's kernel tolerances: 2e-2 for bf16, 1e-5 for f32 (SRAD's
+    # kernel test too); its convolution validate's 2e-4 (a 144-term f32 sum
+    # in another order than XLA's convolution, bench/dnn/convolution.py:66);
+    # Where's validate's 1e-6 (the records are copied, not computed). Integer
+    # outputs (Sort's keys and values, Where's count) are compared exactly.
     if name.startswith("convolution"):
         return 2e-4
+    if name == "where":
+        return 1e-6
     return 2e-2 if "bf16" in name else 1e-5
+
+
+def _leaves(out) -> tuple:
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
 
 
 def test_registry_holds_exactly_the_slice():
@@ -95,10 +108,16 @@ def test_forward_matches_reference_on_the_same_inputs(name):
     wl = get_benchmark(name).build_preset(0)
     args = from_reference([np.asarray(a) for a in rargs], "cpu")
     got = bind_impl(wl.fn, wl, "kernel")(*args)
-    assert str(got.dtype).replace("torch.", "") == str(want.dtype)
-    assert tuple(got.shape) == tuple(want.shape)
+    got_leaves, want_leaves = _leaves(got), _leaves(want)
+    assert len(got_leaves) == len(want_leaves)
     tol = _tol(name)
-    np.testing.assert_allclose(_np32(got), _np32(want), rtol=tol, atol=tol)
+    for g, w in zip(got_leaves, want_leaves, strict=True):
+        assert str(g.dtype).replace("torch.", "") == str(w.dtype)
+        assert tuple(g.shape) == tuple(w.shape)
+        if g.is_floating_point():
+            np.testing.assert_allclose(_np32(g), _np32(w), rtol=tol, atol=tol)
+        else:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     if wl.validate is not None:
         wl.validate(got, args)
 
@@ -216,6 +235,82 @@ def test_dnn_section_kernel_run_on_cpu_end_to_end(tmp_path):
     ref_meta, ref_records = ref_load_run(path)
     assert [r.name for r in ref_records] == [r.name for r in records]
     assert [r.impl_interpret for r in ref_records] == [r.impl_interpret for r in records]
+
+
+def test_sort_where_srad_kernel_run_on_cpu_end_to_end(tmp_path):
+    """Sort, Where and SRAD as the smoke run drives them on the card: every
+    call of every pass ran the kernel route (the plain versions here, rows
+    flagged interpreted); SRAD's four steps a call each went through it."""
+    path = str(tmp_path / "levels.jsonl")
+    mods = {"sort_kv": tsort, "prefix_scan": tscan, "srad_step": tsrad}
+    before = {op: mod.plain_calls for op, mod in mods.items()}
+    rc = suite.main([
+        "--names", *KERNEL_LEVELS, "--preset", "0", "--iters", "2", "--warmup", "1",
+        "--impl", "kernel", "--device", "cpu", "--jsonl", path,
+    ])
+    assert rc == 0
+    meta, records = load_run(path)
+    assert meta.backend == "cpu" and meta.impl == "kernel"
+    assert [r.name for r in records] == ["sort.n4096", "srad.64x64.i4.fused", "where.n4096.f8"]
+    for r in records:
+        assert r.status == "ok", r.error
+        assert (r.impl, r.impl_fallback, r.impl_interpret) == ("kernel", None, True)
+    calls = _calls_per_pass(_plan())
+    iters = get_benchmark("srad").presets[0]["iters"]
+    assert {op: mod.plain_calls - before[op] for op, mod in mods.items()} == {
+        "sort_kv": calls, "prefix_scan": calls, "srad_step": iters * calls,
+    }
+    ref_meta, ref_records = ref_load_run(path)
+    assert [r.name for r in ref_records] == [r.name for r in records]
+
+
+@pytest.mark.parametrize("value", ["false", "False", "0"])
+def test_srad_split_through_the_override(tmp_path, value):
+    """``--override srad.fused=false`` times the two-launch variant: the
+    record names it, and the same plain steps ran."""
+    path = str(tmp_path / "split.jsonl")
+    before = tsrad.plain_calls
+    rc = suite.main([
+        "--names", "srad", "--preset", "0", "--iters", "2", "--warmup", "1",
+        "--impl", "kernel", "--device", "cpu", "--override", f"srad.fused={value}",
+        "--jsonl", path,
+    ])
+    assert rc == 0
+    (rec,) = load_run(path)[1]
+    assert rec.status == "ok", rec.error
+    assert rec.name == "srad.64x64.i4.split"
+    assert (rec.impl, rec.impl_interpret) == ("kernel", True)
+    assert f"bytes={4 * 64 * 64 * 4 * 4:.3e}" in rec.csv()  # the reference's split count
+    assert tsrad.plain_calls - before == 4 * _calls_per_pass(_plan())
+
+
+def test_override_values_parse_bools_and_refuse_a_string_fused():
+    assert suite._parse_overrides(["srad.fused=False", "srad.n=128", "x.y=TRUE", "x.z=0.5"]) == {
+        "srad": {"fused": False, "n": 128}, "x": {"y": True, "z": 0.5},
+    }
+    with pytest.raises(TypeError, match="bool"):
+        get_benchmark("srad").build_preset(0, fused="no")
+
+
+def test_where_keeps_the_count_on_the_device_and_zeros_after_it():
+    from repro_torch.bench.level2.where import where_select
+
+    records = torch.tensor([[0.5, 1.0], [0.1, 2.0], [0.7, 3.0], [0.8, 4.0], [0.3, 5.0]])
+    out, count = where_select(records, 0.25, 0.75)
+    assert count.dtype == torch.int32 and count.dim() == 0 and int(count) == 3
+    torch.testing.assert_close(out, torch.tensor(
+        [[0.5, 1.0], [0.7, 3.0], [0.3, 5.0], [0.0, 0.0], [0.0, 0.0]]))
+
+
+def test_sort_validate_catches_broken_pairs():
+    wl = get_benchmark("sort").build_preset(0)
+    keys, vals = wl.make_inputs(0)
+    ko, vo = wl.fn(keys, vals)
+    wl.validate((ko, vo), (keys, vals))
+    with pytest.raises(AssertionError, match="pairs"):
+        wl.validate((ko, vo.roll(1)), (keys, vals))
+    with pytest.raises(AssertionError, match="sorted"):
+        wl.validate((ko.flip(0), vo.flip(0)), (keys, vals))
 
 
 def _dropout_inputs(rng):

@@ -13,7 +13,8 @@ exits nonzero without printing its result line:
 2. build: every ``src/repro_torch/kernels/csrc/*.cu`` compiled by nvcc;
 3. kernels against their plain versions on the card, at the reference's
    test shapes, at ragged shapes and at the main paths' shapes, with the
-   stated tolerances (the sort bit for bit, the scan of 0/1 flags exactly);
+   stated tolerances (the sort bit for bit, the scan of 0/1 flags exactly;
+   attention also on strided views and at the LM serving path's shapes);
 4. the main path: the port's suite at preset 4 with ``--impl kernel`` over
    the 8 benchmarks of the first slice (forward), with every launch counter
    set to 0 just before and read just after (each kernel must have
@@ -26,11 +27,22 @@ exits nonzero without printing its result line:
    read just after each run;
 4b. the kernel rows of all paths at preset 0, kernel against torch on the
    same inputs, f32 products against an f64 evaluation;
+4d. LM serving: ``launch.serve.serve`` on the granite-3-8b smoke config in
+   f32 through the kernel route and again through the plain route (logits
+   within 2e-4, tokens equal), then on the full granite-3-8b (40 layers,
+   d_model 4096, bf16, random weights from a seed): prefill logits and four
+   teacher-forced decode steps against the plain route within a bound
+   derived from bf16's round-off and the depth, then a timed serve of 16
+   requests, batch 8, 1024-token prompts and 64 generated tokens, counters
+   set to 0 just before and read just after (5120 attention launches);
 5. yardstick: each kernel of the paths, its plain version and the one
    PyTorch call that computes the same function (where there is one),
    timed with CUDA events at the paths' shapes (and the kernel's own device
    time from ``torch.profiler``), beside the card's bound for the same
-   work; and SRAD's cooperative launch beside ordinary ones.
+   work (attention at the serving path's prefill and decode shapes, against
+   ``F.scaled_dot_product_attention`` as the yardstick); the decode kernel
+   at other cache lengths and batches; and SRAD's cooperative launch beside
+   ordinary ones.
 
 It prints a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. It needs a CUDA card and the rest of the
@@ -39,6 +51,7 @@ repository: without either it exits 1.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import math
@@ -106,6 +119,31 @@ SRAD_SHAPES = [(8, 8), (32, 48), (65, 33), (1000, 1030), (1024, 1024), (4096, 40
 SORT_PRESET4 = 2**24  # keys
 WHERE_PRESET4 = 2**24  # records: the scan's length
 SRAD_PRESET4 = (1024, 1024)
+# Attention: the reference's cases (tests/test_kernels_attention.py:19-27),
+# B, Hq, Hkv, T, S, D, causal, window; then every compiled head dim, ragged
+# T and S, a window wider than the offset (S - T = 32 < 40), a non-causal
+# window, and T=1 against S=1088. Tolerances: the reference's 2e-4 (f32)
+# and 2e-2 (bf16), tests/test_kernels_attention.py:39,48.
+ATTENTION_CASES = [
+    (1, 2, 2, 32, 32, 16, False, None), (2, 4, 2, 32, 32, 16, True, None),
+    (1, 8, 1, 17, 17, 8, True, None), (2, 4, 4, 33, 33, 16, True, 9),
+    (1, 4, 2, 1, 64, 16, True, None), (1, 4, 2, 1, 64, 16, True, 17),
+    (2, 2, 2, 16, 48, 8, True, None),
+    (2, 4, 2, 70, 70, 32, True, None), (1, 6, 2, 45, 77, 64, True, None),
+    (1, 4, 1, 16, 48, 64, True, 40), (1, 4, 4, 40, 40, 32, False, 7),
+    (2, 32, 8, 1, 1088, 128, False, None),
+]
+ATTN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# The LM serving path (granite-3-8b: Hq 32, Hkv 8, D 128) at batch 8: the
+# causal prefill of 1024-token prompts, and a decode step against a cache
+# of 1088 positions (the path's steps see 1025 to 1087).
+ATTN_PREFILL = (8, 32, 8, 1024, 1024, 128)
+ATTN_DECODE = (8, 32, 8, 1, 1088, 128)
+LM_ARCH = "granite-3-8b"
+LM_SMOKE_SERVE = dict(n_requests=8, batch=4, prompt_len=16, gen_len=16, max_len=64)
+LM_SERVE = dict(n_requests=16, batch=8, prompt_len=1024, gen_len=64, max_len=1096)
+LM_TEACHER_STEPS = 4
+LM_SMOKE_TOL = 2e-4  # f32 smoke: attention's tolerance, the only part in another order
 KERNEL_SOURCES = {
     "matmul_f32": ("src/repro_torch/kernels/csrc/matmul.cu", "src/repro/kernels/matmul.py:55"),
     "matmul_bf16": ("src/repro_torch/kernels/csrc/matmul.cu", "src/repro/kernels/matmul.py:55"),
@@ -127,6 +165,10 @@ KERNEL_SOURCES = {
                         "src/repro/kernels/srad_stencil.py:94"),
     "srad_phase2_f32": ("src/repro_torch/kernels/csrc/srad_stencil.cu",
                         "src/repro/kernels/srad_stencil.py:94"),
+    "flash_attention_f32": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:112"),
+    "flash_attention_bf16": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                             "src/repro/kernels/flash_attention.py:112"),
 }
 
 
@@ -142,6 +184,7 @@ def _kernel_modules():
     from repro_torch.kernels import (
         avgpool,
         bitonic_sort,
+        flash_attention,
         lrn,
         matmul,
         prefix_scan,
@@ -149,7 +192,8 @@ def _kernel_modules():
         srad_stencil,
     )
 
-    return (matmul, softmax, lrn, avgpool, bitonic_sort, prefix_scan, srad_stencil)
+    return (matmul, softmax, lrn, avgpool, bitonic_sort, prefix_scan, srad_stencil,
+            flash_attention)
 
 
 def _zero_launches() -> None:
@@ -436,9 +480,36 @@ def _srad_case(torch, srad, gen, shape, fused):
                        srad.srad_step_plain(img), 1e-5, 1e-6)
 
 
+def _attention_case(torch, fa, gen, dt, b, hq, hkv, t, s, d, causal, window, views=False):
+    """The flash kernel against its plain version on the same inputs. With
+    ``views``, the model's layouts: q a (B, T, H, D) tensor seen as
+    (B, H, T, D), k and v a (B, S + 7, KV, D) cache sliced to its first S
+    positions and seen the same way."""
+    if views:
+        q = torch.randn(b, t, hq, d, generator=gen, device="cuda").to(dt).transpose(1, 2)
+        k, v = (torch.randn(b, s + 7, hkv, d, generator=gen, device="cuda").to(dt)[:, :s]
+                .transpose(1, 2) for _ in range(2))
+    else:
+        q = torch.randn(b, hq, t, d, generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(dt)
+                for _ in range(2))
+    key = f"flash_attention_{'f32' if dt == torch.float32 else 'bf16'}"
+    before = fa.launches[key]
+    out = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    if fa.launches[key] != before + 1:
+        _fail(f"attention {dt} counted {fa.launches[key] - before} launches under {key}")
+    tol = ATTN_TOL[_dtname(dt)]
+    what = (f"attention {_dtname(dt):8s} B{b} Hq{hq} Hkv{hkv} T{t} S{s} D{d} "
+            f"{'causal' if causal else 'full'} window {window}" + (" (views)" if views else ""))
+    return _close_case(torch, what, out.float(),
+                       fa.flash_attention_plain(q, k, v, causal=causal, window=window).float(),
+                       tol, tol)
+
+
 def phase_kernels(torch) -> dict:
     from repro_torch.kernels import avgpool, lrn, matmul, softmax
     from repro_torch.kernels import bitonic_sort as sort
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import prefix_scan as scan
     from repro_torch.kernels import srad_stencil as srad
     from repro_torch.kernels._build import function
@@ -510,6 +581,17 @@ def phase_kernels(torch) -> dict:
     err["srad_phase2_f32"] = _close_case(torch, f"srad phase 2 f32 {SRAD_PRESET4}",
                                          srad.srad_phase2_cuda(img, c),
                                          srad.srad_phase2_plain(img, c), 1e-5, 1e-6)
+    for dt in (torch.float32, torch.bfloat16):
+        key = f"flash_attention_{'f32' if dt == torch.float32 else 'bf16'}"
+        for case in ATTENTION_CASES:
+            _attention_case(torch, fa, gen, dt, *case)
+        for causal in (False, True):  # the model's views, and a cache cut to kv_len < S
+            _attention_case(torch, fa, gen, dt, 2, 8, 2, 5, 29, 64, causal, None, views=True)
+            _attention_case(torch, fa, gen, dt, 2, 32, 8, 1, 1087, 128, causal, None,
+                            views=True)
+        for shape, causal in ((ATTN_PREFILL, True), (ATTN_DECODE, False)):
+            e = _attention_case(torch, fa, gen, dt, *shape, causal, None)
+            err[key] = max(err[key], e)
     return err
 
 
@@ -763,6 +845,261 @@ def phase_small_agreement(torch) -> None:
             _fail(f"{wl.name} at preset 0: kernel and torch disagree")
 
 
+def _top2_gap(torch, logits):
+    """Per row of ``logits``, the largest value minus the second largest."""
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+class _Recorded:
+    """Wraps a model's ``prefill`` and ``decode_step`` inside a ``with``:
+    CUDA events around every call and, with ``gaps``, the top-2 logit gap of
+    every row each call returns (prefill: its last position), in call
+    order."""
+
+    def __init__(self, torch, model, gaps: bool = False) -> None:
+        self.torch, self.model, self.want_gaps = torch, model, gaps
+        self.events = {"prefill": [], "decode": []}
+        self.gaps = []
+
+    def _wrap(self, kind, fn):
+        torch = self.torch
+
+        def call(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            self.events[kind].append((start, end))
+            if self.want_gaps:
+                self.gaps.append(_top2_gap(torch, out[1][:, -1] if kind == "prefill" else out[0]))
+            return out
+
+        return call
+
+    def __enter__(self):
+        self.model.prefill = self._wrap("prefill", self.model.prefill)
+        self.model.decode_step = self._wrap("decode", self.model.decode_step)
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.prefill, self.model.decode_step
+        return False
+
+    def ms(self, kind: str) -> list:
+        self.torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events[kind]]
+
+
+def _check_tokens(got, want, gaps, batch, threshold, what) -> None:
+    """Greedy tokens of two serve runs, request by request: the first token
+    where they differ is excused only where the plain route's top-2 gap at
+    that call is at most ``threshold``. Request r is slot r % batch of round
+    r // batch, and every round makes as many calls as a request has
+    tokens."""
+    calls = len(want[0])
+    excused = 0
+    for req, (g, w) in enumerate(zip(got, want, strict=True)):
+        if len(g) != len(w):
+            _fail(f"{what}: request {req} has {len(g)} tokens, the plain route {len(w)}")
+        if g == w:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(g, w)) if a != b)
+        gap = gaps[(req // batch) * calls + i][req % batch].item()
+        if gap > threshold:
+            _fail(f"{what}: request {req} token {i}: kernel route {g[i]}, plain route {w[i]}, "
+                  f"plain top-2 gap {gap:.3e} > {threshold:g}")
+        excused += 1
+    print(f"  {what}: greedy tokens of {len(want)} requests equal to the plain route's "
+          f"but {excused} (each at a top-2 gap <= {threshold:g})")
+
+
+def _teacher_forced(torch, model, serve_kw, compare) -> None:
+    """The first round's prompts (as ``serve`` draws them with seed 0)
+    through ``prefill`` and LM_TEACHER_STEPS decode steps, on the kernel
+    route and on the plain route (``force_impl("ref")``), both fed the plain
+    route's greedy tokens; ``compare(what, kernel_logits, plain_logits)``
+    checks each call."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(0)
+    batch, prompt_len = serve_kw["batch"], serve_kw["prompt_len"]
+    prompts = np.stack([rng.integers(0, model.cfg.vocab, prompt_len).astype(np.int32)
+                        for _ in range(batch)])
+    tokens = torch.from_numpy(prompts).to("cuda", torch.long)
+    cache_k, logits_k = model.prefill(tokens, serve_kw["max_len"])
+    with ops.force_impl("ref"):
+        cache_p, logits_p = model.prefill(tokens, serve_kw["max_len"])
+    compare("prefill logits", logits_k, logits_p)
+    last = logits_p[:, -1].argmax(-1)
+    del logits_k, logits_p
+    for i in range(LM_TEACHER_STEPS):
+        logits_k, cache_k = model.decode_step(cache_k, last, prompt_len + i)
+        with ops.force_impl("ref"):
+            logits_p, cache_p = model.decode_step(cache_p, last, prompt_len + i)
+        compare(f"decode step {i + 1} logits", logits_k, logits_p)
+        last = logits_p.argmax(-1)
+
+
+def _strict_compare(torch, tol):
+    """Logits within ``tol`` (abs and rel), and the greedy token equal
+    wherever the plain route's top-2 gap is above ``tol``."""
+
+    def compare(what, got, want):
+        diff = (got - want).abs()
+        flips = (got.argmax(-1) != want.argmax(-1)) & (_top2_gap(torch, want) > tol)
+        ok = (bool(torch.isfinite(got).all()) and bool((diff <= tol + tol * want.abs()).all())
+              and not bool(flips.any()))
+        print(f"  smoke {what} {tuple(got.shape)} max_abs {diff.max().item():.3e} "
+              f"[{tol:g} abs and rel]; greedy flips above a {tol:g} gap: "
+              f"{int(flips.sum())} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"LM smoke {what}: kernel and plain routes disagree")
+
+    return compare
+
+
+def _depth_compare(torch, bound):
+    """Row-wise relative error in the max norm, ``max|kernel - plain| /
+    max|plain|`` over each row of logits, within ``bound``; and the greedy
+    token equal wherever the plain route's top-2 gap exceeds 2 * bound *
+    max|plain| of the row (each of the two top logits may move by bound *
+    max|plain|, so only a smaller gap can flip)."""
+
+    def compare(what, got, want):
+        scale = want.abs().amax(-1)
+        rel = (got - want).abs().amax(-1) / scale
+        flips = (got.argmax(-1) != want.argmax(-1)) & (_top2_gap(torch, want) > 2 * bound * scale)
+        ok = bool(torch.isfinite(got).all()) and rel.max().item() <= bound and not bool(flips.any())
+        print(f"  full {what} {tuple(got.shape)} row-relative max_abs: max {rel.max().item():.3e} "
+              f"mean {rel.mean().item():.3e} [bound {bound:.4g}]; greedy flips outside "
+              f"2*bound: {int(flips.sum())}, rows checked {flips.numel()} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"LM full-width {what}: kernel and plain routes disagree beyond {bound:.4g}")
+
+    return compare
+
+
+def phase_lm_serving(torch) -> tuple[dict, dict]:
+    """Serve granite-3-8b: the smoke config in f32 strictly against the plain
+    route, then the full config in bf16. -> (launches on the path, numbers)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Model
+
+    print("== phase 4d: LM serving (launch.serve.serve, granite-3-8b)")
+    # 1. Strict, small: the smoke config in f32, kernel route against plain.
+    cfg = dataclasses.replace(get_smoke_config(LM_ARCH), dtype="float32")
+    model = Model(cfg, device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    kw = LM_SMOKE_SERVE
+    _zero_launches()
+    stats = serve(arch=LM_ARCH, device="cuda", model=model, **kw)
+    launches = _read_launches()
+    rounds = -(-kw["n_requests"] // kw["batch"])
+    want = {k: 0 for k in launches}
+    want["flash_attention_f32"] = cfg.n_layers * rounds * len(stats.outputs[0])
+    print(f"  smoke serve: {stats.requests} requests, {stats.prefill_tokens} prefill + "
+          f"{stats.decoded_tokens} decoded tokens; launches {_nonzero(launches)}")
+    if launches != want:
+        _fail(f"LM smoke launch counts {launches} differ from the expected {want}")
+    with ops.force_impl("ref"), _Recorded(torch, model, gaps=True) as rec:
+        plain = serve(arch=LM_ARCH, device="cuda", model=model, **kw)
+    if _read_launches() != launches:
+        _fail("the plain route launched a kernel")
+    _check_tokens(stats.outputs, plain.outputs, rec.gaps, kw["batch"], LM_SMOKE_TOL,
+                  "smoke serve")
+    _teacher_forced(torch, model, kw, _strict_compare(torch, LM_SMOKE_TOL))
+    del model
+
+    # 2. Full width: granite-3-8b as published, bf16, random weights.
+    torch.cuda.empty_cache()
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}: {n_params} parameters, "
+          f"{n_params * 2 / 1e9:.2f} GB bf16, built and initialised in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # The bound for bf16 at full width. Both routes run the same bf16 graph
+    # except attention, whose f32 result each rounds to bf16 (unit round-off
+    # u = 2^-8); the two f32 results agree far below u, so per layer they
+    # differ by at most one rounding, u relative to the attention output,
+    # which enters the residual stream once. Through pre-norm residual
+    # blocks whose small random weights amplify little, L layers add at most
+    # L*u relative to the hidden state, and the f32 unembedding carries that
+    # to the logits row by row: bound = n_layers * 2^-8 (0.156 at 40 layers).
+    # Set before the first run on the card, not fitted to what it showed.
+    bound = cfg.n_layers * 2.0**-8
+    _teacher_forced(torch, model, LM_SERVE, _depth_compare(torch, bound))
+    torch.cuda.reset_peak_memory_stats()
+    kw = LM_SERVE
+    _zero_launches()
+    with _Recorded(torch, model) as rec:
+        stats = serve(arch=LM_ARCH, smoke=False, device="cuda", model=model, **kw)
+    full = _read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rounds = -(-kw["n_requests"] // kw["batch"])
+    calls = len(stats.outputs[0])
+    want = {k: 0 for k in full}
+    want["flash_attention_bf16"] = cfg.n_layers * rounds * calls
+    if full != want or want["flash_attention_bf16"] != 5120:
+        _fail(f"full serve launches {_nonzero(full)}; expected flash_attention_bf16 "
+              f"{cfg.n_layers} layers x {rounds} rounds x {calls} calls = 5120, nothing else")
+    launches = {k: v + full[k] for k, v in launches.items()}
+    toks = np.array(stats.outputs)
+    if toks.shape != (kw["n_requests"], kw["gen_len"]) or toks.min() < 0 or \
+            toks.max() >= cfg.vocab:
+        _fail(f"serve's outputs: shape {toks.shape}, range [{toks.min()}, {toks.max()}]")
+    prefill_ms, decode_ms = rec.ms("prefill"), rec.ms("decode")
+    info = {
+        "tokens_per_s": stats.tokens_per_s, "wall_s": stats.wall_s,
+        "prefill_ms": sum(prefill_ms) / len(prefill_ms),
+        "decode_step_ms": sum(decode_ms) / len(decode_ms), "peak_gb": peak_gb,
+    }
+    # The device's own time in a prefill call and a decode step (the first
+    # round's prompts; decode at the first step's position, rewriting its
+    # slot), and the flash kernel's part of it: what the events above hold
+    # beyond that is the host's.
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(np.stack([rng.integers(0, cfg.vocab, kw["prompt_len"])
+                                        for _ in range(kw["batch"])])).to("cuda", torch.long)
+    cache, logits = model.prefill(tokens, kw["max_len"])
+    last = logits[:, -1].argmax(-1)
+    del logits
+    info["prefill_device_ms"], info["prefill_attention_ms"] = _device_split_ms(
+        torch, lambda: model.prefill(tokens, kw["max_len"]), 1, "flash_kernel")
+    info["decode_device_ms"], info["decode_attention_ms"] = _device_split_ms(
+        torch, lambda: model.decode_step(cache, last, kw["prompt_len"]), 5, "flash_kernel")
+    del cache
+    print(f"  full serve: {stats.requests} requests, batch {kw['batch']}, "
+          f"{stats.prefill_tokens} prefill + {stats.decoded_tokens} decoded tokens in "
+          f"{stats.wall_s:.3f} s = {stats.tokens_per_s:.1f} tokens/s; prefill "
+          f"{info['prefill_ms']:.3f} ms per call (runs {', '.join(f'{x:.3f}' for x in prefill_ms)}"
+          f"), decode step {info['decode_step_ms']:.4f} ms mean over {len(decode_ms)} (min "
+          f"{min(decode_ms):.4f}, max {max(decode_ms):.4f}); peak memory {peak_gb:.2f} GB; "
+          f"launches {_nonzero(full)}")
+    print(f"  device time (torch.profiler): prefill {info['prefill_device_ms']:.3f} ms per call, "
+          f"{info['prefill_attention_ms']:.3f} of it in flash_attention_bf16; decode step "
+          f"{info['decode_device_ms']:.4f} ms, {info['decode_attention_ms']:.4f} of it in "
+          f"flash_attention_bf16")
+    return launches, info
+
+
+def _nonzero(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
 def _time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -874,6 +1211,7 @@ def _yardstick_cases(torch, gen, hw):
              functools.partial(torch.cumsum, flags, 0))
     roof = roofline_terms(n, 8.0 * n, dtype=torch.float32, hw=hw)
     rows.append(("prefix_scan_f32", f"{n} 0/1 flags", roof, cases))
+    rows += _attention_yardstick(torch, gen, hw)
     # One SRAD step at preset 4 (1024^2), an exp(0.1 N(0,1)) image as the
     # benchmark's. Fused: img read, out written (8 bytes a pixel), 45
     # operations a pixel; phase 1: img read, c written (8 bytes), 32
@@ -894,6 +1232,78 @@ def _yardstick_cases(torch, gen, hw):
         roof = roofline_terms(ops * px, nbytes * px, dtype=torch.float32, hw=hw)
         rows.append((key, f"{h}x{w}, one step", roof, (kernel, plain, None)))
     return rows
+
+
+def _visible_pairs(t: int, s: int, causal: bool, window) -> int:
+    """(query, key) pairs the masks leave visible, queries at the last t of
+    s positions: the work this input needs."""
+    total = 0
+    for i in range(t):
+        q_pos = s - t + i
+        hi = min(q_pos + 1, s) if causal else s
+        lo = max(q_pos - window + 1, 0) if window is not None else 0
+        total += max(hi - lo, 0)
+    return total
+
+
+def _attention_yardstick(torch, gen, hw):
+    """The flash kernel at the serving path's shapes: bf16 prefill and decode
+    (the path's dtype), f32 prefill (the strict smoke run's kernel). The
+    bound counts 4*D operations per visible pair (two products) at the
+    dtype's peak, and q, k, v and o once each. The yardstick is
+    F.scaled_dot_product_attention (GQA through ``enable_gqa``), which the
+    port never calls."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.metrics import roofline_terms
+    from repro_torch.kernels import flash_attention as fa
+
+    rows = []
+    for key, dt, (b, hq, hkv, t, s, d), causal in (
+        ("flash_attention_bf16", torch.bfloat16, ATTN_PREFILL, True),
+        ("flash_attention_bf16", torch.bfloat16, ATTN_DECODE, False),
+        ("flash_attention_f32", torch.float32, ATTN_PREFILL, True),
+    ):
+        q = torch.randn(b, hq, t, d, generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(dt)
+                for _ in range(2))
+        plain = functools.partial(fa.flash_attention_plain, q, k, v, causal=causal)
+        library = functools.partial(F.scaled_dot_product_attention, q, k, v,
+                                    is_causal=causal and t == s, enable_gqa=True)
+        try:
+            want = plain()
+            _close_case(torch, f"F.scaled_dot_product_attention {_dtname(dt)} vs plain",
+                        library().float(), want.float(), ATTN_TOL[_dtname(dt)],
+                        ATTN_TOL[_dtname(dt)])
+        except TypeError as e:  # a torch without enable_gqa
+            print(f"  library call: none ({e})")
+            library = None
+        pairs = b * hq * _visible_pairs(t, s, causal, None)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        roof = roofline_terms(4.0 * d * pairs, nbytes, dtype=dt, hw=hw)
+        shape = f"B{b} Hq{hq} Hkv{hkv} T{t} S{s} D{d} {'causal' if causal else 'full'}"
+        rows.append((key, shape, roof, (
+            functools.partial(fa.flash_attention_cuda, q, k, v, causal=causal), plain, library,
+        )))
+    return rows
+
+
+def _attention_decode_scaling(torch, gen) -> None:
+    """The decode kernel (bf16, T=1) against the work it is given: the cache
+    length at the path's batch (one CTA per (batch, KV head): 64 CTAs on 132
+    SMs) and four times the batch (256 CTAs); event time over 50 calls and
+    the device's own time."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, _, s, d = ATTN_DECODE
+    for bb, ss in ((b, 512), (b, s), (b, 2048), (4 * b, s)):
+        q = torch.randn(bb, hq, 1, d, generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn(bb, hkv, ss, d, generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        call = functools.partial(fa.flash_attention_cuda, q, k, v)
+        ms = _time_ms(torch, call, reps=50, warmup=5)
+        print(f"  attention decode bf16 B{bb} S{ss}: {bb * hkv} CTAs of {-(-ss // 64)} key "
+              f"tiles: {ms:.4f} ms per call (device {_device_ms(torch, call):.4f} ms)")
 
 
 def _srad_launches(torch, gen) -> None:
@@ -940,6 +1350,31 @@ def _device_ms(torch, fn, calls: int = 20) -> float:
     return us / 1e3 / calls
 
 
+def _device_split_ms(torch, fn, calls: int, match: str) -> tuple[float, float]:
+    """(device ms per call, of which in kernels whose name holds ``match``)
+    of ``fn``, from ``torch.profiler`` over ``calls`` calls after a warm-up
+    call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = matched = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        total += us
+        matched += us if match in e.key else 0.0
+    if total <= 0:
+        _fail("torch.profiler saw no device activity")
+    return total / 1e3 / calls, matched / 1e3 / calls
+
+
 def phase_yardstick(torch, launches: dict, errors: dict) -> list:
     from repro_torch.core.metrics import peaks_for
 
@@ -974,6 +1409,7 @@ def phase_yardstick(torch, launches: dict, errors: dict) -> list:
               + (" [on no path]" if key in OFF_PATH else ""))
         if key not in OFF_PATH:
             out.append(entry)
+    _attention_decode_scaling(torch, gen)
     _srad_launches(torch, gen)
     return out
 
@@ -995,12 +1431,15 @@ def main() -> int:
     dnn_launches = phase_dnn(torch)
     level_launches = phase_levels(torch)
     phase_small_agreement(torch)
+    lm_launches, lm = phase_lm_serving(torch)
     # Each kernel launched on one path only (every count was checked), so
     # the sum is each kernel's count on its path.
-    launches = {k: main_launches[k] + dnn_launches[k] + level_launches[k]
+    launches = {k: main_launches[k] + dnn_launches[k] + level_launches[k] + lm_launches[k]
                 for k in main_launches}
     kernels = phase_yardstick(torch, launches, errors)
-    if sorted(k["name"] for k in kernels) != sorted(set(KERNEL_SOURCES) - set(OFF_PATH)):
+    # One row per kernel and shape: flash_attention_bf16 has two (prefill,
+    # decode), every other kernel one.
+    if {k["name"] for k in kernels} != set(KERNEL_SOURCES) - set(OFF_PATH):
         _fail("the kernels line does not list every kernel of the paths")
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
@@ -1011,6 +1450,8 @@ def main() -> int:
     )
     if leaked:
         _fail(f"the port pulled in JAX or the JAX package: {leaked[:5]}")
+    print(f"LM serving, granite-3-8b full, bf16: {lm['tokens_per_s']:.1f} tokens/s, prefill "
+          f"{lm['prefill_ms']:.3f} ms, decode step {lm['decode_step_ms']:.4f} ms ({smi})")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -18,7 +18,9 @@ from typing import Iterable
 import numpy as np
 import torch
 
-__all__ = ["from_reference"]
+from repro_torch.models.config import ArchConfig
+
+__all__ = ["from_reference", "model_state_from_reference"]
 
 
 def _tensor(a) -> torch.Tensor:
@@ -35,3 +37,41 @@ def from_reference(
 ) -> tuple[torch.Tensor, ...]:
     """The port's tensors on ``device`` for the reference's arrays."""
     return tuple(_tensor(a).to(device) for a in arrays)
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    """(dotted name, leaf) for every leaf of a nested dict."""
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, f"{prefix}{name}.")
+        else:
+            yield prefix + name, value
+
+
+def model_state_from_reference(cfg: ArchConfig, params: dict) -> dict[str, torch.Tensor]:
+    """The port's ``Model`` state dict for the reference's ``Model.init``
+    parameters, given as numpy arrays (``jax.tree.map(np.asarray, params)``).
+
+    The reference stacks every block leaf over the periods of its layer scan
+    (``params["blocks"]`` is a tuple over period positions, each leaf with a
+    leading ``n_periods`` axis); the port holds one block per layer. A dense
+    config's period is one block, so layer i is index i of each leaf. The
+    weights keep their (d_in, d_out) layout on both sides.
+    """
+    period = cfg.block_period()
+    if len(period) != 1 or cfg.n_periods != cfg.n_layers:
+        raise ValueError(
+            f"{cfg.name}: period {period} is not one block; only dense configs convert"
+        )
+    (blocks,) = params["blocks"]
+    state = {}
+    for name, leaf in _leaves(blocks):
+        arr = np.asarray(leaf)
+        if arr.shape[0] != cfg.n_layers:
+            raise ValueError(f"blocks leaf {name} has {arr.shape[0]} periods, not {cfg.n_layers}")
+        for i in range(cfg.n_layers):
+            state[f"blocks.{i}.{name}"] = _tensor(arr[i])
+    for name in ("ln_f", "embed", "unembed"):
+        if name in params:
+            state[name] = _tensor(params[name])
+    return state

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.kernels import avgpool as _avgpool_mod
 from repro_torch.kernels import bitonic_sort as _sort_mod
+from repro_torch.kernels import flash_attention as _attention_mod
 from repro_torch.kernels import lrn as _lrn_mod
 from repro_torch.kernels import matmul as _matmul_mod
 from repro_torch.kernels import prefix_scan as _scan_mod
@@ -40,7 +41,7 @@ from repro_torch.kernels import softmax as _softmax_mod
 from repro_torch.kernels import srad_stencil as _srad_mod
 
 __all__ = [
-    "matmul", "softmax", "lrn", "avgpool", "srad_step", "prefix_scan", "sort_kv",
+    "matmul", "attention", "softmax", "lrn", "avgpool", "srad_step", "prefix_scan", "sort_kv",
     "force_impl", "tune_space", "KERNEL_OPS", "MODES",
 ]
 
@@ -51,6 +52,7 @@ MODES = ("auto", "kernel", "ref")
 # field names one of these keys (registry.py impl contract).
 KERNEL_OPS = {
     "matmul": _matmul_mod,
+    "attention": _attention_mod,
     "softmax": _softmax_mod,
     "lrn": _lrn_mod,
     "avgpool": _avgpool_mod,
@@ -114,6 +116,27 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, mode: Mode = "auto", **blocks):
     if use:
         return _matmul_mod.matmul_kernel(a, b, **blocks)
     return _ref.matmul_ref(a, b)
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    window: int | None = None,
+    scale: float | None = None,
+    mode: Mode = "auto",
+    **blocks,
+):
+    """GQA attention of q (B, Hq, T, D) over k, v (B, Hkv, S, D), the
+    queries at the last T of the S key positions."""
+    use, blocks = _resolve("attention", mode, q, blocks)
+    if use:
+        return _attention_mod.flash_attention_kernel(
+            q, k, v, causal=causal, window=window, scale=scale, **blocks
+        )
+    return _ref.attention_ref(q, k, v, causal=causal, window=window, scale=scale)
 
 
 def softmax(x: torch.Tensor, *, mode: Mode = "auto"):

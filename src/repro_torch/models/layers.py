@@ -1,0 +1,197 @@
+"""Core transformer layers: RMSNorm, RoPE, GQA attention, SwiGLU.
+
+Counterpart of ``repro/models/layers.py``, function for function, in its
+functional style: ``init_*(generator, cfg)`` builds a dict of tensors and an
+``apply`` function takes it (a dict or an ``nn.ParameterDict``). Weights keep
+the reference's (d_in, d_out) layout, so ``x @ w`` is the same product as
+the reference's and ``convert.model_state_from_reference`` copies them
+without a transpose.
+
+Numerics as in the reference: parameters and activations in ``cfg.dtype``
+(bf16 for the published configs), normalisation statistics, RoPE and
+attention in f32.
+
+Attention goes through ``kernels.ops.attention``: the hand-written flash
+kernel for CUDA tensors, its plain version on the CPU. The reference's
+XLA-only attention knobs (``attn_chunk``, ``score_dtype``, ``unroll_inner``)
+have no counterpart here: a config that sets one away from its default is
+refused, never quietly run another way. M-RoPE (the VLM's multimodal
+positions) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.config import ArchConfig
+
+__all__ = [
+    "dtype_of",
+    "check_supported",
+    "rms_norm",
+    "init_dense",
+    "init_attention",
+    "project_qkv",
+    "apply_attention",
+    "init_mlp",
+    "apply_mlp",
+    "rope_angles",
+    "apply_rope",
+]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dtype_of(cfg: ArchConfig) -> torch.dtype:
+    try:
+        return _DTYPES[cfg.dtype]
+    except KeyError:
+        raise ValueError(f"dtype {cfg.dtype!r} not one of {sorted(_DTYPES)}") from None
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Refuse what the port's attention does not run: the reference's XLA
+    knobs away from their defaults, and M-RoPE."""
+    knobs = {"attn_chunk": (cfg.attn_chunk, 0), "score_dtype": (cfg.score_dtype, "float32"),
+             "unroll_inner": (cfg.unroll_inner, False)}
+    set_knobs = {k: v for k, (v, default) in knobs.items() if v != default}
+    if set_knobs:
+        raise ValueError(
+            f"{cfg.name}: {set_knobs} tune the reference's XLA attention; the port's "
+            "attention is the flash kernel and has no such knob"
+        )
+    if cfg.rope == "mrope":
+        raise NotImplementedError(
+            f"{cfg.name}: M-RoPE (the VLM's positions) is not ported yet "
+            "(ROADMAP.md queue 1, item 16)"
+        )
+
+
+def init_dense(generator: torch.Generator | None, d_in: int, d_out: int, dtype,
+               scale: float | None = None) -> torch.Tensor:
+    """``scale`` times a normal truncated to [-2, 2], on the generator's
+    device, in ``dtype``. Without a generator the tensor is on the meta
+    device: its shape and dtype only."""
+    scale = 0.02 if scale is None else scale
+    device = "meta" if generator is None else generator.device
+    w = torch.empty((d_in, d_out), dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, a=-2.0, b=2.0, generator=generator)
+    return w.mul_(scale).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    scale = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    # Rounded to x's dtype before the gain, where the reference rounds.
+    return (xf * scale).to(x.dtype) * gamma
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings.
+# ---------------------------------------------------------------------------
+
+
+def rope_angles(cfg: ArchConfig, positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables of shape (B, T, head_dim/2), f32, for (B, T) integer
+    positions (plain RoPE; M-RoPE's (B, T, 3) positions are not ported)."""
+    if cfg.rope == "mrope" or positions.dim() != 2:
+        raise NotImplementedError(
+            "M-RoPE is not ported yet (ROADMAP.md queue 1, item 16); positions must be (B, T)"
+        )
+    half = cfg.head_dim // 2
+    freqs = cfg.rope_theta ** (
+        -torch.arange(half, dtype=torch.float32, device=positions.device) / half
+    )
+    angles = positions.float()[..., None] * freqs  # (B, T, half)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, T, n_heads, head_dim); llama-style half rotation."""
+    half = x.shape[-1] // 2
+    c = cos[:, :, None, :].float()
+    s = sin[:, :, None, :].float()
+    x1f, x2f = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1f * c - x2f * s, x2f * c + x1f * s], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention.
+# ---------------------------------------------------------------------------
+
+
+def init_attention(generator: torch.Generator | None, cfg: ArchConfig) -> dict:
+    dt = dtype_of(cfg)
+    d, hd = cfg.d_model, cfg.head_dim
+    p = {
+        "wq": init_dense(generator, d, cfg.n_heads * hd, dt),
+        "wk": init_dense(generator, d, cfg.n_kv_heads * hd, dt),
+        "wv": init_dense(generator, d, cfg.n_kv_heads * hd, dt),
+        "wo": init_dense(generator, cfg.n_heads * hd, d, dt,
+                         scale=0.02 / (2 * cfg.n_layers) ** 0.5),
+    }
+    if cfg.qkv_bias:
+        device = p["wq"].device
+        p["bq"] = torch.zeros((cfg.n_heads * hd,), dtype=dt, device=device)
+        p["bk"] = torch.zeros((cfg.n_kv_heads * hd,), dtype=dt, device=device)
+        p["bv"] = torch.zeros((cfg.n_kv_heads * hd,), dtype=dt, device=device)
+    return p
+
+
+def project_qkv(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
+    """x (B, T, d) -> q (B, T, H, hd), k/v (B, T, KV, hd), RoPE applied."""
+    b, t, _ = x.shape
+    hd = cfg.head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, t, cfg.n_heads, hd)
+    k = k.reshape(b, t, cfg.n_kv_heads, hd)
+    v = v.reshape(b, t, cfg.n_kv_heads, hd)
+    if cfg.rope != "none":
+        cos, sin = rope_angles(cfg, positions)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def apply_attention(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
+    """Full-sequence path (prefill, forward): returns (out, (k, v)), k and v
+    (B, T, KV, hd) for the cache.
+
+    The reference's ``sdpa`` becomes one ``ops.attention`` call on
+    (B, H, T, hd) views of the projections: the kernel reads them through
+    their strides and writes its output laid out as (B, T, H, hd), so the
+    reshape below costs no copy.
+    """
+    check_supported(cfg)
+    b, t, _ = x.shape
+    q, k, v = project_qkv(p, cfg, x, positions)
+    out = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                        causal=cfg.causal, window=cfg.window)
+    out = out.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.head_dim)
+    return out @ p["wo"], (k, v)
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP.
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(generator: torch.Generator | None, cfg: ArchConfig) -> dict:
+    dt = dtype_of(cfg)
+    return {
+        "w_gate": init_dense(generator, cfg.d_model, cfg.d_ff, dt),
+        "w_up": init_dense(generator, cfg.d_model, cfg.d_ff, dt),
+        "w_down": init_dense(generator, cfg.d_ff, cfg.d_model, dt,
+                             scale=0.02 / (2 * cfg.n_layers) ** 0.5),
+    }
+
+
+def apply_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]

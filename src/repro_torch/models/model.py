@@ -1,0 +1,221 @@
+"""The LM: an ArchConfig of dense attention + MLP blocks -> init / forward /
+prefill / decode.
+
+Counterpart of ``repro/models/model.py`` for the block kind ``attn_mlp``
+(the dense configs). Where the reference scans one stacked parameter pytree
+over periods, the port holds an ``nn.ModuleList`` with one block per layer
+and loops over it in Python: PyTorch runs eagerly, and one block per layer
+is what the state dict names (``blocks.<i>.mixer.wq``, ...). The other block
+kinds (MoE, Mamba, xLSTM) raise ``NotImplementedError``: they are ROADMAP.md
+queue 1, item 16.
+
+Serving mirrors the reference: ``prefill`` runs the prompt and packs each
+layer's K/V into the decode cache (a linear buffer, or a ring of ``window``
+slots for sliding-window configs); ``decode_step`` runs one token for the
+whole batch. The reference donates its cache to the compiled step; here the
+step writes the new token's K/V into its slot in place and attends over the
+cache's valid slots through views, so a step allocates no cache.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import (
+    apply_attention,
+    apply_mlp,
+    check_supported,
+    dtype_of,
+    init_attention,
+    init_dense,
+    init_mlp,
+    project_qkv,
+    rms_norm,
+)
+
+__all__ = ["Model"]
+
+
+def _params(tensors: dict, device) -> nn.ParameterDict:
+    """Uninitialised parameters shaped like ``tensors`` (meta tensors from
+    the init functions), on ``device``."""
+    return nn.ParameterDict({
+        name: nn.Parameter(torch.empty(t.shape, dtype=t.dtype, device=device))
+        for name, t in tensors.items()
+    })
+
+
+class Block(nn.Module):
+    """One ``attn_mlp`` layer: norm, attention, norm, SwiGLU MLP."""
+
+    def __init__(self, cfg: ArchConfig, device) -> None:
+        super().__init__()
+        dt = dtype_of(cfg)
+        self.ln1 = nn.Parameter(torch.ones(cfg.d_model, dtype=dt, device=device))
+        self.mixer = _params(init_attention(None, cfg), device)
+        self.ln2 = nn.Parameter(torch.ones(cfg.d_model, dtype=dt, device=device))
+        self.ffn = _params(init_mlp(None, cfg), device)
+
+    @torch.no_grad()
+    def init_weights(self, cfg: ArchConfig, generator: torch.Generator) -> None:
+        self.ln1.fill_(1.0)
+        self.ln2.fill_(1.0)
+        for group, init in ((self.mixer, init_attention), (self.ffn, init_mlp)):
+            for name, value in init(generator, cfg).items():
+                group[name].copy_(value)
+
+
+def _cache_len(cfg: ArchConfig, max_len: int) -> int:
+    return min(cfg.window, max_len) if cfg.window else max_len
+
+
+def _kv_to_cache(cfg: ArchConfig, k: torch.Tensor, v: torch.Tensor, max_len: int) -> dict:
+    """Pack prefill K/V (B, T, KV, hd) into the decode cache layout.
+
+    The token at absolute position p lives at slot p (linear cache) or
+    p % W (sliding-window ring buffer); decode continues the same convention.
+    """
+    b, t, kv, hd = k.shape
+    s = _cache_len(cfg, max_len)
+    ck = k.new_zeros((b, s, kv, hd))
+    cv = v.new_zeros((b, s, kv, hd))
+    if cfg.window and t >= s:
+        pos = torch.arange(t - s, t, device=k.device) % s
+        ck[:, pos] = k[:, -s:]
+        cv[:, pos] = v[:, -s:]
+    else:
+        n = min(t, s)
+        ck[:, :n] = k[:, :n]
+        cv[:, :n] = v[:, :n]
+    return {"k": ck, "v": cv}
+
+
+class Model(nn.Module):
+    """A dense LM. Parameters are created uninitialised on ``device`` (CUDA
+    unless the caller asks for the CPU); ``init_weights`` fills them from a
+    generator, or ``load_state_dict`` from ``convert.model_state_from_reference``.
+    """
+
+    def __init__(self, cfg: ArchConfig, *, device: str | torch.device = "cuda") -> None:
+        super().__init__()
+        cfg.validate()
+        other = sorted(set(cfg.block_kinds()) - {"attn_mlp"})
+        if other:
+            raise NotImplementedError(
+                f"{cfg.name}: block kinds {other} are not ported yet (MoE, Mamba and "
+                "xLSTM layers are ROADMAP.md queue 1, item 16); the port runs attn_mlp"
+            )
+        if cfg.input_mode != "tokens":
+            raise NotImplementedError(
+                f"{cfg.name}: input_mode {cfg.input_mode!r} is not ported yet "
+                "(ROADMAP.md queue 1, item 16)"
+            )
+        check_supported(cfg)
+        self.cfg = cfg
+        dt = dtype_of(cfg)
+        self.blocks = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
+        self.ln_f = nn.Parameter(torch.ones(cfg.d_model, dtype=dt, device=device))
+        self.embed = nn.Parameter(torch.empty((cfg.vocab, cfg.d_model), dtype=dt, device=device))
+        if not cfg.tie_embeddings:
+            self.unembed = nn.Parameter(
+                torch.empty((cfg.d_model, cfg.vocab), dtype=dt, device=device))
+
+    # ---- parameters -------------------------------------------------------
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Truncated-normal weights as the reference's ``init_dense``, ones
+        for the norms, zeros for the biases, drawn from ``generator``, which
+        must live on the model's device."""
+        if generator.device.type != self.embed.device.type:
+            raise ValueError(
+                f"generator on {generator.device}, model on {self.embed.device}")
+        cfg = self.cfg
+        dt = dtype_of(cfg)
+        for block in self.blocks:
+            block.init_weights(cfg, generator)
+        self.ln_f.fill_(1.0)
+        self.embed.copy_(init_dense(generator, cfg.vocab, cfg.d_model, dt))
+        if not cfg.tie_embeddings:
+            self.unembed.copy_(init_dense(generator, cfg.d_model, cfg.vocab, dt))
+
+    # ---- shared pieces ----------------------------------------------------
+    def _embed_in(self, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        x = self.embed[tokens]
+        b, t = tokens.shape
+        positions = torch.arange(t, device=tokens.device).expand(b, t)
+        return x, positions
+
+    def _unembed(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.embed.T if self.cfg.tie_embeddings else self.unembed
+        return x.float() @ w.float()
+
+    def _block(self, block: Block, x: torch.Tensor, positions: torch.Tensor):
+        cfg = self.cfg
+        h, kv = apply_attention(block.mixer, cfg, rms_norm(x, block.ln1, cfg.norm_eps),
+                                positions)
+        x = x + h
+        x = x + apply_mlp(block.ffn, rms_norm(x, block.ln2, cfg.norm_eps))
+        return x, kv
+
+    # ---- forward ------------------------------------------------------------
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B, T) -> logits (B, T, V), f32."""
+        x, positions = self._embed_in(tokens)
+        for block in self.blocks:
+            x, _ = self._block(block, x, positions)
+        return self._unembed(rms_norm(x, self.ln_f, self.cfg.norm_eps))
+
+    # ---- serving --------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int) -> list[dict]:
+        """One ``{"k", "v"}`` of zeros, (B, S, KV, hd), per layer."""
+        cfg = self.cfg
+        shape = (batch, _cache_len(cfg, max_len), cfg.n_kv_heads, cfg.head_dim)
+        return [
+            {"k": self.embed.new_zeros(shape), "v": self.embed.new_zeros(shape)}
+            for _ in self.blocks
+        ]
+
+    @torch.inference_mode()
+    def prefill(self, tokens: torch.Tensor, max_len: int):
+        """Run the prompt tokens (B, T); returns (cache, logits (B, T, V))."""
+        x, positions = self._embed_in(tokens)
+        cache = []
+        for block in self.blocks:
+            x, (k, v) = self._block(block, x, positions)
+            cache.append(_kv_to_cache(self.cfg, k, v, max_len))
+        return cache, self._unembed(rms_norm(x, self.ln_f, self.cfg.norm_eps))
+
+    @torch.inference_mode()
+    def decode_step(self, cache: list[dict], tokens: torch.Tensor, pos: int):
+        """One token step for the batch: tokens (B,), ``pos`` the absolute
+        position (a host int). Writes the step's K/V into slot ``pos % S`` of
+        ``cache`` in place and returns (logits (B, V), cache)."""
+        cfg = self.cfg
+        x_t = self.embed[tokens]  # (B, d)
+        b = x_t.shape[0]
+        positions_t = torch.full((b, 1), pos, dtype=torch.long, device=x_t.device)
+        hd = cfg.head_dim
+        for block, entry in zip(self.blocks, cache, strict=True):
+            xn = rms_norm(x_t, block.ln1, cfg.norm_eps)[:, None, :]  # (B, 1, d)
+            q, k, v = project_qkv(block.mixer, cfg, xn, positions_t)
+            s = entry["k"].shape[1]
+            slot = pos % s
+            entry["k"][:, slot] = k[:, 0]
+            entry["v"][:, slot] = v[:, 0]
+            # Slots [0, kv_len) hold exactly the valid past tokens, in the
+            # linear and the ring layout alike (RoPE was applied at absolute
+            # positions, and attention does not depend on the keys' order).
+            kv_len = min(pos + 1, s)
+            out = ops.attention(
+                q.transpose(1, 2),
+                entry["k"][:, :kv_len].transpose(1, 2),
+                entry["v"][:, :kv_len].transpose(1, 2),
+                causal=False,
+            )
+            x_t = x_t + out.reshape(b, cfg.n_heads * hd) @ block.mixer["wo"]
+            x_t = x_t + apply_mlp(block.ffn, rms_norm(x_t, block.ln2, cfg.norm_eps))
+        logits = self._unembed(rms_norm(x_t, self.ln_f, cfg.norm_eps))
+        return logits, cache

@@ -16,12 +16,14 @@ from repro_torch.core.plan import ExecutionPlan
 from repro_torch.kernels import (
     avgpool,
     bitonic_sort,
+    flash_attention,
     lrn,
     matmul,
     prefix_scan,
     softmax,
     srad_stencil,
 )
+from repro_torch.kernels.ops import attention as ops_attention
 from repro_torch.kernels.ops import sort_kv, srad_step
 
 pytestmark = pytest.mark.cuda
@@ -39,6 +41,30 @@ SRAD_SHAPES = [(8, 8), (32, 48), (65, 33), (1000, 1030), (2048, 2048)]
 SCAN_LENGTHS = [8, 1000, 4096, 5, 2**20 + 3]
 SORT_LENGTHS = [1, 2, 1000, 4096, 5000, 2**20 + 3]
 U_F32 = 2.0**-24
+# The reference's attention cases (tests/test_kernels_attention.py:19-27):
+# B, Hq, Hkv, T, S, D, causal, window.
+ATTENTION_CASES = [
+    (1, 2, 2, 32, 32, 16, False, None),
+    (2, 4, 2, 32, 32, 16, True, None),
+    (1, 8, 1, 17, 17, 8, True, None),
+    (2, 4, 4, 33, 33, 16, True, 9),
+    (1, 4, 2, 1, 64, 16, True, None),
+    (1, 4, 2, 1, 64, 16, True, 17),
+    (2, 2, 2, 16, 48, 8, True, None),
+]
+# Every compiled head dim, ragged T and S, a window wider than the offset
+# (S - T = 32 < 40), a non-causal window, decode against a long cache, and
+# the LM serving path's two shapes (granite-3-8b: Hq 32, Hkv 8, D 128).
+ATTENTION_MORE = [
+    (2, 4, 2, 70, 70, 32, True, None),
+    (1, 6, 2, 45, 77, 64, True, None),
+    (2, 8, 2, 130, 130, 128, True, None),
+    (1, 4, 1, 16, 48, 64, True, 40),
+    (1, 4, 4, 40, 40, 32, False, 7),
+    (2, 32, 8, 1, 1088, 128, False, None),
+    (8, 32, 8, 1024, 1024, 128, True, None),
+    (8, 32, 8, 1, 1088, 128, False, None),
+]
 
 
 @pytest.fixture
@@ -307,3 +333,75 @@ def test_sort_where_srad_rows_on_the_card_launch_the_kernels(card):
         "srad_fused_f32": 4 * calls, "srad_phase1_f32": 4 * calls,
         "srad_phase2_f32": 4 * calls,
     }
+
+
+def _attention_inputs(card, b, hq, hkv, t, s_len, d, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(card, dtype)
+               for shape in ((b, hq, t, d), (b, hkv, s_len, d), (b, hkv, s_len, d)))
+    return q, k, v
+
+
+def _attention_tol(dtype) -> float:
+    # tests/test_kernels_attention.py:39,48
+    return 2e-4 if dtype == torch.float32 else 2e-2
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,s,d,causal,window", ATTENTION_CASES + ATTENTION_MORE)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_matches_plain(card, b, hq, hkv, t, s, d, causal, window, dtype):
+    q, k, v = _attention_inputs(card, b, hq, hkv, t, s, d, dtype)
+    key = "flash_attention_f32" if dtype == torch.float32 else "flash_attention_bf16"
+    before = flash_attention.launches[key]
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches[key] == before + 1
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = _attention_tol(dtype)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_reads_views_in_place(card, dtype):
+    """The model's inputs: (B, T, H, D) activations seen as (B, H, T, D), and
+    a (B, S, KV, D) cache sliced to its valid length; and a view one element
+    into its storage, which takes the kernel's unaligned loads."""
+    b, hq, hkv, t, s_len, kv_len, d = 2, 8, 2, 5, 40, 29, 64
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.standard_normal((b, t, hq, d), dtype=np.float32)).to(card, dtype)
+    kc = torch.from_numpy(rng.standard_normal((b, s_len, hkv, d), dtype=np.float32)).to(card, dtype)
+    vc = torch.from_numpy(rng.standard_normal((b, s_len, hkv, d), dtype=np.float32)).to(card, dtype)
+    qv = q.transpose(1, 2)
+    kv_, vv = kc[:, :kv_len].transpose(1, 2), vc[:, :kv_len].transpose(1, 2)
+    tol = _attention_tol(dtype)
+    for causal in (False, True):
+        got = flash_attention.flash_attention_cuda(qv, kv_, vv, causal=causal)
+        want = flash_attention.flash_attention_plain(
+            qv.contiguous(), kv_.contiguous(), vv.contiguous(), causal=causal)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        # The output is laid out (B, T, H, D): the model reshapes it for free.
+        assert got.transpose(1, 2).is_contiguous()
+    flat = torch.from_numpy(rng.standard_normal(1 + b * hkv * s_len * d, dtype=np.float32))
+    k_odd = flat.to(card, dtype)[1:].view(b, hkv, s_len, d)
+    assert k_odd.data_ptr() % 16 != 0
+    q2 = qv.contiguous()
+    got = flash_attention.flash_attention_cuda(q2, k_odd, k_odd, causal=True)
+    want = flash_attention.flash_attention_plain(q2, k_odd, k_odd, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_attention_kernel_refuses_what_it_does_not_take(card):
+    q = torch.ones(1, 2, 4, 16, device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention_cuda(q[..., :12], q[..., :12], q[..., :12])
+    with pytest.raises(ValueError, match="unit stride"):
+        flash_attention.flash_attention_cuda(q, torch.ones(1, 2, 4, 32, device=card)[..., ::2], q)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention.flash_attention_cuda(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="compiled tile"):
+        flash_attention.flash_attention_cuda(q, q, q, block_q=64)
+    plain = flash_attention.plain_calls
+    with pytest.raises(ValueError, match="head dim"):
+        ops_attention(q[..., :12], q[..., :12], q[..., :12], mode="kernel")
+    assert flash_attention.plain_calls == plain

@@ -44,6 +44,11 @@ def test_port_imports_no_jax_and_no_reference_module():
         "repro_torch.kernels.prefix_scan", "repro_torch.kernels.srad_stencil",
         "repro_torch.kernels.bitonic_sort", "repro_torch.bench.level1.sort",
         "repro_torch.bench.level2.where", "repro_torch.bench.level2.srad",
+        "repro_torch.kernels.flash_attention", "repro_torch.models", "repro_torch.models.config",
+        "repro_torch.models.layers", "repro_torch.models.model", "repro_torch.configs",
+        "repro_torch.configs.granite_3_8b", "repro_torch.configs.qwen1_5_0_5b",
+        "repro_torch.configs.granite_8b", "repro_torch.configs.deepseek_7b",
+        "repro_torch.launch", "repro_torch.launch.serve",
     } <= set(mods)
     script = textwrap.dedent(f"""
         import importlib, sys

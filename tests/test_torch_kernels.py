@@ -30,6 +30,7 @@ from repro_torch.core import metrics
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import avgpool as tavgpool
 from repro_torch.kernels import bitonic_sort as tsort
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import lrn as tlrn
 from repro_torch.kernels import matmul as tmatmul
 from repro_torch.kernels import prefix_scan as tscan
@@ -362,6 +363,7 @@ def test_tune_space_contract(op):
     # keyword defaults.
     launcher = {
         "matmul": tmatmul.matmul_cuda,
+        "attention": tfa.flash_attention_cuda,
         "softmax": tsoftmax.softmax_cuda,
         "lrn": tlrn.lrn_cuda,
         "avgpool": tavgpool.avgpool_cuda,
@@ -374,11 +376,14 @@ def test_tune_space_contract(op):
 
 
 def test_kernel_ops_lists_only_ported_kernels():
+    # Every TPU kernel of the reference now has a Hopper counterpart.
     assert set(ops.KERNEL_OPS) == {
-        "matmul", "softmax", "lrn", "avgpool", "srad_step", "prefix_scan", "sort_kv",
+        "matmul", "attention", "softmax", "lrn", "avgpool", "srad_step", "prefix_scan",
+        "sort_kv",
     }
+    assert set(ops.KERNEL_OPS) == set(jops.PALLAS_OPS)
     with pytest.raises(KeyError, match="unknown kernel op"):
-        ops.tune_space("attention")
+        ops.tune_space("flash_attention")
 
 
 def test_cuda_entry_points_raise_cleanly_on_cpu_tensors():

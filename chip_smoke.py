@@ -10,11 +10,17 @@ Phases, each printing its own lines; any failed check raises and the script
 exits nonzero without printing its result line:
 
 1. card: ``nvidia-smi``'s name and power limit, torch and CUDA versions;
-2. build: every ``src/repro_torch/kernels/csrc/*.cu`` compiled by nvcc;
+2. build: every ``src/repro_torch/kernels/csrc/*.cu`` compiled by nvcc,
+   with ptxas' registers and spills per kernel and the dynamic shared
+   memory of the TMA/wgmma and decode kernels;
 3. kernels against their plain versions on the card, at the reference's
    test shapes, at ragged shapes and at the main paths' shapes, with the
    stated tolerances (the sort bit for bit, the scan of 0/1 flags exactly;
-   attention also on strided views and at the LM serving path's shapes);
+   attention also on strided views and at the LM serving path's shapes).
+   Each call is counted under the entry its layout routes to: the bf16
+   GEMM's TMA + wgmma kernel or its WMMA kernel; attention's wgmma
+   prefill, split-KV decode (at every split count, and its merge on the
+   decode kernel's own partials) or SIMT kernel;
 4. the main path: the port's suite at preset 4 with ``--impl kernel`` over
    the 8 benchmarks of the first slice (forward), with every launch counter
    set to 0 just before and read just after (each kernel must have
@@ -34,15 +40,17 @@ exits nonzero without printing its result line:
    teacher-forced decode steps against the plain route within a bound
    derived from bf16's round-off and the depth, then a timed serve of 16
    requests, batch 8, 1024-token prompts and 64 generated tokens, counters
-   set to 0 just before and read just after (5120 attention launches);
+   set to 0 just before and read just after (80 launches of the wgmma
+   prefill kernel, 5040 each of the decode kernel and its merge);
 5. yardstick: each kernel of the paths, its plain version and the one
    PyTorch call that computes the same function (where there is one),
    timed with CUDA events at the paths' shapes (and the kernel's own device
    time from ``torch.profiler``), beside the card's bound for the same
    work (attention at the serving path's prefill and decode shapes, against
-   ``F.scaled_dot_product_attention`` as the yardstick); the decode kernel
-   at other cache lengths and batches; and SRAD's cooperative launch beside
-   ordinary ones.
+   ``F.scaled_dot_product_attention`` as the yardstick), the replaced bf16
+   kernels (WMMA GEMM, SIMT attention) timed beside their successors at the
+   same shapes; the decode kernel at other cache lengths and batches; and
+   SRAD's cooperative launch beside ordinary ones.
 
 It prints a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. It needs a CUDA card and the rest of the
@@ -51,6 +59,7 @@ repository: without either it exits 1.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import json
@@ -78,9 +87,11 @@ DNN_KERNELS = {
 }
 LEVELS_PATH = ("sort", "where", "srad")
 # Kernels no path launches: the f32-key sort (the Sort benchmark's keys are
-# int32). Phase 3 checks it and phase 5 times it; the kernels line, which
-# carries each kernel's launches on its path, leaves it out.
-OFF_PATH = ("sort_kv_f32",)
+# int32), and the bf16 GEMM's WMMA kernel and attention's SIMT bf16 kernel,
+# which keep the layouts the TMA kernels do not take. Phase 3 checks them
+# and phase 5 times them; the kernels line, which carries each kernel's
+# launches on its path, leaves them out.
+OFF_PATH = ("sort_kv_f32", "matmul_bf16_wmma", "flash_attention_bf16_simt")
 PRESET, ITERS, WARMUP, WINDOW = 4, 5, 2, 4
 # Calls of each pass's function on the main path: the compile stage's first
 # call, the validation call, the sync-mode warm-up and timed calls, and the
@@ -88,6 +99,9 @@ PRESET, ITERS, WARMUP, WINDOW = 4, 5, 2, 4
 CALLS_PER_PASS = 1 + 1 + WARMUP + ITERS + ITERS * WINDOW
 U_F32 = 2.0**-24  # unit round-off of f32
 SMALL_SHAPES = [(8, 8, 8), (128, 128, 128), (130, 70, 50), (1, 256, 33), (257, 1, 128)]
+# bf16 shapes whose ragged M and N only TMA's zero fill covers (row strides
+# multiples of 8, so they route to the TMA kernel).
+TMA_RAGGED = [(1000, 1000, 1000), (200, 72, 136)]
 SOFTMAX_SMALL = [(1, 8), (33, 257), (64, 64), (7, 1031)]
 REF_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # tests/test_kernels_*.py
 # The reference's LRN and avgpool test shapes (tests/test_kernels_misc.py:
@@ -134,6 +148,20 @@ ATTENTION_CASES = [
     (2, 32, 8, 1, 1088, 128, False, None),
 ]
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# The tensor-core entries: the reference's cases at D 64 and 128 (decode,
+# prefill or SIMT by their rows per KV head), groups of 1 and 8, ragged T,
+# windows, T < S. Decode at explicit split counts: S below one split's tile,
+# a windowed step, T > 1 with a window (some splits see no key for some
+# rows), and the path's step; each at 1 split, the tiles' count, and more.
+TC_ATTENTION_MORE = [
+    (2, 8, 8, 100, 100, 128, True, None), (1, 16, 2, 77, 200, 64, True, None),
+    (2, 4, 1, 300, 300, 128, True, 100), (1, 8, 2, 96, 333, 128, False, 150),
+    (1, 4, 1, 1, 5000, 128, True, 700),
+]
+DECODE_SPLIT_CASES = [
+    (2, 4, 2, 1, 40, 64, True, None), (1, 4, 2, 1, 700, 128, True, 100),
+    (1, 8, 2, 4, 300, 64, True, 9), (8, 32, 8, 1, 1088, 128, False, None),
+]
 # The LM serving path (granite-3-8b: Hq 32, Hkv 8, D 128) at batch 8: the
 # causal prefill of 1024-token prompts, and a decode step against a cache
 # of 1088 positions (the path's steps see 1025 to 1087).
@@ -146,7 +174,10 @@ LM_TEACHER_STEPS = 4
 LM_SMOKE_TOL = 2e-4  # f32 smoke: attention's tolerance, the only part in another order
 KERNEL_SOURCES = {
     "matmul_f32": ("src/repro_torch/kernels/csrc/matmul.cu", "src/repro/kernels/matmul.py:55"),
-    "matmul_bf16": ("src/repro_torch/kernels/csrc/matmul.cu", "src/repro/kernels/matmul.py:55"),
+    "matmul_bf16": ("src/repro_torch/kernels/csrc/matmul_wgmma.cu",
+                    "src/repro/kernels/matmul.py:55"),
+    "matmul_bf16_wmma": ("src/repro_torch/kernels/csrc/matmul.cu",
+                         "src/repro/kernels/matmul.py:55"),
     "softmax_f32": ("src/repro_torch/kernels/csrc/softmax.cu", "src/repro/kernels/softmax.py:68"),
     "matmul_f32_batched": ("src/repro_torch/kernels/csrc/matmul.cu",
                            "src/repro/kernels/matmul.py:55"),
@@ -167,8 +198,14 @@ KERNEL_SOURCES = {
                         "src/repro/kernels/srad_stencil.py:94"),
     "flash_attention_f32": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:112"),
-    "flash_attention_bf16": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                             "src/repro/kernels/flash_attention.py:112"),
+    "flash_attention_bf16_wgmma": ("src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+                                   "src/repro/kernels/flash_attention.py:112"),
+    "flash_decode_bf16": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                          "src/repro/kernels/flash_attention.py:112"),
+    "flash_decode_combine_bf16": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                                  "src/repro/kernels/flash_attention.py:112"),
+    "flash_attention_bf16_simt": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                  "src/repro/kernels/flash_attention.py:112"),
 }
 
 
@@ -232,6 +269,20 @@ def phase_build() -> None:
     for line in info["log"].splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  " + line.strip())
+    # ptxas counts static shared memory only; these kernels take theirs
+    # dynamically, sized by the entry points.
+    smem = (("matmul_bf16 (TMA + wgmma, 4-stage ring)",
+             _build.function("matmul_bf16_smem_bytes", [])()),
+            *((f"flash_attention_bf16_wgmma D{d}",
+               _build.function("flash_attention_bf16_wgmma_smem_bytes", [ctypes.c_int])(d))
+              for d in (64, 128)),
+            *((f"flash_decode_bf16 D{d} rows<={r}",
+               _build.function("flash_decode_bf16_smem_bytes", [ctypes.c_int] * 2)(d, r))
+              for d in (64, 128) for r in (4, 16)))
+    for what, nbytes in smem:
+        print(f"  dynamic shared memory {what}: {nbytes} bytes")
+        if nbytes <= 0 or nbytes > 232448:
+            _fail(f"{what}: {nbytes} bytes of shared memory")
 
 
 def _exact_check(out, plain, exact, k, sigma, dt, chain=1):
@@ -276,30 +327,42 @@ def _exact_check(out, plain, exact, k, sigma, dt, chain=1):
     return ok, line, diff.max().item()
 
 
-def _matmul_case(torch, matmul, gen, dt, m, k, n, trans):
+def _matmul_case(torch, matmul, gen, dt, m, k, n, trans, entry=None):
+    """One product on the entry its layout routes to (or on ``entry``, which
+    must take it), counted there, against its plain version. -> (entry,
+    max abs kernel - plain)."""
     if trans == "tn":  # the gemm "tn" specs hand the kernel a.T, a strided view
         a = torch.randn(k, m, generator=gen, device="cuda").to(dt).T
     else:
         a = torch.randn(m, k, generator=gen, device="cuda").to(dt)
     b = torch.randn(k, n, generator=gen, device="cuda").to(dt)
-    out = matmul.matmul_cuda(a, b).float()
+    key = entry or matmul._route(a, b)
+    before = matmul.launches[key]
+    out = (matmul._launch(key, a, b) if entry else matmul.matmul_cuda(a, b)).float()
     torch.cuda.synchronize()
+    if matmul.launches[key] != before + 1:
+        _fail(f"matmul {dt} {trans} {(m, k, n)}: {matmul.launches[key] - before} launches "
+              f"under {key}")
     plain = matmul.matmul_plain(a, b).float()
     diff = (out - plain).abs()
     if max(m, k, n) <= 512:
         atol = rtol = REF_TOL[_dtname(dt)]
         ok = bool((diff <= atol + rtol * plain.abs()).all())
-        print(f"  matmul {_dtname(dt):8s} {trans} ({m},{k},{n}) max_abs "
+        print(f"  {key:16s} {trans} ({m},{k},{n}) max_abs "
               f"{diff.max().item():.3e} [reference tolerance {atol:g} abs and rel] "
               f"{'ok' if ok else 'FAIL'}")
     else:
         exact = torch.matmul(a.double(), b.double())
         ok, line, _ = _exact_check(out, plain, exact, k, _rms(a) * _rms(b), dt)
-        print(f"  matmul {_dtname(dt):8s} {trans} ({m},{k},{n}) {line} "
+        if dt == torch.bfloat16:  # and the reference's tolerance
+            ref_ok = bool((diff <= 2e-2 + 2e-2 * plain.abs()).all())
+            line += f"; reference tolerance 2e-2 {'ok' if ref_ok else 'FAIL'}"
+            ok = ok and ref_ok
+        print(f"  {key:16s} {trans} ({m},{k},{n}) {line} "
               f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        _fail(f"matmul {dt} {trans} {(m, k, n)} disagrees with its plain version")
-    return diff.max().item()
+        _fail(f"matmul {dt} {trans} {(m, k, n)} on {key} disagrees with its plain version")
+    return key, diff.max().item()
 
 
 def _batched_matmul_case(torch, matmul, gen, dt, batch, m, k, n, shared):
@@ -307,7 +370,7 @@ def _batched_matmul_case(torch, matmul, gen, dt, batch, m, k, n, shared):
     them) times a batch of (K, N) patch matrices, one launch."""
     a = torch.randn(*(() if shared else (batch,)), m, k, generator=gen, device="cuda").to(dt)
     b = torch.randn(batch, k, n, generator=gen, device="cuda").to(dt)
-    key = f"matmul_{'f32' if dt == torch.float32 else 'bf16'}_batched"
+    key = f"matmul_{'f32' if dt == torch.float32 else 'bf16_wmma'}_batched"
     before = matmul.launches[key]
     out = matmul.matmul_cuda(a, b).float()
     torch.cuda.synchronize()
@@ -480,11 +543,13 @@ def _srad_case(torch, srad, gen, shape, fused):
                        srad.srad_step_plain(img), 1e-5, 1e-6)
 
 
-def _attention_case(torch, fa, gen, dt, b, hq, hkv, t, s, d, causal, window, views=False):
-    """The flash kernel against its plain version on the same inputs. With
-    ``views``, the model's layouts: q a (B, T, H, D) tensor seen as
-    (B, H, T, D), k and v a (B, S + 7, KV, D) cache sliced to its first S
-    positions and seen the same way."""
+def _attention_case(torch, fa, gen, dt, b, hq, hkv, t, s, d, causal, window, views=False,
+                    entry=None):
+    """Attention on the entry its layout routes to (or on ``entry``, which
+    must take it), counted there, against the plain version on the same
+    inputs. With ``views``, the model's layouts: q a (B, T, H, D) tensor
+    seen as (B, H, T, D), k and v a (B, S + 7, KV, D) cache sliced to its
+    first S positions and seen the same way. -> (entry, max abs)."""
     if views:
         q = torch.randn(b, t, hq, d, generator=gen, device="cuda").to(dt).transpose(1, 2)
         k, v = (torch.randn(b, s + 7, hkv, d, generator=gen, device="cuda").to(dt)[:, :s]
@@ -493,17 +558,72 @@ def _attention_case(torch, fa, gen, dt, b, hq, hkv, t, s, d, causal, window, vie
         q = torch.randn(b, hq, t, d, generator=gen, device="cuda").to(dt)
         k, v = (torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(dt)
                 for _ in range(2))
-    key = f"flash_attention_{'f32' if dt == torch.float32 else 'bf16'}"
-    before = fa.launches[key]
-    out = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
-    if fa.launches[key] != before + 1:
-        _fail(f"attention {dt} counted {fa.launches[key] - before} launches under {key}")
+    key = entry or fa._route(q, k, v, window)
+    before = dict(fa.launches)
+    out = (fa._launch(key, q, k, v, causal=causal, window=window) if entry
+           else fa.flash_attention_cuda(q, k, v, causal=causal, window=window))
+    want = {name: int(name == key) for name in before}
+    if key == "flash_decode_bf16":
+        want["flash_decode_combine_bf16"] = 1
+    got = {name: fa.launches[name] - before[name] for name in before}
+    if got != want:
+        _fail(f"attention {dt} {(b, hq, hkv, t, s, d)}: launches {got}, expected {want}")
     tol = ATTN_TOL[_dtname(dt)]
-    what = (f"attention {_dtname(dt):8s} B{b} Hq{hq} Hkv{hkv} T{t} S{s} D{d} "
+    what = (f"{key:26s} B{b} Hq{hq} Hkv{hkv} T{t} S{s} D{d} "
             f"{'causal' if causal else 'full'} window {window}" + (" (views)" if views else ""))
-    return _close_case(torch, what, out.float(),
-                       fa.flash_attention_plain(q, k, v, causal=causal, window=window).float(),
-                       tol, tol)
+    return key, _close_case(
+        torch, what, out.float(),
+        fa.flash_attention_plain(q, k, v, causal=causal, window=window).float(), tol, tol)
+
+
+def _decode_split_case(torch, fa, gen, b, hq, hkv, t, s, d, causal, window) -> float:
+    """The decode pair at 1 split, as many splits as visible tiles, and two
+    more (splits that see no key), against the split-and-merge plain version
+    and the plain attention."""
+    q = torch.randn(b, hq, t, d, generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    lo, hi = fa.decode_tiles(t, s, hq // hkv, causal, window)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window).float()
+    tol = ATTN_TOL["bfloat16"]
+    worst = 0.0
+    for splits in sorted({1, hi - lo, hi - lo + 2} - {0}):
+        before = fa.launches["flash_decode_bf16"], fa.launches["flash_decode_combine_bf16"]
+        out = fa.flash_decode_cuda(q, k, v, causal=causal, window=window, splits=splits).float()
+        after = fa.launches["flash_decode_bf16"], fa.launches["flash_decode_combine_bf16"]
+        if after != (before[0] + 1, before[1] + 1):
+            _fail(f"decode at {splits} splits: launches {before} -> {after}")
+        what = (f"flash_decode_bf16 B{b} Hq{hq} Hkv{hkv} T{t} S{s} D{d} "
+                f"{'causal' if causal else 'full'} window {window}, {splits} splits of "
+                f"{hi - lo} tiles")
+        plain = fa.flash_decode_plain(q, k, v, causal=causal, window=window,
+                                      splits=splits).float()
+        worst = max(worst, _close_case(torch, what + " vs split plain", out, plain, tol, tol),
+                    _close_case(torch, what + " vs plain attention", out, want, tol, tol))
+    return worst
+
+
+def _combine_case(torch, fa, gen) -> float:
+    """The merge launch on the decode kernel's own partials at the serving
+    path's decode shape, against the plain merge of the same partials."""
+    b, hq, hkv, t, s, d = ATTN_DECODE
+    q = torch.randn(b, hq, t, d, generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    lo, hi = fa.decode_tiles(t, s, hq // hkv, False, None)
+    splits = fa.decode_splits(b, hkv, hi - lo, fa._sm_count(0))
+    part_o, part_ml = fa.flash_decode_partials_cuda(q, k, v, splits=splits)
+    before = fa.launches["flash_decode_combine_bf16"]
+    out = fa.flash_decode_combine_cuda(part_o, part_ml, fa._empty_out(q)).float()
+    if fa.launches["flash_decode_combine_bf16"] != before + 1:
+        _fail("the decode merge was not counted")
+    plain = fa.flash_decode_combine_plain(part_o, part_ml, hq=hq, t=t,
+                                          dtype=torch.bfloat16).float()
+    tol = ATTN_TOL["bfloat16"]
+    _close_case(torch, "decode pair vs plain attention at the path's shape", out,
+                fa.flash_attention_plain(q, k, v).float(), tol, tol)
+    return _close_case(torch, f"flash_decode_combine_bf16 B{b} Hq{hq} T{t} D{d}, {splits} "
+                       "splits, on the kernel's partials vs the plain merge", out, plain, tol, tol)
 
 
 def phase_kernels(torch) -> dict:
@@ -518,16 +638,22 @@ def phase_kernels(torch) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     err = {name: 0.0 for name in KERNEL_SOURCES}
     for dt in (torch.float32, torch.bfloat16):
-        key = f"matmul_{'f32' if dt == torch.float32 else 'bf16'}"
-        for m, k, n in SMALL_SHAPES:
+        ragged = TMA_RAGGED if dt == torch.bfloat16 else []
+        for m, k, n in SMALL_SHAPES + ragged:
             for trans in ("nn", "tn"):
                 _matmul_case(torch, matmul, gen, dt, m, k, n, trans)
         for trans in ("nn", "tn"):
-            e = _matmul_case(torch, matmul, gen, dt, GEMM_N, GEMM_N, GEMM_N, trans)
+            key, e = _matmul_case(torch, matmul, gen, dt, GEMM_N, GEMM_N, GEMM_N, trans)
+            if dt == torch.bfloat16 and key != "matmul_bf16":
+                _fail(f"the path's bf16 product ({trans}) routed to {key}")
             err[key] = max(err[key], e)
+    for trans in ("nn", "tn"):  # the WMMA kernel at the path's shape, for phase 5's comparison
+        key, e = _matmul_case(torch, matmul, gen, torch.bfloat16, GEMM_N, GEMM_N, GEMM_N, trans,
+                              entry="matmul_bf16_wmma")
+        err[key] = max(err[key], e)
     err["matmul_f32"] = max(
         err["matmul_f32"],
-        _matmul_case(torch, matmul, gen, torch.float32, *CONNECTED_PRESET4, "nn"),
+        _matmul_case(torch, matmul, gen, torch.float32, *CONNECTED_PRESET4, "nn")[1],
     )
     for dt in (torch.float32, torch.bfloat16):
         for shared in (True, False):
@@ -582,16 +708,30 @@ def phase_kernels(torch) -> dict:
                                          srad.srad_phase2_cuda(img, c),
                                          srad.srad_phase2_plain(img, c), 1e-5, 1e-6)
     for dt in (torch.float32, torch.bfloat16):
-        key = f"flash_attention_{'f32' if dt == torch.float32 else 'bf16'}"
         for case in ATTENTION_CASES:
             _attention_case(torch, fa, gen, dt, *case)
         for causal in (False, True):  # the model's views, and a cache cut to kv_len < S
             _attention_case(torch, fa, gen, dt, 2, 8, 2, 5, 29, 64, causal, None, views=True)
             _attention_case(torch, fa, gen, dt, 2, 32, 8, 1, 1087, 128, causal, None,
                             views=True)
+            _attention_case(torch, fa, gen, dt, 2, 32, 8, 40, 1087, 128, causal, None,
+                            views=True)
         for shape, causal in ((ATTN_PREFILL, True), (ATTN_DECODE, False)):
-            e = _attention_case(torch, fa, gen, dt, *shape, causal, None)
+            key, e = _attention_case(torch, fa, gen, dt, *shape, causal, None)
             err[key] = max(err[key], e)
+    bf16 = torch.bfloat16
+    for b, hq, hkv, t, s, _, causal, window in ATTENTION_CASES:  # at the tensor cores' D
+        for d in (64, 128):
+            _attention_case(torch, fa, gen, bf16, b, hq, hkv, t, s, d, causal, window)
+    for case in TC_ATTENTION_MORE:
+        _attention_case(torch, fa, gen, bf16, *case)
+    for shape, causal in ((ATTN_PREFILL, True), (ATTN_DECODE, False)):  # for phase 5
+        key, e = _attention_case(torch, fa, gen, bf16, *shape, causal, None,
+                                 entry="flash_attention_bf16_simt")
+        err[key] = max(err[key], e)
+    for case in DECODE_SPLIT_CASES:
+        _decode_split_case(torch, fa, gen, *case)
+    err["flash_decode_combine_bf16"] = _combine_case(torch, fa, gen)
     return err
 
 
@@ -679,6 +819,9 @@ def phase_main_path(torch) -> dict:
     for kernel in ("matmul_f32", "matmul_bf16", "softmax_f32"):
         if want[kernel] == 0:
             _fail(f"kernel {kernel} of the main path did not launch")
+    # Every bf16 GEMM/MaxFlops call went to the TMA + wgmma kernel.
+    print(f"  bf16 rows: matmul_bf16 {launches['matmul_bf16']} launches, matmul_bf16_wmma "
+          f"{launches['matmul_bf16_wmma'] + launches['matmul_bf16_wmma_batched']}")
     return launches
 
 
@@ -1051,11 +1194,19 @@ def phase_lm_serving(torch) -> tuple[dict, dict]:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     rounds = -(-kw["n_requests"] // kw["batch"])
     calls = len(stats.outputs[0])
+    # Each round: one prefill call and calls - 1 decode steps, every layer
+    # one attention call: the prefill on the wgmma kernel, each step on the
+    # decode kernel and its merge, none on the SIMT kernel.
     want = {k: 0 for k in full}
-    want["flash_attention_bf16"] = cfg.n_layers * rounds * calls
-    if full != want or want["flash_attention_bf16"] != 5120:
-        _fail(f"full serve launches {_nonzero(full)}; expected flash_attention_bf16 "
-              f"{cfg.n_layers} layers x {rounds} rounds x {calls} calls = 5120, nothing else")
+    want["flash_attention_bf16_wgmma"] = cfg.n_layers * rounds
+    want["flash_decode_bf16"] = want["flash_decode_combine_bf16"] = (
+        cfg.n_layers * rounds * (calls - 1))
+    if (full != want or want["flash_attention_bf16_wgmma"] != 80
+            or want["flash_decode_bf16"] != 5040):
+        _fail(f"full serve launches {_nonzero(full)}; expected flash_attention_bf16_wgmma "
+              f"{cfg.n_layers} layers x {rounds} rounds = 80, flash_decode_bf16 and "
+              f"flash_decode_combine_bf16 {cfg.n_layers} x {rounds} x {calls - 1} steps = 5040 "
+              f"each, nothing else")
     launches = {k: v + full[k] for k, v in launches.items()}
     toks = np.array(stats.outputs)
     if toks.shape != (kw["n_requests"], kw["gen_len"]) or toks.min() < 0 or \
@@ -1078,9 +1229,9 @@ def phase_lm_serving(torch) -> tuple[dict, dict]:
     last = logits[:, -1].argmax(-1)
     del logits
     info["prefill_device_ms"], info["prefill_attention_ms"] = _device_split_ms(
-        torch, lambda: model.prefill(tokens, kw["max_len"]), 1, "flash_kernel")
+        torch, lambda: model.prefill(tokens, kw["max_len"]), 1, "flash_")
     info["decode_device_ms"], info["decode_attention_ms"] = _device_split_ms(
-        torch, lambda: model.decode_step(cache, last, kw["prompt_len"]), 5, "flash_kernel")
+        torch, lambda: model.decode_step(cache, last, kw["prompt_len"]), 5, "flash_")
     del cache
     print(f"  full serve: {stats.requests} requests, batch {kw['batch']}, "
           f"{stats.prefill_tokens} prefill + {stats.decoded_tokens} decoded tokens in "
@@ -1090,9 +1241,9 @@ def phase_lm_serving(torch) -> tuple[dict, dict]:
           f"{min(decode_ms):.4f}, max {max(decode_ms):.4f}); peak memory {peak_gb:.2f} GB; "
           f"launches {_nonzero(full)}")
     print(f"  device time (torch.profiler): prefill {info['prefill_device_ms']:.3f} ms per call, "
-          f"{info['prefill_attention_ms']:.3f} of it in flash_attention_bf16; decode step "
+          f"{info['prefill_attention_ms']:.3f} of it in flash_attention_bf16_wgmma; decode step "
           f"{info['decode_device_ms']:.4f} ms, {info['decode_attention_ms']:.4f} of it in "
-          f"flash_attention_bf16")
+          f"flash_decode_bf16 and its merge")
     return launches, info
 
 
@@ -1125,17 +1276,24 @@ def _yardstick_cases(torch, gen, hw):
     from repro_torch.kernels import srad_stencil as srad
 
     rows = []
-    for dt, key in ((torch.float32, "matmul_f32"), (torch.bfloat16, "matmul_bf16")):
-        n = GEMM_N
+    n = GEMM_N
+    # f32; the bf16 TMA kernel on both of the path's layouts; the WMMA kernel
+    # it replaced on the path, at the same shape and inputs.
+    for dt, key, trans in ((torch.float32, "matmul_f32", "nn"),
+                           (torch.bfloat16, "matmul_bf16", "nn"),
+                           (torch.bfloat16, "matmul_bf16", "tn"),
+                           (torch.bfloat16, "matmul_bf16_wmma", "nn")):
         a = torch.randn(n, n, generator=gen, device="cuda").to(dt)
+        if trans == "tn":
+            a = a.T
         b = torch.randn(n, n, generator=gen, device="cuda").to(dt)
         cases = (
-            functools.partial(matmul.matmul_cuda, a, b),
+            functools.partial(matmul._launch, key, a, b),
             functools.partial(matmul.matmul_plain, a, b),
             functools.partial(torch.matmul, a, b),
         )
         roof = roofline_terms(2.0 * n**3, 3.0 * n * n * dt.itemsize, dtype=dt, hw=hw)
-        rows.append((key, f"{n}x{n}x{n}", roof, cases))
+        rows.append((key, f"{n}x{n}x{n} {trans}", roof, cases))
     r, c = SOFTMAX_PRESET4
     x = 5 * torch.randn(r, c, generator=gen, device="cuda")
     cases = (
@@ -1247,10 +1405,14 @@ def _visible_pairs(t: int, s: int, causal: bool, window) -> int:
 
 
 def _attention_yardstick(torch, gen, hw):
-    """The flash kernel at the serving path's shapes: bf16 prefill and decode
-    (the path's dtype), f32 prefill (the strict smoke run's kernel). The
-    bound counts 4*D operations per visible pair (two products) at the
-    dtype's peak, and q, k, v and o once each. The yardstick is
+    """The attention entries at the serving path's shapes: the wgmma prefill
+    kernel (bf16 prefill), the decode pair (bf16 decode step: the split
+    kernel and its merge, as the path launches them), the merge alone on the
+    decode kernel's partials, the SIMT kernel they replaced on the path (at
+    both shapes), and the f32 kernel (f32 prefill, the strict smoke run's).
+    The bound counts 4*D operations per visible pair (two products) at the
+    dtype's peak, and q, k, v and o once each; the merge's, the partials
+    read once and o written once. The yardstick is
     F.scaled_dot_product_attention (GQA through ``enable_gqa``), which the
     port never calls."""
     import torch.nn.functional as F
@@ -1259,10 +1421,12 @@ def _attention_yardstick(torch, gen, hw):
     from repro_torch.kernels import flash_attention as fa
 
     rows = []
-    for key, dt, (b, hq, hkv, t, s, d), causal in (
-        ("flash_attention_bf16", torch.bfloat16, ATTN_PREFILL, True),
-        ("flash_attention_bf16", torch.bfloat16, ATTN_DECODE, False),
-        ("flash_attention_f32", torch.float32, ATTN_PREFILL, True),
+    for key, dt, (b, hq, hkv, t, s, d), causal, what in (
+        ("flash_attention_bf16_wgmma", torch.bfloat16, ATTN_PREFILL, True, ""),
+        ("flash_decode_bf16", torch.bfloat16, ATTN_DECODE, False, " (split + merge)"),
+        ("flash_attention_bf16_simt", torch.bfloat16, ATTN_PREFILL, True, ""),
+        ("flash_attention_bf16_simt", torch.bfloat16, ATTN_DECODE, False, ""),
+        ("flash_attention_f32", torch.float32, ATTN_PREFILL, True, ""),
     ):
         q = torch.randn(b, hq, t, d, generator=gen, device="cuda").to(dt)
         k, v = (torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(dt)
@@ -1281,18 +1445,32 @@ def _attention_yardstick(torch, gen, hw):
         pairs = b * hq * _visible_pairs(t, s, causal, None)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         roof = roofline_terms(4.0 * d * pairs, nbytes, dtype=dt, hw=hw)
-        shape = f"B{b} Hq{hq} Hkv{hkv} T{t} S{s} D{d} {'causal' if causal else 'full'}"
+        shape = f"B{b} Hq{hq} Hkv{hkv} T{t} S{s} D{d} {'causal' if causal else 'full'}{what}"
         rows.append((key, shape, roof, (
-            functools.partial(fa.flash_attention_cuda, q, k, v, causal=causal), plain, library,
+            functools.partial(fa._launch, key, q, k, v, causal=causal), plain, library,
         )))
+        if key == "flash_decode_bf16":
+            lo, hi = fa.decode_tiles(t, s, hq // hkv, causal, None)
+            splits = fa.decode_splits(b, hkv, hi - lo, fa._sm_count(0))
+            part_o, part_ml = fa.flash_decode_partials_cuda(q, k, v, causal=causal,
+                                                            splits=splits)
+            out = fa._empty_out(q)
+            merge_bytes = (part_o.numel() + part_ml.numel()) * 4 + out.numel() * 2
+            rows.append(("flash_decode_combine_bf16",
+                         f"B{b} Hq{hq} T{t} D{d}, {splits} splits of {hi - lo} tiles",
+                         roofline_terms(3.0 * splits * out.numel(), merge_bytes,
+                                        dtype=torch.float32, hw=hw),
+                         (functools.partial(fa.flash_decode_combine_cuda, part_o, part_ml, out),
+                          functools.partial(fa.flash_decode_combine_plain, part_o, part_ml,
+                                            hq=hq, t=t, dtype=dt),
+                          None)))
     return rows
 
 
 def _attention_decode_scaling(torch, gen) -> None:
-    """The decode kernel (bf16, T=1) against the work it is given: the cache
-    length at the path's batch (one CTA per (batch, KV head): 64 CTAs on 132
-    SMs) and four times the batch (256 CTAs); event time over 50 calls and
-    the device's own time."""
+    """The decode pair (bf16, T=1) against the work it is given: the cache
+    length at the path's batch and four times the batch, with the splits it
+    picks; event time over 50 calls and the device's own time."""
     from repro_torch.kernels import flash_attention as fa
 
     b, hq, hkv, _, s, d = ATTN_DECODE
@@ -1300,10 +1478,13 @@ def _attention_decode_scaling(torch, gen) -> None:
         q = torch.randn(bb, hq, 1, d, generator=gen, device="cuda").to(torch.bfloat16)
         k, v = (torch.randn(bb, hkv, ss, d, generator=gen, device="cuda").to(torch.bfloat16)
                 for _ in range(2))
+        lo, hi = fa.decode_tiles(1, ss, hq // hkv, False, None)
+        splits = fa.decode_splits(bb, hkv, hi - lo, fa._sm_count(0))
         call = functools.partial(fa.flash_attention_cuda, q, k, v)
         ms = _time_ms(torch, call, reps=50, warmup=5)
-        print(f"  attention decode bf16 B{bb} S{ss}: {bb * hkv} CTAs of {-(-ss // 64)} key "
-              f"tiles: {ms:.4f} ms per call (device {_device_ms(torch, call):.4f} ms)")
+        print(f"  attention decode bf16 B{bb} S{ss}: {bb * hkv * splits} CTAs ({splits} splits "
+              f"of {hi - lo} key tiles): {ms:.4f} ms per call (device "
+              f"{_device_ms(torch, call):.4f} ms)")
 
 
 def _srad_launches(torch, gen) -> None:
@@ -1437,8 +1618,8 @@ def main() -> int:
     launches = {k: main_launches[k] + dnn_launches[k] + level_launches[k] + lm_launches[k]
                 for k in main_launches}
     kernels = phase_yardstick(torch, launches, errors)
-    # One row per kernel and shape: flash_attention_bf16 has two (prefill,
-    # decode), every other kernel one.
+    # One row per kernel and shape (matmul_bf16 has two, nn and tn), the
+    # kernels of no path left out.
     if {k["name"] for k in kernels} != set(KERNEL_SOURCES) - set(OFF_PATH):
         _fail("the kernels line does not list every kernel of the paths")
     idle = [k["name"] for k in kernels if k["launches"] == 0]

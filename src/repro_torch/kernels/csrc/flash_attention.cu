@@ -45,6 +45,13 @@
 // Strides come from the caller: q, k, v and o may be any views with a unit
 // last stride (the model hands in transposed activations and a cache sliced
 // to its valid length).
+//
+// Since the bf16 redesign this kernel serves f32 (flash_attention_f32) and
+// the bf16 calls the tensor-core kernels do not take
+// (flash_attention_bf16_simt): D in {8, 16, 32}, between 17 and 63 rows per
+// KV head, a group that does not divide 128, or views whose base or strides
+// are not 16-byte multiples. Prefill goes to flash_attention_wgmma.cu and
+// decode to flash_decode.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -412,9 +419,10 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, 
   return run<float>(q, k, v, o, B, Hq, Hkv, T, S, D, causal, window, scale, strides, vec, stream);
 }
 
-extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                                    int Hq, int Hkv, int T, int S, int D, int causal, int window,
-                                    float scale, const long long* strides, int vec, void* stream) {
+extern "C" int flash_attention_bf16_simt(const void* q, const void* k, const void* v, void* o,
+                                         int B, int Hq, int Hkv, int T, int S, int D, int causal,
+                                         int window, float scale, const long long* strides, int vec,
+                                         void* stream) {
   return run<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, T, S, D, causal, window, scale, strides, vec,
                             stream);
 }

@@ -29,7 +29,10 @@
 // warp through WMMA bf16 fragments with f32 accumulators), which lifts the
 // arithmetic intensity of each tile load far above the card's ridge. It is
 // deliberately the simple version: no TMA, no wgmma, no multi-stage pipeline,
-// so loads and math do not overlap. Those belong to a later revision.
+// so loads and math do not overlap. The bf16 operands that TMA can read go
+// to the TMA + wgmma kernel in matmul_wgmma.cu (entry matmul_bf16); this
+// WMMA kernel (entry matmul_bf16_wmma) keeps the rest: strides that are not
+// multiples of 8 elements, unaligned bases, a column-major B, and batches.
 //
 // Batch axis. The reference's Convolution im2col path vmaps the GEMM over
 // images (src/repro/bench/dnn/convolution.py:47): one shared (O, C*KH*KW)
@@ -303,10 +306,10 @@ extern "C" int matmul_f32(const void* a, const void* b, void* c, int batch, int 
                               static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int matmul_bf16(const void* a, const void* b, void* c, int batch, int M,
-                           int N, int K, long long sab, long long sam, long long sak,
-                           long long sbb, long long sbk, long long sbn,
-                           void* stream) {
+extern "C" int matmul_bf16_wmma(const void* a, const void* b, void* c, int batch, int M,
+                                int N, int K, long long sab, long long sam, long long sak,
+                                long long sbb, long long sbk, long long sbn,
+                                void* stream) {
   return launch_bf16<128, 128>(static_cast<const __nv_bfloat16*>(a),
                                static_cast<const __nv_bfloat16*>(b),
                                static_cast<__nv_bfloat16*>(c), batch, M, N, K, sab,

@@ -1,24 +1,38 @@
-"""Flash (online-softmax) attention kernel with GQA, causal and sliding-window
-masks; the queries sit at the last T of the S key positions, which covers
-prefill and cached decode.
+"""Flash (online-softmax) attention kernels with GQA, causal and
+sliding-window masks; the queries sit at the last T of the S key positions,
+which covers prefill and cached decode.
 
-Counterpart of ``repro/kernels/flash_attention.py``. The kernel is CUDA C++
-for Hopper in ``csrc/flash_attention.cu`` (see the note at its top for its
-bound and design): one CTA per 32 query rows of one KV head (the rows of its
-query heads, position-major), K and V tiles of 64 keys in shared memory in
-the input dtype, scores, max and sum in f32, and key-tile bounds from the
-causal and window masks as in the reference.
+Counterpart of ``repro/kernels/flash_attention.py``. Four hand-written CUDA
+entry points for Hopper, chosen per call by layout (:func:`_route`); see the
+note at the top of each source for its bound and design:
 
-- :func:`flash_attention_cuda` launches the kernel on q (B, Hq, T, D) and
-  k, v (B, Hkv, S, D), float32 or bfloat16, D in {8, 16, 32, 64, 128}. It
-  reads every operand through its strides and needs only a unit stride on
-  the last axis, so transposed activations and a cache sliced to its valid
-  length go in as views, never copied. The result is (B, Hq, T, D) laid out
-  as (B, T, Hq, D) in memory, so ``out.transpose(1, 2)`` is contiguous. It
-  raises on anything else, and on a CPU tensor.
+- ``flash_attention_bf16_wgmma`` (``csrc/flash_attention_wgmma.cu``), bf16
+  prefill: 128 packed rows of one KV head per CTA, q, k and v brought in by
+  TMA (k and v through a 2-stage mbarrier ring), both products on the
+  tensor cores by wgmma;
+- ``flash_decode_bf16`` + ``flash_decode_combine_bf16``
+  (``csrc/flash_decode.cu``), bf16 decode (at most 16 packed rows per KV
+  head): the visible keys split over CTAs, each writing its partial
+  (m, l, acc) in f32, and a second launch merging them;
+- ``flash_attention_bf16_simt`` and ``flash_attention_f32``
+  (``csrc/flash_attention.cu``): one CTA per 32 packed rows on the CUDA
+  cores, for f32 and for the bf16 layouts the other two do not take.
+
+- :func:`flash_attention_cuda` launches the routed entry on q (B, Hq, T, D)
+  and k, v (B, Hkv, S, D), float32 or bfloat16, D in {8, 16, 32, 64, 128}.
+  It reads every operand through its strides and needs only a unit stride
+  on the last axis, so transposed activations and a cache sliced to its
+  valid length go in as views, never copied. The result is (B, Hq, T, D)
+  laid out as (B, T, Hq, D) in memory, so ``out.transpose(1, 2)`` is
+  contiguous. It raises on anything else, and on a CPU tensor: a CUDA tensor
+  never reaches the plain version.
 - :func:`flash_attention_kernel` is the kernel route: CUDA tensors launch,
   CPU tensors run the plain version (:func:`flash_attention_plain`, the
   ``ref.py`` oracle).
+- :func:`flash_decode_plain` is the decode kernel's split-and-merge in plain
+  PyTorch (the tests hold it against the reference at every split count);
+  :func:`decode_tiles` and :func:`decode_splits` are the kernel's tile
+  range and the wrapper's choice of splits.
 - ``launches`` (per C entry point) and ``plain_calls`` count as in
   ``kernels/matmul.py``.
 """
@@ -26,6 +40,7 @@ causal and window masks as in the reference.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -36,33 +51,58 @@ __all__ = [
     "flash_attention_cuda",
     "flash_attention_kernel",
     "flash_attention_plain",
+    "flash_decode_cuda",
+    "flash_decode_plain",
+    "decode_tiles",
+    "decode_splits",
     "tune_space",
     "launches",
     "plain_calls",
     "HEAD_DIMS",
 ]
 
-launches = {"flash_attention_f32": 0, "flash_attention_bf16": 0}
+launches = {
+    "flash_attention_f32": 0, "flash_attention_bf16_simt": 0, "flash_attention_bf16_wgmma": 0,
+    "flash_decode_bf16": 0, "flash_decode_combine_bf16": 0,
+}
 plain_calls = 0
 
-_DTYPES = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
-_TILE = {"block_q": 32, "block_k": 64}  # the one tile csrc compiles
+_DTYPES = (torch.float32, torch.bfloat16)
+# The prefill kernel's tile, the one the op's block parameters name: 128
+# packed rows (two wgmma warpgroups of 64), 128 keys a tile. The decode
+# kernel's (16 rows at most, 64 keys) and the SIMT kernel's (32 rows, 64
+# keys) are fixed.
+_TILE = {"block_q": 128, "block_k": 128}
 HEAD_DIMS = (8, 16, 32, 64, 128)  # the head dims csrc instantiates
+TC_HEAD_DIMS = (64, 128)  # ... of which the wgmma and decode kernels take
+DECODE_ROWS = 16  # packed rows per KV head (group * T) the decode kernel holds
+DECODE_BLOCK_K = 64  # keys per decode tile
+MIN_WGMMA_ROWS = 64  # one consumer warpgroup's rows
+WAVE_SMS = 132  # an H100 SXM's SMs; the card's own count is used where there is one
 _MAX_GRID_YZ = 65535
 _INT_MAX = 2**31 - 1
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p,
+]
+_WGMMA_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
+]
+_DECODE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p,
+]
+_COMBINE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 3 + [
+    ctypes.c_void_p,
 ]
 
 
 def tune_space() -> tuple[dict, ...]:
     """Tile candidates (first entry = the kernel's defaults).
 
-    The reference sweeps 128/256-row blocks sized for VMEM. Here ``block_q``
-    counts the rows of one CTA (4 warps of 8 rows, taken from all query heads
-    of one KV head) and ``block_k`` the keys of one shared-memory tile. It
-    is the only tile compiled until a tune stage has a shape where another
-    one wins.
+    The reference sweeps 128/256-row blocks sized for VMEM. Here the tile
+    the op's block parameters name is the prefill kernel's: ``block_q`` the
+    packed rows of one CTA (two warpgroups of 64, wgmma's row count) and
+    ``block_k`` the keys of one tile in the TMA ring. It is the only tile
+    compiled; the decode and SIMT kernels each have one fixed tile.
     """
     return (dict(_TILE),)
 
@@ -101,6 +141,323 @@ def _check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> 
         raise ValueError(f"window must be None or >= 0, got {window}")
 
 
+def _aligned(x: torch.Tensor) -> bool:
+    """Base and strides (over axes of more than one entry) in 16-byte
+    multiples: what TMA and 16-byte cp.async need."""
+    return x.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 for n, st in zip(x.shape[:3], x.stride()[:3]) if n > 1
+    )
+
+
+def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window=None) -> str:
+    """The C entry point attention of these operands goes to, by dtype, head
+    dim, packed rows per KV head (group * T), and alignment:
+
+    - ``flash_attention_f32`` for float32;
+    - ``flash_decode_bf16`` for bf16 with D in {64, 128}, at most 16 packed
+      rows, and k and v 16-byte aligned;
+    - ``flash_attention_bf16_wgmma`` for bf16 with D in {64, 128}, at least
+      64 packed rows, a group that divides 128, and q, k and v 16-byte
+      aligned (TMA);
+    - ``flash_attention_bf16_simt`` for every other bf16 call.
+
+    Raises ``ValueError`` on what no entry takes. Looks only at shapes,
+    strides and addresses, so it answers for CPU tensors too."""
+    _check_layout(q, k, v, window)
+    if q.dtype == torch.float32:
+        return "flash_attention_f32"
+    _, hq, t, d = q.shape
+    group = hq // k.shape[1]
+    rows = group * t
+    if d in TC_HEAD_DIMS and _aligned(k) and _aligned(v):
+        if rows <= DECODE_ROWS:
+            return "flash_decode_bf16"
+        if rows >= MIN_WGMMA_ROWS and 128 % group == 0 and _aligned(q):
+            return "flash_attention_bf16_wgmma"
+    return "flash_attention_bf16_simt"
+
+
+def decode_tiles(t: int, s: int, group: int, causal: bool, window: int | None) -> tuple[int, int]:
+    """[lo, hi): the 64-key tiles any of the T queries (at positions S - T ..
+    S - 1) can see, as the decode kernel computes them."""
+    offset = s - t
+    n_tiles = -(-s // DECODE_BLOCK_K)
+    hi = n_tiles
+    if causal:
+        last = offset + t - 1
+        hi = 0 if last < 0 else min(last // DECODE_BLOCK_K + 1, n_tiles)
+    lo = 0
+    if window is not None:
+        first_key = offset - window + 1
+        lo = first_key // DECODE_BLOCK_K if first_key > 0 else 0
+    return lo, max(hi, lo)
+
+
+def decode_splits(b: int, hkv: int, n_tiles: int, sms: int = WAVE_SMS) -> int:
+    """How many CTAs share one (batch, KV head)'s tiles: enough that B * Hkv *
+    splits reaches two CTAs per SM, never more than the tiles (so every
+    split has one), at least 1."""
+    want = -(-2 * sms // max(b * hkv, 1))
+    return max(1, min(want, n_tiles))
+
+
+def _split_bounds(lo: int, hi: int, splits: int, i: int) -> tuple[int, int]:
+    """Tiles [tb, te) of split ``i``, as the kernel divides [lo, hi)."""
+    n = hi - lo
+    return lo + i * n // splits, lo + (i + 1) * n // splits
+
+
+_LOG2E = 1.4426950408889634
+
+
+def flash_decode_partials_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    window: int | None = None,
+    scale: float | None = None,
+    splits: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The decode kernel's first launch in plain PyTorch: the visible 64-key
+    tiles divided into ``splits`` runs as the kernel divides them, and for
+    each run and packed row (position-major over the group's heads) the
+    partial (m, l, acc) in f32, m in log2 units of the scaled scores; a run
+    that sees no key gives m = -1e30, l = 0, acc = 0. -> part_o (B, Hkv,
+    splits, rows, D) and part_ml (B, Hkv, splits, rows, 2), the kernel's
+    scratch layout."""
+    b, hq, t, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    group = hq // hkv
+    if scale is None:
+        scale = d**-0.5
+    lo, hi = decode_tiles(t, s, group, causal, window)
+    # Packed rows of each KV head: row r is position r // group of head
+    # kv * group + r % group.
+    qf = q.float().reshape(b, hkv, group, t, d).transpose(2, 3).reshape(b, hkv, t * group, d)
+    q_pos = (torch.arange(t * group, device=q.device) // group)[:, None] + (s - t)
+    part_o = qf.new_zeros((b, hkv, splits, t * group, d))
+    part_ml = qf.new_zeros((b, hkv, splits, t * group, 2))
+    part_ml[..., 0] = -1e30
+    for i in range(splits):
+        tb, te = _split_bounds(lo, hi, splits, i)
+        k_lo, k_hi = tb * DECODE_BLOCK_K, min(te * DECODE_BLOCK_K, s)
+        if k_hi <= k_lo:
+            continue
+        kf, vf = k[:, :, k_lo:k_hi].float(), v[:, :, k_lo:k_hi].float()
+        sc = torch.einsum("bkrd,bksd->bkrs", qf, kf) * (scale * _LOG2E)
+        k_pos = torch.arange(k_lo, k_hi, device=q.device)[None, :]
+        mask = torch.ones((t * group, k_hi - k_lo), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos <= q_pos
+        if window is not None:
+            mask &= k_pos > q_pos - window
+        sc = sc.masked_fill(~mask, float("-inf"))
+        m = sc.amax(-1).clamp_min(-1e30)
+        p = torch.exp2(sc - m[..., None])
+        part_ml[:, :, i, :, 0] = m
+        part_ml[:, :, i, :, 1] = p.sum(-1)
+        part_o[:, :, i] = torch.einsum("bkrs,bksd->bkrd", p, vf)
+    return part_o, part_ml
+
+
+def flash_decode_combine_plain(
+    part_o: torch.Tensor, part_ml: torch.Tensor, *, hq: int, t: int, dtype: torch.dtype
+) -> torch.Tensor:
+    """The merge launch in plain PyTorch: m* = max m_i, l = sum l_i
+    2^(m_i - m*), o = sum acc_i 2^(m_i - m*) / max(l, 1e-30), the packed
+    rows put back as (B, Hq, T, D) in ``dtype``."""
+    b, hkv, _, rows, d = part_o.shape
+    m = part_ml[..., 0]
+    w = torch.exp2(m - m.amax(2, keepdim=True))
+    l_sum = (part_ml[..., 1] * w).sum(2)
+    o = (part_o * w[..., None]).sum(2) / l_sum.clamp_min(1e-30)[..., None]
+    group = hq // hkv
+    return o.reshape(b, hkv, t, group, d).transpose(2, 3).reshape(b, hq, t, d).to(dtype)
+
+
+def flash_decode_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    window: int | None = None,
+    scale: float | None = None,
+    splits: int = 1,
+) -> torch.Tensor:
+    """The decode pair's arithmetic in plain PyTorch, split by split
+    (:func:`flash_decode_partials_plain`) and merged
+    (:func:`flash_decode_combine_plain`). Used by the tests; any T."""
+    part_o, part_ml = flash_decode_partials_plain(q, k, v, causal=causal, window=window,
+                                                  scale=scale, splits=splits)
+    return flash_decode_combine_plain(part_o, part_ml, hq=q.shape[1], t=q.shape[2],
+                                      dtype=q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _strides_arg(*tensors: torch.Tensor, fill: int = 0) -> ctypes.Array:
+    """Element strides of each tensor's first three axes; with ``fill``, an
+    axis of one entry gets ``fill`` (its stride is never used, and TMA wants
+    a 16-byte multiple)."""
+    out = []
+    for x in tensors:
+        out += [st if n > 1 or not fill else fill for n, st in zip(x.shape[:3], x.stride()[:3])]
+    return (ctypes.c_longlong * len(out))(*out)
+
+
+def _check_devices(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError(
+            f"flash_attention_cuda needs CUDA tensors, got {q.device}, {k.device}, {v.device}"
+        )
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, {v.device}")
+
+
+def _window_arg(window: int | None, s: int, t: int) -> int:
+    # A window at least S + T wide masks nothing; clamping keeps it an int.
+    return -1 if window is None else min(int(window), s + t + 1)
+
+
+def _decode_launch(q, k, v, causal, window, scale, splits, part, out, stream) -> None:
+    """Launch ``flash_decode_bf16`` into ``part`` (one f32 buffer: part_o,
+    then part_ml) and, when ``out`` is given, ``flash_decode_combine_bf16``
+    from it into ``out``. Operands already routed and checked, S >= 1."""
+    b, hq, t, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    po = part.data_ptr()
+    pml = po + b * hkv * splits * (hq // hkv * t) * d * 4
+    name = "flash_decode_bf16"
+    status = _build.function(name, _DECODE_ARGTYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), po, pml, b, hq, hkv, t, s, d,
+        int(bool(causal)), _window_arg(window, s, t),
+        float(d**-0.5 if scale is None else scale), _strides_arg(q, k, v), splits, stream,
+    )
+    _build.check(status, name)
+    launches[name] += 1
+    if out is not None:
+        _combine_launch(po, pml, out, b, hkv, splits, stream)
+
+
+def _combine_launch(po: int, pml: int, out, b, hkv, splits, stream) -> None:
+    _, hq, t, d = out.shape
+    name = "flash_decode_combine_bf16"
+    status = _build.function(name, _COMBINE_ARGTYPES)(
+        po, pml, out.data_ptr(), b, hq, hkv, t, d, splits, *out.stride()[:3], stream)
+    _build.check(status, name)
+    launches[name] += 1
+
+
+def _part_buffer(q, hkv, splits) -> torch.Tensor:
+    """The decode scratch: B * Hq * T * splits * (D + 2) floats."""
+    b, hq, t, d = q.shape
+    return torch.empty(b * hq * t * splits * (d + 2), dtype=torch.float32, device=q.device)
+
+
+def _decode(q, k, v, causal, window, scale, splits=None):
+    """The decode pair into a new output (operands already checked; S >= 1);
+    ``splits`` None picks :func:`decode_splits` for the card."""
+    b, hq, t, _ = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    if splits is None:
+        lo, hi = decode_tiles(t, s, hq // hkv, causal, window)
+        splits = decode_splits(b, hkv, hi - lo, _sm_count(q.device.index or 0))
+    out = _empty_out(q)
+    _decode_launch(q, k, v, causal, window, scale, splits, _part_buffer(q, hkv, splits), out,
+                   torch.cuda.current_stream(q.device).cuda_stream)
+    return out
+
+
+def _check_decode(q, k, v, window, splits) -> None:
+    name = _route(q, k, v, window)
+    if name != "flash_decode_bf16":
+        raise ValueError(f"flash_decode_bf16 does not take these operands ({name} does)")
+    _check_devices(q, k, v)
+    if (splits is not None and splits < 1) or k.shape[2] < 1 or q.numel() == 0:
+        raise ValueError(
+            f"decode needs splits >= 1, S >= 1 and queries, got {splits}, {tuple(k.shape)}, "
+            f"{tuple(q.shape)}"
+        )
+
+
+def flash_decode_partials_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    window: int | None = None,
+    scale: float | None = None,
+    splits: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The decode kernel alone (``flash_decode_bf16``) at ``splits`` splits
+    (any count from 1, more than the visible tiles included), on operands
+    :func:`_route` sends to it, with S >= 1: part_o and part_ml as
+    :func:`flash_decode_partials_plain` lays them out."""
+    _check_decode(q, k, v, window, splits)
+    b, hq, t, d = q.shape
+    hkv = k.shape[1]
+    part = _part_buffer(q, hkv, splits)
+    _decode_launch(q, k, v, causal, window, scale, splits, part, None,
+                   torch.cuda.current_stream(q.device).cuda_stream)
+    rows = hq // hkv * t
+    n = b * hkv * splits * rows
+    return (part[: n * d].view(b, hkv, splits, rows, d),
+            part[n * d:].view(b, hkv, splits, rows, 2))
+
+
+def flash_decode_combine_cuda(
+    part_o: torch.Tensor, part_ml: torch.Tensor, out: torch.Tensor
+) -> torch.Tensor:
+    """The merge launch (``flash_decode_combine_bf16``): the partials of
+    :func:`flash_decode_partials_cuda` into ``out`` (B, Hq, T, D) bf16, any
+    strides. Returns ``out``."""
+    b, hkv, splits, rows, d = part_o.shape
+    _, hq, t, _ = out.shape
+    if (part_ml.shape != (b, hkv, splits, rows, 2) or out.shape[0] != b or out.shape[3] != d
+            or hq % hkv or hq // hkv * t != rows or out.dtype != torch.bfloat16
+            or part_o.dtype != torch.float32 or part_ml.dtype != torch.float32
+            or not (part_o.is_contiguous() and part_ml.is_contiguous())):
+        raise ValueError(
+            f"decode combine: partials {tuple(part_o.shape)}, {tuple(part_ml.shape)} do not fit "
+            f"a bf16 output {tuple(out.shape)}"
+        )
+    if not (part_o.is_cuda and part_ml.is_cuda and out.is_cuda):
+        raise ValueError("flash_decode_combine_cuda needs CUDA tensors")
+    _combine_launch(part_o.data_ptr(), part_ml.data_ptr(), out, b, hkv, splits,
+                    torch.cuda.current_stream(out.device).cuda_stream)
+    return out
+
+
+def _empty_out(q: torch.Tensor) -> torch.Tensor:
+    """(B, Hq, T, D) laid out as (B, T, Hq, D), so the model's reshape is free."""
+    b, hq, t, d = q.shape
+    return torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+
+
+def flash_decode_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    window: int | None = None,
+    scale: float | None = None,
+    splits: int | None = None,
+) -> torch.Tensor:
+    """The decode pair, the counterpart of :func:`flash_decode_plain`:
+    ``splits`` None picks :func:`decode_splits` for the card, as
+    :func:`flash_attention_cuda` does."""
+    _check_decode(q, k, v, window, splits)
+    return _decode(q, k, v, causal, window, scale, splits)
+
+
 def flash_attention_cuda(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -109,43 +466,64 @@ def flash_attention_cuda(
     causal: bool = False,
     window: int | None = None,
     scale: float | None = None,
-    block_q: int = 32,
-    block_k: int = 64,
+    block_q: int = 128,
+    block_k: int = 128,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel: attention of q (B, Hq, T, D) over k, v
-    (B, Hkv, S, D); returns (B, Hq, T, D) in q's dtype."""
-    _check_layout(q, k, v, window)
+    """Launch the entry :func:`_route` names: attention of q (B, Hq, T, D)
+    over k, v (B, Hkv, S, D); returns (B, Hq, T, D) in q's dtype.
+    ``block_q``/``block_k`` name the prefill kernel's tile, the one there
+    is a choice of (:func:`tune_space`)."""
+    name = _route(q, k, v, window)
     if {"block_q": block_q, "block_k": block_k} != _TILE:
         raise ValueError(f"no compiled tile ({block_q}, {block_k}); compiled: {_TILE}")
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError(
-            f"flash_attention_cuda needs CUDA tensors, got {q.device}, {k.device}, {v.device}"
-        )
-    if k.device != q.device or v.device != q.device:
-        raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, {v.device}")
+    _check_devices(q, k, v)
+    return _run(name, q, k, v, causal, window, scale)
+
+
+def _launch(name: str, q, k, v, *, causal=False, window=None, scale=None) -> torch.Tensor:
+    """Launch entry ``name``, one that takes these operands: the routed one,
+    or the SIMT kernel for any bf16 call (which is how a comparison times it
+    at the shapes the tensor-core kernels take)."""
+    routed = _route(q, k, v, window)
+    if name not in (routed, "flash_attention_bf16_simt" if q.dtype == torch.bfloat16 else routed):
+        raise ValueError(f"attention entry {name} does not take these operands ({routed} does)")
+    _check_devices(q, k, v)
+    return _run(name, q, k, v, causal, window, scale)
+
+
+def _run(name: str, q, k, v, causal, window, scale) -> torch.Tensor:
+    """Launch entry ``name`` on operands already routed and checked."""
     b, hq, t, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
-    out = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if name == "flash_decode_bf16" and s > 0 and q.numel() > 0:
+        return _decode(q, k, v, causal, window, scale)
+    out = _empty_out(q)
     if out.numel() == 0:
         return out
     if s == 0:
         return out.zero_()
     if scale is None:
         scale = d**-0.5
-    # A window at least S + T wide masks nothing; clamping keeps it an int.
-    win = -1 if window is None else min(int(window), s + t + 1)
-    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    # Tile loads go 16 bytes at a time where every k and v row starts on a
-    # 16-byte boundary; elementwise otherwise.
-    vec = int(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0
-              and all(st * q.element_size() % 16 == 0 for st in strides[3:9]))
-    name = _DTYPES[q.dtype]
-    fn = _build.function(name, _ARGTYPES)
+    win = _window_arg(window, s, t)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, t, s, d,
-        int(bool(causal)), win, float(scale), (ctypes.c_longlong * 12)(*strides), vec, stream,
-    )
+    if name == "flash_attention_bf16_wgmma":
+        fn = _build.function(name, _WGMMA_ARGTYPES)
+        status = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, t, s, d,
+            int(bool(causal)), win, float(scale), _strides_arg(q, k, v, out, fill=d), stream,
+        )
+    else:
+        strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+        # Tile loads go 16 bytes at a time where every k and v row starts on a
+        # 16-byte boundary; elementwise otherwise.
+        vec = int(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0
+                  and all(st * q.element_size() % 16 == 0 for st in strides[3:9]))
+        fn = _build.function(name, _ARGTYPES)
+        status = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, t, s, d,
+            int(bool(causal)), win, float(scale), (ctypes.c_longlong * 12)(*strides), vec,
+            stream,
+        )
     _build.check(status, name)
     launches[name] += 1
     return out

@@ -1,17 +1,30 @@
-"""Blocked GEMM kernel (the GEMM and MaxFlops benchmarks, the DNN Connected
+"""Blocked GEMM kernels (the GEMM and MaxFlops benchmarks, the DNN Connected
 layer, Convolution's im2col path): C = A @ B with f32 accumulation, C in A's
 dtype.
 
-Counterpart of ``repro/kernels/matmul.py``. The kernel is CUDA C++ for
-Hopper in ``csrc/matmul.cu`` (see the note at its top for its bound and
-design): a register-blocked f32 FMA GEMM that stays true f32, and a WMMA
-bf16 tensor-core GEMM with f32 accumulators. It masks ragged edges itself
-and reads each operand through its row and column strides, so a transposed
-view is taken in place, never copied. A third grid axis runs a batch of
-products in one launch, each operand offset by its own batch stride; a
-stride of 0 broadcasts an operand, such as Convolution's shared weight.
+Counterpart of ``repro/kernels/matmul.py``. The kernels are CUDA C++ for
+Hopper (see the note at the top of each source for its bound and design):
 
-- :func:`matmul_cuda` launches the kernel on ``a`` (M, K) or (B, M, K) and
+- ``matmul_bf16`` (``csrc/matmul_wgmma.cu``): persistent CTAs, TMA loads
+  through a 4-stage mbarrier ring, wgmma m64n256k16 on the tensor cores,
+  for 2-D bf16 operands that TMA can read (:func:`_route`);
+- ``matmul_bf16_wmma`` (``csrc/matmul.cu``): WMMA bf16 fragments with f32
+  accumulators, for every other bf16 layout, batches included;
+- ``matmul_f32`` (``csrc/matmul.cu``): a register-blocked f32 FMA GEMM that
+  stays true f32.
+
+The WMMA and f32 kernels mask ragged edges themselves and read each operand
+through its row and column strides, so a transposed view is taken in place,
+never copied. A third grid axis runs a batch of products in one launch,
+each operand offset by its own batch stride; a stride of 0 broadcasts an
+operand, such as Convolution's shared weight. The TMA kernel reads a
+transposed A (the gemm "tn" specs pass ``a.T``) through its tensor map and
+wgmma's transpose bit, and TMA's zero fill covers its ragged edges.
+
+- :func:`_route` names the entry a pair of operands goes to, from dtype,
+  rank, strides and alignment alone (it runs on CPU tensors too); it
+  raises on what no entry takes.
+- :func:`matmul_cuda` launches that entry on ``a`` (M, K) or (B, M, K) and
   ``b`` (K, N) or (B, K, N), with ``torch.matmul``'s broadcasting of a
   2-D operand or a batch of 1. It takes CUDA tensors only and raises on
   anything it does not take: another device or dtype, a rank other than 2
@@ -21,10 +34,10 @@ stride of 0 broadcasts an operand, such as Convolution's shared weight.
   tensor goes to :func:`matmul_cuda`, a CPU tensor to the plain version
   (:func:`matmul_plain`, the ``ref.py`` oracle), the way the reference runs
   its Pallas kernel interpreted off-TPU.
-- ``launches`` counts launches of the kernel (``matmul_cuda`` only) per C
-  entry point (f32, bf16), batched launches (a 3-D result) under their own
-  ``*_batched`` key; ``plain_calls`` counts kernel-route calls that ran the
-  plain version because their tensors lay on the CPU.
+- ``launches`` counts launches per C entry point, batched launches (a 3-D
+  result) under their own ``*_batched`` key; ``plain_calls`` counts
+  kernel-route calls that ran the plain version because their tensors lay
+  on the CPU.
 """
 
 from __future__ import annotations
@@ -46,14 +59,19 @@ __all__ = [
 ]
 
 launches = {
-    "matmul_f32": 0, "matmul_bf16": 0, "matmul_f32_batched": 0, "matmul_bf16_batched": 0,
+    "matmul_f32": 0, "matmul_f32_batched": 0, "matmul_bf16": 0, "matmul_bf16_wmma": 0,
+    "matmul_bf16_wmma_batched": 0,
 }
 plain_calls = 0
 
-_DTYPES = {torch.float32: "matmul_f32", torch.bfloat16: "matmul_bf16"}
+_DTYPES = (torch.float32, torch.bfloat16)
 _TILE = {"block_m": 128, "block_n": 128}  # the one tile csrc compiles
 MAX_BATCH = 65535  # the grid's z extent
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6 + [
+    ctypes.c_void_p,
+]
+# matmul_bf16: a, b, c, M, N, K, a_m_major, lda, ldb, stream
+_TMA_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2 + [
     ctypes.c_void_p,
 ]
 
@@ -64,8 +82,9 @@ def tune_space() -> tuple[dict, ...]:
     The reference sweeps 128/256 blocks sized for the TPU's 128x128 matrix
     unit. On Hopper a block is one CTA: 128x128 (256 threads for f32, eight
     warps of WMMA fragments for bf16) fills the SMs at the suite's large
-    shapes. It is the only tile compiled until a tune stage has a shape
-    where another one wins.
+    shapes. It is the only tile compiled for those two, until a tune stage
+    has a shape where another one wins. The TMA kernel's 128x256 tile is
+    fixed by its wgmma shape and is not a tune parameter.
     """
     return (dict(_TILE),)
 
@@ -81,22 +100,41 @@ def _strides(t: torch.Tensor, name: str) -> tuple[int, int]:
     )
 
 
-def _batch_stride(t: torch.Tensor) -> int:
-    """The stride between batch entries; 0 broadcasts (2-D, or a batch of 1)."""
-    return t.stride(0) if t.dim() == 3 and t.shape[0] > 1 else 0
+def _tma_layout(t: torch.Tensor, rows_major: bool) -> int | None:
+    """The leading stride, in elements, under which TMA reads the 2-D bf16
+    operand ``t`` row-major (``rows_major``: its columns contiguous) or
+    column-major; None where it cannot: a base off 16 bytes, no unit stride
+    on the contiguous axis, or a leading stride that is not a multiple of 8
+    elements (16 bytes). A single row (column) never uses its stride, so
+    any 16-byte multiple at least the row's extent serves."""
+    rows, cols = t.shape
+    rs, cs = t.stride()
+    n, lead, unit, extent = (rows, rs, cs, cols) if rows_major else (cols, cs, rs, rows)
+    if t.data_ptr() % 16 or (unit != 1 and extent != 1):
+        return None
+    if n == 1:
+        return -(-extent // 8) * 8
+    return lead if lead > 0 and lead % 8 == 0 else None
 
 
-def matmul_cuda(
-    a: torch.Tensor, b: torch.Tensor, *, block_m: int = 128, block_n: int = 128
-) -> torch.Tensor:
-    """Launch the CUDA kernel on ``a`` (M, K) or (B, M, K) and ``b`` (K, N)
-    or (B, K, N); the result is (B, M, N) when either operand is batched."""
-    if not (a.is_cuda and b.is_cuda):
-        raise ValueError(
-            f"matmul_cuda needs CUDA tensors, got {a.device} and {b.device}"
-        )
-    if a.device != b.device:
-        raise ValueError(f"operands on different devices: {a.device}, {b.device}")
+def _tma_operands(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int] | None:
+    """(a_m_major, lda, ldb) for the TMA kernel, or None: 2-D bf16 (or a
+    batch of 1) with B row-major and A row- or column-major."""
+    if a.dtype != torch.bfloat16 or any(t.dim() == 3 and t.shape[0] != 1 for t in (a, b)):
+        return None
+    a2 = a[0] if a.dim() == 3 else a
+    b2 = b[0] if b.dim() == 3 else b
+    ldb = _tma_layout(b2, rows_major=True)
+    if ldb is None:
+        return None
+    lda = _tma_layout(a2, rows_major=True)
+    if lda is not None:
+        return 0, lda, ldb
+    lda = _tma_layout(a2, rows_major=False)
+    return None if lda is None else (1, lda, ldb)
+
+
+def _check(a: torch.Tensor, b: torch.Tensor) -> None:
     if a.dtype != b.dtype or a.dtype not in _DTYPES:
         raise ValueError(
             f"matmul kernel takes two float32 or two bfloat16 operands, got "
@@ -112,20 +150,70 @@ def matmul_cuda(
         raise ValueError(
             f"matmul kernel batches differ: {tuple(a.shape)} @ {tuple(b.shape)}"
         )
-    batched = bool(batches)
-    batch = max(batches, default=1)
-    if batch > MAX_BATCH:
+    if max(batches, default=1) > MAX_BATCH:
         raise ValueError(
-            f"matmul kernel takes at most {MAX_BATCH} batch entries, got {batch}"
+            f"matmul kernel takes at most {MAX_BATCH} batch entries, got {max(batches)}"
         )
+    _strides(a, "a")
+    _strides(b, "b")
+
+
+def _route(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The C entry point ``a @ b`` goes to: ``matmul_f32`` for float32;
+    ``matmul_bf16`` (TMA + wgmma) for 2-D bf16 (or a batch of 1) whose B
+    is row-major, whose A is row- or column-major, whose bases are 16-byte
+    aligned and whose leading strides are multiples of 8 elements;
+    ``matmul_bf16_wmma`` for every other bf16 pair. Raises ``ValueError``
+    on what no entry takes. Looks only at dtype, shapes, strides and
+    addresses, so it answers for CPU tensors too."""
+    _check(a, b)
+    if a.dtype == torch.float32:
+        return "matmul_f32"
+    return "matmul_bf16" if _tma_operands(a, b) is not None else "matmul_bf16_wmma"
+
+
+def _batch_stride(t: torch.Tensor) -> int:
+    """The stride between batch entries; 0 broadcasts (2-D, or a batch of 1)."""
+    return t.stride(0) if t.dim() == 3 and t.shape[0] > 1 else 0
+
+
+def matmul_cuda(
+    a: torch.Tensor, b: torch.Tensor, *, block_m: int = 128, block_n: int = 128
+) -> torch.Tensor:
+    """Launch the entry :func:`_route` names on ``a`` (M, K) or (B, M, K) and
+    ``b`` (K, N) or (B, K, N); the result is (B, M, N) when either operand
+    is batched. ``block_m``/``block_n`` name the f32 and WMMA kernels' tile."""
+    _check_devices(a, b)
+    name = _route(a, b)
     if {"block_m": block_m, "block_n": block_n} != _TILE:
         raise ValueError(
             f"no compiled tile ({block_m}, {block_n}); compiled: {_TILE}"
         )
+    return _launch(name, a, b)
+
+
+def _check_devices(a: torch.Tensor, b: torch.Tensor) -> None:
+    if not (a.is_cuda and b.is_cuda):
+        raise ValueError(
+            f"matmul_cuda needs CUDA tensors, got {a.device} and {b.device}"
+        )
+    if a.device != b.device:
+        raise ValueError(f"operands on different devices: {a.device}, {b.device}")
+
+
+def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch entry ``name``, one that takes these operands: the routed one,
+    or the WMMA kernel for any bf16 pair (which is how a comparison times
+    it on layouts the TMA kernel takes)."""
+    _check_devices(a, b)
+    routed = _route(a, b)
+    if name not in (routed, "matmul_bf16_wmma" if a.dtype == torch.bfloat16 else routed):
+        raise ValueError(f"matmul entry {name} does not take these operands ({routed} does)")
+    batches = {t.shape[0] for t in (a, b) if t.dim() == 3}
+    batched = bool(batches)
+    batch = max(batches, default=1)
     m, k = a.shape[-2:]
     n = b.shape[-1]
-    sam, sak = _strides(a, "a")
-    sbk, sbn = _strides(b, "b")
     c = torch.empty((batch, m, n), dtype=a.dtype, device=a.device)
     if not batched:
         c = c[0]
@@ -133,15 +221,23 @@ def matmul_cuda(
         return c
     if k == 0:
         return c.zero_()
-    name = _DTYPES[a.dtype]
-    fn = _build.function(name, _ARGTYPES)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    status = fn(
-        a.data_ptr(), b.data_ptr(), c.data_ptr(), batch, m, n, k,
-        _batch_stride(a), sam, sak, _batch_stride(b), sbk, sbn, stream,
-    )
+    if name == "matmul_bf16":
+        a_m_major, lda, ldb = _tma_operands(a, b)
+        fn = _build.function(name, _TMA_ARGTYPES)
+        status = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, a_m_major, lda, ldb,
+                    stream)
+    else:
+        sam, sak = _strides(a, "a")
+        sbk, sbn = _strides(b, "b")
+        fn = _build.function(name, _ARGTYPES)
+        status = fn(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), batch, m, n, k,
+            _batch_stride(a), sam, sak, _batch_stride(b), sbk, sbn, stream,
+        )
     _build.check(status, name)
-    launches[name + "_batched" if batched else name] += 1
+    # A batch of 1 on the TMA kernel is its 2-D product.
+    launches[name + "_batched" if batched and name != "matmul_bf16" else name] += 1
     return c
 
 

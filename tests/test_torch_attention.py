@@ -126,7 +126,7 @@ def test_launcher_refuses_layouts_before_any_launch():
     with pytest.raises(ValueError, match="do not match"):
         tfa.flash_attention_cuda(q, torch.ones(1, 2, 5, 16), torch.ones(1, 2, 6, 16))
     with pytest.raises(ValueError, match="compiled tile"):
-        tfa.flash_attention_cuda(q, q, q, block_q=128)
+        tfa.flash_attention_cuda(q, q, q, block_q=32)
     with pytest.raises(ValueError, match="window"):
         tfa.flash_attention_cuda(q, q, q, window=-1)
     # A layout it takes, on the CPU: refused for the device, not run.
@@ -137,7 +137,137 @@ def test_launcher_refuses_layouts_before_any_launch():
 
 
 def test_attention_is_a_kernel_op_with_one_compiled_tile():
+    # The tile the op's block parameters name is the wgmma prefill kernel's:
+    # 128 packed rows (two warpgroups of 64), 128 keys a tile.
     assert ops.KERNEL_OPS["attention"] is tfa
-    assert ops.tune_space("attention") == ({"block_q": 32, "block_k": 64},)
+    assert ops.tune_space("attention") == ({"block_q": 128, "block_k": 128},)
     with pytest.raises(KeyError, match="unknown kernel op"):
         ops.tune_space("flash")
+
+
+# Decode-shaped cases (at most 16 packed rows per KV head): B, Hq, Hkv, T, S,
+# D, causal, window. Windows that leave the first splits without a visible
+# key for some rows (T > 1), S below one tile, and a cache of many tiles.
+DECODE_CASES = [
+    (1, 4, 2, 1, 64, 16, True, None),
+    (1, 4, 2, 1, 64, 16, True, 17),
+    (2, 8, 2, 1, 300, 32, False, None),
+    (1, 4, 1, 4, 200, 16, True, 70),
+    (1, 8, 2, 2, 260, 16, False, 100),
+    (2, 4, 4, 1, 40, 16, True, None),
+]
+
+
+def _decode_params():
+    out = []
+    for case in DECODE_CASES:
+        _, hq, hkv, t, s, _, causal, window = case
+        lo, hi = tfa.decode_tiles(t, s, hq // hkv, causal, window)
+        for splits in sorted({1, 2, 3, hi - lo, hi - lo + 1, hi - lo + 3} - {0}):
+            out.append((*case, splits))
+    return out
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,s,d,causal,window,splits", _decode_params())
+def test_flash_decode_plain_matches_reference_at_every_split_count(
+        rng, b, hq, hkv, t, s, d, causal, window, splits):
+    """The decode kernel's split-and-merge, in plain PyTorch, against the
+    reference's flash kernel (interpret mode), from one split to more splits
+    than visible tiles."""
+    q, k, v = _qkv(rng, b, hq, hkv, t, s, d)
+    want = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  causal=causal, window=window, block_q=16, block_k=16,
+                                  interpret=True)
+    tq, tk, tv = from_reference([q, k, v], "cpu")
+    got = tfa.flash_decode_plain(tq, tk, tv, causal=causal, window=window, splits=splits)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, hq, t, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+    lo, hi = tfa.decode_tiles(t, s, hq // hkv, causal, window)
+    _, part_ml = tfa.flash_decode_partials_plain(tq, tk, tv, causal=causal, window=window,
+                                                 splits=splits)
+    # With more splits than visible tiles some get none: m = -1e30, l = 0.
+    empty = [i for i in range(splits) if len(set(tfa._split_bounds(lo, hi, splits, i))) == 1]
+    assert len(empty) == max(splits - (hi - lo), 0)
+    for i in empty:
+        assert bool((part_ml[:, :, i, :, 0] == -1e30).all())
+        assert bool((part_ml[:, :, i, :, 1] == 0).all())
+
+
+def test_flash_decode_plain_bf16_matches_reference(rng):
+    q, k, v = _qkv(rng, 2, 32, 8, 1, 300, 128)
+    qb, kb, vb = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
+    want = jref.attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    got = tfa.flash_decode_plain(*from_reference([np.asarray(x) for x in (qb, kb, vb)], "cpu"),
+                                 splits=3)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("b,hkv,s", [(8, 8, 1088), (8, 8, 1025), (1, 8, 1088), (2, 1, 200),
+                                     (32, 8, 1088), (8, 8, 40), (64, 8, 2048)])
+def test_decode_splits_fill_two_waves_with_a_tile_each(b, hkv, s):
+    """Enough splits for 2 x 132 CTAs where the tiles allow it, and never a
+    split without a tile."""
+    lo, hi = tfa.decode_tiles(1, s, 4, False, None)
+    n = hi - lo
+    splits = tfa.decode_splits(b, hkv, n)
+    assert 1 <= splits <= max(n, 1)
+    assert b * hkv * splits >= 2 * 132 or splits == n
+    assert all(te > tb for tb, te in (tfa._split_bounds(lo, hi, splits, i)
+                                      for i in range(splits)))
+    if (b, hkv, s) == (8, 8, 1088):  # the serving path's decode step
+        assert (n, splits, b * hkv * splits) == (17, 5, 320)
+
+
+def _bf16(*shape):
+    return torch.empty(*shape, dtype=torch.bfloat16)
+
+
+def test_route_sends_the_paths_shapes_to_the_new_entries():
+    # Prefill and decode of granite-3-8b at batch 8, contiguous and as the
+    # model's views (transposed activations, a cache sliced to kv_len).
+    q, kv = _bf16(8, 32, 1024, 128), _bf16(8, 8, 1024, 128)
+    assert tfa._route(q, kv, kv) == "flash_attention_bf16_wgmma"
+    assert tfa._route(_bf16(8, 32, 1, 128), _bf16(8, 8, 1088, 128),
+                      _bf16(8, 8, 1088, 128)) == "flash_decode_bf16"
+    cache = _bf16(8, 1096, 8, 128)
+    qv = _bf16(8, 1024, 32, 128).transpose(1, 2)
+    assert tfa._route(qv, cache[:, :1024].transpose(1, 2),
+                      cache[:, :1024].transpose(1, 2)) == "flash_attention_bf16_wgmma"
+    step = _bf16(8, 1, 32, 128).transpose(1, 2)
+    assert tfa._route(step, cache[:, :1025].transpose(1, 2),
+                      cache[:, :1025].transpose(1, 2), None) == "flash_decode_bf16"
+    assert tfa._route(q.float(), kv.float(), kv.float()) == "flash_attention_f32"
+
+
+def test_route_keeps_the_simt_kernel_for_what_the_new_entries_do_not_take():
+    q, kv = _bf16(1, 4, 1, 128), _bf16(1, 2, 64, 128)
+    odd = _bf16(1 + 2 * 64 * 128)[1:].view(1, 2, 64, 128)  # one element into its storage
+    assert odd.data_ptr() % 16 != 0
+    assert tfa._route(q, odd, odd) == "flash_attention_bf16_simt"
+    assert tfa._route(_bf16(1, 4, 64, 128), odd, odd) == "flash_attention_bf16_simt"
+    assert tfa._route(_bf16(1, 4, 1, 16), _bf16(1, 2, 64, 16),
+                      _bf16(1, 2, 64, 16)) == "flash_attention_bf16_simt"  # D = 16
+    one = _bf16(1, 1, 64, 128)
+    assert tfa._route(_bf16(1, 4, 5, 128), one, one) == "flash_attention_bf16_simt"  # 20 rows
+    assert tfa._route(_bf16(1, 6, 32, 64), _bf16(1, 1, 64, 64),
+                      _bf16(1, 1, 64, 64)) == "flash_attention_bf16_simt"  # group 6
+    assert tfa._route(q, kv, kv) == "flash_decode_bf16"
+
+
+def test_route_refuses_layouts_no_entry_takes():
+    q = _bf16(1, 4, 1, 64)
+    with pytest.raises(ValueError, match="unit stride"):
+        tfa._route(q, _bf16(1, 2, 8, 128)[..., ::2], _bf16(1, 2, 8, 64))
+    with pytest.raises(ValueError, match="head dim"):
+        tfa._route(_bf16(1, 4, 1, 96), _bf16(1, 2, 8, 96), _bf16(1, 2, 8, 96))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tfa._route(q.half(), _bf16(1, 2, 8, 64).half(), _bf16(1, 2, 8, 64).half())
+    launches = dict(tfa.launches)
+    for fn in (tfa.flash_attention_cuda, tfa.flash_decode_cuda):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(q, _bf16(1, 2, 8, 64), _bf16(1, 2, 8, 64))
+    with pytest.raises(ValueError, match="does not take"):
+        tfa.flash_decode_partials_cuda(_bf16(1, 4, 64, 64), _bf16(1, 2, 64, 64),
+                                       _bf16(1, 2, 64, 64), splits=2)
+    assert tfa.launches == launches

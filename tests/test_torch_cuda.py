@@ -123,7 +123,7 @@ def test_batched_matmul_kernel_matches_plain(card, dtype, shared):
     before = dict(matmul.launches)
     got = matmul.matmul_cuda(a, b)
     torch.cuda.synchronize()
-    key = "matmul_f32_batched" if dtype == torch.float32 else "matmul_bf16_batched"
+    key = "matmul_f32_batched" if dtype == torch.float32 else "matmul_bf16_wmma_batched"
     assert matmul.launches[key] == before[key] + 1
     assert got.shape == (batch, m, n)
     tol = _tol(dtype)
@@ -215,8 +215,8 @@ def test_dnn_kernel_rows_on_the_card_launch_the_kernels(card):
     calls = 1 + 1 + 1 + 2 * (1 + 4)
     deltas = {k: m.launches[k] - b[k] for m, b in zip(mods, before) for k in m.launches}
     assert deltas == {
-        "matmul_f32": 0, "matmul_bf16": 0, "matmul_f32_batched": calls,
-        "matmul_bf16_batched": 0, "lrn_f32": calls, "avgpool_f32": calls,
+        "matmul_f32": 0, "matmul_f32_batched": calls, "matmul_bf16": 0, "matmul_bf16_wmma": 0,
+        "matmul_bf16_wmma_batched": 0, "lrn_f32": calls, "avgpool_f32": calls,
     }
 
 
@@ -351,7 +351,7 @@ def _attention_tol(dtype) -> float:
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_kernel_matches_plain(card, b, hq, hkv, t, s, d, causal, window, dtype):
     q, k, v = _attention_inputs(card, b, hq, hkv, t, s, d, dtype)
-    key = "flash_attention_f32" if dtype == torch.float32 else "flash_attention_bf16"
+    key = flash_attention._route(q, k, v, window)
     before = flash_attention.launches[key]
     got = flash_attention.flash_attention_cuda(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -405,3 +405,143 @@ def test_attention_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="head dim"):
         ops_attention(q[..., :12], q[..., :12], q[..., :12], mode="kernel")
     assert flash_attention.plain_calls == plain
+
+
+# The bf16 GEMM's TMA kernel: the reference's shapes (those TMA can read go
+# to it, the rest to the WMMA kernel), the path's 4096^3, and ragged M and N
+# that only TMA's zero fill covers.
+TMA_MATMUL_SHAPES = MATMUL_SHAPES + [(4096, 4096, 4096), (1000, 1000, 1000), (200, 72, 136)]
+
+
+@pytest.mark.parametrize("m,k,n", TMA_MATMUL_SHAPES)
+@pytest.mark.parametrize("layout", ["nn", "tn"])
+def test_bf16_matmul_entries_match_plain(card, m, k, n, layout):
+    rng = np.random.default_rng(0)
+    a_np = rng.standard_normal((m, k), dtype=np.float32)
+    if layout == "tn":
+        a = torch.from_numpy(a_np.T.copy()).to(card, torch.bfloat16).T
+    else:
+        a = torch.from_numpy(a_np).to(card, torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).to(card, torch.bfloat16)
+    key = matmul._route(a, b)
+    if min(m, n) >= 200:
+        assert key == "matmul_bf16"
+    before = dict(matmul.launches)
+    got = matmul.matmul_cuda(a, b)
+    torch.cuda.synchronize()
+    assert {k_: matmul.launches[k_] - before[k_] for k_ in before} == {
+        k_: int(k_ == key) for k_ in before}
+    want = matmul.matmul_plain(a, b)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_bf16_matmul_wmma_takes_what_tma_cannot(card):
+    """A row stride that is not a multiple of 8, a base off 16 bytes, and a
+    column-major B go to the WMMA kernel, and agree with the plain version
+    there."""
+    bf = torch.bfloat16
+    a_ragged = torch.randn(64, 66, device=card).to(bf)[:, :65]  # row stride 66
+    b_odd = torch.randn(65 * 72 + 8, device=card).to(bf)[1:1 + 65 * 72].view(65, 72)
+    a = torch.randn(64, 72, device=card).to(bf)
+    b_col = torch.randn(65, 72, device=card).to(bf).T  # (72, 65), column-major
+    for x, y in ((a_ragged, b_odd), (a, b_col)):
+        assert matmul._route(x, y) == "matmul_bf16_wmma"
+        before = matmul.launches["matmul_bf16_wmma"]
+        got = matmul.matmul_cuda(x, y)
+        assert matmul.launches["matmul_bf16_wmma"] == before + 1
+        torch.testing.assert_close(got.float(), matmul.matmul_plain(x, y).float(),
+                                   rtol=2e-2, atol=2e-2)
+
+
+def _with_head_dim(case, d):
+    b, hq, hkv, t, s, _, causal, window = case
+    return (b, hq, hkv, t, s, d, causal, window)
+
+
+# The reference's cases and the ones above at the tensor cores' head dims, so
+# that they reach the prefill and decode kernels (or the SIMT kernel, for 17
+# to 63 rows per KV head); then groups of 1 and 8, a group that does not
+# divide 128 (SIMT), ragged T and S, windows, and T < S.
+TC_ATTENTION_CASES = sorted({
+    _with_head_dim(c, d) for c in ATTENTION_CASES + ATTENTION_MORE for d in (64, 128)
+} | {
+    (2, 8, 8, 100, 100, 128, True, None), (1, 16, 2, 77, 200, 64, True, None),
+    (1, 6, 1, 40, 40, 64, True, None), (2, 4, 1, 300, 300, 128, True, 100),
+    (1, 8, 2, 96, 333, 128, False, 150), (1, 4, 1, 1, 5000, 128, True, 700),
+    (3, 8, 2, 4, 515, 64, True, 33),
+}, key=str)
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,s,d,causal,window", TC_ATTENTION_CASES)
+def test_bf16_attention_entries_match_plain(card, b, hq, hkv, t, s, d, causal, window):
+    q, k, v = _attention_inputs(card, b, hq, hkv, t, s, d, torch.bfloat16)
+    key = flash_attention._route(q, k, v, window)
+    rows = hq // hkv * t
+    if rows <= 16:
+        assert key == "flash_decode_bf16"
+    elif rows >= 64 and 128 % (hq // hkv) == 0:
+        assert key == "flash_attention_bf16_wgmma"
+    before = dict(flash_attention.launches)
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want_counts = {k_: int(k_ == key) for k_ in before}
+    if key == "flash_decode_bf16":
+        want_counts["flash_decode_combine_bf16"] = 1
+    assert {k_: flash_attention.launches[k_] - before[k_] for k_ in before} == want_counts
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+# Decode shapes: the path's, S below one split's tiles, windows that leave
+# the first splits without a visible key for some rows, and causal T > 1.
+DECODE_CASES = [
+    (8, 32, 8, 1, 1088, 128, False, None), (2, 4, 2, 1, 40, 64, True, None),
+    (1, 4, 2, 1, 700, 128, True, 100), (1, 8, 2, 4, 300, 64, True, 9),
+    (2, 16, 2, 2, 200, 128, False, 70),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,s,d,causal,window", DECODE_CASES)
+def test_decode_kernel_at_every_split_count(card, b, hq, hkv, t, s, d, causal, window):
+    q, k, v = _attention_inputs(card, b, hq, hkv, t, s, d, torch.bfloat16)
+    lo, hi = flash_attention.decode_tiles(t, s, hq // hkv, causal, window)
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal, window=window).float()
+    for splits in sorted({1, 2, 3, 5, hi - lo, hi - lo + 1, hi - lo + 3} - {0}):
+        got = flash_attention.flash_decode_cuda(q, k, v, causal=causal, window=window,
+                                                splits=splits)
+        torch.cuda.synchronize()
+        plain = flash_attention.flash_decode_plain(q, k, v, causal=causal, window=window,
+                                                   splits=splits).float()
+        torch.testing.assert_close(got.float(), plain, rtol=2e-2, atol=2e-2)
+        torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("t,entry", [(1, "flash_decode_bf16"), (40, "flash_attention_bf16_wgmma")])
+def test_bf16_attention_entries_read_views_in_place(card, t, entry):
+    """The model's layouts on the new entries: (B, T, H, D) activations seen
+    as (B, H, T, D), a (B, S, KV, D) cache sliced to its valid length; and
+    the same with k one element into its storage, which goes to the SIMT
+    kernel."""
+    b, hq, hkv, s_len, kv_len, d = 2, 8, 2, 90, 77, 128
+    rng = np.random.default_rng(3)
+    bf = torch.bfloat16
+    q = torch.from_numpy(rng.standard_normal((b, t, hq, d), dtype=np.float32)).to(card, bf)
+    kc = torch.from_numpy(rng.standard_normal((b, s_len, hkv, d), dtype=np.float32)).to(card, bf)
+    vc = torch.from_numpy(rng.standard_normal((b, s_len, hkv, d), dtype=np.float32)).to(card, bf)
+    qv, kv_, vv = q.transpose(1, 2), kc[:, :kv_len].transpose(1, 2), vc[:, :kv_len].transpose(1, 2)
+    assert flash_attention._route(qv, kv_, vv) == entry
+    for causal in (False, True):
+        got = flash_attention.flash_attention_cuda(qv, kv_, vv, causal=causal)
+        want = flash_attention.flash_attention_plain(qv, kv_, vv, causal=causal)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+        assert got.transpose(1, 2).is_contiguous()
+    flat = torch.from_numpy(rng.standard_normal(1 + b * hkv * kv_len * d, dtype=np.float32))
+    k_odd = flat.to(card, bf)[1:].view(b, hkv, kv_len, d)
+    assert flash_attention._route(qv, k_odd, k_odd) == "flash_attention_bf16_simt"
+    before = flash_attention.launches["flash_attention_bf16_simt"]
+    got = flash_attention.flash_attention_cuda(qv, k_odd, k_odd, causal=True)
+    assert flash_attention.launches["flash_attention_bf16_simt"] == before + 1
+    want = flash_attention.flash_attention_plain(qv, k_odd, k_odd, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)

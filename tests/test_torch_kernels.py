@@ -468,3 +468,49 @@ def test_convert_carries_bf16_through_f32_exactly(rng):
     (t,) = from_reference([arr], "cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(), arr.astype(np.float32))
+
+
+def _bf(*shape):
+    return torch.empty(*shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("layout", ["nn", "tn"])
+def test_matmul_route_sends_the_paths_bf16_products_to_the_tma_kernel(layout):
+    """The GEMM and MaxFlops bf16 rows at preset 4 (4096^3; "tn" hands the
+    kernel a.T) go to the TMA + wgmma kernel, a batch of 1 too."""
+    n = 4096
+    a = _bf(n, n) if layout == "nn" else _bf(n, n).T
+    b = _bf(n, n)
+    assert tmatmul._route(a, b) == "matmul_bf16"
+    assert tmatmul._route(a[None], b) == "matmul_bf16"
+    assert tmatmul._tma_operands(a, b) == (int(layout == "tn"), n, n)
+    assert tmatmul._route(a.float(), b.float()) == "matmul_f32"
+
+
+def test_matmul_route_keeps_the_wmma_kernel_for_other_bf16_layouts():
+    wmma = "matmul_bf16_wmma"
+    assert tmatmul._route(_bf(1, 256), _bf(256, 33)) == wmma  # B's row stride 33
+    assert tmatmul._route(_bf(130, 70), _bf(70, 50)) == wmma  # row strides 70 and 50
+    assert tmatmul._route(_bf(3, 8, 8), _bf(3, 8, 8)) == wmma  # a batch
+    assert tmatmul._route(_bf(8, 8), _bf(3, 8, 8)) == wmma  # a broadcast batch
+    assert tmatmul._route(_bf(8, 8), _bf(8, 8).T) == wmma  # column-major B
+    odd = _bf(1 + 64 * 64)[1:].view(64, 64)  # one element into its storage
+    assert odd.data_ptr() % 16 != 0
+    assert tmatmul._route(odd, _bf(64, 64)) == wmma
+    assert tmatmul._route(_bf(64, 64), odd) == wmma
+    assert tmatmul._route(_bf(64, 64), _bf(64, 64)) == "matmul_bf16"
+
+
+def test_matmul_route_refuses_what_no_entry_takes():
+    with pytest.raises(ValueError, match="row- or column-major"):
+        tmatmul._route(_bf(8, 16)[:, ::2], _bf(8, 8))
+    with pytest.raises(ValueError, match="float32 or two bfloat16"):
+        tmatmul._route(torch.ones(4, 4).half(), torch.ones(4, 4).half())
+    with pytest.raises(ValueError, match="batches differ"):
+        tmatmul._route(_bf(3, 4, 4), _bf(2, 4, 4))
+    launches = dict(tmatmul.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        tmatmul.matmul_cuda(_bf(8, 8), _bf(8, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        tmatmul._launch("matmul_bf16_wmma", _bf(8, 8), _bf(8, 8))
+    assert tmatmul.launches == launches

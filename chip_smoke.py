@@ -17,8 +17,12 @@ exits nonzero without printing its result line:
    test shapes, at ragged shapes and at the main paths' shapes, with the
    stated tolerances (the sort bit for bit, the scan of 0/1 flags exactly;
    attention also on strided views and at the LM serving path's shapes).
-   Each call is counted under the entry its layout routes to: the bf16
-   GEMM's TMA + wgmma kernel or its WMMA kernel; attention's wgmma
+   Each call is counted under the entry its layout routes to: the f32
+   GEMM's TMA kernel (at every compiled tile, 2-D and batched) or its SIMT
+   kernel; the bf16 GEMM's TMA + wgmma kernel or its WMMA kernel; the
+   onesweep sort (lengths about one tile and past 2^24, f32 keys with NaN,
+   both zeros and both infinities, all keys equal, keys differing only in
+   their top byte); attention's wgmma
    prefill, split-KV decode (at every split count, and its merge on the
    decode kernel's own partials) or SIMT kernel;
 4. the main path: the port's suite at preset 4 with ``--impl kernel`` over
@@ -47,10 +51,11 @@ exits nonzero without printing its result line:
    timed with CUDA events at the paths' shapes (and the kernel's own device
    time from ``torch.profiler``), beside the card's bound for the same
    work (attention at the serving path's prefill and decode shapes, against
-   ``F.scaled_dot_product_attention`` as the yardstick), the replaced bf16
-   kernels (WMMA GEMM, SIMT attention) timed beside their successors at the
-   same shapes; the decode kernel at other cache lengths and batches; and
-   SRAD's cooperative launch beside ordinary ones.
+   ``F.scaled_dot_product_attention`` as the yardstick), the replaced
+   kernels (the SIMT f32 GEMM, 2-D and batched; the WMMA bf16 GEMM; SIMT
+   attention) timed beside their successors at the same shapes; the f32
+   GEMM at each compiled tile; the decode kernel at other cache lengths and
+   batches; and SRAD's cooperative launch beside ordinary ones.
 
 It prints a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. It needs a CUDA card and the rest of the
@@ -87,11 +92,12 @@ DNN_KERNELS = {
 }
 LEVELS_PATH = ("sort", "where", "srad")
 # Kernels no path launches: the f32-key sort (the Sort benchmark's keys are
-# int32), and the bf16 GEMM's WMMA kernel and attention's SIMT bf16 kernel,
-# which keep the layouts the TMA kernels do not take. Phase 3 checks them
-# and phase 5 times them; the kernels line, which carries each kernel's
-# launches on its path, leaves them out.
-OFF_PATH = ("sort_kv_f32", "matmul_bf16_wmma", "flash_attention_bf16_simt")
+# int32), and the GEMMs' SIMT f32 and WMMA bf16 kernels and attention's SIMT
+# bf16 kernel, which keep the layouts the TMA kernels do not take. Phase 3
+# checks them and phase 5 times them; the kernels line, which carries each
+# kernel's launches on its path, leaves them out.
+OFF_PATH = ("sort_kv_f32", "matmul_f32_simt", "matmul_f32_simt_batched", "matmul_bf16_wmma",
+            "flash_attention_bf16_simt")
 PRESET, ITERS, WARMUP, WINDOW = 4, 5, 2, 4
 # Calls of each pass's function on the main path: the compile stage's first
 # call, the validation call, the sync-mode warm-up and timed calls, and the
@@ -99,9 +105,12 @@ PRESET, ITERS, WARMUP, WINDOW = 4, 5, 2, 4
 CALLS_PER_PASS = 1 + 1 + WARMUP + ITERS + ITERS * WINDOW
 U_F32 = 2.0**-24  # unit round-off of f32
 SMALL_SHAPES = [(8, 8, 8), (128, 128, 128), (130, 70, 50), (1, 256, 33), (257, 1, 128)]
-# bf16 shapes whose ragged M and N only TMA's zero fill covers (row strides
-# multiples of 8, so they route to the TMA kernel).
+# Shapes whose ragged M and N only TMA's zero fill covers (row strides
+# multiples of 16 bytes, so they route to the TMA kernels), and the f32
+# GEMM's compiled tiles (kernels/matmul.py tune_space()).
 TMA_RAGGED = [(1000, 1000, 1000), (200, 72, 136)]
+F32_TMA_RAGGED = TMA_RAGGED + [(132, 520, 260)]
+F32_TILES = (128, 256)  # block_n; block_m is 128
 SOFTMAX_SMALL = [(1, 8), (33, 257), (64, 64), (7, 1031)]
 REF_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # tests/test_kernels_*.py
 # The reference's LRN and avgpool test shapes (tests/test_kernels_misc.py:
@@ -125,8 +134,9 @@ SOFTMAX_PRESET4 = (32768, 16384)  # batch, classes
 # at the preset-4 length and one less. SRAD: the reference's shapes
 # (tests/test_kernels_misc.py:46), ragged ones, the preset-4 image, and one
 # that needs more blocks than are resident at once.
-SORT_LENGTHS = [1, 2, 1000, 4096, 2**20 + 3, 2**24]
-SORT_KINDS = ("int32_full", "int32_dups", "float32_ties")
+SORT_LENGTHS = [1, 2, 1000, 4095, 4096, 4097, 2**20 + 3, 2**24, 2**24 + 12345]
+SORT_KINDS = ("int32_full", "int32_dups", "float32_ties", "float32_special", "all_equal",
+              "top_byte")
 SCAN_LENGTHS = [8, 1000, 4096, 5, 2**20 + 3]
 FLAG_LENGTHS = [2**24 - 1, 2**24]
 SRAD_SHAPES = [(8, 8), (32, 48), (65, 33), (1000, 1030), (1024, 1024), (4096, 4096)]
@@ -173,13 +183,18 @@ LM_SERVE = dict(n_requests=16, batch=8, prompt_len=1024, gen_len=64, max_len=109
 LM_TEACHER_STEPS = 4
 LM_SMOKE_TOL = 2e-4  # f32 smoke: attention's tolerance, the only part in another order
 KERNEL_SOURCES = {
-    "matmul_f32": ("src/repro_torch/kernels/csrc/matmul.cu", "src/repro/kernels/matmul.py:55"),
+    "matmul_f32": ("src/repro_torch/kernels/csrc/matmul_f32_tma.cu",
+                   "src/repro/kernels/matmul.py:55"),
+    "matmul_f32_simt": ("src/repro_torch/kernels/csrc/matmul.cu",
+                        "src/repro/kernels/matmul.py:55"),
+    "matmul_f32_simt_batched": ("src/repro_torch/kernels/csrc/matmul.cu",
+                                "src/repro/kernels/matmul.py:55"),
     "matmul_bf16": ("src/repro_torch/kernels/csrc/matmul_wgmma.cu",
                     "src/repro/kernels/matmul.py:55"),
     "matmul_bf16_wmma": ("src/repro_torch/kernels/csrc/matmul.cu",
                          "src/repro/kernels/matmul.py:55"),
     "softmax_f32": ("src/repro_torch/kernels/csrc/softmax.cu", "src/repro/kernels/softmax.py:68"),
-    "matmul_f32_batched": ("src/repro_torch/kernels/csrc/matmul.cu",
+    "matmul_f32_batched": ("src/repro_torch/kernels/csrc/matmul_f32_tma.cu",
                            "src/repro/kernels/matmul.py:55"),
     "lrn_f32": ("src/repro_torch/kernels/csrc/lrn.cu", "src/repro/kernels/lrn.py:39"),
     "avgpool_f32": ("src/repro_torch/kernels/csrc/avgpool.cu",
@@ -273,6 +288,9 @@ def phase_build() -> None:
     # dynamically, sized by the entry points.
     smem = (("matmul_bf16 (TMA + wgmma, 4-stage ring)",
              _build.function("matmul_bf16_smem_bytes", [])()),
+            *((f"matmul_f32 (TMA ring) 128x{bn}",
+               _build.function("matmul_f32_smem_bytes", [ctypes.c_int])(bn))
+              for bn in F32_TILES),
             *((f"flash_attention_bf16_wgmma D{d}",
                _build.function("flash_attention_bf16_wgmma_smem_bytes", [ctypes.c_int])(d))
               for d in (64, 128)),
@@ -327,18 +345,20 @@ def _exact_check(out, plain, exact, k, sigma, dt, chain=1):
     return ok, line, diff.max().item()
 
 
-def _matmul_case(torch, matmul, gen, dt, m, k, n, trans, entry=None):
+def _matmul_case(torch, matmul, gen, dt, m, k, n, trans, entry=None, block_n=128):
     """One product on the entry its layout routes to (or on ``entry``, which
-    must take it), counted there, against its plain version. -> (entry,
-    max abs kernel - plain)."""
+    must take it), at tile 128 x ``block_n``, counted there, against its
+    plain version. -> (entry, max abs kernel - plain)."""
     if trans == "tn":  # the gemm "tn" specs hand the kernel a.T, a strided view
         a = torch.randn(k, m, generator=gen, device="cuda").to(dt).T
     else:
         a = torch.randn(m, k, generator=gen, device="cuda").to(dt)
     b = torch.randn(k, n, generator=gen, device="cuda").to(dt)
     key = entry or matmul._route(a, b)
+    tile = f" tile 128x{block_n}" if block_n != 128 else ""
     before = matmul.launches[key]
-    out = (matmul._launch(key, a, b) if entry else matmul.matmul_cuda(a, b)).float()
+    out = (matmul._launch(key, a, b, block_n=block_n) if entry
+           else matmul.matmul_cuda(a, b, block_n=block_n)).float()
     torch.cuda.synchronize()
     if matmul.launches[key] != before + 1:
         _fail(f"matmul {dt} {trans} {(m, k, n)}: {matmul.launches[key] - before} launches "
@@ -348,7 +368,7 @@ def _matmul_case(torch, matmul, gen, dt, m, k, n, trans, entry=None):
     if max(m, k, n) <= 512:
         atol = rtol = REF_TOL[_dtname(dt)]
         ok = bool((diff <= atol + rtol * plain.abs()).all())
-        print(f"  {key:16s} {trans} ({m},{k},{n}) max_abs "
+        print(f"  {key:16s} {trans} ({m},{k},{n}){tile} max_abs "
               f"{diff.max().item():.3e} [reference tolerance {atol:g} abs and rel] "
               f"{'ok' if ok else 'FAIL'}")
     else:
@@ -358,28 +378,32 @@ def _matmul_case(torch, matmul, gen, dt, m, k, n, trans, entry=None):
             ref_ok = bool((diff <= 2e-2 + 2e-2 * plain.abs()).all())
             line += f"; reference tolerance 2e-2 {'ok' if ref_ok else 'FAIL'}"
             ok = ok and ref_ok
-        print(f"  {key:16s} {trans} ({m},{k},{n}) {line} "
+        print(f"  {key:16s} {trans} ({m},{k},{n}){tile} {line} "
               f"{'ok' if ok else 'FAIL'}")
     if not ok:
         _fail(f"matmul {dt} {trans} {(m, k, n)} on {key} disagrees with its plain version")
     return key, diff.max().item()
 
 
-def _batched_matmul_case(torch, matmul, gen, dt, batch, m, k, n, shared):
+def _batched_matmul_case(torch, matmul, gen, dt, batch, m, k, n, shared, block_n=128,
+                         entry=None):
     """Convolution's im2col product: a shared (M, K) weight (or a batch of
-    them) times a batch of (K, N) patch matrices, one launch."""
+    them) times a batch of (K, N) patch matrices, one launch, counted under
+    the entry its layout routes to (or ``entry``, which must take it).
+    -> (counter, max abs kernel - plain)."""
     a = torch.randn(*(() if shared else (batch,)), m, k, generator=gen, device="cuda").to(dt)
     b = torch.randn(batch, k, n, generator=gen, device="cuda").to(dt)
-    key = f"matmul_{'f32' if dt == torch.float32 else 'bf16_wmma'}_batched"
+    key = (entry or matmul._route(a, b)) + "_batched"
     before = matmul.launches[key]
-    out = matmul.matmul_cuda(a, b).float()
+    out = (matmul._launch(entry, a, b, block_n=block_n) if entry
+           else matmul.matmul_cuda(a, b, block_n=block_n)).float()
     torch.cuda.synchronize()
     if matmul.launches[key] != before + 1 or tuple(out.shape) != (batch, m, n):
         _fail(f"batched matmul {dt}: shape {tuple(out.shape)}, counted under {key} "
               f"{matmul.launches[key] - before} times")
     plain = matmul.matmul_plain(a, b).float()
-    what = f"batched matmul {_dtname(dt):8s} {'shared a' if shared else 'both'} " \
-           f"{batch}x({m},{k},{n})"
+    what = f"{key} {'shared a' if shared else 'both'} {batch}x({m},{k},{n})" + (
+        f" tile 128x{block_n}" if block_n != 128 else "")
     if max(m, k, n) <= 512:
         atol = rtol = REF_TOL[_dtname(dt)]
         diff = (out - plain).abs()
@@ -392,7 +416,7 @@ def _batched_matmul_case(torch, matmul, gen, dt, batch, m, k, n, shared):
     print(f"  {what} {line} {'ok' if ok else 'FAIL'}")
     if not ok:
         _fail(f"{what} disagrees with its plain version")
-    return max_diff
+    return key, max_diff
 
 
 def _softmax_agrees(out, want, dt):
@@ -462,6 +486,15 @@ def _sort_keys(torch, kind, n, gen):
         pool = torch.randint(0, 1 << 30, (1000,), generator=gen, device="cuda",
                              dtype=torch.int32)
         return pool[torch.randint(0, 1000, (n,), generator=gen, device="cuda")]
+    if kind == "float32_special":  # NaN, both zeros and both infinities among ties
+        pool = torch.tensor([float("nan"), 0.0, -0.0, float("inf"), -float("inf"), 1.5, -1.5,
+                             -2.0**-149, 3.4e38], device="cuda")
+        return pool[torch.randint(0, len(pool), (n,), generator=gen, device="cuda")]
+    if kind == "all_equal":
+        return torch.full((n,), 12345, dtype=torch.int32, device="cuda")
+    if kind == "top_byte":  # differing only in the top byte: the last pass moves all
+        top = torch.randint(-128, 128, (n,), generator=gen, device="cuda", dtype=torch.int32)
+        return (top << 24) | 0x00abcdef
     # f32 on a grid of 1/8: negatives, ties, and -0.0 beside +0.0
     return torch.round(8 * torch.randn(n, generator=gen, device="cuda")) / 8
 
@@ -480,9 +513,9 @@ def _sort_case(torch, sort, gen, kind, n):
     pk, pv = sort.sort_kv_plain(keys, vals)
     wrong_keys = int((ko.view(torch.int32) != pk.view(torch.int32)).sum())
     wrong_vals = int((vo != pv).sum())
-    max_abs = (ko.double() - pk.double()).abs().max().item()
     ok = wrong_keys == 0 and wrong_vals == 0 and ko.dtype == keys.dtype
-    print(f"  sort {kind:12s} n={n:<9d} keys differing in bits {wrong_keys}, values "
+    max_abs = 0.0 if ok else float("nan")  # bit-equal keys differ by nothing, NaNs included
+    print(f"  sort {kind:15s} n={n:<9d} keys differing in bits {wrong_keys}, values "
           f"differing {wrong_vals} [bit-equal to torch.sort(stable=True)] "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -638,31 +671,47 @@ def phase_kernels(torch) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     err = {name: 0.0 for name in KERNEL_SOURCES}
     for dt in (torch.float32, torch.bfloat16):
-        ragged = TMA_RAGGED if dt == torch.bfloat16 else []
+        ragged = TMA_RAGGED if dt == torch.bfloat16 else F32_TMA_RAGGED
         for m, k, n in SMALL_SHAPES + ragged:
             for trans in ("nn", "tn"):
                 _matmul_case(torch, matmul, gen, dt, m, k, n, trans)
         for trans in ("nn", "tn"):
             key, e = _matmul_case(torch, matmul, gen, dt, GEMM_N, GEMM_N, GEMM_N, trans)
-            if dt == torch.bfloat16 and key != "matmul_bf16":
-                _fail(f"the path's bf16 product ({trans}) routed to {key}")
+            want = "matmul_bf16" if dt == torch.bfloat16 else "matmul_f32"
+            if key != want:
+                _fail(f"the path's {_dtname(dt)} product ({trans}) routed to {key}")
             err[key] = max(err[key], e)
-    for trans in ("nn", "tn"):  # the WMMA kernel at the path's shape, for phase 5's comparison
-        key, e = _matmul_case(torch, matmul, gen, torch.bfloat16, GEMM_N, GEMM_N, GEMM_N, trans,
-                              entry="matmul_bf16_wmma")
-        err[key] = max(err[key], e)
-    err["matmul_f32"] = max(
-        err["matmul_f32"],
-        _matmul_case(torch, matmul, gen, torch.float32, *CONNECTED_PRESET4, "nn")[1],
-    )
+    for bn in F32_TILES[1:]:  # the f32 TMA kernel's other tiles
+        for trans in ("nn", "tn"):
+            for m, k, n in ((GEMM_N, GEMM_N, GEMM_N), *F32_TMA_RAGGED):
+                key, e = _matmul_case(torch, matmul, gen, torch.float32, m, k, n, trans,
+                                      block_n=bn)
+                err[key] = max(err[key], e)
+    # The replaced kernels at the path's shape, for phase 5's comparison.
+    for entry, dt in (("matmul_bf16_wmma", torch.bfloat16), ("matmul_f32_simt", torch.float32)):
+        for trans in ("nn", "tn"):
+            key, e = _matmul_case(torch, matmul, gen, dt, GEMM_N, GEMM_N, GEMM_N, trans,
+                                  entry=entry)
+            err[key] = max(err[key], e)
+    key, e = _matmul_case(torch, matmul, gen, torch.float32, *CONNECTED_PRESET4, "nn")
+    if key != "matmul_f32":
+        _fail(f"Connected's product routed to {key}")
+    err[key] = max(err[key], e)
     for dt in (torch.float32, torch.bfloat16):
         for shared in (True, False):
-            for m, k, n in ((8, 8, 8), (130, 70, 50), (1, 256, 33)):
+            for m, k, n in ((8, 8, 8), (130, 70, 50), (130, 72, 52), (1, 256, 33)):
                 _batched_matmul_case(torch, matmul, gen, dt, 3, m, k, n, shared)
     images, o, ckk, ohw = CONV_PRESET4
-    err["matmul_f32_batched"] = _batched_matmul_case(
-        torch, matmul, gen, torch.float32, images, o, ckk, ohw, True
-    )
+    for bn in F32_TILES:  # im2col's product at every tile, shared weight and both batched
+        for shared in (True, False):
+            key, e = _batched_matmul_case(torch, matmul, gen, torch.float32, images, o, ckk,
+                                          ohw, shared, block_n=bn)
+            if key != "matmul_f32_batched":
+                _fail(f"Convolution's im2col product routed to {key}")
+            err[key] = max(err[key], e)
+    key, e = _batched_matmul_case(torch, matmul, gen, torch.float32, images, o, ckk, ohw, True,
+                                  entry="matmul_f32_simt")  # for phase 5
+    err[key] = max(err[key], e)
     for dt in (torch.float32, torch.bfloat16):
         for r, c in SOFTMAX_SMALL:
             _softmax_case(torch, softmax, gen, dt, r, c)
@@ -678,6 +727,7 @@ def phase_kernels(torch) -> dict:
         _avgpool_case(torch, avgpool, gen, shape, ks)
     _avgpool_case(torch, avgpool, gen, (2, 3, 8, 8), 2, offset=1)  # no float2 path
     err["avgpool_f32"] = _avgpool_case(torch, avgpool, gen, AVGPOOL_PRESET4, 2)
+    print(f"  sort: one histogram launch and four onesweep passes, tiles of {sort.TILE} keys")
     for n in SORT_LENGTHS:
         for kind in SORT_KINDS:
             e = _sort_case(torch, sort, gen, kind, n)
@@ -819,9 +869,12 @@ def phase_main_path(torch) -> dict:
     for kernel in ("matmul_f32", "matmul_bf16", "softmax_f32"):
         if want[kernel] == 0:
             _fail(f"kernel {kernel} of the main path did not launch")
-    # Every bf16 GEMM/MaxFlops call went to the TMA + wgmma kernel.
+    # Every GEMM/MaxFlops/Connected call went to a TMA kernel (the counts
+    # above are exact per entry).
     print(f"  bf16 rows: matmul_bf16 {launches['matmul_bf16']} launches, matmul_bf16_wmma "
           f"{launches['matmul_bf16_wmma'] + launches['matmul_bf16_wmma_batched']}")
+    print(f"  f32 rows: matmul_f32 {launches['matmul_f32']} launches, matmul_f32_simt "
+          f"{launches['matmul_f32_simt'] + launches['matmul_f32_simt_batched']}")
     return launches
 
 
@@ -860,6 +913,8 @@ def phase_dnn(torch) -> dict:
         want[kernel] = CALLS_PER_PASS  # forward only: backward passes run torch
     if launches != want:
         _fail(f"launch counts {launches} differ from the expected {want}")
+    print(f"  im2col: matmul_f32_batched {launches['matmul_f32_batched']} launches, "
+          f"matmul_f32_simt_batched {launches['matmul_f32_simt_batched']}")
     return launches
 
 
@@ -1277,23 +1332,29 @@ def _yardstick_cases(torch, gen, hw):
 
     rows = []
     n = GEMM_N
-    # f32; the bf16 TMA kernel on both of the path's layouts; the WMMA kernel
-    # it replaced on the path, at the same shape and inputs.
-    for dt, key, trans in ((torch.float32, "matmul_f32", "nn"),
-                           (torch.bfloat16, "matmul_bf16", "nn"),
-                           (torch.bfloat16, "matmul_bf16", "tn"),
-                           (torch.bfloat16, "matmul_bf16_wmma", "nn")):
+    # The f32 TMA kernel on both of the path's layouts and at its other
+    # tile; the SIMT kernel it replaced on the path; the bf16 TMA kernel on
+    # both layouts; the WMMA kernel it replaced; each at the same shape.
+    for dt, key, trans, bn in ((torch.float32, "matmul_f32", "nn", 128),
+                               (torch.float32, "matmul_f32", "tn", 128),
+                               (torch.float32, "matmul_f32", "nn", 256),
+                               (torch.float32, "matmul_f32", "tn", 256),
+                               (torch.float32, "matmul_f32_simt", "nn", 128),
+                               (torch.bfloat16, "matmul_bf16", "nn", 128),
+                               (torch.bfloat16, "matmul_bf16", "tn", 128),
+                               (torch.bfloat16, "matmul_bf16_wmma", "nn", 128)):
         a = torch.randn(n, n, generator=gen, device="cuda").to(dt)
         if trans == "tn":
             a = a.T
         b = torch.randn(n, n, generator=gen, device="cuda").to(dt)
         cases = (
-            functools.partial(matmul._launch, key, a, b),
+            functools.partial(matmul._launch, key, a, b, block_n=bn),
             functools.partial(matmul.matmul_plain, a, b),
             functools.partial(torch.matmul, a, b),
         )
         roof = roofline_terms(2.0 * n**3, 3.0 * n * n * dt.itemsize, dtype=dt, hw=hw)
-        rows.append((key, f"{n}x{n}x{n} {trans}", roof, cases))
+        tile = f" tile 128x{bn}" if key == "matmul_f32" else ""
+        rows.append((key, f"{n}x{n}x{n} {trans}{tile}", roof, cases))
     r, c = SOFTMAX_PRESET4
     x = 5 * torch.randn(r, c, generator=gen, device="cuda")
     cases = (
@@ -1306,18 +1367,23 @@ def _yardstick_cases(torch, gen, hw):
     # Convolution's im2col product at preset 4: a shared weight matrix times
     # every image's patch matrix; each input read once, the output written
     # once.
+    # The SIMT kernel it replaced there, and the TMA kernel's other tile.
     images, o, ckk, ohw = CONV_PRESET4
     wmat = torch.randn(o, ckk, generator=gen, device="cuda") * ckk**-0.5
     cols = torch.randn(images, ckk, ohw, generator=gen, device="cuda")
-    cases = (
-        functools.partial(matmul.matmul_cuda, wmat, cols),
-        functools.partial(matmul.matmul_plain, wmat, cols),
-        functools.partial(torch.matmul, wmat, cols),
-    )
     roof = roofline_terms(2.0 * images * o * ckk * ohw,
                           4.0 * (o * ckk + images * ckk * ohw + images * o * ohw),
                           dtype=torch.float32, hw=hw)
-    rows.append(("matmul_f32_batched", f"{images}x({o}x{ckk}x{ohw})", roof, cases))
+    for key, entry, bn in (("matmul_f32_batched", "matmul_f32", 128),
+                           ("matmul_f32_batched", "matmul_f32", 256),
+                           ("matmul_f32_simt_batched", "matmul_f32_simt", 128)):
+        cases = (
+            functools.partial(matmul._launch, entry, wmat, cols, block_n=bn),
+            functools.partial(matmul.matmul_plain, wmat, cols),
+            functools.partial(torch.matmul, wmat, cols),
+        )
+        tile = f" tile 128x{bn}" if entry == "matmul_f32" else ""
+        rows.append((key, f"{images}x({o}x{ckk}x{ohw}){tile}", roof, cases))
     # LRN at preset 4, size 5: 8 bytes per element; about 2*size+4
     # operations per element (size squares and adds, alpha, k, pow, divide).
     size = 5

@@ -6,10 +6,11 @@ with a bitonic network because radix sort's histogram-and-scatter loop is
 gather- and scatter-bound, which the TPU's vector unit punishes; a bitonic
 network needs none, at O(n log^2 n) work, in one VMEM block of a
 power-of-two length. Hopper scatters well, and one block cannot hold the
-Sort benchmark's 2^24 keys, so the kernel here is the paper's own LSD radix
-sort (Satish et al.): CUDA C++ in ``csrc/radix_sort.cu`` (see the note at
-its top for its bound and design), 8-bit digits, four passes between
-ping-pong buffers, any length, no padding.
+Sort benchmark's 2^24 keys, so the kernel here is an LSD radix sort in the
+onesweep form (Adinets and Merrill): CUDA C++ in ``csrc/radix_sort.cu``
+(see the note at its top for its bound and design), 8-bit digits, one
+histogram sweep and then four passes of decoupled look-back between
+ping-pong buffers, five launches a sort, any length, no padding.
 
 Radix sort is stable, so it equals the stable plain version
 (:func:`sort_kv_plain`, ``torch.sort(stable=True)`` and a gather) to the
@@ -21,8 +22,11 @@ keys keep their own values, in some order).
   2^31. It raises on another device, dtype, rank, layout or length.
 - :func:`sort_kv_kernel` is the kernel route: CUDA tensors launch, CPU
   tensors run the plain version.
-- ``launches`` counts one launch per sort (the C entry point runs the four
-  passes), per key dtype; ``plain_calls`` counts as in ``kernels/matmul.py``.
+- :func:`scratch_bytes` is the scratch a sort of ``n`` keys takes (status
+  words, histogram table, tile counters), as a pure function of ``n``.
+- ``launches`` counts one launch per sort (the C entry point runs the
+  histogram and the four passes), per key dtype; ``plain_calls`` counts as
+  in ``kernels/matmul.py``.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ __all__ = [
     "sort_kv_cuda",
     "sort_kv_kernel",
     "sort_kv_plain",
+    "scratch_bytes",
     "tune_space",
     "launches",
     "plain_calls",
@@ -48,8 +53,11 @@ plain_calls = 0
 
 _KEYS = {torch.int32: "sort_kv_i32", torch.float32: "sort_kv_f32"}
 RADIX = 256  # 8-bit digits
+PASSES = 4
+TILE = 4096  # keys a CTA takes in a pass (csrc's kTile, checked at launch)
 MAX_N = 2**31 - 1
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_void_p]
+# keys, vals, keys_out, vals_out, tmp_keys, tmp_vals, scratch, n, stream
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_void_p]
 
 
 def tune_space() -> tuple[dict, ...]:
@@ -57,6 +65,15 @@ def tune_space() -> tuple[dict, ...]:
     of 256 threads, one thread per digit value where a block works per
     digit."""
     return ({},)
+
+
+def scratch_bytes(n: int) -> dict[str, int]:
+    """The scratch of a sort of ``n`` keys, in bytes, by region in the order
+    the C entry lays them out: a 64-bit status word per digit per tile
+    (one array, its flags tagged with the pass, serves all four passes),
+    the 4 x 256 histogram table, and the four passes' tile counters."""
+    tiles = -(-n // TILE)
+    return {"status": tiles * RADIX * 8, "histogram": PASSES * RADIX * 4, "counters": PASSES * 4}
 
 
 def sort_kv_cuda(keys: torch.Tensor, values: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -85,16 +102,17 @@ def sort_kv_cuda(keys: torch.Tensor, values: torch.Tensor) -> tuple[torch.Tensor
         return keys_out, values_out
     name = _KEYS[keys.dtype]
     fn = _build.function(name, _ARGTYPES)
-    tile = _build.function("radix_sort_tile", [])()  # keys per tile in csrc
-    # Ping-pong buffers for the odd passes, the (digit x tile) counts and
-    # the per-digit totals.
+    tile = _build.function("radix_sort_tile", [])()
+    if tile != TILE:
+        raise RuntimeError(f"radix_sort.cu tiles {tile} keys, the wrapper {TILE}")
+    # Ping-pong buffers for the odd passes, then the scratch in one piece
+    # (8-byte words), cleared by the C entry on the stream.
     tmp_keys, tmp_values = torch.empty_like(keys), torch.empty_like(values)
-    counts = torch.empty(RADIX * -(-n // tile), dtype=torch.int32, device=keys.device)
-    totals = torch.empty(RADIX, dtype=torch.int32, device=keys.device)
+    nbytes = sum(scratch_bytes(n).values())
+    scratch = torch.empty(-(-nbytes // 8), dtype=torch.int64, device=keys.device)
     stream = torch.cuda.current_stream(keys.device).cuda_stream
     status = fn(keys.data_ptr(), values.data_ptr(), keys_out.data_ptr(), values_out.data_ptr(),
-                tmp_keys.data_ptr(), tmp_values.data_ptr(), counts.data_ptr(),
-                totals.data_ptr(), n, stream)
+                tmp_keys.data_ptr(), tmp_values.data_ptr(), scratch.data_ptr(), n, stream)
     _build.check(status, name)
     launches[name] += 1
     return keys_out, values_out

@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
-// (matmul_wgmma.cu, flash_attention_wgmma.cu) and the split-KV decode
-// (flash_decode.cu): raw PTX for mbarriers, TMA tensor loads and stores,
-// wgmma descriptors and instructions, register reallocation, cp.async; and
+// (matmul_wgmma.cu, flash_attention_wgmma.cu), the split-KV decode
+// (flash_decode.cu) and the TMA-fed f32 GEMM (matmul_f32_tma.cu): raw PTX
+// for mbarriers, TMA tensor loads and stores, wgmma descriptors and
+// instructions, register reallocation, cp.async; and
 // on the host, tensor-map encoding through the driver entry point that the
 // runtime hands out, so the library links against cudart alone.
 //
-// Conventions every kernel here follows:
+// Conventions of the bf16 kernels (the f32 GEMM states its own layouts):
 // - A tile lands in shared memory by TMA with CU_TENSOR_MAP_SWIZZLE_128B: its
 //   innermost box extent is 64 bf16 (128 bytes), every box starts on a
 //   1024-byte boundary, and a row of the box is 128 bytes whose 16-byte
@@ -322,10 +323,13 @@ inline EncodeTiledFn encode_tiled() {
 // driver refused the shape, strides or alignment): cudaErrorInvalidValue.
 constexpr int kMapError = cudaErrorInvalidValue;
 
-// A bf16 tensor map, 128-byte swizzle, zeros outside the tensor. dims[0] is
-// the contiguous axis; strides[i] is the byte stride of dims[i + 1].
-inline bool encode_bf16(CUtensorMap* map, int rank, const void* base, const uint64_t* dims,
-                        const uint64_t* strides, const uint32_t* box) {
+// A tensor map of `type` elements, zeros outside the tensor. dims[0] is the
+// contiguous axis; strides[i] is the byte stride of dims[i + 1]; box[i] is
+// the box's extent along dims[i]. With `swizzle` other than NONE the box's
+// innermost extent is at most the swizzle span (128 bytes for 128B).
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, CUtensorMapSwizzle swizzle,
+                       int rank, const void* base, const uint64_t* dims, const uint64_t* strides,
+                       const uint32_t* box) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
@@ -336,10 +340,23 @@ inline bool encode_bf16(CUtensorMap* map, int rank, const void* base, const uint
     b[i] = box[i];
     if (i + 1 < rank) s[i] = strides[i];
   }
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
-            const_cast<void*>(base), d, s, b, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), d, s, b, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 tensor map, 128-byte swizzle (the wgmma kernels' layout).
+inline bool encode_bf16(CUtensorMap* map, int rank, const void* base, const uint64_t* dims,
+                        const uint64_t* strides, const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_128B, rank, base,
+                    dims, strides, box);
+}
+
+// An f32 tensor map with the given swizzle (the f32 GEMM's K-major A tiles
+// take 128B, 32 floats a row; its MN-major tiles none).
+inline bool encode_f32(CUtensorMap* map, CUtensorMapSwizzle swizzle, int rank, const void* base,
+                       const uint64_t* dims, const uint64_t* strides, const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, swizzle, rank, base, dims, strides, box);
 }
 
 inline int sm_count() {

@@ -1,5 +1,6 @@
 // Tiled shared-memory GEMM for Hopper (sm_90a): C = A @ B with f32
-// accumulation, C in A's dtype.
+// accumulation, C in A's dtype. The kernels here take every layout: they are
+// the entries for the operands the TMA kernels cannot read.
 //
 // Replaces: src/repro/kernels/matmul.py::matmul_pallas (body _matmul_kernel).
 // The TPU kernel walks K as the innermost, sequential grid axis and keeps the
@@ -29,10 +30,12 @@
 // warp through WMMA bf16 fragments with f32 accumulators), which lifts the
 // arithmetic intensity of each tile load far above the card's ridge. It is
 // deliberately the simple version: no TMA, no wgmma, no multi-stage pipeline,
-// so loads and math do not overlap. The bf16 operands that TMA can read go
-// to the TMA + wgmma kernel in matmul_wgmma.cu (entry matmul_bf16); this
-// WMMA kernel (entry matmul_bf16_wmma) keeps the rest: strides that are not
-// multiples of 8 elements, unaligned bases, a column-major B, and batches.
+// so loads and math do not overlap. The operands that TMA can read go to the
+// TMA kernels: bf16 to matmul_wgmma.cu (entry matmul_bf16), f32 to
+// matmul_f32_tma.cu (entry matmul_f32, batches included). These keep the
+// rest: strides that are not multiples of 16 bytes, unaligned bases, a
+// column-major B, and (bf16) batches; entries matmul_f32_simt and
+// matmul_bf16_wmma.
 //
 // Batch axis. The reference's Convolution im2col path vmaps the GEMM over
 // images (src/repro/bench/dnn/convolution.py:47): one shared (O, C*KH*KW)
@@ -296,10 +299,10 @@ cudaError_t launch_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
 // grid's z extent, at most 65535 (the caller checks). Both use 128 x 128
 // tiles. Each returns cudaGetLastError() after its launch.
 
-extern "C" int matmul_f32(const void* a, const void* b, void* c, int batch, int M,
-                          int N, int K, long long sab, long long sam, long long sak,
-                          long long sbb, long long sbk, long long sbn,
-                          void* stream) {
+extern "C" int matmul_f32_simt(const void* a, const void* b, void* c, int batch, int M,
+                               int N, int K, long long sab, long long sam, long long sak,
+                               long long sbb, long long sbk, long long sbn,
+                               void* stream) {
   return launch_f32<128, 128>(static_cast<const float*>(a),
                               static_cast<const float*>(b), static_cast<float*>(c),
                               batch, M, N, K, sab, sam, sak, sbb, sbk, sbn,

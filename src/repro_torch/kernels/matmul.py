@@ -8,18 +8,23 @@ Hopper (see the note at the top of each source for its bound and design):
 - ``matmul_bf16`` (``csrc/matmul_wgmma.cu``): persistent CTAs, TMA loads
   through a 4-stage mbarrier ring, wgmma m64n256k16 on the tensor cores,
   for 2-D bf16 operands that TMA can read (:func:`_route`);
-- ``matmul_bf16_wmma`` (``csrc/matmul.cu``): WMMA bf16 fragments with f32
-  accumulators, for every other bf16 layout, batches included;
-- ``matmul_f32`` (``csrc/matmul.cu``): a register-blocked f32 FMA GEMM that
-  stays true f32.
+- ``matmul_f32`` (``csrc/matmul_f32_tma.cu``): true f32 on the FMA pipes,
+  persistent CTAs fed by a TMA ring, register-blocked consumers whose
+  shared-memory reads are free of bank conflicts, for f32 operands that TMA
+  can read, 2-D and batched, at a 128 x 128 or 128 x 256 tile
+  (:func:`tune_space`);
+- ``matmul_bf16_wmma`` and ``matmul_f32_simt`` (``csrc/matmul.cu``): WMMA
+  bf16 fragments with f32 accumulators, and a register-blocked f32 FMA
+  GEMM, for every other layout.
 
-The WMMA and f32 kernels mask ragged edges themselves and read each operand
+The WMMA and SIMT kernels mask ragged edges themselves and read each operand
 through its row and column strides, so a transposed view is taken in place,
 never copied. A third grid axis runs a batch of products in one launch,
 each operand offset by its own batch stride; a stride of 0 broadcasts an
-operand, such as Convolution's shared weight. The TMA kernel reads a
-transposed A (the gemm "tn" specs pass ``a.T``) through its tensor map and
-wgmma's transpose bit, and TMA's zero fill covers its ragged edges.
+operand, such as Convolution's shared weight. The TMA kernels read a
+transposed A (the gemm "tn" specs pass ``a.T``) through its tensor map, and
+TMA's zero fill covers their ragged edges; ``matmul_f32`` takes the batch as
+a coordinate of a 3-D tensor map (a broadcast operand keeps a 2-D map).
 
 - :func:`_route` names the entry a pair of operands goes to, from dtype,
   rank, strides and alignment alone (it runs on CPU tensors too); it
@@ -28,8 +33,8 @@ wgmma's transpose bit, and TMA's zero fill covers its ragged edges.
   ``b`` (K, N) or (B, K, N), with ``torch.matmul``'s broadcasting of a
   2-D operand or a batch of 1. It takes CUDA tensors only and raises on
   anything it does not take: another device or dtype, a rank other than 2
-  or 3, mismatched shapes or batches, more than 65535 batch entries, or an
-  operand with no unit stride.
+  or 3, mismatched shapes or batches, more than 65535 batch entries, an
+  operand with no unit stride, or a tile its entry does not compile.
 - :func:`matmul_kernel` is the kernel route the dispatch layer calls: a CUDA
   tensor goes to :func:`matmul_cuda`, a CPU tensor to the plain version
   (:func:`matmul_plain`, the ``ref.py`` oracle), the way the reference runs
@@ -59,14 +64,18 @@ __all__ = [
 ]
 
 launches = {
-    "matmul_f32": 0, "matmul_f32_batched": 0, "matmul_bf16": 0, "matmul_bf16_wmma": 0,
+    "matmul_f32": 0, "matmul_f32_batched": 0, "matmul_f32_simt": 0,
+    "matmul_f32_simt_batched": 0, "matmul_bf16": 0, "matmul_bf16_wmma": 0,
     "matmul_bf16_wmma_batched": 0,
 }
 plain_calls = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_TILE = {"block_m": 128, "block_n": 128}  # the one tile csrc compiles
-MAX_BATCH = 65535  # the grid's z extent
+_TILE = {"block_m": 128, "block_n": 128}  # the one tile of the WMMA, SIMT and bf16 TMA kernels
+F32_TILES = ({"block_m": 128, "block_n": 128}, {"block_m": 128, "block_n": 256})
+MAX_BATCH = 65535  # the WMMA and SIMT kernels' grid z extent
+# matmul_f32_simt, matmul_bf16_wmma: a, b, c, batch, M, N, K, sab, sam, sak,
+# sbb, sbk, sbn, stream
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6 + [
     ctypes.c_void_p,
 ]
@@ -74,19 +83,24 @@ _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6
 _TMA_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2 + [
     ctypes.c_void_p,
 ]
+# matmul_f32: a, b, c, batch, M, N, K, a_m_major, lda, sab, ldb, sbb, block_n, stream
+_F32_TMA_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4 + [
+    ctypes.c_int, ctypes.c_void_p,
+]
 
 
 def tune_space() -> tuple[dict, ...]:
     """Tile candidates (first entry = the kernel's defaults).
 
     The reference sweeps 128/256 blocks sized for the TPU's 128x128 matrix
-    unit. On Hopper a block is one CTA: 128x128 (256 threads for f32, eight
-    warps of WMMA fragments for bf16) fills the SMs at the suite's large
-    shapes. It is the only tile compiled for those two, until a tune stage
-    has a shape where another one wins. The TMA kernel's 128x256 tile is
-    fixed by its wgmma shape and is not a tune parameter.
+    unit. On Hopper a block is one CTA. ``matmul_f32`` compiles 128 x 128
+    (64 accumulators a thread) and 128 x 256 (128); the WMMA, SIMT and
+    bf16 TMA kernels compile 128 x 128 alone (the bf16 TMA kernel's
+    128 x 256 wgmma tile is fixed by its instruction shape and is not a
+    tune parameter), so 128 x 256 is taken by f32 operands TMA can read
+    and refused by every other entry.
     """
-    return (dict(_TILE),)
+    return tuple(dict(t) for t in F32_TILES)
 
 
 def _strides(t: torch.Tensor, name: str) -> tuple[int, int]:
@@ -101,25 +115,26 @@ def _strides(t: torch.Tensor, name: str) -> tuple[int, int]:
 
 
 def _tma_layout(t: torch.Tensor, rows_major: bool) -> int | None:
-    """The leading stride, in elements, under which TMA reads the 2-D bf16
-    operand ``t`` row-major (``rows_major``: its columns contiguous) or
-    column-major; None where it cannot: a base off 16 bytes, no unit stride
-    on the contiguous axis, or a leading stride that is not a multiple of 8
-    elements (16 bytes). A single row (column) never uses its stride, so
+    """The leading stride, in elements, under which TMA reads the matrix (or
+    each matrix of the batch) ``t`` row-major (``rows_major``: its columns
+    contiguous) or column-major; None where it cannot: a base off 16 bytes,
+    no unit stride on the contiguous axis, or a leading stride that is not
+    a multiple of 16 bytes. A single row (column) never uses its stride, so
     any 16-byte multiple at least the row's extent serves."""
-    rows, cols = t.shape
-    rs, cs = t.stride()
+    rows, cols = t.shape[-2:]
+    rs, cs = t.stride()[-2:]
+    per16 = 16 // t.element_size()
     n, lead, unit, extent = (rows, rs, cs, cols) if rows_major else (cols, cs, rs, rows)
     if t.data_ptr() % 16 or (unit != 1 and extent != 1):
         return None
     if n == 1:
-        return -(-extent // 8) * 8
-    return lead if lead > 0 and lead % 8 == 0 else None
+        return -(-extent // per16) * per16
+    return lead if lead > 0 and lead % per16 == 0 else None
 
 
 def _tma_operands(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int] | None:
-    """(a_m_major, lda, ldb) for the TMA kernel, or None: 2-D bf16 (or a
-    batch of 1) with B row-major and A row- or column-major."""
+    """(a_m_major, lda, ldb) for the bf16 TMA kernel, or None: 2-D bf16 (or
+    a batch of 1) with B row-major and A row- or column-major."""
     if a.dtype != torch.bfloat16 or any(t.dim() == 3 and t.shape[0] != 1 for t in (a, b)):
         return None
     a2 = a[0] if a.dim() == 3 else a
@@ -132,6 +147,26 @@ def _tma_operands(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int] | No
         return 0, lda, ldb
     lda = _tma_layout(a2, rows_major=False)
     return None if lda is None else (1, lda, ldb)
+
+
+def _f32_tma_operands(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int, int, int] | None:
+    """(a_m_major, lda, sab, ldb, sbb) for the f32 TMA kernel, or None: f32
+    with B row-major, A row- or column-major, every base 16-byte aligned and
+    every leading and batch stride a multiple of 4 elements. A batch stride
+    of 0 (a 2-D operand, a batch of 1, an expanded batch) broadcasts."""
+    if a.dtype != torch.float32:
+        return None
+    sab, sbb = _batch_stride(a), _batch_stride(b)
+    if sab % 4 or sbb % 4:
+        return None
+    ldb = _tma_layout(b, rows_major=True)
+    if ldb is None:
+        return None
+    for a_m_major in (0, 1):
+        lda = _tma_layout(a, rows_major=not a_m_major)
+        if lda is not None:
+            return a_m_major, lda, sab, ldb, sbb
+    return None
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -159,16 +194,17 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
 
 
 def _route(a: torch.Tensor, b: torch.Tensor) -> str:
-    """The C entry point ``a @ b`` goes to: ``matmul_f32`` for float32;
+    """The C entry point ``a @ b`` goes to: ``matmul_f32`` (TMA) for float32
+    operands :func:`_f32_tma_operands` takes, 2-D or batched;
     ``matmul_bf16`` (TMA + wgmma) for 2-D bf16 (or a batch of 1) whose B
     is row-major, whose A is row- or column-major, whose bases are 16-byte
     aligned and whose leading strides are multiples of 8 elements;
-    ``matmul_bf16_wmma`` for every other bf16 pair. Raises ``ValueError``
-    on what no entry takes. Looks only at dtype, shapes, strides and
-    addresses, so it answers for CPU tensors too."""
+    ``matmul_f32_simt`` and ``matmul_bf16_wmma`` for every other pair.
+    Raises ``ValueError`` on what no entry takes. Looks only at dtype,
+    shapes, strides and addresses, so it answers for CPU tensors too."""
     _check(a, b)
     if a.dtype == torch.float32:
-        return "matmul_f32"
+        return "matmul_f32" if _f32_tma_operands(a, b) is not None else "matmul_f32_simt"
     return "matmul_bf16" if _tma_operands(a, b) is not None else "matmul_bf16_wmma"
 
 
@@ -177,19 +213,27 @@ def _batch_stride(t: torch.Tensor) -> int:
     return t.stride(0) if t.dim() == 3 and t.shape[0] > 1 else 0
 
 
+def _check_tile(name: str, block_m: int, block_n: int) -> None:
+    """Raise unless entry ``name`` compiles the tile (block_m, block_n)."""
+    tiles = F32_TILES if name == "matmul_f32" else (_TILE,)
+    if {"block_m": block_m, "block_n": block_n} not in tiles:
+        raise ValueError(
+            f"no compiled tile ({block_m}, {block_n}) for {name}; compiled: {list(tiles)}"
+        )
+
+
 def matmul_cuda(
     a: torch.Tensor, b: torch.Tensor, *, block_m: int = 128, block_n: int = 128
 ) -> torch.Tensor:
     """Launch the entry :func:`_route` names on ``a`` (M, K) or (B, M, K) and
     ``b`` (K, N) or (B, K, N); the result is (B, M, N) when either operand
-    is batched. ``block_m``/``block_n`` name the f32 and WMMA kernels' tile."""
-    _check_devices(a, b)
+    is batched. ``block_m``/``block_n`` name the tile, one the entry
+    compiles (:func:`tune_space`); the route and the tile are checked
+    before the device, so a CPU tensor reports either first."""
     name = _route(a, b)
-    if {"block_m": block_m, "block_n": block_n} != _TILE:
-        raise ValueError(
-            f"no compiled tile ({block_m}, {block_n}); compiled: {_TILE}"
-        )
-    return _launch(name, a, b)
+    _check_tile(name, block_m, block_n)
+    _check_devices(a, b)
+    return _launch(name, a, b, block_n=block_n)
 
 
 def _check_devices(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -201,14 +245,19 @@ def _check_devices(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"operands on different devices: {a.device}, {b.device}")
 
 
-def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+# The entry that takes any operands of a dtype: what a comparison times on
+# layouts the TMA kernels take.
+_ANY_LAYOUT = {torch.float32: "matmul_f32_simt", torch.bfloat16: "matmul_bf16_wmma"}
+
+
+def _launch(name: str, a: torch.Tensor, b: torch.Tensor, *, block_n: int = 128) -> torch.Tensor:
     """Launch entry ``name``, one that takes these operands: the routed one,
-    or the WMMA kernel for any bf16 pair (which is how a comparison times
-    it on layouts the TMA kernel takes)."""
+    or the SIMT (f32) or WMMA (bf16) kernel for any pair of its dtype."""
     _check_devices(a, b)
     routed = _route(a, b)
-    if name not in (routed, "matmul_bf16_wmma" if a.dtype == torch.bfloat16 else routed):
+    if name not in (routed, _ANY_LAYOUT[a.dtype]):
         raise ValueError(f"matmul entry {name} does not take these operands ({routed} does)")
+    _check_tile(name, 128, block_n)
     batches = {t.shape[0] for t in (a, b) if t.dim() == 3}
     batched = bool(batches)
     batch = max(batches, default=1)
@@ -227,6 +276,11 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         fn = _build.function(name, _TMA_ARGTYPES)
         status = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, a_m_major, lda, ldb,
                     stream)
+    elif name == "matmul_f32":
+        a_m_major, lda, sab, ldb, sbb = _f32_tma_operands(a, b)
+        fn = _build.function(name, _F32_TMA_ARGTYPES)
+        status = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), batch, m, n, k, a_m_major, lda,
+                    sab, ldb, sbb, block_n, stream)
     else:
         sam, sak = _strides(a, "a")
         sbk, sbn = _strides(b, "b")
@@ -236,7 +290,7 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             _batch_stride(a), sam, sak, _batch_stride(b), sbk, sbn, stream,
         )
     _build.check(status, name)
-    # A batch of 1 on the TMA kernel is its 2-D product.
+    # A batch of 1 on the bf16 TMA kernel is its 2-D product.
     launches[name + "_batched" if batched and name != "matmul_bf16" else name] += 1
     return c
 

@@ -123,7 +123,9 @@ def test_batched_matmul_kernel_matches_plain(card, dtype, shared):
     before = dict(matmul.launches)
     got = matmul.matmul_cuda(a, b)
     torch.cuda.synchronize()
-    key = "matmul_f32_batched" if dtype == torch.float32 else "matmul_bf16_wmma_batched"
+    # K = 70 floats is no multiple of 16 bytes: the SIMT kernel's batch.
+    key = "matmul_f32_simt_batched" if dtype == torch.float32 else "matmul_bf16_wmma_batched"
+    assert matmul._route(a, b) + "_batched" == key
     assert matmul.launches[key] == before[key] + 1
     assert got.shape == (batch, m, n)
     tol = _tol(dtype)
@@ -214,8 +216,10 @@ def test_dnn_kernel_rows_on_the_card_launch_the_kernels(card):
     assert [r.status for r in res.records] == ["ok"] * 6
     calls = 1 + 1 + 1 + 2 * (1 + 4)
     deltas = {k: m.launches[k] - b[k] for m, b in zip(mods, before) for k in m.launches}
+    # im2col's operands are contiguous: every call on the TMA kernel.
     assert deltas == {
-        "matmul_f32": 0, "matmul_f32_batched": calls, "matmul_bf16": 0, "matmul_bf16_wmma": 0,
+        "matmul_f32": 0, "matmul_f32_batched": calls, "matmul_f32_simt": 0,
+        "matmul_f32_simt_batched": 0, "matmul_bf16": 0, "matmul_bf16_wmma": 0,
         "matmul_bf16_wmma_batched": 0, "lrn_f32": calls, "avgpool_f32": calls,
     }
 
@@ -545,3 +549,186 @@ def test_bf16_attention_entries_read_views_in_place(card, t, entry):
     assert flash_attention.launches["flash_attention_bf16_simt"] == before + 1
     want = flash_attention.flash_attention_plain(qv, k_odd, k_odd, causal=True)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+# The f32 GEMM's TMA kernel (matmul_f32) and the SIMT kernel it replaced on
+# the path (matmul_f32_simt). Products of at most 512 a side are held
+# against the plain version at the reference's 1e-5, larger ones against f64
+# with 16*K*u*rms(A)*rms(B), chip_smoke.py's rule and bound (its
+# _exact_check says why).
+F32_TMA_SHAPES = [(8, 8, 8), (128, 128, 128), (257, 1, 128), (1000, 1000, 1000),
+                  (200, 72, 136), (4096, 4096, 4096), (132, 520, 260)]
+F32_TILES = [(128, 128), (128, 256)]
+
+
+def _f32_operands(card, m, k, n, layout, seed=0):
+    rng = np.random.default_rng(seed)
+    a_np = rng.standard_normal((m, k), dtype=np.float32)
+    a = (torch.from_numpy(a_np.T.copy()).to(card).T if layout == "tn"
+         else torch.from_numpy(a_np).to(card))
+    b = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).to(card)
+    return a, b
+
+
+def _rms(t) -> float:
+    return t.double().square().mean().sqrt().item()
+
+
+def _assert_f32_product(got, a, b):
+    k = a.shape[-1]
+    want = matmul.matmul_plain(a, b)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    if max(a.shape[-2], k, b.shape[-1]) <= 512:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        return
+    exact = torch.matmul(a.double(), b.double())
+    atol = 16 * k * U_F32 * _rms(a) * _rms(b)
+    assert bool(torch.isfinite(got).all())
+    assert (got.double() - exact).abs().max().item() <= atol
+    assert (want.double() - exact).abs().max().item() <= atol
+
+
+@pytest.mark.parametrize("m,k,n", F32_TMA_SHAPES)
+@pytest.mark.parametrize("layout", ["nn", "tn"])
+@pytest.mark.parametrize("tile", F32_TILES, ids=["128x128", "128x256"])
+def test_f32_matmul_tma_entry_matches_plain(card, m, k, n, layout, tile):
+    a, b = _f32_operands(card, m, k, n, layout)
+    assert matmul._route(a, b) == "matmul_f32"
+    before = dict(matmul.launches)
+    got = matmul.matmul_cuda(a, b, block_m=tile[0], block_n=tile[1])
+    torch.cuda.synchronize()
+    assert {k_: matmul.launches[k_] - before[k_] for k_ in before} == {
+        k_: int(k_ == "matmul_f32") for k_ in before}
+    _assert_f32_product(got, a, b)
+
+
+def test_f32_matmul_tma_entry_is_deterministic(card):
+    a, b = _f32_operands(card, 1000, 1000, 1000, "nn", seed=3)
+    first = matmul.matmul_cuda(a, b)
+    assert all(torch.equal(first, matmul.matmul_cuda(a, b)) for _ in range(3))
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared_a", "both_batched"])
+@pytest.mark.parametrize("tile", F32_TILES, ids=["128x128", "128x256"])
+@pytest.mark.parametrize("shape", [(3, 130, 72, 52), (4, 256, 2304, 900)],
+                         ids=["ragged", "im2col"])
+def test_f32_batched_matmul_tma_entry_matches_plain(card, shared, tile, shape):
+    """Convolution's im2col product (a shared weight, 4 of its 64 images)
+    and a ragged batch, a broadcast A or both operands batched."""
+    batch, m, k, n = shape
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy(rng.standard_normal((m, k) if shared else (batch, m, k),
+                                             dtype=np.float32)).to(card)
+    b = torch.from_numpy(rng.standard_normal((batch, k, n), dtype=np.float32)).to(card)
+    assert matmul._route(a, b) == "matmul_f32"
+    before = dict(matmul.launches)
+    got = matmul.matmul_cuda(a, b, block_m=tile[0], block_n=tile[1])
+    torch.cuda.synchronize()
+    assert {k_: matmul.launches[k_] - before[k_] for k_ in before} == {
+        k_: int(k_ == "matmul_f32_batched") for k_ in before}
+    assert got.shape == (batch, m, n)
+    _assert_f32_product(got, a, b)
+
+
+def test_f32_matmul_simt_takes_what_tma_cannot(card):
+    """A row stride that is not a multiple of 4 floats, a base off 16 bytes,
+    a column-major B and an odd batch stride go to the SIMT kernel and
+    agree with the plain version there."""
+    x = torch.randn(1, 256, device=card)
+    y33 = torch.randn(256, 33, device=card)  # row stride 33
+    odd = torch.randn(64 * 64 + 4, device=card)[1:1 + 64 * 64].view(64, 64)  # 4 bytes in
+    col_b = torch.randn(72, 64, device=card).T  # (64, 72), column-major
+    batched = torch.randn(3 * 64 * 64 + 3, device=card)[: 3 * 64 * 64 + 3].as_strided(
+        (3, 64, 64), (64 * 64 + 1, 64, 1))  # batch stride 4097
+    sq = torch.randn(64, 64, device=card)
+    for a, b, key in ((x, y33, "matmul_f32_simt"), (odd, sq, "matmul_f32_simt"),
+                      (sq, odd, "matmul_f32_simt"), (sq, col_b, "matmul_f32_simt"),
+                      (sq, batched, "matmul_f32_simt_batched")):
+        assert matmul._route(a, b) == "matmul_f32_simt"
+        before = matmul.launches[key]
+        got = matmul.matmul_cuda(a, b)
+        assert matmul.launches[key] == before + 1
+        torch.testing.assert_close(got, matmul.matmul_plain(a, b), rtol=1e-5, atol=1e-5)
+
+
+def test_f32_matmul_simt_entry_runs_on_tma_operands(card):
+    """The replaced kernel, named explicitly, on operands TMA takes (how
+    phase 5 times it beside its successor): counted as itself."""
+    a, b = _f32_operands(card, 300, 200, 100, "tn")
+    before = matmul.launches["matmul_f32_simt"]
+    got = matmul._launch("matmul_f32_simt", a, b)
+    assert matmul.launches["matmul_f32_simt"] == before + 1
+    torch.testing.assert_close(got, matmul.matmul_plain(a, b), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="no compiled tile"):
+        matmul._launch("matmul_f32_simt", a, b, block_n=256)
+    with pytest.raises(ValueError, match="no compiled tile"):
+        matmul.matmul_cuda(a, b, block_n=192)
+
+
+def test_gemm_f32_rows_on_the_card_launch_the_tma_kernel(card):
+    before = dict(matmul.launches)
+    res = Engine().run(ExecutionPlan(
+        names=("gemm_f32_nn", "gemm_f32_tn", "connected"), preset=0, iters=2, warmup=1,
+        include_backward=False, impl="kernel",
+    ))
+    assert [r.status for r in res.records] == ["ok"] * 3, [r.error for r in res.records]
+    calls = 1 + 1 + 1 + 2 * (1 + 4)
+    deltas = {k: matmul.launches[k] - before[k] for k in before}
+    assert deltas == {k: 3 * calls if k == "matmul_f32" else 0 for k in before}
+
+
+# The onesweep sort: lengths around one tile (4096 keys), the path's 2^24
+# and one past it; key patterns that stress the look-back.
+ONESWEEP_LENGTHS = [1, 4095, 4096, 4097, 2**24, 2**24 + 12345]
+
+
+def _special_keys(kind: str, n: int, gen: torch.Generator) -> torch.Tensor:
+    dev = gen.device
+    if kind == "float32_special":  # NaN, both zeros and both infinities among ties
+        pool = torch.tensor([float("nan"), 0.0, -0.0, float("inf"), -float("inf"), 1.5, -1.5,
+                             -2.0**-149, 3.4e38], device=dev)
+        return pool[torch.randint(0, len(pool), (n,), generator=gen, device=dev)]
+    if kind == "all_equal":
+        return torch.full((n,), 12345, dtype=torch.int32, device=dev)
+    # int32 keys that differ only in their top byte: the last pass moves all.
+    top = torch.randint(-128, 128, (n,), generator=gen, device=dev, dtype=torch.int32)
+    return (top << 24) | 0x00abcdef
+
+
+@pytest.mark.parametrize("n", ONESWEEP_LENGTHS)
+@pytest.mark.parametrize("kind", ["int32_full", "float32_special", "all_equal", "top_byte"])
+def test_onesweep_sort_equals_the_stable_plain_version(card, n, kind):
+    gen = torch.Generator(card).manual_seed(n + 7)
+    keys = (_sort_keys(kind, n, gen) if kind == "int32_full"
+            else _special_keys(kind, n, gen))
+    vals = torch.arange(n, dtype=torch.int32, device=card)
+    key = "sort_kv_f32" if keys.dtype == torch.float32 else "sort_kv_i32"
+    before = bitonic_sort.launches[key]
+    ko, vo = bitonic_sort.sort_kv_cuda(keys, vals)
+    torch.cuda.synchronize()
+    assert bitonic_sort.launches[key] == before + 1
+    pk, pv = bitonic_sort.sort_kv_plain(keys, vals)
+    assert torch.equal(ko.view(torch.int32), pk.view(torch.int32))
+    assert torch.equal(vo, pv)
+
+
+def test_sort_scratch_bytes_match_the_c_entry(card):
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = _build.function("radix_sort_scratch_bytes", [ctypes.c_longlong])
+    assert _build.function("radix_sort_tile", [])() == bitonic_sort.TILE
+    for n in (1, 4095, 4096, 4097, 2**24, 2**31 - 1):
+        assert fn(n) == sum(bitonic_sort.scratch_bytes(n).values())
+
+
+def test_sort_row_on_the_card_launches_the_kernel_once_per_sort(card):
+    before = dict(bitonic_sort.launches)
+    res = Engine().run(ExecutionPlan(
+        names=("sort",), preset=0, iters=2, warmup=1, impl="kernel",
+    ))
+    assert [r.status for r in res.records] == ["ok"]
+    calls = 1 + 1 + 1 + 2 * (1 + 4)
+    assert {k: bitonic_sort.launches[k] - before[k] for k in before} == {
+        "sort_kv_i32": calls, "sort_kv_f32": 0}

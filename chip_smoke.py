@@ -22,7 +22,12 @@ exits nonzero without printing its result line:
    kernel; the bf16 GEMM's TMA + wgmma kernel or its WMMA kernel; the
    onesweep sort (lengths about one tile and past 2^24, f32 keys with NaN,
    both zeros and both infinities, all keys equal, keys differing only in
-   their top byte); attention's wgmma
+   their top byte); the register softmax or its online kernel (C = 1, C
+   off whole 16-byte vectors, above the register limit, rows off 16 bytes,
+   equal values, logits of magnitude 80, and the path's shape on both at
+   both logit scales); the float4 ring LRN or its shared-memory kernel
+   (sizes 3, 5, 7 and 65, S % 4 != 0, C off the 32-channel chunk, a base
+   off 16 bytes, the path's shape on both); attention's wgmma
    prefill, split-KV decode (at every split count, and its merge on the
    decode kernel's own partials) or SIMT kernel;
 4. the main path: the port's suite at preset 4 with ``--impl kernel`` over
@@ -36,7 +41,9 @@ exits nonzero without printing its result line:
    then SRAD again with ``fused=False``, counters set to 0 just before and
    read just after each run;
 4b. the kernel rows of all paths at preset 0, kernel against torch on the
-   same inputs, f32 products against an f64 evaluation;
+   same inputs, f32 products against an f64 evaluation; the Softmax and
+   LRN rows at presets 0-3, each call on the redesigned entry and passing
+   the row's ``validate()``;
 4d. LM serving: ``launch.serve.serve`` on the granite-3-8b smoke config in
    f32 through the kernel route and again through the plain route (logits
    within 2e-4, tokens equal), then on the full granite-3-8b (40 layers,
@@ -51,10 +58,12 @@ exits nonzero without printing its result line:
    timed with CUDA events at the paths' shapes (and the kernel's own device
    time from ``torch.profiler``), beside the card's bound for the same
    work (attention at the serving path's prefill and decode shapes, against
-   ``F.scaled_dot_product_attention`` as the yardstick), the replaced
-   kernels (the SIMT f32 GEMM, 2-D and batched; the WMMA bf16 GEMM; SIMT
-   attention) timed beside their successors at the same shapes; the f32
-   GEMM at each compiled tile; the decode kernel at other cache lengths and
+   ``F.scaled_dot_product_attention`` as the yardstick; the f32 kernel also
+   at the f32 smoke run's own shapes), the replaced kernels (the SIMT f32
+   GEMM, 2-D and batched; the WMMA bf16 GEMM; SIMT attention; the online
+   softmax; the shared-memory LRN) timed beside their successors at the
+   same shapes; the f32 GEMM at each compiled tile; a device copy of the
+   softmax's and the LRN's inputs (the bytes alone); the decode kernel at other cache lengths and
    batches; and SRAD's cooperative launch beside ordinary ones.
 
 It prints a ``{"kernels": [...]}`` line and, last,
@@ -92,12 +101,13 @@ DNN_KERNELS = {
 }
 LEVELS_PATH = ("sort", "where", "srad")
 # Kernels no path launches: the f32-key sort (the Sort benchmark's keys are
-# int32), and the GEMMs' SIMT f32 and WMMA bf16 kernels and attention's SIMT
-# bf16 kernel, which keep the layouts the TMA kernels do not take. Phase 3
-# checks them and phase 5 times them; the kernels line, which carries each
-# kernel's launches on its path, leaves them out.
+# int32), and the GEMMs' SIMT f32 and WMMA bf16 kernels, attention's SIMT
+# bf16 kernel, the online softmax and the shared-memory LRN, which keep the
+# layouts their successors do not take. Phase 3 checks them and phase 5
+# times them; the kernels line, which carries each kernel's launches on its
+# path, leaves them out.
 OFF_PATH = ("sort_kv_f32", "matmul_f32_simt", "matmul_f32_simt_batched", "matmul_bf16_wmma",
-            "flash_attention_bf16_simt")
+            "flash_attention_bf16_simt", "softmax_f32_online", "lrn_f32_smem")
 PRESET, ITERS, WARMUP, WINDOW = 4, 5, 2, 4
 # Calls of each pass's function on the main path: the compile stage's first
 # call, the validation call, the sync-mode warm-up and timed calls, and the
@@ -111,15 +121,25 @@ SMALL_SHAPES = [(8, 8, 8), (128, 128, 128), (130, 70, 50), (1, 256, 33), (257, 1
 TMA_RAGGED = [(1000, 1000, 1000), (200, 72, 136)]
 F32_TMA_RAGGED = TMA_RAGGED + [(132, 520, 260)]
 F32_TILES = (128, 256)  # block_n; block_m is 128
-SOFTMAX_SMALL = [(1, 8), (33, 257), (64, 64), (7, 1031)]
+# Softmax (rows, columns): the reference's shapes, then C = 1, the register
+# kernel's widest row, one past it, and a row its last thread fills only in
+# part. (1, 8), (64, 64), (5, 32768) and (7, 4000) route to the register
+# entries, the rest to the online ones; so do the special cases of
+# _softmax_cases (equal values, logits of magnitude 80, a view whose rows
+# start off 16 bytes).
+SOFTMAX_SMALL = [(1, 8), (33, 257), (64, 64), (7, 1031), (37, 1), (5, 32768), (3, 32776),
+                 (7, 4000)]
 REF_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # tests/test_kernels_*.py
 # The reference's LRN and avgpool test shapes (tests/test_kernels_misc.py:
 # 29-43), ragged ones (C not a multiple of the 32-channel chunk, S not a
-# multiple of the 128-position block; an output count not a multiple of the
-# 256-thread block), the largest window, and the DNN presets' shapes.
+# multiple of 4 or of the 128-position block; an output count not a
+# multiple of the 256-thread block), the largest window, and the DNN
+# presets' shapes. Sizes 3 and 5 at S % 4 == 0 route to lrn_f32, the rest
+# to lrn_f32_smem.
 LRN_CASES = [
     ((1, 5, 4, 4), 3), ((1, 5, 4, 4), 5), ((2, 13, 9, 11), 3), ((2, 13, 9, 11), 5),
-    ((3, 64, 8, 8), 3), ((3, 64, 8, 8), 5), ((3, 45, 13, 11), 7), ((2, 100, 5, 7), 65),
+    ((3, 64, 8, 8), 3), ((3, 64, 8, 8), 5), ((3, 45, 8, 8), 3), ((3, 45, 8, 8), 5),
+    ((3, 45, 8, 8), 7), ((3, 45, 13, 11), 7), ((2, 100, 5, 7), 65),
 ]
 LRN_PRESET4 = (128, 512, 16, 16)
 AVGPOOL_CASES = [((1, 3, 4, 4), 2), ((2, 5, 8, 12), 2), ((1, 8, 9, 9), 3), ((3, 7, 30, 18), 2)]
@@ -177,6 +197,11 @@ DECODE_SPLIT_CASES = [
 # of 1088 positions (the path's steps see 1025 to 1087).
 ATTN_PREFILL = (8, 32, 8, 1024, 1024, 128)
 ATTN_DECODE = (8, 32, 8, 1, 1088, 128)
+# The f32 smoke run's own attention calls (granite-3-8b smoke config: heads
+# 4/2, head_dim 16; batch 4, 16-token prompts, a cache of 64 of which a
+# decode step sees at most 32): the prefill and a decode step.
+ATTN_SMOKE_PREFILL = (4, 4, 2, 16, 16, 16)
+ATTN_SMOKE_DECODE = (4, 4, 2, 1, 32, 16)
 LM_ARCH = "granite-3-8b"
 LM_SMOKE_SERVE = dict(n_requests=8, batch=4, prompt_len=16, gen_len=16, max_len=64)
 LM_SERVE = dict(n_requests=16, batch=8, prompt_len=1024, gen_len=64, max_len=1096)
@@ -194,9 +219,12 @@ KERNEL_SOURCES = {
     "matmul_bf16_wmma": ("src/repro_torch/kernels/csrc/matmul.cu",
                          "src/repro/kernels/matmul.py:55"),
     "softmax_f32": ("src/repro_torch/kernels/csrc/softmax.cu", "src/repro/kernels/softmax.py:68"),
+    "softmax_f32_online": ("src/repro_torch/kernels/csrc/softmax.cu",
+                           "src/repro/kernels/softmax.py:68"),
     "matmul_f32_batched": ("src/repro_torch/kernels/csrc/matmul_f32_tma.cu",
                            "src/repro/kernels/matmul.py:55"),
     "lrn_f32": ("src/repro_torch/kernels/csrc/lrn.cu", "src/repro/kernels/lrn.py:39"),
+    "lrn_f32_smem": ("src/repro_torch/kernels/csrc/lrn.cu", "src/repro/kernels/lrn.py:39"),
     "avgpool_f32": ("src/repro_torch/kernels/csrc/avgpool.cu",
                     "src/repro/kernels/avgpool.py:34"),
     "sort_kv_i32": ("src/repro_torch/kernels/csrc/radix_sort.cu",
@@ -435,17 +463,31 @@ def _softmax_agrees(out, want, dt):
     return ok, diff.max().item(), rel.max().item()
 
 
-def _softmax_case(torch, softmax, gen, dt, r, c, scale=5.0):
-    x = (scale * torch.randn(r, c, generator=gen, device="cuda")).to(dt)
-    out = softmax.softmax_cuda(x)
+def _softmax_case(torch, softmax, gen, dt, r, c, scale=5.0, entry=None, offset=0,
+                  equal=False):
+    """Softmax of ``r`` rows of ``scale``*N(0,1) logits (all 3.25 if
+    ``equal``), each row ``offset`` elements into a row of ``c + offset``,
+    through the routed entry or ``entry``. -> (entry, max abs error)."""
+    if equal:
+        x = torch.full((r, c), 3.25, device="cuda", dtype=dt)
+    else:
+        x = (scale * torch.randn(r, c + offset, generator=gen, device="cuda")).to(dt)
+        x = x[:, offset:]
+    key = entry or softmax._route(x)
+    before = softmax.launches[key]
+    out = softmax._launch(key, x)
     torch.cuda.synchronize()
+    if softmax.launches[key] != before + 1:
+        _fail(f"softmax {dt} {(r, c)} did not launch {key}")
     ok, max_abs, max_rel = _softmax_agrees(out, softmax.softmax_plain(x), dt)
-    print(f"  softmax {_dtname(dt):8s} ({r},{c}) logits {scale:g}*randn max_abs "
+    what = "all 3.25" if equal else f"{scale:g}*randn" + (f" at a {offset}-element row offset"
+                                                          if offset else "")
+    print(f"  softmax {key:19s} ({r},{c}) logits {what} max_abs "
           f"{max_abs:.3e} max_rel {max_rel:.3e} [rtol {REF_TOL[_dtname(dt)]:g}, "
           f"atol 1e-30] {'ok' if ok else 'FAIL'}")
     if not ok:
-        _fail(f"softmax {dt} {(r, c)} disagrees with its plain version")
-    return max_abs
+        _fail(f"softmax {dt} {(r, c)} on {key} disagrees with its plain version")
+    return key, max_abs
 
 
 def _close_case(torch, what, out, want, rtol, atol):
@@ -462,11 +504,20 @@ def _close_case(torch, what, out, want, rtol, atol):
     return diff.max().item()
 
 
-def _lrn_case(torch, lrn, gen, shape, size):
-    x = torch.randn(*shape, generator=gen, device="cuda")
+def _lrn_case(torch, lrn, gen, shape, size, entry=None, offset=0):
+    """LRN of N(0,1) maps (``offset`` floats into their buffer) through the
+    routed entry or ``entry``. -> (entry, max abs error)."""
+    numel = math.prod(shape)
+    x = torch.randn(numel + offset, generator=gen, device="cuda")[offset:].view(shape)
+    key = entry or lrn._route(x, size)
+    before = lrn.launches[key]
+    out = lrn._launch(key, x, size=size)
+    if lrn.launches[key] != before + 1:
+        _fail(f"lrn {shape} size {size} did not launch {key}")
+    what = f"lrn {key:12s} {shape} size {size}" + (f" at a {offset}-float offset"
+                                                   if offset else "")
     # tests/test_kernels_misc.py:35: rtol 1e-5, atol 1e-6
-    return _close_case(torch, f"lrn f32 {shape} size {size}", lrn.lrn_cuda(x, size=size),
-                       lrn.lrn_plain(x, size=size), 1e-5, 1e-6)
+    return key, _close_case(torch, what, out, lrn.lrn_plain(x, size=size), 1e-5, 1e-6)
 
 
 def _avgpool_case(torch, avgpool, gen, shape, ks, offset=0):
@@ -716,13 +767,28 @@ def phase_kernels(torch) -> dict:
         for r, c in SOFTMAX_SMALL:
             _softmax_case(torch, softmax, gen, dt, r, c)
             _softmax_case(torch, softmax, gen, dt, r, c, scale=1.0)
-        e = _softmax_case(torch, softmax, gen, dt, *SOFTMAX_PRESET4)
-        if dt == torch.float32:
-            err["softmax_f32"] = e
-            _softmax_case(torch, softmax, gen, dt, *SOFTMAX_PRESET4, scale=1.0)
+        _softmax_case(torch, softmax, gen, dt, 5, 2048, equal=True)
+        _softmax_case(torch, softmax, gen, dt, 16, 4096, scale=80.0)
+        _softmax_case(torch, softmax, gen, dt, 6, 1024, offset=1)
+        # The path's shape on the register entry and on the online one
+        # (phase 5 times both), at both logit scales.
+        online = softmax._ANY_LAYOUT[dt]
+        for entry in (None, online):
+            for scale in (5.0, 1.0):
+                key, e = _softmax_case(torch, softmax, gen, dt, *SOFTMAX_PRESET4, scale=scale,
+                                       entry=entry)
+                if entry is None and key != softmax._DTYPES[dt]:
+                    _fail(f"the path's softmax ({_dtname(dt)}) routed to {key}")
+                if key in err:
+                    err[key] = max(err[key], e)
     for shape, size in LRN_CASES:
         _lrn_case(torch, lrn, gen, shape, size)
-    err["lrn_f32"] = _lrn_case(torch, lrn, gen, LRN_PRESET4, 5)
+    _lrn_case(torch, lrn, gen, (2, 40, 4, 4), 5, offset=1)  # off 16 bytes: lrn_f32_smem
+    for entry in (None, "lrn_f32_smem"):  # the path's shape on both (phase 5)
+        key, e = _lrn_case(torch, lrn, gen, LRN_PRESET4, 5, entry=entry)
+        if entry is None and key != "lrn_f32":
+            _fail(f"the path's LRN routed to {key}")
+        err[key] = e
     for shape, ks in AVGPOOL_CASES:
         _avgpool_case(torch, avgpool, gen, shape, ks)
     _avgpool_case(torch, avgpool, gen, (2, 3, 8, 8), 2, offset=1)  # no float2 path
@@ -875,6 +941,8 @@ def phase_main_path(torch) -> dict:
           f"{launches['matmul_bf16_wmma'] + launches['matmul_bf16_wmma_batched']}")
     print(f"  f32 rows: matmul_f32 {launches['matmul_f32']} launches, matmul_f32_simt "
           f"{launches['matmul_f32_simt'] + launches['matmul_f32_simt_batched']}")
+    print(f"  softmax: softmax_f32 {launches['softmax_f32']} launches, softmax_f32_online "
+          f"{launches['softmax_f32_online']}")
     return launches
 
 
@@ -914,7 +982,8 @@ def phase_dnn(torch) -> dict:
     if launches != want:
         _fail(f"launch counts {launches} differ from the expected {want}")
     print(f"  im2col: matmul_f32_batched {launches['matmul_f32_batched']} launches, "
-          f"matmul_f32_simt_batched {launches['matmul_f32_simt_batched']}")
+          f"matmul_f32_simt_batched {launches['matmul_f32_simt_batched']}; lrn: lrn_f32 "
+          f"{launches['lrn_f32']}, lrn_f32_smem {launches['lrn_f32_smem']}")
     return launches
 
 
@@ -1019,6 +1088,23 @@ def phase_small_agreement(torch) -> None:
               f"{(out_k - out_t).abs().max().item():.3e} {why} {'ok' if ok else 'FAIL'}")
         if not ok:
             _fail(f"{name} at preset 0: kernel and torch disagree")
+    # The Softmax and LRN rows at the presets below 4 (phase 4 runs 4): each
+    # call on the redesigned entry, none on the replaced one, and the row's
+    # own validate() passes.
+    from repro_torch.kernels import lrn, softmax
+
+    for name, mod, entry in (("softmax", softmax, "softmax_f32"), ("lrn", lrn, "lrn_f32")):
+        for preset in range(PRESET):
+            wl = get_benchmark(name).build_preset(preset)
+            args = commit_args(wl.make_inputs(0), "cuda")
+            before = dict(mod.launches)
+            out = bind_impl(wl.fn, wl, "kernel")(*args)
+            torch.cuda.synchronize()
+            delta = {k: v - before[k] for k, v in mod.launches.items()}
+            if delta != {k: int(k == entry) for k in delta}:
+                _fail(f"{wl.name}: launches {delta}, expected one on {entry}")
+            wl.validate(out, args)
+            print(f"  {wl.name:26s} one launch of {entry}, validate() ok")
     for name, overrides in (("sort", {}), ("where", {}), ("srad", {}), ("srad", {"fused": False})):
         wl = get_benchmark(name).build_preset(0, **overrides)
         args = commit_args(wl.make_inputs(0), "cuda")
@@ -1355,15 +1441,18 @@ def _yardstick_cases(torch, gen, hw):
         roof = roofline_terms(2.0 * n**3, 3.0 * n * n * dt.itemsize, dtype=dt, hw=hw)
         tile = f" tile 128x{bn}" if key == "matmul_f32" else ""
         rows.append((key, f"{n}x{n}x{n} {trans}{tile}", roof, cases))
+    # Softmax at preset 4 on the register kernel and on the online kernel it
+    # replaced on the path.
     r, c = SOFTMAX_PRESET4
     x = 5 * torch.randn(r, c, generator=gen, device="cuda")
-    cases = (
-        functools.partial(softmax.softmax_cuda, x),
-        functools.partial(softmax.softmax_plain, x),
-        functools.partial(torch.softmax, x, dim=-1),
-    )
     roof = roofline_terms(5.0 * r * c, 8.0 * r * c, dtype=torch.float32, hw=hw)
-    rows.append(("softmax_f32", f"{r}x{c}", roof, cases))
+    for key in ("softmax_f32", "softmax_f32_online"):
+        cases = (
+            functools.partial(softmax._launch, key, x),
+            functools.partial(softmax.softmax_plain, x),
+            functools.partial(torch.softmax, x, dim=-1),
+        )
+        rows.append((key, f"{r}x{c}", roof, cases))
     # Convolution's im2col product at preset 4: a shared weight matrix times
     # every image's patch matrix; each input read once, the output written
     # once.
@@ -1394,10 +1483,11 @@ def _yardstick_cases(torch, gen, hw):
                                 beta=0.75, k=2.0)
     _close_case(torch, "torch.nn.functional.local_response_norm (alpha*size) vs plain",
                 library(), lrn.lrn_plain(x, size=size), 1e-5, 1e-6)
-    cases = (functools.partial(lrn.lrn_cuda, x, size=size),
-             functools.partial(lrn.lrn_plain, x, size=size), library)
     roof = roofline_terms((2 * size + 4) * numel, 8.0 * numel, dtype=torch.float32, hw=hw)
-    rows.append(("lrn_f32", "x".join(map(str, LRN_PRESET4)), roof, cases))
+    for key in ("lrn_f32", "lrn_f32_smem"):  # the ring kernel, and the one it replaced
+        cases = (functools.partial(lrn._launch, key, x, size=size),
+                 functools.partial(lrn.lrn_plain, x, size=size), library)
+        rows.append((key, "x".join(map(str, LRN_PRESET4)), roof, cases))
     # Average pool at preset 4, k=2: each input read once, a quarter as many
     # outputs written; one add per input.
     x = torch.randn(*AVGPOOL_PRESET4, generator=gen, device="cuda")
@@ -1475,10 +1565,11 @@ def _attention_yardstick(torch, gen, hw):
     kernel (bf16 prefill), the decode pair (bf16 decode step: the split
     kernel and its merge, as the path launches them), the merge alone on the
     decode kernel's partials, the SIMT kernel they replaced on the path (at
-    both shapes), and the f32 kernel (f32 prefill, the strict smoke run's).
-    The bound counts 4*D operations per visible pair (two products) at the
-    dtype's peak, and q, k, v and o once each; the merge's, the partials
-    read once and o written once. The yardstick is
+    both shapes), and the f32 kernel: at the serving path's prefill shape,
+    and at the f32 smoke run's own prefill and decode shapes, where its
+    launches are. The bound counts 4*D operations per visible pair (two
+    products) at the dtype's peak, and q, k, v and o once each; the
+    merge's, the partials read once and o written once. The yardstick is
     F.scaled_dot_product_attention (GQA through ``enable_gqa``), which the
     port never calls."""
     import torch.nn.functional as F
@@ -1493,6 +1584,8 @@ def _attention_yardstick(torch, gen, hw):
         ("flash_attention_bf16_simt", torch.bfloat16, ATTN_PREFILL, True, ""),
         ("flash_attention_bf16_simt", torch.bfloat16, ATTN_DECODE, False, ""),
         ("flash_attention_f32", torch.float32, ATTN_PREFILL, True, ""),
+        ("flash_attention_f32", torch.float32, ATTN_SMOKE_PREFILL, True, " (smoke prefill)"),
+        ("flash_attention_f32", torch.float32, ATTN_SMOKE_DECODE, False, " (smoke decode)"),
     ):
         q = torch.randn(b, hq, t, d, generator=gen, device="cuda").to(dt)
         k, v = (torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(dt)
@@ -1574,6 +1667,20 @@ def _srad_launches(torch, gen) -> None:
               f"ordinary launches) {split:.4f} ms")
 
 
+def _copy_floor(torch, gen, hw) -> None:
+    """What moving the same bytes takes on this card: a device-to-device
+    copy (``Tensor.copy_``, one read and one write an element) at the
+    softmax's and the LRN's path shapes, device time against the bytes'
+    bound. The two kernels move those bytes and no others."""
+    for what, shape in (("softmax", SOFTMAX_PRESET4), ("lrn", LRN_PRESET4)):
+        x = torch.randn(*shape, generator=gen, device="cuda")
+        y = torch.empty_like(x)
+        ms = _device_ms(torch, functools.partial(y.copy_, x))
+        bound = 8.0 * x.numel() / hw.hbm_bw * 1e3
+        print(f"  copy of the {what} input {tuple(shape)} f32: device {ms:.4f} ms "
+              f"= {bound / ms:.3f} of the bytes' bound {bound:.4f} ms")
+
+
 def _device_ms(torch, fn, calls: int = 20) -> float:
     """The device's own time per call of ``fn`` (the kernels and memsets it
     launches), from ``torch.profiler`` (CUPTI) over ``calls`` calls after a
@@ -1648,16 +1755,17 @@ def phase_yardstick(torch, launches: dict, errors: dict) -> list:
             "bound_by": "operations" if roof.compute_s >= roof.memory_s else "bytes",
             "library_ms": lib, "device_ms": device_ms,
         }
-        lib_txt = "none" if lib is None else f"{lib:.4f} ms"
+        lib_txt = "none" if lib is None else f"{lib:.4f} ms ({ms / lib:.2f}x)"
         print(f"  {key:18s} {shape:24s} kernel {ms:.4f} ms (runs {k1:.4f}, {k2:.4f}; "
               f"device {device_ms:.4f} ms) "
-              f"plain {plain_ms:.4f} ms library {lib_txt} bound {entry['bound_ms']:.4f} ms "
-              f"({entry['bound_by']}) = {entry['bound_ms'] / ms:.3f} of bound"
+              f"plain {plain_ms:.4f} ms library {lib_txt} bound {entry['bound_ms']:.4g} ms "
+              f"({entry['bound_by']}) = {entry['bound_ms'] / ms:.3g} of bound"
               + (" [on no path]" if key in OFF_PATH else ""))
         if key not in OFF_PATH:
             out.append(entry)
     _attention_decode_scaling(torch, gen)
     _srad_launches(torch, gen)
+    _copy_floor(torch, gen, hw)
     return out
 
 

@@ -53,7 +53,7 @@ register(
         dwarf="Unstructured Grid",
         domain=DNN_DOMAIN,
         cuda_feature=None,
-        gpu_feature="channel-window sum, chunked channels (CUDA)",
+        gpu_feature="channel-window sum from a register ring, float4 columns (CUDA)",
         presets=geometric_presets(
             {"n": 8, "c": 32, "hw": 16}, scale_keys={"n": 2.0, "c": 2.0}, round_to=4
         ),

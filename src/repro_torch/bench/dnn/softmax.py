@@ -51,7 +51,7 @@ register(
         dwarf="Unstructured Grid",
         domain=DNN_DOMAIN,
         cuda_feature=None,
-        gpu_feature="one-block-per-row online softmax (CUDA)",
+        gpu_feature="one block per row, the row in registers, one exponential an element (CUDA)",
         presets=geometric_presets(
             {"batch": 128, "classes": 1024},
             scale_keys={"batch": 4.0, "classes": 2.0},

@@ -1,17 +1,27 @@
-"""Cross-channel LRN kernel (the DNN LRN benchmark, paper eq. 3).
+"""Cross-channel LRN kernels (the DNN LRN benchmark, paper eq. 3).
 
-Counterpart of ``repro/kernels/lrn.py``. The kernel is CUDA C++ for Hopper
-in ``csrc/lrn.cu`` (see the note at its top for its bound and design): each
-output sums its own window of ``size`` squares over the channels, in the
-oracle's order, with threads on neighbouring spatial positions and the
-channels split into chunks of 32 per block. The TPU kernel's band-matrix
-product on the MXU is not carried over.
+Counterpart of ``repro/kernels/lrn.py``. The kernels are CUDA C++ for Hopper
+in ``csrc/lrn.cu`` (see the note at its top for their bound and design):
+each output sums its own window of ``size`` squares over the channels, in
+the oracle's order. The TPU kernel's band-matrix product on the MXU is not
+carried over. Two C entry points:
 
-- :func:`lrn_cuda` launches the kernel on a contiguous (N, C, H, W) float32
-  CUDA tensor. It raises on another device, dtype, rank or layout, on an
-  even ``size`` (see :func:`lrn_kernel`), on a ``size`` above 65 (the
-  shared-memory tile's limit) and on more images or channel chunks than
-  the grid holds (65535 each).
+- ``lrn_f32``: sizes 3 and 5 on an input whose S = H*W is a multiple of 4
+  and whose base is 16-byte aligned. Each thread owns four neighbouring
+  spatial positions (one float4) and walks a chunk of 32 channels plus the
+  halo, the window's squares in a register ring.
+- ``lrn_f32_smem``: every other input: any odd size up to 65, any S. A
+  block stages a 32-channel chunk plus the halo in shared memory.
+
+- :func:`_route` names the entry an input goes to, from dtype, shape,
+  strides, address and ``size`` alone (it runs on CPU tensors too); it
+  raises on what no entry takes: another dtype or rank, a layout that is
+  not contiguous, an even ``size`` (see :func:`lrn_kernel`), a ``size``
+  above 65 (the shared-memory tile's limit) and more images or channel
+  chunks than the grid holds (65535 each).
+- :func:`lrn_cuda` launches that entry on a CUDA tensor.
+- :func:`lrn_model` is ``lrn_f32``'s arithmetic in plain PyTorch, which
+  the CPU tests hold against the reference.
 - :func:`lrn_kernel` is the kernel route: it refuses an even ``size`` on
   either device, then CUDA tensors launch and CPU tensors run the plain
   version (:func:`lrn_plain`, the ``ref.py`` oracle).
@@ -28,6 +38,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import lrn_ref as lrn_plain
@@ -36,17 +47,19 @@ __all__ = [
     "lrn_cuda",
     "lrn_kernel",
     "lrn_plain",
+    "lrn_model",
     "tune_space",
     "launches",
     "plain_calls",
 ]
 
-launches = {"lrn_f32": 0}
+launches = {"lrn_f32": 0, "lrn_f32_smem": 0}
 plain_calls = 0
 
-MAX_SIZE = 65  # the channel tile (32 + size - 1 rows of 128) fits 48 KB
-MAX_N = 65535  # the grid's z extent (images)
-MAX_C = 65535 * 32  # the grid's y extent (chunks of 32 channels)
+RING_SIZES = (3, 5)  # the register ring's compiled windows
+MAX_SIZE = 65  # lrn_f32_smem's channel tile (32 + size - 1 rows of 128) fits 48 KB
+MAX_N = 65535  # lrn_f32_smem's grid z extent (images)
+MAX_C = 65535 * 32  # either grid's y extent (chunks of 32 channels)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_float,
              ctypes.c_float, ctypes.c_void_p]
@@ -54,9 +67,10 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
 
 def tune_space() -> tuple[dict, ...]:
     """No block parameters (single entry): the reference sweeps ``block_s``
-    (spatial positions per grid step), while here a block is 128 spatial
-    positions, one per thread, by 32 output channels, which at the DNN
-    presets' 16x16 images makes thousands of blocks."""
+    (spatial positions per grid step), while here a thread walks 32 output
+    channels of four spatial positions (``lrn_f32``) or of one
+    (``lrn_f32_smem``), which at the DNN presets' 16x16 images makes a
+    thousand blocks or more."""
     return ({},)
 
 
@@ -68,17 +82,12 @@ def _check_size(size: int) -> None:
         )
 
 
-def lrn_cuda(
-    x: torch.Tensor,
-    *,
-    size: int = 5,
-    alpha: float = 1e-4,
-    beta: float = 0.75,
-    k: float = 2.0,
-) -> torch.Tensor:
-    """Launch the CUDA kernel on ``x`` (N, C, H, W), float32."""
-    if not x.is_cuda:
-        raise ValueError(f"lrn_cuda needs a CUDA tensor, got {x.device}")
+def _route(x: torch.Tensor, size: int) -> str:
+    """The C entry point ``x`` and ``size`` go to: ``lrn_f32`` for a size in
+    :data:`RING_SIZES`, S a multiple of 4 and a 16-byte aligned base;
+    ``lrn_f32_smem`` for every other input. Raises ``ValueError`` on what no
+    entry takes. Looks only at dtype, shape, strides and address, so it
+    answers for CPU tensors too."""
     if x.dtype != torch.float32:
         raise ValueError(f"lrn kernel takes float32, got {x.dtype}")
     if x.dim() != 4:
@@ -95,16 +104,66 @@ def lrn_cuda(
         raise ValueError(
             f"lrn kernel takes at most {MAX_N} images and {MAX_C} channels, got {n} and {c}"
         )
+    ring = size in RING_SIZES and (h * w) % 4 == 0 and x.data_ptr() % 16 == 0
+    return "lrn_f32" if ring else "lrn_f32_smem"
+
+
+def lrn_cuda(
+    x: torch.Tensor,
+    *,
+    size: int = 5,
+    alpha: float = 1e-4,
+    beta: float = 0.75,
+    k: float = 2.0,
+) -> torch.Tensor:
+    """Launch the entry :func:`_route` names on ``x`` (N, C, H, W), float32.
+    The route is checked before the device, so a CPU tensor reports a
+    layout no entry takes first."""
+    name = _route(x, size)
+    if not x.is_cuda:
+        raise ValueError(f"lrn_cuda needs a CUDA tensor, got {x.device}")
+    return _launch(name, x, size=size, alpha=alpha, beta=beta, k=k)
+
+
+def _launch(name: str, x: torch.Tensor, *, size: int = 5, alpha: float = 1e-4,
+            beta: float = 0.75, k: float = 2.0) -> torch.Tensor:
+    """Launch entry ``name``, one that takes ``x``: the routed one, or
+    ``lrn_f32_smem``, which takes every input the route accepts."""
+    if not x.is_cuda:
+        raise ValueError(f"lrn_cuda needs a CUDA tensor, got {x.device}")
+    routed = _route(x, size)
+    if name not in (routed, "lrn_f32_smem"):
+        raise ValueError(f"lrn entry {name} does not take this input ({routed} does)")
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    fn = _build.function("lrn_f32", _ARGTYPES)
+    n, c, h, w = x.shape
+    fn = _build.function(name, _ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = fn(x.data_ptr(), y.data_ptr(), n, c, h * w, size // 2,
-                alpha, beta, k, stream)
-    _build.check(status, "lrn_f32")
-    launches["lrn_f32"] += 1
+    status = fn(x.data_ptr(), y.data_ptr(), n, c, h * w, size // 2, alpha, beta, k, stream)
+    _build.check(status, name)
+    launches[name] += 1
     return y
+
+
+def lrn_model(
+    x: torch.Tensor,
+    *,
+    size: int = 5,
+    alpha: float = 1e-4,
+    beta: float = 0.75,
+    k: float = 2.0,
+) -> torch.Tensor:
+    """``lrn_f32``'s arithmetic, in plain PyTorch: the oracle's window sum
+    (each square rounded, channel ``c - size//2`` first), then ``x *
+    2^(-beta * log2(k + alpha * win))`` in place of the oracle's ``x / (k +
+    alpha * win)^beta``."""
+    xf = x.float()
+    half = size // 2
+    c = x.shape[1]
+    padded = F.pad(xf * xf, (0, 0, 0, 0, half, half))
+    win = sum(padded[:, i : i + c] for i in range(size))
+    return (xf * torch.exp2(-beta * torch.log2(k + alpha * win))).to(x.dtype)
 
 
 def lrn_kernel(

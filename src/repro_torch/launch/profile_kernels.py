@@ -1,8 +1,9 @@
-"""Per-launch device profile of the f32 GEMM and the radix sort at the
-paths' shapes: which CUDA kernels one call launches, how many of each, and
-the device time of each, summed per kernel name over the call.
+"""Per-launch device profile of the f32 GEMM, the radix sort, the row
+softmax and the LRN at the paths' shapes: which CUDA kernels one call
+launches, how many of each, and the device time of each, summed per kernel
+name over the call.
 
-    python -m repro_torch.launch.profile_kernels [--calls 10] [--json PATH]
+    python -m repro_torch.launch.profile_kernels [--calls 10] [--match TEXT] [--json PATH]
 
 Cases (all on the card, inputs from a seeded CUDA generator):
 
@@ -12,7 +13,13 @@ Cases (all on the card, inputs from a seeded CUDA generator):
 - ``matmul_cuda`` of a shared (256, 2304) weight times (64, 2304, 900)
   patch matrices: Convolution's im2col product;
 - ``sort_kv_cuda`` of 2^24 int32 keys in [0, 2^30) with int32 values: the
-  Sort row.
+  Sort row;
+- ``softmax_cuda`` of 32768 x 16384 f32 logits, 5 * N(0, 1): the Softmax
+  row at preset 4;
+- ``lrn_cuda`` of a (128, 512, 16, 16) f32 N(0, 1) input, size 5: the LRN
+  row at preset 4.
+
+``--match`` keeps the cases whose name holds the text (all by default).
 
 Each case is called once to build and warm up, then once more traced but
 not recorded, then ``--calls`` times recorded by ``torch.profiler``
@@ -31,7 +38,7 @@ __all__ = ["main"]
 
 
 def _cases(torch, gen):
-    from repro_torch.kernels import bitonic_sort, matmul
+    from repro_torch.kernels import bitonic_sort, lrn, matmul, softmax
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
@@ -44,6 +51,8 @@ def _cases(torch, gen):
     keys = torch.randint(0, 1 << 30, (1 << 24,), generator=gen, device="cuda",
                          dtype=torch.int32)
     vals = torch.arange(1 << 24, dtype=torch.int32, device="cuda")
+    logits = 5 * randn(32768, 16384)
+    maps = randn(128, 512, 16, 16)
     return (
         ("matmul_cuda f32 4096^3 nn", lambda: matmul.matmul_cuda(a, b)),
         ("matmul_cuda f32 4096^3 tn", lambda: matmul.matmul_cuda(at, b)),
@@ -52,6 +61,8 @@ def _cases(torch, gen):
          lambda: matmul.matmul_cuda(wmat, cols)),
         ("sort_kv_cuda 2^24 int32 keys [0, 2^30)",
          lambda: bitonic_sort.sort_kv_cuda(keys, vals)),
+        ("softmax_cuda f32 32768x16384 5*randn", lambda: softmax.softmax_cuda(logits)),
+        ("lrn_cuda f32 (128, 512, 16, 16) size 5", lambda: lrn.lrn_cuda(maps, size=5)),
     )
 
 
@@ -86,6 +97,7 @@ def _profile(torch, fn, calls: int) -> list[dict]:
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--calls", type=int, default=10)
+    p.add_argument("--match", default="", help="only the cases whose name holds this text")
     p.add_argument("--json", help="also write the profile to this file")
     args = p.parse_args(argv)
 
@@ -100,6 +112,8 @@ def main(argv: list[str] | None = None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
     for what, fn in _cases(torch, gen):
+        if args.match not in what:
+            continue
         rows = _profile(torch, fn, args.calls)
         out[what] = rows
         total = sum(r["device_ms_per_call"] for r in rows)

@@ -112,6 +112,73 @@ def test_softmax_kernel_matches_plain(card, rows, cols, dtype):
     )
 
 
+def _softmax_input(card, dtype, case):
+    """The softmax cases the two entries split between them, as (x, entry
+    the route must pick): C = 1, C not a multiple of the 16-byte vector, a
+    view whose rows start off 16 bytes, C above the register kernel's
+    limit, rows of equal values, logits of magnitude 80, and the path's
+    preset-0 shape."""
+    rng = np.random.default_rng(0)
+    base = {torch.float32: "softmax_f32", torch.bfloat16: "softmax_bf16"}[dtype]
+    online = base + "_online"
+    per16 = 16 // torch.empty((), dtype=dtype).element_size()
+
+    def randn(*shape, scale=5.0):
+        return torch.from_numpy(scale * rng.standard_normal(shape, dtype=np.float32)).to(
+            card, dtype)
+
+    if case == "c_is_1":
+        return randn(37, 1), online
+    if case == "c_not_whole_vectors":
+        return randn(9, 4 * per16 + 3), online
+    if case == "misaligned_rows":  # each row starts one element past the last
+        return randn(6, 1025)[:, 1:], online
+    if case == "above_register_limit":
+        return randn(3, softmax.MAX_COLS + 4 * per16), online
+    if case == "equal_rows":
+        return torch.full((5, 2048), 3.25, device=card, dtype=dtype), base
+    if case == "magnitude_80":
+        return randn(16, 4096, scale=80.0), base
+    if case == "largest_register_row":
+        return randn(4, softmax.MAX_COLS), base
+    if case == "ragged_vectors":  # the last thread owns fewer vectors
+        return randn(7, 1000 * per16), base
+    return randn(128, 1024), base  # preset 0
+
+
+SOFTMAX_ROUTE_CASES = ["c_is_1", "c_not_whole_vectors", "misaligned_rows",
+                       "above_register_limit", "equal_rows", "magnitude_80",
+                       "largest_register_row", "ragged_vectors", "preset_0"]
+
+
+@pytest.mark.parametrize("case", SOFTMAX_ROUTE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_entries_match_plain(card, case, dtype):
+    x, entry = _softmax_input(card, dtype, case)
+    assert softmax._route(x) == entry
+    before = dict(softmax.launches)
+    got = softmax.softmax_cuda(x)
+    torch.cuda.synchronize()
+    assert softmax.launches[entry] == before[entry] + 1
+    assert sum(softmax.launches.values()) == sum(before.values()) + 1
+    torch.testing.assert_close(
+        got.float(), softmax.softmax_plain(x).float(), rtol=_tol(dtype), atol=1e-30
+    )
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_online_entry_takes_the_register_layouts_too(card, dtype):
+    x, entry = _softmax_input(card, dtype, "magnitude_80")
+    online = entry + "_online"
+    before = softmax.launches[online]
+    got = softmax._launch(online, x)
+    torch.cuda.synchronize()
+    assert softmax.launches[online] == before + 1
+    torch.testing.assert_close(
+        got.float(), softmax.softmax_plain(x).float(), rtol=_tol(dtype), atol=1e-30
+    )
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shared", [True, False])
 def test_batched_matmul_kernel_matches_plain(card, dtype, shared):
@@ -141,6 +208,49 @@ def test_lrn_kernel_matches_plain(card, shape, size):
     got = lrn.lrn_cuda(x, size=size)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, lrn.lrn_plain(x, size=size), rtol=1e-5, atol=1e-6)
+
+
+# (shape, size, the entry the route must pick): the ring's sizes at S % 4
+# == 0 with C a multiple of the 32-channel chunk and not, at S % 4 != 0,
+# and a size the ring does not compile.
+LRN_ROUTE_CASES = [
+    ((2, 64, 8, 8), 3, "lrn_f32"), ((2, 64, 8, 8), 5, "lrn_f32"),
+    ((3, 45, 8, 8), 3, "lrn_f32"), ((3, 45, 8, 8), 5, "lrn_f32"),
+    ((2, 7, 2, 2), 5, "lrn_f32"), ((2, 13, 9, 11), 3, "lrn_f32_smem"),
+    ((2, 13, 9, 11), 5, "lrn_f32_smem"), ((3, 45, 8, 8), 7, "lrn_f32_smem"),
+    ((8, 32, 16, 16), 5, "lrn_f32"),  # preset 0
+]
+
+
+@pytest.mark.parametrize("shape,size,entry", LRN_ROUTE_CASES)
+def test_lrn_entries_match_plain(card, shape, size, entry):
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(shape, dtype=np.float32))
+    x = x.to(card)
+    assert lrn._route(x, size) == entry
+    before = dict(lrn.launches)
+    got = lrn.lrn_cuda(x, size=size)
+    torch.cuda.synchronize()
+    assert lrn.launches[entry] == before[entry] + 1
+    assert sum(lrn.launches.values()) == sum(before.values()) + 1
+    torch.testing.assert_close(got, lrn.lrn_plain(x, size=size), rtol=1e-5, atol=1e-6)
+
+
+def test_lrn_smem_entry_takes_the_ring_layouts_too(card):
+    x = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((3, 45, 8, 8), dtype=np.float32)).to(card)
+    before = lrn.launches["lrn_f32_smem"]
+    got = lrn._launch("lrn_f32_smem", x, size=5)
+    torch.cuda.synchronize()
+    assert lrn.launches["lrn_f32_smem"] == before + 1
+    torch.testing.assert_close(got, lrn.lrn_plain(x, size=5), rtol=1e-5, atol=1e-6)
+
+
+def test_lrn_off_16_bytes_takes_the_smem_entry(card):
+    base = torch.randn(1 + 2 * 40 * 16, device=card)
+    x = base[1:].view(2, 40, 4, 4)  # contiguous, 4 bytes past 16-byte alignment
+    assert lrn._route(x, 5) == "lrn_f32_smem"
+    torch.testing.assert_close(lrn.lrn_cuda(x, size=5), lrn.lrn_plain(x, size=5),
+                               rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("shape,ks", AVGPOOL_CASES)
@@ -195,6 +305,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
 
 def test_kernel_rows_on_the_card_launch_the_kernels(card):
     before = sum(matmul.launches.values()), sum(softmax.launches.values())
+    online = softmax.launches["softmax_f32_online"]  # the preset's rows take registers
     res = Engine().run(ExecutionPlan(
         names=("gemm_bf16_tn", "softmax"), preset=0, iters=2, warmup=1,
         include_backward=False, impl="kernel",
@@ -204,6 +315,7 @@ def test_kernel_rows_on_the_card_launch_the_kernels(card):
     calls = 1 + 1 + 1 + 2 * (1 + 4)
     after = sum(matmul.launches.values()), sum(softmax.launches.values())
     assert (after[0] - before[0], after[1] - before[1]) == (calls, calls)
+    assert softmax.launches["softmax_f32_online"] == online
 
 
 def test_dnn_kernel_rows_on_the_card_launch_the_kernels(card):
@@ -220,7 +332,8 @@ def test_dnn_kernel_rows_on_the_card_launch_the_kernels(card):
     assert deltas == {
         "matmul_f32": 0, "matmul_f32_batched": calls, "matmul_f32_simt": 0,
         "matmul_f32_simt_batched": 0, "matmul_bf16": 0, "matmul_bf16_wmma": 0,
-        "matmul_bf16_wmma_batched": 0, "lrn_f32": calls, "avgpool_f32": calls,
+        "matmul_bf16_wmma_batched": 0, "lrn_f32": calls, "lrn_f32_smem": 0,
+        "avgpool_f32": calls,
     }
 
 

@@ -42,7 +42,7 @@ from repro_torch.kernels import srad_stencil as _srad_mod
 
 __all__ = [
     "matmul", "attention", "softmax", "lrn", "avgpool", "srad_step", "prefix_scan", "sort_kv",
-    "force_impl", "tune_space", "KERNEL_OPS", "MODES",
+    "force_impl", "takes_kernel", "tune_space", "KERNEL_OPS", "MODES",
 ]
 
 Mode = Literal["auto", "kernel", "ref"]
@@ -98,6 +98,13 @@ def _resolve(op: str, mode: Mode, x: torch.Tensor, blocks: dict) -> tuple[bool, 
     if mode == "auto":
         return x.is_cuda, blocks
     return mode == "kernel", blocks
+
+
+def takes_kernel(op: str, x: torch.Tensor, mode: Mode = "auto") -> bool:
+    """Whether a call of ``op`` on ``x`` with ``mode`` takes the kernel
+    route under the active :func:`force_impl` (what a cached capture of the
+    call depends on)."""
+    return _resolve(op, mode, x, {})[0]
 
 
 def tune_space(op: str) -> tuple[dict, ...]:

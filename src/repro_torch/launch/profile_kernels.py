@@ -1,7 +1,7 @@
 """Per-launch device profile of the f32 GEMM, the radix sort, the row
-softmax and the LRN at the paths' shapes: which CUDA kernels one call
-launches, how many of each, and the device time of each, summed per kernel
-name over the call.
+softmax, the LRN and the SRAD step at the paths' shapes: which CUDA
+kernels one call launches, how many of each, and the device time of each,
+summed per kernel name over the call.
 
     python -m repro_torch.launch.profile_kernels [--calls 10] [--match TEXT] [--json PATH]
 
@@ -17,7 +17,11 @@ Cases (all on the card, inputs from a seeded CUDA generator):
 - ``softmax_cuda`` of 32768 x 16384 f32 logits, 5 * N(0, 1): the Softmax
   row at preset 4;
 - ``lrn_cuda`` of a (128, 512, 16, 16) f32 N(0, 1) input, size 5: the LRN
-  row at preset 4.
+  row at preset 4;
+- ``srad_step_cuda`` of a 1024 x 1024 f32 exp(0.1 N(0, 1)) image, fused
+  and split: one step of the SRAD rows at preset 4; and the same step on
+  the replaced entries, ``srad_fused_f32_gridstride`` and
+  ``srad_phase1_f32_scalar``.
 
 ``--match`` keeps the cases whose name holds the text (all by default).
 
@@ -39,6 +43,7 @@ __all__ = ["main"]
 
 def _cases(torch, gen):
     from repro_torch.kernels import bitonic_sort, lrn, matmul, softmax
+    from repro_torch.kernels import srad_stencil as srad
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
@@ -53,6 +58,7 @@ def _cases(torch, gen):
     vals = torch.arange(1 << 24, dtype=torch.int32, device="cuda")
     logits = 5 * randn(32768, 16384)
     maps = randn(128, 512, 16, 16)
+    img = torch.exp(0.1 * randn(1024, 1024))
     return (
         ("matmul_cuda f32 4096^3 nn", lambda: matmul.matmul_cuda(a, b)),
         ("matmul_cuda f32 4096^3 tn", lambda: matmul.matmul_cuda(at, b)),
@@ -63,6 +69,12 @@ def _cases(torch, gen):
          lambda: bitonic_sort.sort_kv_cuda(keys, vals)),
         ("softmax_cuda f32 32768x16384 5*randn", lambda: softmax.softmax_cuda(logits)),
         ("lrn_cuda f32 (128, 512, 16, 16) size 5", lambda: lrn.lrn_cuda(maps, size=5)),
+        ("srad_cuda f32 1024^2 fused step", lambda: srad.srad_step_cuda(img)),
+        ("srad_cuda f32 1024^2 split step", lambda: srad.srad_step_cuda(img, fused=False)),
+        ("srad_cuda f32 1024^2 fused step on srad_fused_f32_gridstride",
+         lambda: srad._launch("srad_fused_f32_gridstride", img)),
+        ("srad_cuda f32 1024^2 phase 1 on srad_phase1_f32_scalar",
+         lambda: srad._launch("srad_phase1_f32_scalar", img)),
     )
 
 

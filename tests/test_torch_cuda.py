@@ -38,6 +38,13 @@ AVGPOOL_CASES = [((1, 3, 4, 4), 2), ((2, 5, 8, 12), 2), ((1, 8, 9, 9), 3), ((3, 
 # The reference's SRAD shapes (tests/test_kernels_misc.py:46), then one that
 # needs more blocks than are resident at once (the fused grid-stride path).
 SRAD_SHAPES = [(8, 8), (32, 48), (65, 33), (1000, 1030), (2048, 2048)]
+# The band kernel's edges (at 132 SMs): H not a multiple of the band count
+# with a last band of one row (1001, 133), H below the SM count (100), one
+# row, one column, W % 4 != 0 (1027), the preset-4 image, the largest
+# square band that fits (1800: 218 KB of shared memory) and rows of more
+# float4s than a CTA has threads (8192).
+SRAD_BAND_SHAPES = [(1001, 1024), (133, 256), (100, 64), (1, 1), (1, 1024), (1024, 1),
+                    (257, 1027), (1024, 1024), (1800, 1800), (20, 8192)]
 SCAN_LENGTHS = [8, 1000, 4096, 5, 2**20 + 3]
 SORT_LENGTHS = [1, 2, 1000, 4096, 5000, 2**20 + 3]
 U_F32 = 2.0**-24
@@ -337,18 +344,93 @@ def test_dnn_kernel_rows_on_the_card_launch_the_kernels(card):
     }
 
 
+def _srad_image(card, h, w, offset=0):
+    rng = np.random.default_rng(h * 7919 + w)
+    img = rng.uniform(0.2, 1.0, size=offset + h * w).astype(np.float32)
+    return torch.from_numpy(img).to(card)[offset:].view(h, w)
+
+
 @pytest.mark.parametrize("h,w", SRAD_SHAPES)
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "split"])
 def test_srad_kernel_matches_plain(card, h, w, fused):
-    rng = np.random.default_rng(0)
-    img = torch.from_numpy(rng.uniform(0.2, 1.0, size=(h, w)).astype(np.float32)).to(card)
-    key = "srad_fused_f32" if fused else "srad_phase1_f32"
-    before = srad_stencil.launches[key]
+    img = _srad_image(card, h, w)
+    key = srad_stencil._route(img, fused=fused)
+    before = dict(srad_stencil.launches)
     got = srad_stencil.srad_step_cuda(img, fused=fused)
     torch.cuda.synchronize()
-    assert srad_stencil.launches[key] == before + 1
-    # tests/test_kernels_misc.py:52
-    torch.testing.assert_close(got, srad_stencil.srad_step_plain(img), rtol=1e-5, atol=1e-6)
+    want = {k: int(k == key or (not fused and k == "srad_phase2_f32")) for k in before}
+    assert {k: srad_stencil.launches[k] - before[k] for k in before} == want
+    # Bit for bit: every entry follows the oracle operation by operation.
+    torch.testing.assert_close(got, srad_stencil.srad_step_plain(img), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "base_off_16"])
+@pytest.mark.parametrize("h,w", SRAD_SHAPES + SRAD_BAND_SHAPES)
+def test_srad_every_entry_is_bit_equal_to_plain(card, h, w, offset):
+    """Each entry that takes the image, routed or not (the replaced
+    kernels take every image), against the plain version to the bit: the
+    fused step, phase 1 and phase 2."""
+    img = _srad_image(card, h, w, offset)
+    step = srad_stencil.srad_step_plain(img)
+    c_plain = srad_stencil.srad_phase1_plain(img)
+    for fused, want in ((True, step), (False, c_plain)):
+        routed = srad_stencil._route(img, fused=fused)
+        entries = srad_stencil.FUSED_ENTRIES if fused else srad_stencil.PHASE1_ENTRIES
+        for name in dict.fromkeys((routed, entries[1])):
+            before = dict(srad_stencil.launches)
+            got = srad_stencil._launch(name, img)
+            torch.cuda.synchronize()
+            assert {k: srad_stencil.launches[k] - before[k] for k in before} == {
+                k: int(k == name) for k in before}
+            torch.testing.assert_close(got, want, rtol=0, atol=0, msg=name)
+    torch.testing.assert_close(srad_stencil.srad_phase2_cuda(img, c_plain),
+                               srad_stencil.srad_phase2_plain(img, c_plain), rtol=0, atol=0)
+
+
+def test_srad_presets_route_to_the_redesigned_entries(card):
+    from repro_torch.core.registry import get_benchmark
+
+    presets = get_benchmark("srad").presets
+    for n in [presets[i]["n"] for i in range(5)] + [1000]:
+        img = torch.ones(n, n + 30 * (n == 1000), device=card)
+        assert srad_stencil._route(img) == "srad_fused_f32"
+    img = torch.ones(1024, 1024, device=card)
+    assert srad_stencil._route(img, fused=False) == "srad_phase1_f32"
+    assert srad_stencil._route(torch.ones(4096, 4096, device=card)) == (
+        "srad_fused_f32_gridstride")
+
+
+@pytest.mark.parametrize("mode", ["kernel", "ref"])
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "split"])
+def test_srad_graphed_loop_is_bit_equal_to_the_eager_loop(card, fused, mode):
+    from repro_torch.bench.level2 import srad as srad_bench
+    from repro_torch.kernels import ops
+
+    img = _srad_image(card, 256, 256)
+    with ops.force_impl(mode, "srad_step"):
+        eager = srad_bench._steps(img, 4, 0.5, fused)
+    srad_bench.GRAPHS.clear()
+    per_call = ({"srad_fused_f32": 4} if fused else
+                {"srad_phase1_f32": 4, "srad_phase2_f32": 4}) if mode == "kernel" else {}
+    with ops.force_impl(mode, "srad_step"):
+        before = dict(srad_stencil.launches)
+        first = srad_bench.srad_iterations(img, 4, 0.5, fused)  # eager, then captured
+        torch.cuda.synchronize()
+        assert len(srad_bench.GRAPHS) == 1
+        mem = torch.cuda.memory_allocated(card)
+        for calls in range(2, 5):
+            out = srad_bench.srad_iterations(img, 4, 0.5, fused)  # a replay
+            torch.cuda.synchronize()
+            assert {k: v - before[k] for k, v in srad_stencil.launches.items()} == {
+                k: calls * per_call.get(k, 0) for k in before}
+            assert torch.equal(out, eager) and torch.equal(first, eager)
+        assert torch.cuda.memory_allocated(card) == mem  # replays allocate nothing
+        assert len(srad_bench.GRAPHS) == 1
+        # Another address: another capture, of the same result.
+        other = srad_bench.srad_iterations(img.clone(), 4, 0.5, fused)
+        assert len(srad_bench.GRAPHS) == 2 and torch.equal(other, eager)
+        assert torch.equal(srad_bench.srad_iterations(img.clone(), 4, 0.5, fused), eager)
+    srad_bench.GRAPHS.clear()
 
 
 @pytest.mark.parametrize("n", SCAN_LENGTHS)
@@ -447,7 +529,8 @@ def test_sort_where_srad_rows_on_the_card_launch_the_kernels(card):
     deltas = {k: m.launches[k] - b[k] for m, b in zip(mods, before) for k in m.launches}
     assert deltas == {
         "sort_kv_i32": calls, "sort_kv_f32": 0, "prefix_scan_f32": calls,
-        "srad_fused_f32": 4 * calls, "srad_phase1_f32": 4 * calls,
+        "srad_fused_f32": 4 * calls, "srad_fused_f32_gridstride": 0,
+        "srad_phase1_f32": 4 * calls, "srad_phase1_f32_scalar": 0,
         "srad_phase2_f32": 4 * calls,
     }
 

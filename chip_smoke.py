@@ -28,8 +28,11 @@ exits nonzero without printing its result line:
    both logit scales); the float4 ring LRN or its shared-memory kernel
    (sizes 3, 5, 7 and 65, S % 4 != 0, C off the 32-channel chunk, a base
    off 16 bytes, the path's shape on both); attention's wgmma
-   prefill, split-KV decode (at every split count, and its merge on the
-   decode kernel's own partials) or SIMT kernel; all five SRAD entries
+   prefill, split-KV decode (one launch, the merge in its epilogue: at
+   every split count, bit-equal at the path's shape to the plain merge of
+   the kernel's own partials, on a second stream and in a replayed CUDA
+   graph, its counters back at 0), TMA f32 kernel or SIMT kernels (the f32
+   cases on both f32 entries); all five SRAD entries
    (the band kernel or the grid-stride one it replaced, the float4 walk or
    the one-pixel phase 1 it replaced, phase 2) bit for bit at every SRAD
    shape, aligned and off 16 bytes;
@@ -56,14 +59,16 @@ exits nonzero without printing its result line:
    derived from bf16's round-off and the depth, then a timed serve of 16
    requests, batch 8, 1024-token prompts and 64 generated tokens, counters
    set to 0 just before and read just after (80 launches of the wgmma
-   prefill kernel, 5040 each of the decode kernel and its merge);
+   prefill kernel, 5040 of the decode kernel, no other; the stream's
+   decode counters all 0 after it);
 5. yardstick: each kernel of the paths, its plain version and the one
    PyTorch call that computes the same function (where there is one),
    timed with CUDA events at the paths' shapes (and the kernel's own device
    time from ``torch.profiler``), beside the card's bound for the same
    work (attention at the serving path's prefill and decode shapes, against
-   ``F.scaled_dot_product_attention`` as the yardstick; the f32 kernel also
-   at the f32 smoke run's own shapes), the replaced kernels (the SIMT f32
+   ``F.scaled_dot_product_attention`` as the yardstick; the f32 kernel and
+   the SIMT f32 kernel it replaced also at the f32 smoke run's own shapes),
+   the replaced kernels (the SIMT f32
    GEMM, 2-D and batched; the WMMA bf16 GEMM; SIMT attention; the online
    softmax; the shared-memory LRN) timed beside their successors at the
    same shapes; the f32 GEMM at each compiled tile; a device copy of the
@@ -109,13 +114,14 @@ DNN_KERNELS = {
 LEVELS_PATH = ("sort", "where", "srad")
 # Kernels no path launches: the f32-key sort (the Sort benchmark's keys are
 # int32), and the GEMMs' SIMT f32 and WMMA bf16 kernels, attention's SIMT
-# bf16 kernel, the online softmax, the shared-memory LRN and SRAD's
+# bf16 and f32 kernels, the online softmax, the shared-memory LRN and SRAD's
 # grid-stride step and one-pixel phase 1, which keep the layouts their
 # successors do not take. Phase 3 checks them and phase 5
 # times them; the kernels line, which carries each kernel's launches on its
 # path, leaves them out.
 OFF_PATH = ("sort_kv_f32", "matmul_f32_simt", "matmul_f32_simt_batched", "matmul_bf16_wmma",
-            "flash_attention_bf16_simt", "softmax_f32_online", "lrn_f32_smem",
+            "flash_attention_bf16_simt", "flash_attention_f32_simt", "softmax_f32_online",
+            "lrn_f32_smem",
             "srad_fused_f32_gridstride", "srad_phase1_f32_scalar")
 PRESET, ITERS, WARMUP, WINDOW = 4, 5, 2, 4
 # Calls of each pass's function on the main path: the compile stage's first
@@ -205,6 +211,16 @@ DECODE_SPLIT_CASES = [
     (2, 4, 2, 1, 40, 64, True, None), (1, 4, 2, 1, 700, 128, True, 100),
     (1, 8, 2, 4, 300, 64, True, 9), (8, 32, 8, 1, 1088, 128, False, None),
 ]
+# The f32 kernel's edges: S and T off its 64-key tile, rows per KV head past
+# one 16-row warp (the decode variant takes <= 16) and a 128-row CTA, windows
+# across tiles, groups 1 to 8, T < S.
+F32_ATTENTION_MORE = [
+    (1, 1, 1, 63, 63, 8, True, None), (1, 2, 1, 65, 65, 16, True, None),
+    (1, 8, 1, 17, 129, 32, True, 40), (1, 4, 1, 33, 127, 64, False, None),
+    (1, 8, 2, 1, 65, 128, False, None), (2, 8, 8, 1, 200, 16, True, 70),
+    (1, 4, 4, 129, 129, 8, True, 64), (1, 6, 2, 7, 70, 32, True, None),
+    (2, 3, 1, 11, 90, 64, False, 30), (2, 32, 8, 130, 1100, 128, True, None),
+]
 # The LM serving path (granite-3-8b: Hq 32, Hkv 8, D 128) at batch 8: the
 # causal prefill of 1024-token prompts, and a decode step against a cache
 # of 1088 positions (the path's steps see 1025 to 1087).
@@ -256,14 +272,14 @@ KERNEL_SOURCES = {
                                "src/repro/kernels/srad_stencil.py:94"),
     "srad_phase2_f32": ("src/repro_torch/kernels/csrc/srad_stencil.cu",
                         "src/repro/kernels/srad_stencil.py:94"),
-    "flash_attention_f32": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_f32": ("src/repro_torch/kernels/csrc/flash_attention_f32_tma.cu",
                             "src/repro/kernels/flash_attention.py:112"),
+    "flash_attention_f32_simt": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                 "src/repro/kernels/flash_attention.py:112"),
     "flash_attention_bf16_wgmma": ("src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
                                    "src/repro/kernels/flash_attention.py:112"),
     "flash_decode_bf16": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                           "src/repro/kernels/flash_attention.py:112"),
-    "flash_decode_combine_bf16": ("src/repro_torch/kernels/csrc/flash_decode.cu",
-                                  "src/repro/kernels/flash_attention.py:112"),
     "flash_attention_bf16_simt": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                   "src/repro/kernels/flash_attention.py:112"),
 }
@@ -341,7 +357,11 @@ def phase_build() -> None:
               for d in (64, 128)),
             *((f"flash_decode_bf16 D{d} rows<={r}",
                _build.function("flash_decode_bf16_smem_bytes", [ctypes.c_int] * 2)(d, r))
-              for d in (64, 128) for r in (4, 16)))
+              for d in (64, 128) for r in (4, 16)),
+            *((f"flash_attention_f32 (TMA) D{d} {what}",
+               _build.function("flash_attention_f32_smem_bytes", [ctypes.c_int] * 2)(d, r))
+              for d in (8, 16, 32, 64, 128)
+              for r, what in ((16, "1 warp, 2 stages"), (17, "8 warps"))))
     for what, nbytes in smem:
         print(f"  dynamic shared memory {what}: {nbytes} bytes")
         if nbytes <= 0 or nbytes > 232448:
@@ -678,9 +698,7 @@ def _attention_case(torch, fa, gen, dt, b, hq, hkv, t, s, d, causal, window, vie
     before = dict(fa.launches)
     out = (fa._launch(key, q, k, v, causal=causal, window=window) if entry
            else fa.flash_attention_cuda(q, k, v, causal=causal, window=window))
-    want = {name: int(name == key) for name in before}
-    if key == "flash_decode_bf16":
-        want["flash_decode_combine_bf16"] = 1
+    want = {name: int(name == key) for name in before}  # one launch, decode's too
     got = {name: fa.launches[name] - before[name] for name in before}
     if got != want:
         _fail(f"attention {dt} {(b, hq, hkv, t, s, d)}: launches {got}, expected {want}")
@@ -693,9 +711,9 @@ def _attention_case(torch, fa, gen, dt, b, hq, hkv, t, s, d, causal, window, vie
 
 
 def _decode_split_case(torch, fa, gen, b, hq, hkv, t, s, d, causal, window) -> float:
-    """The decode pair at 1 split, as many splits as visible tiles, and two
-    more (splits that see no key), against the split-and-merge plain version
-    and the plain attention."""
+    """The decode kernel (one launch) at 1 split, as many splits as visible
+    tiles, and two more (splits that see no key), against the
+    split-and-merge plain version and the plain attention."""
     q = torch.randn(b, hq, t, d, generator=gen, device="cuda").to(torch.bfloat16)
     k, v = (torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(torch.bfloat16)
             for _ in range(2))
@@ -704,11 +722,11 @@ def _decode_split_case(torch, fa, gen, b, hq, hkv, t, s, d, causal, window) -> f
     tol = ATTN_TOL["bfloat16"]
     worst = 0.0
     for splits in sorted({1, hi - lo, hi - lo + 2} - {0}):
-        before = fa.launches["flash_decode_bf16"], fa.launches["flash_decode_combine_bf16"]
+        before = dict(fa.launches)
         out = fa.flash_decode_cuda(q, k, v, causal=causal, window=window, splits=splits).float()
-        after = fa.launches["flash_decode_bf16"], fa.launches["flash_decode_combine_bf16"]
-        if after != (before[0] + 1, before[1] + 1):
-            _fail(f"decode at {splits} splits: launches {before} -> {after}")
+        got = {n: fa.launches[n] - before[n] for n in before}
+        if got != {n: int(n == "flash_decode_bf16") for n in before}:
+            _fail(f"decode at {splits} splits: launches {got}, expected one flash_decode_bf16")
         what = (f"flash_decode_bf16 B{b} Hq{hq} Hkv{hkv} T{t} S{s} D{d} "
                 f"{'causal' if causal else 'full'} window {window}, {splits} splits of "
                 f"{hi - lo} tiles")
@@ -719,27 +737,84 @@ def _decode_split_case(torch, fa, gen, b, hq, hkv, t, s, d, causal, window) -> f
     return worst
 
 
-def _combine_case(torch, fa, gen) -> float:
-    """The merge launch on the decode kernel's own partials at the serving
-    path's decode shape, against the plain merge of the same partials."""
+def _attention_view_case(torch, fa, gen, causal) -> None:
+    """f32 views TMA cannot read, on the SIMT kernel they route to: k and v
+    one float into their storage, and rows 66 floats (264 bytes) apart."""
+    b, hq, hkv, t, s, d = 2, 8, 2, 5, 77, 64
+    q = torch.randn(b, hq, t, d, generator=gen, device="cuda")
+    flat = torch.randn(1 + b * hkv * s * d, generator=gen, device="cuda")
+    wide = torch.randn(b, hkv, s, d + 2, generator=gen, device="cuda")
+    for kv, what in ((flat[1:].view(b, hkv, s, d), "base off 16 bytes"),
+                     (wide[..., :d], "rows 264 bytes apart")):
+        key = fa._route(q, kv, kv)
+        if key != "flash_attention_f32_simt":
+            _fail(f"an f32 view ({what}) routed to {key}")
+        before = dict(fa.launches)
+        out = fa.flash_attention_cuda(q, kv, kv, causal=causal)
+        got = {n: fa.launches[n] - before[n] for n in before}
+        if got != {n: int(n == key) for n in before}:
+            _fail(f"f32 view ({what}): launches {got}")
+        tol = ATTN_TOL["float32"]
+        _close_case(torch, f"{key:26s} B{b} Hq{hq} Hkv{hkv} T{t} S{s} D{d} "
+                    f"{'causal' if causal else 'full'} ({what})", out,
+                    fa.flash_attention_plain(q, kv, kv, causal=causal), tol, tol)
+
+
+def _fused_decode_case(torch, fa, gen) -> float:
+    """The decode kernel's merge, folded into its epilogue, at the serving
+    path's decode shape: one launch, bit-equal to the plain merge (the same
+    arithmetic in torch ops, on the card) of the kernel's own partials,
+    within 2e-2 of the plain attention, the stream's counters all 0 after;
+    again on a second stream and as a captured CUDA graph replayed 3 times,
+    each bit-equal to the eager call. -> max abs against the plain
+    attention."""
     b, hq, hkv, t, s, d = ATTN_DECODE
     q = torch.randn(b, hq, t, d, generator=gen, device="cuda").to(torch.bfloat16)
     k, v = (torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(torch.bfloat16)
             for _ in range(2))
     lo, hi = fa.decode_tiles(t, s, hq // hkv, False, None)
     splits = fa.decode_splits(b, hkv, hi - lo, fa._sm_count(0))
+    main = torch.cuda.current_stream()
+
+    def zeroed(stream, what):
+        counters = fa.scratch.counters(torch.device("cuda", 0), stream.cuda_stream)
+        torch.cuda.synchronize()
+        if counters is None or bool(counters.any()):
+            _fail(f"decode counters after {what}: {counters}")
+
+    before = fa.launches["flash_decode_bf16"]
+    out = fa.flash_attention_cuda(q, k, v)
+    if fa.launches["flash_decode_bf16"] != before + 1:
+        _fail("the fused decode was not one counted launch")
+    zeroed(main, "the eager call")
     part_o, part_ml = fa.flash_decode_partials_cuda(q, k, v, splits=splits)
-    before = fa.launches["flash_decode_combine_bf16"]
-    out = fa.flash_decode_combine_cuda(part_o, part_ml, fa._empty_out(q)).float()
-    if fa.launches["flash_decode_combine_bf16"] != before + 1:
-        _fail("the decode merge was not counted")
-    plain = fa.flash_decode_combine_plain(part_o, part_ml, hq=hq, t=t,
-                                          dtype=torch.bfloat16).float()
+    merged = fa.flash_decode_combine_plain(part_o, part_ml, hq=hq, t=t, dtype=torch.bfloat16)
     tol = ATTN_TOL["bfloat16"]
-    _close_case(torch, "decode pair vs plain attention at the path's shape", out,
-                fa.flash_attention_plain(q, k, v).float(), tol, tol)
-    return _close_case(torch, f"flash_decode_combine_bf16 B{b} Hq{hq} T{t} D{d}, {splits} "
-                       "splits, on the kernel's partials vs the plain merge", out, plain, tol, tol)
+    what = f"flash_decode_bf16 B{b} Hq{hq} Hkv{hkv} T{t} S{s} D{d}, {splits} splits"
+    _close_case(torch, what + ", fused vs the plain merge of its partials (bit-equal)", out.float(),
+                merged.float(), 0.0, 0.0)
+    worst = _close_case(torch, what + ", fused vs plain attention", out.float(),
+                        fa.flash_attention_plain(q, k, v).float(), tol, tol)
+    side = torch.cuda.Stream()
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        on_side = fa.flash_attention_cuda(q, k, v)
+        again = fa.flash_attention_cuda(q, k, v)
+    main.wait_stream(side)
+    zeroed(side, "two calls on a second stream")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = fa.flash_attention_cuda(q, k, v)
+    for i in range(3):
+        captured.zero_()
+        graph.replay()
+        zeroed(side, f"graph replay {i + 1}")
+        _close_case(torch, what + f", graph replay {i + 1} vs the eager call (bit-equal)",
+                    captured.float(), out.float(), 0.0, 0.0)
+    for got, where in ((on_side, "a second stream"), (again, "a second stream, again")):
+        _close_case(torch, what + f", on {where} vs the eager call (bit-equal)", got.float(),
+                    out.float(), 0.0, 0.0)
+    return worst
 
 
 def phase_kernels(torch) -> dict:
@@ -876,7 +951,23 @@ def phase_kernels(torch) -> dict:
         err[key] = max(err[key], e)
     for case in DECODE_SPLIT_CASES:
         _decode_split_case(torch, fa, gen, *case)
-    err["flash_decode_combine_bf16"] = _combine_case(torch, fa, gen)
+    err["flash_decode_bf16"] = max(err["flash_decode_bf16"], _fused_decode_case(torch, fa, gen))
+    # The f32 entries: every case above on the SIMT kernel too, every
+    # compiled head dim on both, the smoke LM's shapes and the full width
+    # (phase 5 times both there), and views the TMA kernel cannot read.
+    f32 = torch.float32
+    for entry in ("flash_attention_f32", "flash_attention_f32_simt"):
+        for case in ATTENTION_CASES + F32_ATTENTION_MORE:
+            _attention_case(torch, fa, gen, f32, *case, entry=entry)
+        for d in fa.HEAD_DIMS:
+            for t, s in ((1, 200), (77, 130)):
+                _attention_case(torch, fa, gen, f32, 2, 8, 2, t, s, d, True, None, entry=entry)
+        for shape, causal in ((ATTN_SMOKE_PREFILL, True), (ATTN_SMOKE_DECODE, False),
+                              (ATTN_PREFILL, True)):
+            key, e = _attention_case(torch, fa, gen, f32, *shape, causal, None, entry=entry)
+            err[key] = max(err[key], e)
+    for causal in (False, True):
+        _attention_view_case(torch, fa, gen, causal)
     return err
 
 
@@ -1303,6 +1394,7 @@ def phase_lm_serving(torch) -> tuple[dict, dict]:
     import numpy as np
 
     from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
     from repro_torch.models import Model
@@ -1365,18 +1457,22 @@ def phase_lm_serving(torch) -> tuple[dict, dict]:
     rounds = -(-kw["n_requests"] // kw["batch"])
     calls = len(stats.outputs[0])
     # Each round: one prefill call and calls - 1 decode steps, every layer
-    # one attention call: the prefill on the wgmma kernel, each step on the
-    # decode kernel and its merge, none on the SIMT kernel.
+    # one attention call and one launch: the prefill on the wgmma kernel,
+    # each step on the decode kernel (its merge in its epilogue), none on
+    # the SIMT kernel.
     want = {k: 0 for k in full}
     want["flash_attention_bf16_wgmma"] = cfg.n_layers * rounds
-    want["flash_decode_bf16"] = want["flash_decode_combine_bf16"] = (
-        cfg.n_layers * rounds * (calls - 1))
+    want["flash_decode_bf16"] = cfg.n_layers * rounds * (calls - 1)
     if (full != want or want["flash_attention_bf16_wgmma"] != 80
             or want["flash_decode_bf16"] != 5040):
         _fail(f"full serve launches {_nonzero(full)}; expected flash_attention_bf16_wgmma "
-              f"{cfg.n_layers} layers x {rounds} rounds = 80, flash_decode_bf16 and "
-              f"flash_decode_combine_bf16 {cfg.n_layers} x {rounds} x {calls - 1} steps = 5040 "
-              f"each, nothing else")
+              f"{cfg.n_layers} layers x {rounds} rounds = 80, flash_decode_bf16 "
+              f"{cfg.n_layers} x {rounds} x {calls - 1} steps = 5040, nothing else")
+    counters = fa.scratch.counters(torch.device("cuda", 0), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if counters is None or bool(counters.any()):
+        _fail(f"the decode counters after the full serve: {counters}")
+    print(f"  decode arrival counters after the full serve: {counters.numel()} entries, all 0")
     launches = {k: v + full[k] for k, v in launches.items()}
     toks = np.array(stats.outputs)
     if toks.shape != (kw["n_requests"], kw["gen_len"]) or toks.min() < 0 or \
@@ -1413,7 +1509,7 @@ def phase_lm_serving(torch) -> tuple[dict, dict]:
     print(f"  device time (torch.profiler): prefill {info['prefill_device_ms']:.3f} ms per call, "
           f"{info['prefill_attention_ms']:.3f} of it in flash_attention_bf16_wgmma; decode step "
           f"{info['decode_device_ms']:.4f} ms, {info['decode_attention_ms']:.4f} of it in "
-          f"flash_decode_bf16 and its merge")
+          f"flash_decode_bf16")
     return launches, info
 
 
@@ -1598,16 +1694,15 @@ def _visible_pairs(t: int, s: int, causal: bool, window) -> int:
 
 def _attention_yardstick(torch, gen, hw):
     """The attention entries at the serving path's shapes: the wgmma prefill
-    kernel (bf16 prefill), the decode pair (bf16 decode step: the split
-    kernel and its merge, as the path launches them), the merge alone on the
-    decode kernel's partials, the SIMT kernel they replaced on the path (at
-    both shapes), and the f32 kernel: at the serving path's prefill shape,
-    and at the f32 smoke run's own prefill and decode shapes, where its
-    launches are. The bound counts 4*D operations per visible pair (two
-    products) at the dtype's peak, and q, k, v and o once each; the
-    merge's, the partials read once and o written once. The yardstick is
-    F.scaled_dot_product_attention (GQA through ``enable_gqa``), which the
-    port never calls."""
+    kernel (bf16 prefill), the decode kernel (bf16 decode step: one launch,
+    the merge in its epilogue, as the path launches it), the SIMT kernel
+    they replaced on the path (at both shapes), and the f32 TMA kernel and
+    the SIMT f32 kernel it replaced: at the f32 smoke run's own prefill and
+    decode shapes, where its launches are, and at the serving path's
+    prefill shape (full width). The bound counts 4*D operations per visible
+    pair (two products) at the dtype's peak, and q, k, v and o once each.
+    The yardstick is F.scaled_dot_product_attention (GQA through
+    ``enable_gqa``), which the port never calls."""
     import torch.nn.functional as F
 
     from repro_torch.core.metrics import roofline_terms
@@ -1616,12 +1711,15 @@ def _attention_yardstick(torch, gen, hw):
     rows = []
     for key, dt, (b, hq, hkv, t, s, d), causal, what in (
         ("flash_attention_bf16_wgmma", torch.bfloat16, ATTN_PREFILL, True, ""),
-        ("flash_decode_bf16", torch.bfloat16, ATTN_DECODE, False, " (split + merge)"),
+        ("flash_decode_bf16", torch.bfloat16, ATTN_DECODE, False, " (one launch)"),
         ("flash_attention_bf16_simt", torch.bfloat16, ATTN_PREFILL, True, ""),
         ("flash_attention_bf16_simt", torch.bfloat16, ATTN_DECODE, False, ""),
-        ("flash_attention_f32", torch.float32, ATTN_PREFILL, True, ""),
         ("flash_attention_f32", torch.float32, ATTN_SMOKE_PREFILL, True, " (smoke prefill)"),
         ("flash_attention_f32", torch.float32, ATTN_SMOKE_DECODE, False, " (smoke decode)"),
+        ("flash_attention_f32", torch.float32, ATTN_PREFILL, True, ""),
+        ("flash_attention_f32_simt", torch.float32, ATTN_SMOKE_PREFILL, True, " (smoke prefill)"),
+        ("flash_attention_f32_simt", torch.float32, ATTN_SMOKE_DECODE, False, " (smoke decode)"),
+        ("flash_attention_f32_simt", torch.float32, ATTN_PREFILL, True, ""),
     ):
         q = torch.randn(b, hq, t, d, generator=gen, device="cuda").to(dt)
         k, v = (torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(dt)
@@ -1644,26 +1742,11 @@ def _attention_yardstick(torch, gen, hw):
         rows.append((key, shape, roof, (
             functools.partial(fa._launch, key, q, k, v, causal=causal), plain, library,
         )))
-        if key == "flash_decode_bf16":
-            lo, hi = fa.decode_tiles(t, s, hq // hkv, causal, None)
-            splits = fa.decode_splits(b, hkv, hi - lo, fa._sm_count(0))
-            part_o, part_ml = fa.flash_decode_partials_cuda(q, k, v, causal=causal,
-                                                            splits=splits)
-            out = fa._empty_out(q)
-            merge_bytes = (part_o.numel() + part_ml.numel()) * 4 + out.numel() * 2
-            rows.append(("flash_decode_combine_bf16",
-                         f"B{b} Hq{hq} T{t} D{d}, {splits} splits of {hi - lo} tiles",
-                         roofline_terms(3.0 * splits * out.numel(), merge_bytes,
-                                        dtype=torch.float32, hw=hw),
-                         (functools.partial(fa.flash_decode_combine_cuda, part_o, part_ml, out),
-                          functools.partial(fa.flash_decode_combine_plain, part_o, part_ml,
-                                            hq=hq, t=t, dtype=dt),
-                          None)))
     return rows
 
 
 def _attention_decode_scaling(torch, gen) -> None:
-    """The decode pair (bf16, T=1) against the work it is given: the cache
+    """The decode kernel (bf16, T=1) against the work it is given: the cache
     length at the path's batch and four times the batch, with the splits it
     picks; event time over 50 calls and the device's own time."""
     from repro_torch.kernels import flash_attention as fa

@@ -46,15 +46,18 @@
 // last stride (the model hands in transposed activations and a cache sliced
 // to its valid length).
 //
-// Since the bf16 redesign this kernel serves f32 (flash_attention_f32) and
-// the bf16 calls the tensor-core kernels do not take
-// (flash_attention_bf16_simt): D in {8, 16, 32}, between 17 and 63 rows per
-// KV head, a group that does not divide 128, or views whose base or strides
-// are not 16-byte multiples. Prefill goes to flash_attention_wgmma.cu and
-// decode to flash_decode.cu.
+// Since the redesigns this kernel serves only the layouts its successors do
+// not take: bf16 (flash_attention_bf16_simt) with D in {8, 16, 32}, between
+// 17 and 63 rows per KV head, a group that does not divide 128, or views
+// whose base or strides are not 16-byte multiples; f32
+// (flash_attention_f32_simt) views whose base or strides are not 16-byte
+// multiples. bf16 prefill goes to flash_attention_wgmma.cu, bf16 decode to
+// flash_decode.cu, and aligned f32 to flash_attention_f32_tma.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -360,10 +363,13 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   constexpr int LD = D + Elem<T>::kVec;
   const int smem = kBlockQ * D * (int)sizeof(float) + 2 * kBlockK * LD * (int)sizeof(T) +
                    kWarps * kRowsPerWarp * kBlockK * (int)sizeof(float);
-  // Above 48 KB only as opted-in dynamic shared memory; set on every launch
-  // (the attribute is per device, and the call is a host-side update).
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // Above 48 KB only as opted-in dynamic shared memory, an attribute per
+  // device: set at the first launch on each.
+  static std::atomic<bool> configured[hopper::kMaxDevices];
+  const cudaError_t err = hopper::once_per_device(configured, [smem] {
+    return cudaFuncSetAttribute(flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem);
+  });
   if (err != cudaSuccess) return err;
   const int rows = a.group * a.T;
   const dim3 grid((rows + kBlockQ - 1) / kBlockQ, a.Hkv, B);
@@ -413,9 +419,10 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int Hq, int
 // no window; vec = 1 when k and v rows may be read 16 bytes at a time. Each
 // returns cudaGetLastError() after its launch.
 
-extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* o, int B,
-                                   int Hq, int Hkv, int T, int S, int D, int causal, int window,
-                                   float scale, const long long* strides, int vec, void* stream) {
+extern "C" int flash_attention_f32_simt(const void* q, const void* k, const void* v, void* o,
+                                        int B, int Hq, int Hkv, int T, int S, int D, int causal,
+                                        int window, float scale, const long long* strides, int vec,
+                                        void* stream) {
   return run<float>(q, k, v, o, B, Hq, Hkv, T, S, D, causal, window, scale, strides, vec, stream);
 }
 

@@ -1,5 +1,6 @@
-// Split-KV ("flash-decoding") attention for Hopper (sm_90a), bf16: the
-// decode kernel and the launch that merges its partial results.
+// Split-KV ("flash-decoding") attention for Hopper (sm_90a), bf16: one
+// launch per decode call, the merge of the splits' partial results folded
+// into the kernel's epilogue.
 //
 // Replaces: src/repro/kernels/flash_attention.py:112 flash_attention_pallas
 // (pallas_call at :151, body _flash_kernel at :39), for bf16 calls with at
@@ -24,15 +25,51 @@
 //   position-major) as f32 in shared memory, and streams its tiles through
 //   two buffers by 16-byte cp.async: the next tile loads while this one is
 //   reduced. 72.7 KB of shared memory at the path's shape, so three CTAs
-//   share an SM and the step's 320 CTAs run in one wave. Scores on the
+//   share an SM and the step's 320 CTAs run in one wave (the launch bounds
+//   say so, which gives ptxas room for the merge's registers: no spills).
+//   Scores on the
 //   CUDA cores (two threads a key, f32 FMAs), the online max and sum by
 //   warp shuffles, p v by one thread a column.
-// - Each CTA writes its partial (m, l, acc[D]) in f32 (m in log2 units) to
-//   scratch the caller allocates: B * Hq * T * splits * (D + 2) * 4 bytes.
-//   A split that sees no key writes m = -1e30, l = 0, acc = 0.
-// - flash_decode_combine_bf16, a second small launch, merges them per row:
-//   m* = max m_i, l = sum l_i 2^(m_i - m*), o = sum acc_i 2^(m_i - m*) /
-//   max(l, 1e-30), written as bf16 through o's strides.
+//
+// The merge has no launch of its own. A separate merge kernel (the design
+// before) read some 10 KB of partials per (batch, KV head) from L2 and wrote
+// 8 KB of output: its bound is 0.0002 ms, yet it took 0.003 ms on the device
+// and a second launch, with its host time, per decode layer. So:
+// - splits == 1: the CTA divides by its own row sums and writes bf16
+//   through o's strides. No scratch, no counter.
+// - splits > 1: each CTA writes its partial (m, l, acc[D]) in f32 (m in log2
+//   units; a split that sees no key writes m = -1e30, l = 0, acc = 0) to the
+//   caller's scratch, B * Hq * T * splits * (D + 2) * 4 bytes. The CTA
+//   synchronises (ordering every thread's partial stores before thread 0's
+//   next step), and thread 0 adds 1 to the arrival counter of its (b, KV
+//   head) with an acquire-release atomic at device scope: its release half
+//   is cumulative, so the CTA's partial is visible device-wide before the
+//   count (the role of a __threadfence() before a plain atomicAdd, one
+//   memory round trip less). The CTA that reads splits - 1 arrives last:
+//   every other split's partial was released before its count, so after
+//   the acquire (and a barrier, for the CTA's other threads) it reads them
+//   all, through ld.global.cg (L2, never a stale L1 line). It merges them with
+//   the arithmetic of flash_decode_combine_plain (kernels/flash_attention.py)
+//   applied in split order: m* = max m_i; w_i = exp2f(m_i - m*); l = sum of
+//   l_i * w_i and acc = sum of acc_i * w_i, each product and each sum rounded
+//   on its own (__fmul_rn, __fadd_rn: no contraction into an FMA); o =
+//   acc / fmaxf(l, 1e-30), rounded to bf16. So the fused output is bit-equal
+//   to that merge applied to the kernel's own partials. One warp merges a
+//   row, its lanes over the splits (the weights shared by shuffles) and
+//   over d; the first 8 splits' partials are loaded together, one L2 round
+//   trip. The merge's bound is its
+//   partials read once from L2 and o written once; it runs on the last CTA
+//   of each (b, KV head) while other heads' CTAs still stream their keys.
+//   Then the last CTA sets its counter back to 0, so every launch leaves the
+//   counters as it found them (zero), which a CUDA graph replay needs.
+// - The counters are an int32 array of at least B * Hkv entries, zeroed
+//   once. The wrapper keeps one array (and one scratch buffer) per (device,
+//   stream): launches on one stream run in order, so they never see each
+//   other's counts, while two decode calls in flight on two streams would
+//   corrupt each other's arrival counts if they shared an array.
+// - o == nullptr keeps the partials-only launch (the split-level tests and
+//   flash_decode_partials_cuda): every split writes its partial, and nothing
+//   is merged.
 
 #include "hopper.cuh"
 
@@ -50,11 +87,13 @@ struct DecodeArgs {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
-  float* part_o;   // [B][Hkv][splits][rows][D]
-  float* part_ml;  // [B][Hkv][splits][rows][2]: m (log2 units), l
+  __nv_bfloat16* o;  // nullptr: write the partials only
+  float* part_o;     // [B][Hkv][splits][rows][D]
+  float* part_ml;    // [B][Hkv][splits][rows][2]: m (log2 units), l
+  int* counters;     // [B][Hkv] arrival counts, zero between launches
   int T, S, Hkv, group, rows, causal, window, splits;
   float scale_log2;
-  long long sq[3], sk[3], sv[3];  // element strides over (b, h, t/s)
+  long long sq[3], sk[3], sv[3], so[3];  // element strides over (b, h, t/s)
 };
 
 // K tile row in elements: 32 bytes of padding spread the rows over the banks
@@ -111,8 +150,92 @@ __device__ __forceinline__ void tile_range(const DecodeArgs& a, int& lo, int& hi
   if (hi < lo) hi = lo;
 }
 
+// The last CTA's merge of its (b, KV head)'s splits (see the note at the
+// top), out of line so that the main loop's register allocation does not
+// depend on it.
+// part_o and part_ml are the kernel's scratch advanced to split 0 of row 0
+// of this (b, KV head); orow0 is o advanced to (b, query head kvh * group,
+// position 0). The fields it reads are passed by value: taking the address
+// of the kernel's parameter would copy it to local memory.
+template <int D>
+__device__ __noinline__ void merge_splits(const float* part_o, const float* part_ml,
+                                          __nv_bfloat16* orow0, long long so_h, long long so_t,
+                                          int R, int group, int splits, int warp, int lane) {
+  // The merge, warp w over rows w, w + 4, ...; lanes over the splits for m
+  // and l, over d for acc. Sums in split order, each product and sum
+  // rounded on its own. The first 8 splits' acc, and every lane's split's m
+  // and l, are loaded before anything waits on them: one L2 round trip.
+  constexpr int kCols = D / 32;  // columns per lane
+  constexpr int kPre = 8;        // splits whose acc is loaded up front
+  const long long ml_step = 2ll * R, po_step = static_cast<long long>(R) * D;
+  for (int r = warp; r < R; r += kWarps) {
+    const float* ml = part_ml + r * 2;        // split i at ml + i * ml_step
+    const float* po = part_o + r * D + lane;  // split i at po + i * po_step
+    float pre[kPre][kCols];
+#pragma unroll
+    for (int j = 0; j < kPre; ++j)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        pre[j][c] = j < splits ? __ldcg(po + j * po_step + 32 * c) : 0.f;
+      }
+    float m_lane = -1e30f, l_lane = 0.f;  // split `lane`'s
+    if (lane < splits) {
+      m_lane = __ldcg(ml + lane * ml_step);
+      l_lane = __ldcg(ml + lane * ml_step + 1);
+    }
+    float m_star = m_lane;
+    for (int i = lane + 32; i < splits; i += 32) m_star = fmaxf(m_star, __ldcg(ml + i * ml_step));
+    m_star = warp_max(m_star);
+    float l_sum = 0.f, o_acc[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) o_acc[c] = 0.f;
+    for (int i0 = 0; i0 < splits; i0 += 32) {
+      float m_i = m_lane, l_i = l_lane;
+      if (i0 > 0) {
+        m_i = -1e30f;
+        l_i = 0.f;
+        if (i0 + lane < splits) {
+          m_i = __ldcg(ml + (i0 + lane) * ml_step);
+          l_i = __ldcg(ml + (i0 + lane) * ml_step + 1);
+        }
+      }
+      const float w = exp2f(m_i - m_star);  // split i0 + lane's weight
+      const float lw = __fmul_rn(l_i, w);
+      const int n = min(32, splits - i0);
+      int j = 0;
+      if (i0 == 0) {
+#pragma unroll
+        for (int jj = 0; jj < kPre; ++jj) {
+          if (jj < n) {
+            const float wj = __shfl_sync(kFull, w, jj);
+            l_sum = __fadd_rn(l_sum, __shfl_sync(kFull, lw, jj));
+#pragma unroll
+            for (int c = 0; c < kCols; ++c) o_acc[c] = __fadd_rn(o_acc[c], __fmul_rn(pre[jj][c], wj));
+          }
+        }
+        j = min(n, kPre);
+      }
+#pragma unroll 4
+      for (; j < n; ++j) {
+        const float wj = __shfl_sync(kFull, w, j);
+        l_sum = __fadd_rn(l_sum, __shfl_sync(kFull, lw, j));
+        const float* pj = po + (i0 + j) * po_step;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          o_acc[c] = __fadd_rn(o_acc[c], __fmul_rn(__ldcg(pj + 32 * c), wj));
+        }
+      }
+    }
+    __nv_bfloat16* orow = orow0 + (r % group) * so_h + static_cast<long long>(r / group) * so_t +
+                          lane;
+    const float denom = fmaxf(l_sum, 1e-30f);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) orow[32 * c] = __float2bfloat16(o_acc[c] / denom);
+  }
+}
+
 template <int D, int kRows>
-__global__ void __launch_bounds__(kThreads) flash_decode_kernel(const DecodeArgs a) {
+__global__ void __launch_bounds__(kThreads, 3) flash_decode_kernel(const DecodeArgs a) {
   constexpr int LD = pitch(D);  // K rows; V rows are D apart
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
   constexpr int kRowsPerWarp = kRows / kWarps > 0 ? kRows / kWarps : 1;
@@ -258,8 +381,31 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const DecodeArgs
     __syncthreads();  // the next iteration's load overwrites this buffer
   }
 
+  const int h0 = kvh * a.group;  // the CTA's first query head
+  if (a.o != nullptr && a.splits == 1) {
+    // The whole visible range in one CTA: divide by the row sums (through
+    // shared memory to the threads that own the columns) and write bf16.
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const int r = warp + kWarps * i;
+      if (r < R && lane == 0) sCorr[r] = l[i];
+    }
+    __syncthreads();
+    if (tid < D) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (r < R) {
+          a.o[b * a.so[0] + (h0 + r % a.group) * a.so[1] + static_cast<long long>(r / a.group) *
+                  a.so[2] + tid] = __float2bfloat16(acc[r] / fmaxf(sCorr[r], 1e-30f));
+        }
+      }
+    }
+    return;
+  }
+
   // The partial results of this split.
-  const long long row_base = ((static_cast<long long>(b) * a.Hkv + kvh) * a.splits + split) * R;
+  const long long part0 = (static_cast<long long>(b) * a.Hkv + kvh) * a.splits * R;
+  const long long row_base = part0 + static_cast<long long>(split) * R;
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int r = warp + kWarps * i;
@@ -274,47 +420,51 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const DecodeArgs
       if (r < R) a.part_o[(row_base + r) * D + tid] = acc[r];
     }
   }
-}
+  if (a.o == nullptr) return;
 
-__global__ void flash_decode_combine_kernel(const float* __restrict__ part_o,
-                                            const float* __restrict__ part_ml,
-                                            __nv_bfloat16* __restrict__ o, int Hkv, int group,
-                                            int rows, int D, int splits, long long so0,
-                                            long long so1, long long so2, long long total) {
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int d = static_cast<int>(idx % D);
-  long long rest = idx / D;
-  const int r = static_cast<int>(rest % rows);
-  rest /= rows;
-  const int kvh = static_cast<int>(rest % Hkv);
-  const int b = static_cast<int>(rest / Hkv);
-  const long long first = (static_cast<long long>(b) * Hkv + kvh) * splits * rows + r;
-  float m_star = -1e30f;
-  for (int i = 0; i < splits; ++i) m_star = fmaxf(m_star, part_ml[(first + i * rows) * 2]);
-  float l = 0.f, acc = 0.f;
-  for (int i = 0; i < splits; ++i) {
-    const long long row = first + static_cast<long long>(i) * rows;
-    const float w = exp2f(part_ml[row * 2] - m_star);
-    l += part_ml[row * 2 + 1] * w;
-    acc += part_o[row * D + d] * w;
+  // Arrival: the barrier orders every thread's partial stores before thread
+  // 0's count, an acquire-release atomic at device scope (cumulative: those
+  // stores are visible device-wide before the count, and whatever the last
+  // CTA reads after it sees every split that counted before). The CTA that
+  // counts last merges every split's partial of its (b, KV head).
+  // The flag lives in sCorr, free after the loop: a static __shared__
+  // variable would add to each CTA's shared memory, and at three CTAs an SM
+  // that cost 0.003 ms a call on an H100 (launch/compare.py --attention).
+  int& is_last = *reinterpret_cast<int*>(sCorr);
+  __syncthreads();
+  if (tid == 0) {
+    int* counter = a.counters + static_cast<long long>(b) * a.Hkv + kvh;
+    int before;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                 : "=r"(before)
+                 : "l"(counter)
+                 : "memory");
+    is_last = before == a.splits - 1;
+    if (is_last) *counter = 0;  // every split has arrived: ready for the next launch
   }
-  const int h = kvh * group + r % group;
-  o[b * so0 + h * so1 + static_cast<long long>(r / group) * so2 + d] =
-      __float2bfloat16(acc / fmaxf(l, 1e-30f));
+  __syncthreads();
+  if (!is_last) return;
+
+  merge_splits<D>(a.part_o + part0 * D, a.part_ml + part0 * 2,
+                  a.o + b * a.so[0] + static_cast<long long>(h0) * a.so[1], a.so[1], a.so[2], R,
+                  a.group, a.splits, warp, lane);
 }
 
 template <int D, int kRows>
 cudaError_t launch(const DecodeArgs& a, int B, cudaStream_t stream) {
   constexpr int smem = decode_smem_bytes<D, kRows>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_kernel<D, kRows>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  // All of the SM's unified memory as shared memory: three CTAs of the
-  // path's decode step (72.7 KB each) fit an SM, so its 320 CTAs run in one wave.
-  err = cudaFuncSetAttribute(flash_decode_kernel<D, kRows>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
+  static std::atomic<bool> configured[kMaxDevices];
+  const cudaError_t err = once_per_device(configured, [] {
+    cudaError_t e = cudaFuncSetAttribute(flash_decode_kernel<D, kRows>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    // All of the SM's unified memory as shared memory: three CTAs of the
+    // path's decode step (72.7 KB each) fit an SM, so its 320 CTAs run in
+    // one wave.
+    return cudaFuncSetAttribute(flash_decode_kernel<D, kRows>,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                cudaSharedmemCarveoutMaxShared);
+  });
   if (err != cudaSuccess) return err;
   flash_decode_kernel<D, kRows><<<dim3(a.splits, a.Hkv, B), kThreads, smem, stream>>>(a);
   return cudaGetLastError();
@@ -322,29 +472,35 @@ cudaError_t launch(const DecodeArgs& a, int B, cudaStream_t stream) {
 
 }  // namespace
 
-// C entry points (bound with ctypes). q (B, Hq, T, D), k and v (B, Hkv, S,
-// D), bf16 with a unit last stride; `strides` holds 9 element strides (q's,
-// k's and v's over their first three axes); k and v rows 16-byte aligned.
-// Hq / Hkv * T <= 16, D in {64, 128}, window < 0 is no window. part_o
-// (B * Hkv * splits * rows * D floats) and part_ml (B * Hkv * splits * rows
-// * 2 floats), rows = Hq / Hkv * T, are the caller's scratch. Each returns
-// cudaGetLastError() after its launch.
-
-extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v, void* part_o,
-                                 void* part_ml, int B, int Hq, int Hkv, int T, int S, int D,
+// C entry point (bound with ctypes). q and o (B, Hq, T, D), k and v (B,
+// Hkv, S, D), bf16 with a unit last stride; `strides` holds 12 element
+// strides (q's, k's, v's and o's over their first three axes); k and v rows
+// 16-byte aligned. Hq / Hkv * T <= 16, D in {64, 128}, window < 0 is no
+// window. `part` is the caller's f32 scratch: part_o (B * Hkv * splits *
+// rows * D floats, rows = Hq / Hkv * T) then part_ml (B * Hkv * splits *
+// rows * 2). `counters` holds at least B * Hkv int32 zeros, which the launch
+// leaves zero. o non-null: one launch computes the output (splits == 1 needs
+// neither part nor counters). o null: only the partials are written.
+// Returns cudaGetLastError() after the launch.
+extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v, void* o, void* part,
+                                 void* counters, int B, int Hq, int Hkv, int T, int S, int D,
                                  int causal, int window, float scale, const long long* strides,
                                  int splits, void* stream) {
   DecodeArgs a;
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k = static_cast<const __nv_bfloat16*>(k);
   a.v = static_cast<const __nv_bfloat16*>(v);
-  a.part_o = static_cast<float*>(part_o);
-  a.part_ml = static_cast<float*>(part_ml);
+  a.o = static_cast<__nv_bfloat16*>(o);
   a.T = T;
   a.S = S;
   a.Hkv = Hkv;
   a.group = Hq / Hkv;
   a.rows = a.group * T;
+  a.part_o = static_cast<float*>(part);
+  a.part_ml = a.part_o == nullptr
+                  ? nullptr
+                  : a.part_o + static_cast<long long>(B) * Hkv * splits * a.rows * D;
+  a.counters = static_cast<int*>(counters);
   a.causal = causal;
   a.window = window;
   a.splits = splits;
@@ -353,8 +509,13 @@ extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v, vo
     a.sq[i] = strides[i];
     a.sk[i] = strides[3 + i];
     a.sv[i] = strides[6 + i];
+    a.so[i] = strides[9 + i];
   }
-  if (a.rows < 1 || a.rows > 16 || splits < 1) return cudaErrorInvalidValue;
+  const bool needs_part = o == nullptr || splits > 1;
+  if (a.rows < 1 || a.rows > 16 || splits < 1 || (needs_part && part == nullptr) ||
+      (o != nullptr && splits > 1 && counters == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool small = a.rows <= 4;
   switch (D) {
@@ -362,23 +523,6 @@ extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v, vo
     case 128: return small ? launch<128, 4>(a, B, s) : launch<128, 16>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// o (B, Hq, T, D) bf16 through its element strides over (b, h, t).
-extern "C" int flash_decode_combine_bf16(const void* part_o, const void* part_ml, void* o, int B,
-                                         int Hq, int Hkv, int T, int D, int splits,
-                                         long long so0, long long so1, long long so2,
-                                         void* stream) {
-  const int group = Hq / Hkv;
-  const int rows = group * T;
-  const long long total = static_cast<long long>(B) * Hkv * rows * D;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  flash_decode_combine_kernel<<<static_cast<unsigned>(blocks), threads, 0, s>>>(
-      static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
-      static_cast<__nv_bfloat16*>(o), Hkv, group, rows, D, splits, so0, so1, so2, total);
-  return cudaGetLastError();
 }
 
 // Dynamic shared memory of one decode CTA at head dim D and `rows` packed rows.

@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
 // (matmul_wgmma.cu, flash_attention_wgmma.cu), the split-KV decode
-// (flash_decode.cu) and the TMA-fed f32 GEMM (matmul_f32_tma.cu): raw PTX
+// (flash_decode.cu) and the TMA-fed f32 kernels (matmul_f32_tma.cu,
+// flash_attention_f32_tma.cu): raw PTX
 // for mbarriers, TMA tensor loads and stores, wgmma descriptors and
 // instructions, register reallocation, cp.async; and
 // on the host, tensor-map encoding through the driver entry point that the
-// runtime hands out, so the library links against cudart alone.
+// runtime hands out, so the library links against cudart alone, and a
+// once-per-device guard for kernel attributes.
 //
 // Conventions of the bf16 kernels (the f32 GEMM states its own layouts):
 // - A tile lands in shared memory by TMA with CU_TENSOR_MAP_SWIZZLE_128B: its
@@ -28,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace hopper {
 
@@ -104,6 +108,12 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // ---------------------------------------------------------------------------
 // TMA: tensor loads (global -> shared, completing on an mbarrier) and stores
 // ---------------------------------------------------------------------------
+
+// Fetches a tensor map (a __grid_constant__ kernel parameter) ahead of its
+// first TMA load, so that load does not wait for the descriptor too.
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
 
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1) {
@@ -357,6 +367,22 @@ inline bool encode_bf16(CUtensorMap* map, int rank, const void* base, const uint
 inline bool encode_f32(CUtensorMap* map, CUtensorMapSwizzle swizzle, int rank, const void* base,
                        const uint64_t* dims, const uint64_t* strides, const uint32_t* box) {
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, swizzle, rank, base, dims, strides, box);
+}
+
+// Runs `set` (a kernel's cudaFuncSetAttribute calls, which are per device)
+// once per device for the call site that owns `done`: one static array per
+// kernel instantiation, so a launch costs no attribute call after its first.
+constexpr int kMaxDevices = 64;
+template <typename F>
+inline cudaError_t once_per_device(std::atomic<bool> (&done)[kMaxDevices], F set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool cached = dev >= 0 && dev < kMaxDevices;
+  if (cached && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = set();
+  if (err == cudaSuccess && cached) done[dev].store(true, std::memory_order_release);
+  return err;
 }
 
 inline int sm_count() {

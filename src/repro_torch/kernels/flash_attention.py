@@ -2,7 +2,7 @@
 sliding-window masks; the queries sit at the last T of the S key positions,
 which covers prefill and cached decode.
 
-Counterpart of ``repro/kernels/flash_attention.py``. Four hand-written CUDA
+Counterpart of ``repro/kernels/flash_attention.py``. Five hand-written CUDA
 entry points for Hopper, chosen per call by layout (:func:`_route`); see the
 note at the top of each source for its bound and design:
 
@@ -10,13 +10,17 @@ note at the top of each source for its bound and design:
   prefill: 128 packed rows of one KV head per CTA, q, k and v brought in by
   TMA (k and v through a 2-stage mbarrier ring), both products on the
   tensor cores by wgmma;
-- ``flash_decode_bf16`` + ``flash_decode_combine_bf16``
-  (``csrc/flash_decode.cu``), bf16 decode (at most 16 packed rows per KV
-  head): the visible keys split over CTAs, each writing its partial
-  (m, l, acc) in f32, and a second launch merging them;
-- ``flash_attention_bf16_simt`` and ``flash_attention_f32``
+- ``flash_decode_bf16`` (``csrc/flash_decode.cu``), bf16 decode (at most 16
+  packed rows per KV head), one launch a call: the visible keys split over
+  CTAs, each writing its partial (m, l, acc) in f32, and the last CTA of
+  each (batch, KV head) to arrive merging them in its epilogue (arrival
+  counters and scratch per (device, stream): :data:`scratch`);
+- ``flash_attention_f32`` (``csrc/flash_attention_f32_tma.cu``), f32 whose
+  q, k and v TMA can read: K and V by TMA through an mbarrier ring, both
+  products register-blocked outer products in true f32 on the CUDA cores;
+- ``flash_attention_bf16_simt`` and ``flash_attention_f32_simt``
   (``csrc/flash_attention.cu``): one CTA per 32 packed rows on the CUDA
-  cores, for f32 and for the bf16 layouts the other two do not take.
+  cores, for the layouts the other three do not take.
 
 - :func:`flash_attention_cuda` launches the routed entry on q (B, Hq, T, D)
   and k, v (B, Hkv, S, D), float32 or bfloat16, D in {8, 16, 32, 64, 128}.
@@ -30,9 +34,10 @@ note at the top of each source for its bound and design:
   CPU tensors run the plain version (:func:`flash_attention_plain`, the
   ``ref.py`` oracle).
 - :func:`flash_decode_plain` is the decode kernel's split-and-merge in plain
-  PyTorch (the tests hold it against the reference at every split count);
-  :func:`decode_tiles` and :func:`decode_splits` are the kernel's tile
-  range and the wrapper's choice of splits.
+  PyTorch (the tests hold it against the reference at every split count;
+  :func:`flash_decode_combine_plain` is its merge, the kernel's epilogue
+  bit for bit); :func:`decode_tiles` and :func:`decode_splits` are the
+  kernel's tile range and the wrapper's choice of splits.
 - ``launches`` (per C entry point) and ``plain_calls`` count as in
   ``kernels/matmul.py``.
 """
@@ -62,15 +67,16 @@ __all__ = [
 ]
 
 launches = {
-    "flash_attention_f32": 0, "flash_attention_bf16_simt": 0, "flash_attention_bf16_wgmma": 0,
-    "flash_decode_bf16": 0, "flash_decode_combine_bf16": 0,
+    "flash_attention_f32": 0, "flash_attention_f32_simt": 0, "flash_attention_bf16_simt": 0,
+    "flash_attention_bf16_wgmma": 0, "flash_decode_bf16": 0,
 }
 plain_calls = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # The prefill kernel's tile, the one the op's block parameters name: 128
 # packed rows (two wgmma warpgroups of 64), 128 keys a tile. The decode
-# kernel's (16 rows at most, 64 keys) and the SIMT kernel's (32 rows, 64
+# kernel's (16 rows at most, 64 keys), the f32 kernel's (128 rows, or 16 at
+# most 16 rows per KV head; 64 keys) and the SIMT kernel's (32 rows, 64
 # keys) are fixed.
 _TILE = {"block_q": 128, "block_k": 128}
 HEAD_DIMS = (8, 16, 32, 64, 128)  # the head dims csrc instantiates
@@ -84,14 +90,13 @@ _INT_MAX = 2**31 - 1
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p,
 ]
-_WGMMA_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+# The TMA entries (flash_attention_bf16_wgmma, flash_attention_f32).
+_TMA_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
 ]
-_DECODE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+_SIMT = {torch.float32: "flash_attention_f32_simt", torch.bfloat16: "flash_attention_bf16_simt"}
+_DECODE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p,
-]
-_COMBINE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 3 + [
-    ctypes.c_void_p,
 ]
 
 
@@ -145,15 +150,23 @@ def _aligned(x: torch.Tensor) -> bool:
     """Base and strides (over axes of more than one entry) in 16-byte
     multiples: what TMA and 16-byte cp.async need."""
     return x.data_ptr() % 16 == 0 and all(
-        st % 8 == 0 for n, st in zip(x.shape[:3], x.stride()[:3]) if n > 1
+        st * x.element_size() % 16 == 0 for n, st in zip(x.shape[:3], x.stride()[:3]) if n > 1
     )
+
+
+def _tma_f32(x: torch.Tensor) -> bool:
+    """An f32 operand the f32 kernel reads: 16-byte aligned, and no axis of
+    more than one entry with stride 0 (a tensor map's strides are positive)."""
+    return _aligned(x) and all(st > 0 for n, st in zip(x.shape[:3], x.stride()[:3]) if n > 1)
 
 
 def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window=None) -> str:
     """The C entry point attention of these operands goes to, by dtype, head
     dim, packed rows per KV head (group * T), and alignment:
 
-    - ``flash_attention_f32`` for float32;
+    - ``flash_attention_f32`` for float32 with q, k and v 16-byte aligned
+      in base and strides (TMA, float4 loads), ``flash_attention_f32_simt``
+      for every other float32 call;
     - ``flash_decode_bf16`` for bf16 with D in {64, 128}, at most 16 packed
       rows, and k and v 16-byte aligned;
     - ``flash_attention_bf16_wgmma`` for bf16 with D in {64, 128}, at least
@@ -165,7 +178,8 @@ def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window=None) -> st
     strides and addresses, so it answers for CPU tensors too."""
     _check_layout(q, k, v, window)
     if q.dtype == torch.float32:
-        return "flash_attention_f32"
+        tma = _tma_f32(q) and _tma_f32(k) and _tma_f32(v)
+        return "flash_attention_f32" if tma else "flash_attention_f32_simt"
     _, hq, t, d = q.shape
     group = hq // k.shape[1]
     rows = group * t
@@ -265,14 +279,22 @@ def flash_decode_partials_plain(
 def flash_decode_combine_plain(
     part_o: torch.Tensor, part_ml: torch.Tensor, *, hq: int, t: int, dtype: torch.dtype
 ) -> torch.Tensor:
-    """The merge launch in plain PyTorch: m* = max m_i, l = sum l_i
-    2^(m_i - m*), o = sum acc_i 2^(m_i - m*) / max(l, 1e-30), the packed
-    rows put back as (B, Hq, T, D) in ``dtype``."""
-    b, hkv, _, rows, d = part_o.shape
+    """The decode kernel's merge in plain PyTorch: m* = max m_i, w_i =
+    2^(m_i - m*), l = sum l_i w_i, o = sum acc_i w_i / max(l, 1e-30), the
+    packed rows put back as (B, Hq, T, D) in ``dtype``. The sums run in
+    split order, one elementwise product and one sum at a time, each rounded
+    on its own: the kernel's epilogue does the same arithmetic in the same
+    order (``__fmul_rn``, ``__fadd_rn``), so on the card the two agree bit
+    for bit on the same partials."""
+    b, hkv, splits, rows, d = part_o.shape
     m = part_ml[..., 0]
     w = torch.exp2(m - m.amax(2, keepdim=True))
-    l_sum = (part_ml[..., 1] * w).sum(2)
-    o = (part_o * w[..., None]).sum(2) / l_sum.clamp_min(1e-30)[..., None]
+    l_sum = torch.zeros_like(m[:, :, 0])
+    o = torch.zeros_like(part_o[:, :, 0])
+    for i in range(splits):
+        l_sum = l_sum + part_ml[:, :, i, :, 1] * w[:, :, i]
+        o = o + part_o[:, :, i] * w[:, :, i, :, None]
+    o = o / l_sum.clamp_min(1e-30)[..., None]
     group = hq // hkv
     return o.reshape(b, hkv, t, group, d).transpose(2, 3).reshape(b, hq, t, d).to(dtype)
 
@@ -325,52 +347,95 @@ def _window_arg(window: int | None, s: int, t: int) -> int:
     return -1 if window is None else min(int(window), s + t + 1)
 
 
-def _decode_launch(q, k, v, causal, window, scale, splits, part, out, stream) -> None:
-    """Launch ``flash_decode_bf16`` into ``part`` (one f32 buffer: part_o,
-    then part_ml) and, when ``out`` is given, ``flash_decode_combine_bf16``
-    from it into ``out``. Operands already routed and checked, S >= 1."""
+def decode_scratch_sizes(b: int, hq: int, hkv: int, t: int, d: int, splits: int) -> tuple[int, int]:
+    """(int32 counters, f32 scratch floats) one decode launch needs: one
+    arrival counter per (batch, KV head), and part_o then part_ml, B * Hq * T
+    * splits * (D + 2) floats; none of either at one split."""
+    if splits <= 1:
+        return 0, 0
+    return b * hkv, b * hq * t * splits * (d + 2)
+
+
+class DecodeScratch:
+    """The decode kernel's arrival counters and partials scratch, one pair
+    per (device, stream), grown when a call needs more and kept.
+
+    Launches on one stream run in order, so they can share a pair: each
+    launch leaves its counters at 0 as it found them, and the next one
+    overwrites the partials only after the last finished reading them. Two
+    decode calls in flight on two streams must never share counters, hence
+    the key. A call under CUDA-graph capture finds the pair of the capture
+    stream; the graph keeps those addresses, so two replays of it in flight
+    at once on two streams would share them."""
+
+    def __init__(self) -> None:
+        self._pairs: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def get(self, device: torch.device, stream: int, counters: int,
+            floats: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """(counters, scratch) of ``device`` and ``stream`` (its handle), at
+        least ``counters`` int32 zeros and ``floats`` f32 entries."""
+        key = self._key(device, stream)
+        cnt, part = self._pairs.get(key, (None, None))
+        if cnt is None or cnt.numel() < counters:
+            cnt = torch.zeros(max(counters, 1), dtype=torch.int32, device=device)
+        if part is None or part.numel() < floats:
+            part = torch.empty(max(floats, 1), dtype=torch.float32, device=device)
+        self._pairs[key] = (cnt, part)
+        return cnt, part
+
+    def counters(self, device: torch.device, stream: int) -> torch.Tensor | None:
+        """The counters of ``device`` and ``stream``, None before their first use."""
+        return self._pairs.get(self._key(device, stream), (None, None))[0]
+
+    @staticmethod
+    def _key(device: torch.device, stream: int) -> tuple:
+        # torch.device("cuda") names the current card, as a tensor's device does by number.
+        index = device.index
+        if index is None and device.type == "cuda":
+            index = torch.cuda.current_device()
+        return device.type, index, stream
+
+
+scratch = DecodeScratch()
+
+
+def _decode_launch(q, k, v, causal, window, scale, splits, part, counters, out, stream) -> None:
+    """One launch of ``flash_decode_bf16``: into ``out`` when it is given
+    (the merge in the epilogue; ``part`` and ``counters`` used only at more
+    than one split), else the partials into ``part`` (part_o, then part_ml).
+    Operands already routed and checked, S >= 1."""
     b, hq, t, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
-    po = part.data_ptr()
-    pml = po + b * hkv * splits * (hq // hkv * t) * d * 4
     name = "flash_decode_bf16"
     status = _build.function(name, _DECODE_ARGTYPES)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), po, pml, b, hq, hkv, t, s, d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if out is None else out.data_ptr(),
+        None if part is None else part.data_ptr(),
+        None if counters is None else counters.data_ptr(), b, hq, hkv, t, s, d,
         int(bool(causal)), _window_arg(window, s, t),
-        float(d**-0.5 if scale is None else scale), _strides_arg(q, k, v), splits, stream,
+        float(d**-0.5 if scale is None else scale),
+        _strides_arg(q, k, v, q if out is None else out), splits, stream,
     )
     _build.check(status, name)
     launches[name] += 1
-    if out is not None:
-        _combine_launch(po, pml, out, b, hkv, splits, stream)
-
-
-def _combine_launch(po: int, pml: int, out, b, hkv, splits, stream) -> None:
-    _, hq, t, d = out.shape
-    name = "flash_decode_combine_bf16"
-    status = _build.function(name, _COMBINE_ARGTYPES)(
-        po, pml, out.data_ptr(), b, hq, hkv, t, d, splits, *out.stride()[:3], stream)
-    _build.check(status, name)
-    launches[name] += 1
-
-
-def _part_buffer(q, hkv, splits) -> torch.Tensor:
-    """The decode scratch: B * Hq * T * splits * (D + 2) floats."""
-    b, hq, t, d = q.shape
-    return torch.empty(b * hq * t * splits * (d + 2), dtype=torch.float32, device=q.device)
 
 
 def _decode(q, k, v, causal, window, scale, splits=None):
-    """The decode pair into a new output (operands already checked; S >= 1);
-    ``splits`` None picks :func:`decode_splits` for the card."""
-    b, hq, t, _ = q.shape
+    """One decode launch into a new output (operands already checked; S >=
+    1); ``splits`` None picks :func:`decode_splits` for the card. Its
+    counters and scratch are the (device, stream) pair of :data:`scratch`."""
+    b, hq, t, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     if splits is None:
         lo, hi = decode_tiles(t, s, hq // hkv, causal, window)
         splits = decode_splits(b, hkv, hi - lo, _sm_count(q.device.index or 0))
     out = _empty_out(q)
-    _decode_launch(q, k, v, causal, window, scale, splits, _part_buffer(q, hkv, splits), out,
-                   torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters = part = None
+    if splits > 1:
+        counters, part = scratch.get(q.device, stream,
+                                     *decode_scratch_sizes(b, hq, hkv, t, d, splits))
+    _decode_launch(q, k, v, causal, window, scale, splits, part, counters, out, stream)
     return out
 
 
@@ -403,36 +468,13 @@ def flash_decode_partials_cuda(
     _check_decode(q, k, v, window, splits)
     b, hq, t, d = q.shape
     hkv = k.shape[1]
-    part = _part_buffer(q, hkv, splits)
-    _decode_launch(q, k, v, causal, window, scale, splits, part, None,
+    part = torch.empty(b * hq * t * splits * (d + 2), dtype=torch.float32, device=q.device)
+    _decode_launch(q, k, v, causal, window, scale, splits, part, None, None,
                    torch.cuda.current_stream(q.device).cuda_stream)
     rows = hq // hkv * t
     n = b * hkv * splits * rows
     return (part[: n * d].view(b, hkv, splits, rows, d),
             part[n * d:].view(b, hkv, splits, rows, 2))
-
-
-def flash_decode_combine_cuda(
-    part_o: torch.Tensor, part_ml: torch.Tensor, out: torch.Tensor
-) -> torch.Tensor:
-    """The merge launch (``flash_decode_combine_bf16``): the partials of
-    :func:`flash_decode_partials_cuda` into ``out`` (B, Hq, T, D) bf16, any
-    strides. Returns ``out``."""
-    b, hkv, splits, rows, d = part_o.shape
-    _, hq, t, _ = out.shape
-    if (part_ml.shape != (b, hkv, splits, rows, 2) or out.shape[0] != b or out.shape[3] != d
-            or hq % hkv or hq // hkv * t != rows or out.dtype != torch.bfloat16
-            or part_o.dtype != torch.float32 or part_ml.dtype != torch.float32
-            or not (part_o.is_contiguous() and part_ml.is_contiguous())):
-        raise ValueError(
-            f"decode combine: partials {tuple(part_o.shape)}, {tuple(part_ml.shape)} do not fit "
-            f"a bf16 output {tuple(out.shape)}"
-        )
-    if not (part_o.is_cuda and part_ml.is_cuda and out.is_cuda):
-        raise ValueError("flash_decode_combine_cuda needs CUDA tensors")
-    _combine_launch(part_o.data_ptr(), part_ml.data_ptr(), out, b, hkv, splits,
-                    torch.cuda.current_stream(out.device).cuda_stream)
-    return out
 
 
 def _empty_out(q: torch.Tensor) -> torch.Tensor:
@@ -451,9 +493,9 @@ def flash_decode_cuda(
     scale: float | None = None,
     splits: int | None = None,
 ) -> torch.Tensor:
-    """The decode pair, the counterpart of :func:`flash_decode_plain`:
-    ``splits`` None picks :func:`decode_splits` for the card, as
-    :func:`flash_attention_cuda` does."""
+    """The decode kernel, one launch, the counterpart of
+    :func:`flash_decode_plain`: ``splits`` None picks :func:`decode_splits`
+    for the card, as :func:`flash_attention_cuda` does."""
     _check_decode(q, k, v, window, splits)
     return _decode(q, k, v, causal, window, scale, splits)
 
@@ -482,10 +524,10 @@ def flash_attention_cuda(
 
 def _launch(name: str, q, k, v, *, causal=False, window=None, scale=None) -> torch.Tensor:
     """Launch entry ``name``, one that takes these operands: the routed one,
-    or the SIMT kernel for any bf16 call (which is how a comparison times it
-    at the shapes the tensor-core kernels take)."""
+    or the SIMT kernel of their dtype, which takes any (which is how a
+    comparison times it at the shapes its successors take)."""
     routed = _route(q, k, v, window)
-    if name not in (routed, "flash_attention_bf16_simt" if q.dtype == torch.bfloat16 else routed):
+    if name not in (routed, _SIMT[q.dtype]):
         raise ValueError(f"attention entry {name} does not take these operands ({routed} does)")
     _check_devices(q, k, v)
     return _run(name, q, k, v, causal, window, scale)
@@ -506,8 +548,8 @@ def _run(name: str, q, k, v, causal, window, scale) -> torch.Tensor:
         scale = d**-0.5
     win = _window_arg(window, s, t)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if name == "flash_attention_bf16_wgmma":
-        fn = _build.function(name, _WGMMA_ARGTYPES)
+    if name in ("flash_attention_bf16_wgmma", "flash_attention_f32"):
+        fn = _build.function(name, _TMA_ARGTYPES)
         status = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, t, s, d,
             int(bool(causal)), win, float(scale), _strides_arg(q, k, v, out, fill=d), stream,

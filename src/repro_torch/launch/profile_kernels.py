@@ -1,7 +1,7 @@
 """Per-launch device profile of the f32 GEMM, the radix sort, the row
-softmax, the LRN and the SRAD step at the paths' shapes: which CUDA
-kernels one call launches, how many of each, and the device time of each,
-summed per kernel name over the call.
+softmax, the LRN, the SRAD step and attention at the paths' shapes: which
+CUDA kernels one call launches, how many of each, and the device time of
+each, summed per kernel name over the call.
 
     python -m repro_torch.launch.profile_kernels [--calls 10] [--match TEXT] [--json PATH]
 
@@ -21,7 +21,14 @@ Cases (all on the card, inputs from a seeded CUDA generator):
 - ``srad_step_cuda`` of a 1024 x 1024 f32 exp(0.1 N(0, 1)) image, fused
   and split: one step of the SRAD rows at preset 4; and the same step on
   the replaced entries, ``srad_fused_f32_gridstride`` and
-  ``srad_phase1_f32_scalar``.
+  ``srad_phase1_f32_scalar``;
+- ``flash_attention_cuda`` of a bf16 decode step of granite-3-8b at batch
+  8 (B8 Hq32 Hkv8, T=1 against S=1088, D128): the serving path's decode
+  layer, one launch;
+- ``flash_attention_f32`` in f32 at the f32 smoke LM's own shapes (B4 Hq4
+  Hkv2 D16: the causal prefill T=S=16 and a decode step T=1, S=32) and at
+  full width (B8 Hq32 Hkv8 T=S=1024 D128, causal), and the SIMT kernel it
+  replaced (``flash_attention_f32_simt``) at the same shapes.
 
 ``--match`` keeps the cases whose name holds the text (all by default).
 
@@ -43,6 +50,7 @@ __all__ = ["main"]
 
 def _cases(torch, gen):
     from repro_torch.kernels import bitonic_sort, lrn, matmul, softmax
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import srad_stencil as srad
 
     def randn(*shape):
@@ -59,6 +67,23 @@ def _cases(torch, gen):
     logits = 5 * randn(32768, 16384)
     maps = randn(128, 512, 16, 16)
     img = torch.exp(0.1 * randn(1024, 1024))
+
+    def qkv(dtype, b, hq, hkv, t, s, d):
+        return (randn(b, hq, t, d).to(dtype), randn(b, hkv, s, d).to(dtype),
+                randn(b, hkv, s, d).to(dtype))
+
+    step = qkv(torch.bfloat16, 8, 32, 8, 1, 1088, 128)
+    f32_cases = []
+    for what, shape, causal in (("smoke prefill B4 Hq4 Hkv2 T=S=16 D16 causal",
+                                 (4, 4, 2, 16, 16, 16), True),
+                                ("smoke decode B4 Hq4 Hkv2 T=1 S=32 D16", (4, 4, 2, 1, 32, 16),
+                                 False),
+                                ("prefill B8 Hq32 Hkv8 T=S=1024 D128 causal",
+                                 (8, 32, 8, 1024, 1024, 128), True)):
+        ops = qkv(torch.float32, *shape)
+        for entry in ("flash_attention_f32", "flash_attention_f32_simt"):
+            f32_cases.append((f"attention f32 {what} on {entry}",
+                              lambda e=entry, x=ops, c=causal: fa._launch(e, *x, causal=c)))
     return (
         ("matmul_cuda f32 4096^3 nn", lambda: matmul.matmul_cuda(a, b)),
         ("matmul_cuda f32 4096^3 tn", lambda: matmul.matmul_cuda(at, b)),
@@ -75,6 +100,9 @@ def _cases(torch, gen):
          lambda: srad._launch("srad_fused_f32_gridstride", img)),
         ("srad_cuda f32 1024^2 phase 1 on srad_phase1_f32_scalar",
          lambda: srad._launch("srad_phase1_f32_scalar", img)),
+        ("attention bf16 decode B8 Hq32 Hkv8 T=1 S=1088 D128 (one launch)",
+         lambda: fa.flash_attention_cuda(*step)),
+        *f32_cases,
     )
 
 

@@ -238,6 +238,17 @@ def test_route_sends_the_paths_shapes_to_the_new_entries():
     assert tfa._route(step, cache[:, :1025].transpose(1, 2),
                       cache[:, :1025].transpose(1, 2), None) == "flash_decode_bf16"
     assert tfa._route(q.float(), kv.float(), kv.float()) == "flash_attention_f32"
+    # The f32 smoke LM's prefill and decode views (granite-3-8b smoke: heads
+    # 4/2, head_dim 16, a cache of 64) go to the TMA kernel as well; the same
+    # cache one float into its storage goes to the SIMT kernel.
+    cache = torch.empty(4, 64, 2, 16)
+    odd = torch.empty(1 + 4 * 64 * 2 * 16)[1:].view(4, 64, 2, 16)
+    for t, kv_len in ((16, 16), (1, 32)):
+        qv = torch.empty(4, t, 4, 16).transpose(1, 2)
+        assert tfa._route(qv, cache[:, :kv_len].transpose(1, 2),
+                          cache[:, :kv_len].transpose(1, 2)) == "flash_attention_f32"
+        assert tfa._route(qv, odd[:, :kv_len].transpose(1, 2),
+                          odd[:, :kv_len].transpose(1, 2)) == "flash_attention_f32_simt"
 
 
 def test_route_keeps_the_simt_kernel_for_what_the_new_entries_do_not_take():

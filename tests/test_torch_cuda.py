@@ -685,9 +685,8 @@ def test_bf16_attention_entries_match_plain(card, b, hq, hkv, t, s, d, causal, w
     before = dict(flash_attention.launches)
     got = flash_attention.flash_attention_cuda(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
+    # One launch, the decode kernel's too (its merge is in its epilogue).
     want_counts = {k_: int(k_ == key) for k_ in before}
-    if key == "flash_decode_bf16":
-        want_counts["flash_decode_combine_bf16"] = 1
     assert {k_: flash_attention.launches[k_] - before[k_] for k_ in before} == want_counts
     want = flash_attention.flash_attention_plain(q, k, v, causal=causal, window=window)
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
@@ -695,27 +694,129 @@ def test_bf16_attention_entries_match_plain(card, b, hq, hkv, t, s, d, causal, w
 
 
 # Decode shapes: the path's, S below one split's tiles, windows that leave
-# the first splits without a visible key for some rows, and causal T > 1.
+# the first splits without a visible key for some rows, causal T > 1, rows
+# that see no key (T > S, causal), and a window that leaves whole splits
+# empty for every row.
 DECODE_CASES = [
     (8, 32, 8, 1, 1088, 128, False, None), (2, 4, 2, 1, 40, 64, True, None),
     (1, 4, 2, 1, 700, 128, True, 100), (1, 8, 2, 4, 300, 64, True, 9),
-    (2, 16, 2, 2, 200, 128, False, 70),
+    (2, 16, 2, 2, 200, 128, False, 70), (1, 4, 2, 4, 3, 64, True, None),
+    (2, 8, 1, 2, 500, 128, True, 5),
 ]
 
 
 @pytest.mark.parametrize("b,hq,hkv,t,s,d,causal,window", DECODE_CASES)
 def test_decode_kernel_at_every_split_count(card, b, hq, hkv, t, s, d, causal, window):
+    """One launch at 1 split up to more splits than visible tiles: bit-equal
+    to flash_decode_combine_plain (the merge arithmetic in torch ops) on the
+    kernel's own partials, within 2e-2 of the split plain version and of
+    the plain attention, and the stream's counters back at 0."""
     q, k, v = _attention_inputs(card, b, hq, hkv, t, s, d, torch.bfloat16)
     lo, hi = flash_attention.decode_tiles(t, s, hq // hkv, causal, window)
     want = flash_attention.flash_attention_plain(q, k, v, causal=causal, window=window).float()
+    stream = torch.cuda.current_stream(card).cuda_stream
     for splits in sorted({1, 2, 3, 5, hi - lo, hi - lo + 1, hi - lo + 3} - {0}):
+        before = dict(flash_attention.launches)
         got = flash_attention.flash_decode_cuda(q, k, v, causal=causal, window=window,
                                                 splits=splits)
+        assert {n: flash_attention.launches[n] - before[n] for n in before} == {
+            n: int(n == "flash_decode_bf16") for n in before}
+        part_o, part_ml = flash_attention.flash_decode_partials_cuda(
+            q, k, v, causal=causal, window=window, splits=splits)
+        merged = flash_attention.flash_decode_combine_plain(part_o, part_ml, hq=hq, t=t,
+                                                            dtype=torch.bfloat16)
         torch.cuda.synchronize()
+        assert torch.equal(got, merged), f"{splits} splits"
         plain = flash_attention.flash_decode_plain(q, k, v, causal=causal, window=window,
                                                    splits=splits).float()
         torch.testing.assert_close(got.float(), plain, rtol=2e-2, atol=2e-2)
         torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+        counters = flash_attention.scratch.counters(card, stream)
+        if splits > 1:
+            assert not bool(counters.any())
+
+
+def test_fused_decode_on_two_streams_equals_serial_calls(card):
+    """Two decode calls in flight on two streams, each with its own counters,
+    give what the same calls give one after another."""
+    b, hq, hkv, t, s, d = 8, 32, 8, 1, 1088, 128
+    ins = [_attention_inputs(card, b, hq, hkv, t, s, d, torch.bfloat16, seed=i) for i in (1, 2)]
+    serial = [flash_attention.flash_attention_cuda(*x) for x in ins]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(card) for _ in ins]
+    outs = [None, None]
+    for _ in range(3):
+        for i, (x, st) in enumerate(zip(ins, streams)):
+            st.wait_stream(torch.cuda.current_stream(card))
+            with torch.cuda.stream(st):
+                outs[i] = [flash_attention.flash_attention_cuda(*x) for _ in range(4)]
+        torch.cuda.synchronize()
+        for i, st in enumerate(streams):
+            for out in outs[i]:
+                assert torch.equal(out, serial[i])
+            assert not bool(flash_attention.scratch.counters(card, st.cuda_stream).any())
+
+
+def test_fused_decode_replayed_in_a_cuda_graph_equals_the_eager_call(card):
+    b, hq, hkv, t, s, d = 8, 32, 8, 1, 1088, 128
+    q, k, v = _attention_inputs(card, b, hq, hkv, t, s, d, torch.bfloat16)
+    eager = flash_attention.flash_attention_cuda(q, k, v)
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        flash_attention.flash_attention_cuda(q, k, v)  # the side stream's counters, before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = flash_attention.flash_attention_cuda(q, k, v)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert not bool(flash_attention.scratch.counters(card, side.cuda_stream).any())
+
+
+# The f32 kernels: the phase-3 shapes of chip_smoke.py (the reference's cases,
+# every compiled head dim, ragged T and S, windows, T < S, the smoke LM's
+# shapes, the full-width prefill) on the TMA kernel and on the SIMT kernel.
+F32_CASES = ATTENTION_CASES + ATTENTION_MORE + [
+    (4, 4, 2, 16, 16, 16, True, None), (4, 4, 2, 1, 32, 16, False, None),
+    (1, 8, 1, 200, 333, 8, True, 70), (1, 4, 4, 129, 129, 32, True, 64),
+    (2, 8, 2, 1, 700, 128, True, 100), (1, 16, 2, 77, 200, 64, False, None),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,s,d,causal,window", F32_CASES)
+@pytest.mark.parametrize("entry", ["flash_attention_f32", "flash_attention_f32_simt"])
+def test_f32_attention_entries_match_plain(card, b, hq, hkv, t, s, d, causal, window, entry):
+    q, k, v = _attention_inputs(card, b, hq, hkv, t, s, d, torch.float32)
+    assert flash_attention._route(q, k, v, window) == "flash_attention_f32"
+    before = dict(flash_attention.launches)
+    got = flash_attention._launch(entry, q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert {n: flash_attention.launches[n] - before[n] for n in before} == {
+        n: int(n == entry) for n in before}
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_f32_simt_entry_takes_the_views_tma_cannot_read(card):
+    b, hq, hkv, t, s, d = 2, 8, 2, 5, 77, 64
+    rng = np.random.default_rng(4)
+    flat = torch.from_numpy(rng.standard_normal(1 + b * hkv * s * d, dtype=np.float32)).to(card)
+    k_odd = flat[1:].view(b, hkv, s, d)
+    q = torch.from_numpy(rng.standard_normal((b, hq, t, d), dtype=np.float32)).to(card)
+    wide = torch.from_numpy(rng.standard_normal((b, hkv, s, d + 2), dtype=np.float32)).to(card)
+    k_rows = wide[..., :d]  # rows 264 bytes apart
+    for kk in (k_odd, k_rows):
+        assert flash_attention._route(q, kk, kk) == "flash_attention_f32_simt"
+        before = flash_attention.launches["flash_attention_f32_simt"]
+        got = flash_attention.flash_attention_cuda(q, kk, kk, causal=True)
+        assert flash_attention.launches["flash_attention_f32_simt"] == before + 1
+        want = flash_attention.flash_attention_plain(q, kk, kk, causal=True)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("t,entry", [(1, "flash_decode_bf16"), (40, "flash_attention_bf16_wgmma")])

@@ -47,6 +47,12 @@ exits nonzero without printing its result line:
    then SRAD again with ``fused=False``, counters set to 0 just before and
    read just after each run (SRAD's step loop runs as one CUDA graph
    replay a call; the counters still count every launch that ran);
+4e. levels 0-2 without a kernel: the same at preset 4 over the 17
+   benchmarks that have none (DeviceMemory, BusSpeed both ways, BFS, GUPS,
+   Pathfinder, CFD, DWT2D both modes, KMeans, LavaMD, Mandelbrot both
+   algorithms, NW, ParticleFilter), forward: each row validated, timed
+   torch and says why (``no_kernel``; the bus rows ``no_jit``), and every
+   launch counter is 0 after the run;
 4b. the kernel rows of all paths at preset 0, kernel against torch on the
    same inputs, f32 products against an f64 evaluation; the Softmax and
    LRN rows at presets 0-3, each call on the redesigned entry and passing
@@ -112,6 +118,12 @@ DNN_KERNELS = {
     "convolution_im2col": "matmul_f32_batched", "lrn": "lrn_f32", "pooling": "avgpool_f32",
 }
 LEVELS_PATH = ("sort", "where", "srad")
+# Altis levels 0-2 without a kernel: torch rows on a kernel plan (phase 4e).
+NO_KERNEL_PATH = (
+    "devicemem_stream", "devicemem_reduce", "devicemem_vmem", "busspeeddownload",
+    "busspeedreadback", "bfs", "gups", "pathfinder", "cfd", "dwt2d_53", "dwt2d_97",
+    "kmeans", "lavamd", "mandelbrot_flat", "mandelbrot_ms", "nw", "particlefilter",
+)
 # Kernels no path launches: the f32-key sort (the Sort benchmark's keys are
 # int32), and the GEMMs' SIMT f32 and WMMA bf16 kernels, attention's SIMT
 # bf16 and f32 kernels, the online softmax, the shared-memory LRN and SRAD's
@@ -1146,6 +1158,48 @@ def phase_levels(torch) -> dict:
     return total
 
 
+def phase_no_kernel(torch) -> dict:
+    from repro_torch.bench.level0 import devicemem
+    from repro_torch.bench.level1 import pathfinder
+    from repro_torch.bench.level2 import nw
+    from repro_torch.core.metrics import peaks_for, roofline_terms
+    from repro_torch.core.registry import get_benchmark
+
+    print("== phase 4e: levels 0-2 without a kernel (suite, preset 4, --impl kernel, forward)")
+    launches, records, _ = _run_suite(torch, NO_KERNEL_PATH, "levels without a kernel",
+                                      backward=False)
+    if len(records) != len(NO_KERNEL_PATH):
+        _fail(f"{len(records)} records, expected {len(NO_KERNEL_PATH)}")
+    hw = peaks_for(torch.cuda.get_device_name(0))
+    for name, rec in zip(sorted(NO_KERNEL_PATH, key=_order), records, strict=True):
+        wl = get_benchmark(name).build_preset(PRESET)
+        no_jit = bool(wl.meta.get("no_jit"))
+        want = ("torch", "no_jit" if no_jit else "no_kernel", None)
+        got = (rec.impl, rec.impl_fallback, rec.impl_interpret)
+        # status "ok" means the measure stage's validate() passed.
+        if rec.status != "ok" or rec.name != wl.name or got != want:
+            _fail(f"row {rec.name}: status={rec.status} (impl, fallback, interpret) = {got}, "
+                  f"expected {wl.name} {want}: {rec.error}")
+        line = (f"  {rec.name:38s} impl torch/{rec.impl_fallback} us_per_call "
+                f"{rec.us_per_call:.1f}")
+        if no_jit:  # a host transfer: no windowed number, no HBM bound
+            line += f" GB/s {rec.achieved_gbps:.2f} (host bus, no bound)"
+        else:
+            roof = roofline_terms(wl.flops, wl.bytes_moved, dtype=torch.float32, hw=hw)
+            line += (f" us_per_call_windowed {rec.us_per_call_windowed:.1f} bound_us "
+                     f"{roof.bound_s * 1e6:.1f} ({roof.dominant}) roofline_fraction "
+                     f"{roof.bound_s * 1e6 / rec.us_per_call_windowed:.3f}")
+        print(line + f" build_s {rec.stage_timings_us['build'] / 1e6:.2f} "
+              f"measure_s {rec.stage_timings_us['measure'] / 1e6:.2f}")
+    if any(launches.values()):
+        _fail(f"rows without a kernel launched kernels: {_nonzero(launches)}")
+    print(f"  launch counters all 0 ({len(launches)} counters)")
+    for mod in (devicemem, pathfinder, nw):  # the captured loops' memory pools
+        mod.GRAPHS.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _order(name: str):
     from repro_torch.core.registry import get_benchmark
 
@@ -1964,6 +2018,7 @@ def main() -> int:
     main_launches = phase_main_path(torch)
     dnn_launches = phase_dnn(torch)
     level_launches = phase_levels(torch)
+    phase_no_kernel(torch)
     phase_small_agreement(torch)
     lm_launches, lm = phase_lm_serving(torch)
     # Each kernel launched on one path only (every count was checked), so

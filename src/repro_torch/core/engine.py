@@ -9,19 +9,28 @@ benchmark the engine runs the stages:
 - **place**: one device, ``replicate`` (the only placement ported so far;
   ``run`` refuses others with :class:`PlanError`): ``harness.commit_args``
   moves every input to the plan's device once, before any timed call.
+  Host-transfer workloads (``meta["no_jit"]``, the bus-speed rows) time
+  the transfer itself, so their inputs stay where ``make_inputs`` put them,
+  except the positions ``meta["device_args"]`` names (a destination buffer,
+  a tensor to read back).
 - **compile**: bind the pass's function to its implementation and make
   one first call, which builds and loads the kernels on first use. The
   bound callable goes into an in-process cache keyed like the reference's
   ``CacheKey`` — ``(name, preset, overrides, backward, device, devices,
   placement, impl, tuned-params)`` — so one engine builds each
   (pass, implementation) once. The plan's ``impl`` resolves per workload:
-  a kernel plan times torch for workloads that declare no kernel and for
-  backward passes, and ``impl_fallback`` says so.
+  a kernel plan times torch for host-transfer workloads, for workloads
+  that declare no kernel and for backward passes, and ``impl_fallback``
+  says so (``no_jit``, ``no_kernel``, ``backward_pass``).
 - **measure**: validate one output, then time the bound callable in sync
   mode (``us_per_call``) and, when ``plan.timing_window > 1``, in windowed
-  mode (``us_per_call_windowed``), with CUDA events on the card.
+  mode (``us_per_call_windowed``), with CUDA events on the card. A
+  host-transfer row is synchronous by construction, so its windowed columns
+  stay empty.
 - **characterize**: the pass's analytic roofline against the card's peaks
-  for the row's dtype, memoized beside the callable.
+  for the row's dtype, memoized beside the callable. A host-transfer row
+  gets none: its bytes cross the host bus, and HBM's rate is no bound for
+  them.
 - **report**: a :class:`BenchmarkRecord`, streamed to the JSONL writer as
   it is produced.
 
@@ -54,6 +63,7 @@ from repro_torch.core.harness import (
     CompiledInfo,
     characterize,
     commit_args,
+    empty_compiled_info,
     time_fn,
     timing_from_stats,
 )
@@ -165,10 +175,13 @@ class Engine:
     ) -> tuple[str, str | None]:
         """The *effective* implementation for one (workload, pass):
         ``(impl, fallback_reason)``. A kernel plan degrades to torch — with
-        the reason recorded — for workloads that declare no kernel and for
-        backward passes (the kernels are forward programs)."""
+        the reason recorded — for host-transfer (no_jit) workloads, for
+        workloads that declare no kernel and for backward passes (the
+        kernels are forward programs)."""
         if plan.impl != "kernel":
             return "torch", None
+        if workload.meta.get("no_jit"):
+            return "torch", "no_jit"
         if workload.kernel is None:
             return "torch", "no_kernel"
         if workload.kernel not in kernel_ops.KERNEL_OPS:
@@ -186,10 +199,16 @@ class Engine:
         workload = spec.build_preset(preset, **plan.overrides_for(spec.name))
         return workload, workload.make_inputs(plan.seed)
 
-    def _stage_place(self, args: tuple, plan: ExecutionPlan) -> tuple:
+    def _stage_place(self, workload: Workload, args: tuple, plan: ExecutionPlan) -> tuple:
         """Move the inputs to the plan's device once (one device,
-        replicate), so no timed call pays a host copy."""
-        return commit_args(args, plan.device)
+        replicate), so no timed call pays a host copy. A no_jit workload's
+        inputs stay on the host, but for the positions its
+        ``meta["device_args"]`` names."""
+        if not workload.meta.get("no_jit"):
+            return commit_args(args, plan.device)
+        on_device = workload.meta.get("device_args", ())
+        return tuple(commit_args((a,), plan.device)[0] if i in on_device else a
+                     for i, a in enumerate(args))
 
     def _stage_compile(
         self,
@@ -236,8 +255,10 @@ class Engine:
         )
         windowed_us = None
         window = plan.timing_window
-        if window > 1:
-            # The sync loop above already warmed the callable.
+        if window > 1 and not workload.meta.get("no_jit"):
+            # The sync loop above already warmed the callable. A no_jit
+            # host transfer returns only when it is done, so a window of
+            # them is the sync number with more noise: left empty.
             windowed_us, _ = time_fn(
                 entry.executable, args, iters=plan.iters, warmup=0,
                 window=window, device=plan.device,
@@ -255,7 +276,9 @@ class Engine:
         plan: ExecutionPlan,
         backward: bool,
     ) -> CompiledInfo:
-        if entry.info is None:
+        if entry.info is None and workload.meta.get("no_jit"):
+            entry.info = empty_compiled_info(workload.name)
+        elif entry.info is None:
             entry.info = characterize(
                 workload, args, backward=backward,
                 device_name=_device_name(plan.device),
@@ -337,7 +360,7 @@ class Engine:
                 workload, args = self._stage_build(spec, plan, preset)
             stage = "place"
             with self._timed_stage("place", base_timings):
-                args = self._stage_place(args, plan)
+                args = self._stage_place(workload, args, plan)
         except Exception as e:  # noqa: BLE001 — fault isolation is the contract
             rec = BenchmarkRecord.from_error(
                 spec, preset, stage=stage, error=_err_text(e),

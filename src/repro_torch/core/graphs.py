@@ -21,6 +21,10 @@ counterpart of that ``jit``: it captures the loop once into a
   loop.
 - At most ``capacity`` graphs are kept, least recently used first out,
   since each holds its own memory pool of intermediates.
+
+:meth:`GraphCache.run` is the common case, a static loop over tensors:
+keyed on the function, each tensor's address and layout and every other
+argument's value, replayed on the card and called plainly on the CPU.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from typing import Any
 
 import torch
 
-__all__ = ["GraphCache"]
+__all__ = ["GraphCache", "args_key"]
 
 
 class _CudaGraph:
@@ -99,6 +103,14 @@ class GraphCache:
             self._entries.popitem(last=False)
         return out
 
+    def run(self, fn: Callable[..., Any], *args: Any) -> Any:
+        """``fn(*args)``, for a loop that launches no counted kernel: on CUDA
+        tensors one replay of its graph, keyed by :func:`args_key`; on CPU
+        tensors a plain call."""
+        if not any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+            return fn(*args)
+        return self(args_key(fn, args), fn, args, ())
+
     def _capture(self, fn: Callable[..., Any], args: Sequence[Any],
                  counters: Sequence[dict]) -> _Entry:
         before = [dict(c) for c in counters]
@@ -116,3 +128,14 @@ class GraphCache:
                     counter[k] -= n
                 launched.append((counter, delta))
         return _Entry(graph, out, launched)
+
+
+def args_key(fn: Callable[..., Any], args: Sequence[Any]) -> tuple:
+    """What a captured call of ``fn`` depends on: each tensor argument's
+    address, shape, strides, dtype and device, and every other argument's
+    value."""
+    return (fn,) + tuple(
+        (a.data_ptr(), tuple(a.shape), a.stride(), a.dtype, a.device)
+        if isinstance(a, torch.Tensor) else a
+        for a in args
+    )

@@ -22,6 +22,8 @@ On the CPU, which a caller must ask for explicitly, both modes time with
 
 Both modes assume the inputs already sit on the device: ``commit_args``
 moves them there once, before any loop, so no timed call pays a host copy.
+Host-transfer rows (``no_jit``) are the exception: the copy is what they
+time.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ __all__ = [
     "time_fn",
     "timing_from_stats",
     "characterize",
+    "empty_compiled_info",
     "row_dtype",
 ]
 
@@ -202,3 +205,9 @@ def characterize(
         ),
         peaks=hw.name,
     )
+
+
+def empty_compiled_info(name: str) -> CompiledInfo:
+    """No roofline, for a workload with no device program (``no_jit``
+    meta): its bytes cross the host bus, which no HBM rate bounds."""
+    return CompiledInfo(name=name, roofline=roofline_terms(0.0, 0.0), peaks="none")

@@ -39,6 +39,14 @@ engine times:
   ``ops.tune_space(kernel)``).
 - The declaration is semantic: both implementations compute the same
   function (tests hold each kernel against its ``kernels/ref.py`` oracle).
+
+**Host-transfer workloads (``meta["no_jit"]``).** A workload whose
+benchmark is the transfer itself (the bus-speed rows) sets
+``meta={"no_jit": True}``: the engine leaves its inputs on the host, times
+it in sync mode only, gives it no roofline, and a kernel plan records
+``impl_fallback="no_jit"``. ``meta["device_args"]`` names the input
+positions the engine commits to the run's device all the same (a
+destination buffer, a tensor to read back).
 """
 
 from __future__ import annotations

@@ -1029,3 +1029,94 @@ def test_sort_row_on_the_card_launches_the_kernel_once_per_sort(card):
     calls = 1 + 1 + 1 + 2 * (1 + 4)
     assert {k: bitonic_sort.launches[k] - before[k] for k in before} == {
         "sort_kv_i32": calls, "sort_kv_f32": 0}
+
+
+# ----------------------------------------- levels 0-2 without a kernel
+
+LEVELS_WITHOUT_KERNEL = (
+    "devicemem_stream", "devicemem_reduce", "devicemem_vmem", "busspeeddownload",
+    "busspeedreadback", "bfs", "gups", "pathfinder", "cfd", "dwt2d_53", "dwt2d_97",
+    "kmeans", "lavamd", "mandelbrot_flat", "mandelbrot_ms", "nw", "particlefilter",
+)
+
+
+def _static_loop(name):
+    """(its graph cache, the eager loop) of a row whose loop is graphed."""
+    from repro_torch.bench.level0 import devicemem
+    from repro_torch.bench.level1 import pathfinder
+    from repro_torch.bench.level2 import nw
+
+    return {
+        "devicemem_vmem": (devicemem.GRAPHS, lambda x, y: devicemem.vmem_steps(x)),
+        "pathfinder": (pathfinder.GRAPHS, pathfinder.min_path_steps),
+        "nw": (nw.GRAPHS, nw.wavefront),
+    }[name]
+
+
+@pytest.mark.parametrize("name", ["devicemem_vmem", "pathfinder", "nw"])
+def test_graphed_static_loops_are_bit_equal_to_their_eager_loops(card, name):
+    from repro_torch.core.registry import get_benchmark
+
+    cache, eager_loop = _static_loop(name)
+    wl = get_benchmark(name).build_preset(2)
+    args = tuple(a.to(card) for a in wl.make_inputs(0))
+    eager = eager_loop(*args)
+    cache.clear()
+    first = wl.fn(*args)  # eager, then captured
+    torch.cuda.synchronize()
+    assert len(cache) == 1 and torch.equal(first, eager)
+    mem = torch.cuda.memory_allocated(card)
+    outs = []
+    for _ in range(3):
+        outs.append(wl.fn(*args))  # a replay
+        torch.cuda.synchronize()
+        assert torch.equal(outs[-1], eager)
+    assert outs[0] is outs[1] is outs[2]  # the graph's static output
+    assert torch.cuda.memory_allocated(card) == mem and len(cache) == 1
+    other = wl.fn(*(a.clone() for a in args))  # another address: another capture
+    assert len(cache) == 2 and torch.equal(other, eager)
+    cache.clear()
+
+
+def test_levels_without_a_kernel_on_the_card_launch_no_kernel(card):
+    from repro_torch.kernels import ops
+
+    before = {op: dict(mod.launches) for op, mod in ops.KERNEL_OPS.items()}
+    res = Engine().run(ExecutionPlan(
+        names=LEVELS_WITHOUT_KERNEL, preset=1, iters=2, warmup=1, impl="kernel",
+    ))
+    assert len(res.records) == len(LEVELS_WITHOUT_KERNEL)
+    for r in res.records:
+        assert r.status == "ok", (r.name, r.error)
+        want = "no_jit" if r.name.startswith("busspeed") else "no_kernel"
+        assert (r.impl, r.impl_fallback) == ("torch", want)
+        assert (r.us_per_call_windowed is None) == (want == "no_jit")
+    assert {op: dict(mod.launches) for op, mod in ops.KERNEL_OPS.items()} == before
+
+
+def test_hostbus_rows_move_bytes_across_the_bus(card):
+    from repro_torch.core.registry import get_benchmark
+
+    engine = Engine()
+    plan = ExecutionPlan(names=("busspeeddownload",), preset=1)
+    down = get_benchmark("busspeeddownload").build_preset(1)
+    src, dst = engine._stage_place(down, down.make_inputs(0), plan)
+    assert src.device.type == "cpu" and dst.device.type == "cuda"
+    out = down.fn(src, dst)
+    assert out.device.type == "cuda" and torch.equal(out.cpu(), src)
+    up = get_benchmark("busspeedreadback").build_preset(1)
+    (dev,) = engine._stage_place(up, up.make_inputs(0), plan)
+    assert dev.device.type == "cuda"
+    host = up.fn(dev)
+    assert host.device.type == "cpu" and torch.equal(host, dev.cpu())
+
+
+def test_particlefilter_on_the_card_draws_the_same_numbers_each_call(card):
+    from repro_torch.core.registry import get_benchmark
+
+    wl = get_benchmark("particlefilter").build_preset(2)
+    meas, seed = wl.make_inputs(0)
+    meas = meas.to(card)
+    first, again = wl.fn(meas, seed), wl.fn(meas, seed)
+    assert torch.equal(first, again) and not torch.equal(first, wl.fn(meas, seed + 1))
+    wl.validate(first, (meas, seed))

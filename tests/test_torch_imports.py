@@ -49,6 +49,9 @@ def test_port_imports_no_jax_and_no_reference_module():
         "repro_torch.configs.granite_3_8b", "repro_torch.configs.qwen1_5_0_5b",
         "repro_torch.configs.granite_8b", "repro_torch.configs.deepseek_7b",
         "repro_torch.launch", "repro_torch.launch.serve",
+        "repro_torch.bench.level0.hostbus", "repro_torch.bench.level0.devicemem",
+        "repro_torch.bench.level1.bfs", "repro_torch.bench.level2.mandelbrot",
+        "repro_torch.bench.level2.particlefilter",
     } <= set(mods)
     script = textwrap.dedent(f"""
         import importlib, sys

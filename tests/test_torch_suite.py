@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.registry import all_benchmarks as ref_all_benchmarks
 from repro.core.registry import get_benchmark as ref_benchmark
 from repro.core.results import load_run as ref_load_run
 from repro_torch.convert import from_reference
@@ -45,10 +46,17 @@ DNN = (
 )
 # Sort, Where and SRAD: the level-1/2 benchmarks that have a kernel.
 KERNEL_LEVELS = ("sort", "where", "srad")
-SLICE = FIRST_SLICE + DNN + KERNEL_LEVELS
+# Levels 0-2 without a kernel; tests/test_torch_levels.py holds each against
+# the reference at its own tolerance.
+LEVELS = (
+    "devicemem_stream", "devicemem_reduce", "devicemem_vmem", "busspeeddownload",
+    "busspeedreadback", "bfs", "gups", "pathfinder", "cfd", "dwt2d_53", "dwt2d_97",
+    "kmeans", "lavamd", "mandelbrot_flat", "mandelbrot_ms", "nw", "particlefilter",
+)
+SLICE = FIRST_SLICE + DNN + KERNEL_LEVELS + LEVELS
 # Dropout's mask comes from another generator than the reference's: it is
 # held by statistics (test_dropout_*), not element by element.
-PARITY = tuple(name for name in SLICE if name != "dropout")
+PARITY = tuple(name for name in FIRST_SLICE + DNN + KERNEL_LEVELS if name != "dropout")
 BACKWARD = (
     "connected", "softmax", "lrn", "pooling", "activation", "batchnorm",
     "convolution_xla", "convolution_im2col", "rnn",
@@ -85,19 +93,23 @@ def _leaves(out) -> tuple:
 
 
 def test_registry_holds_exactly_the_slice():
+    assert len(SLICE) == 36
     assert sorted(s.name for s in all_benchmarks()) == sorted(SLICE)
+    assert sorted(s.name for s in ref_all_benchmarks()) == sorted(SLICE)
     for name in SLICE:
         spec, ref = get_benchmark(name), ref_benchmark(name)
         assert (spec.level, spec.dwarf, spec.domain, spec.cuda_feature) == (
             ref.level, ref.dwarf, ref.domain, ref.cuda_feature
         )
         assert spec.presets == ref.presets
+        for preset in spec.presets:
+            assert spec.build_preset(preset).name == ref.build_preset(preset).name
         wl, rwl = spec.build_preset(0), ref.build_preset(0)
-        assert wl.name == rwl.name
         assert (wl.flops, wl.bytes_moved, wl.batch_dims) == (
             rwl.flops, rwl.bytes_moved, rwl.batch_dims
         )
         assert wl.kernel == rwl.pallas_kernel
+        assert bool(wl.meta.get("no_jit")) == bool(rwl.meta.get("no_jit"))
 
 
 @pytest.mark.parametrize("name", PARITY)
@@ -146,9 +158,14 @@ def test_make_inputs_match_the_reference_in_shape_and_dtype(name):
     ref_args = ref_benchmark(name).build_preset(0).make_inputs(0)
     wl = get_benchmark(name).build_preset(0)
     args = wl.make_inputs(0)
+    if name == "busspeeddownload":
+        # One more input: the device buffer the copy lands in, committed by
+        # the place stage.
+        assert len(args) == 2 and args[1].shape == args[0].shape
+        args = args[:1]
     assert len(args) == len(ref_args)
-    if name == "dropout":
-        # The reference's threefry key becomes a Python int mask seed.
+    if name in ("dropout", "particlefilter"):
+        # The reference's threefry key becomes a Python int seed.
         assert type(args[1]) is int
         args, ref_args = args[:1], ref_args[:1]
     assert [tuple(a.shape) for a in args] == [tuple(a.shape) for a in ref_args]
@@ -157,7 +174,8 @@ def test_make_inputs_match_the_reference_in_shape_and_dtype(name):
     ]
     again, other = wl.make_inputs(0)[: len(args)], wl.make_inputs(1)
     assert all(torch.equal(a, b) for a, b in zip(args, again, strict=True))
-    assert not torch.equal(args[0], other[0])
+    # Mandelbrot's view is fixed: the seed changes nothing, as in the reference.
+    assert torch.equal(args[0], other[0]) == name.startswith("mandelbrot")
 
 
 def _calls_per_pass(plan: ExecutionPlan) -> int:

@@ -35,7 +35,10 @@ exits nonzero without printing its result line:
    cases on both f32 entries); all five SRAD entries
    (the band kernel or the grid-stride one it replaced, the float4 walk or
    the one-pixel phase 1 it replaced, phase 2) bit for bit at every SRAD
-   shape, aligned and off 16 bytes;
+   shape, aligned and off 16 bytes; both Mandelbrot kernels (flat, and
+   Mariani-Silver with device-side launch) bit for bit against escape_time
+   at the Dynamic Parallelism study's sizes and the preset-4 image, the
+   adaptive kernel's child grids equal to the mixed tiles;
 4. the main path: the port's suite at preset 4 with ``--impl kernel`` over
    the 8 benchmarks of the first slice (forward), with every launch counter
    set to 0 just before and read just after (each kernel must have
@@ -53,6 +56,20 @@ exits nonzero without printing its result line:
    algorithms, NW, ParticleFilter), forward: each row validated, timed
    torch and says why (``no_kernel``; the bus rows ``no_jit``), and every
    launch counter is 0 after the run;
+4f. the paper's §V-B feature studies (``repro_torch.benchmarks.feat_*``)
+   at the reference's sizes, Dynamic Parallelism also at the preset-4
+   image (2048 px, i1024) and Unified Memory on the preset-4 graph (2^22
+   nodes, 2^25 edges), counters set to 0 just before and read just after
+   each: every row validated by its study (SRAD fused, split and plain bit
+   for bit; Mandelbrot flat and adaptive equal, one child grid a mixed tile
+   in every call; the managed and prefetched BFS depths equal the
+   resident ones; every HyperQ instance equal to the plain loop), Cooperative
+   Groups launching srad_fused_f32, srad_phase1_f32 and srad_phase2_f32,
+   Dynamic Parallelism both Mandelbrot kernels, the other two no kernel;
+   where the streams' time goes at 32 instances (host enqueue against
+   wall); then the HyperQ sweep again in a child process
+   (``python -m repro_torch.benchmarks.run --sections feat_hyperq``) with
+   ``CUDA_DEVICE_MAX_CONNECTIONS=32``, whose failure fails the run;
 4b. the kernel rows of all paths at preset 0, kernel against torch on the
    same inputs, f32 products against an f64 evaluation; the Softmax and
    LRN rows at presets 0-3, each call on the redesigned entry and passing
@@ -82,7 +99,9 @@ exits nonzero without printing its result line:
    other cache lengths and batches; SRAD's five entries at preset 4, each
    entry eagerly and back to back in a CUDA graph at 8x8 and 1024^2, a
    device copy of the 1024^2 image, and the 4-step loop replayed as a CUDA
-   graph beside the eager loop (both bit-equal).
+   graph beside the eager loop (both bit-equal); the two Mandelbrot kernels
+   at the preset-4 image beside escape_time and mariani_silver, each bound
+   counted from the iterations that image needs.
 
 It prints a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. It needs a CUDA card and the rest of the
@@ -97,6 +116,7 @@ import functools
 import json
 import math
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -118,6 +138,15 @@ DNN_KERNELS = {
     "convolution_im2col": "matmul_f32_batched", "lrn": "lrn_f32", "pooling": "avgpool_f32",
 }
 LEVELS_PATH = ("sort", "where", "srad")
+# The §V-B feature studies (phase 4f): their sizes beyond the reference's,
+# the suite's preset-4 Mandelbrot (n, max_iter) and BFS (nodes, edges), and
+# the HyperQ sweep's second connection count (CUDA_DEVICE_MAX_CONNECTIONS).
+FEATURE_DP_PRESET4 = (2048, 1024)
+FEATURE_UM_PRESET4 = (1 << 22, 1 << 25)
+HYPERQ_CONNECTIONS = "32"
+# Mandelbrot kernels against escape_time on the card (phase 3): the DP
+# study's sizes and the preset-4 image.
+MANDELBROT_CASES = [(128, 256), (256, 256), (512, 256), FEATURE_DP_PRESET4]
 # Altis levels 0-2 without a kernel: torch rows on a kernel plan (phase 4e).
 NO_KERNEL_PATH = (
     "devicemem_stream", "devicemem_reduce", "devicemem_vmem", "busspeeddownload",
@@ -294,6 +323,12 @@ KERNEL_SOURCES = {
                           "src/repro/kernels/flash_attention.py:112"),
     "flash_attention_bf16_simt": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                   "src/repro/kernels/flash_attention.py:112"),
+    # No TPU kernel: the reference's escape_time and mariani_silver, which
+    # the Dynamic Parallelism study times.
+    "mandelbrot_flat_i32": ("src/repro_torch/kernels/csrc/mandelbrot.cu",
+                            "src/repro/bench/level2/mandelbrot.py:57"),
+    "mandelbrot_dp_i32": ("src/repro_torch/kernels/csrc/mandelbrot.cu",
+                          "src/repro/bench/level2/mandelbrot.py:61"),
 }
 
 
@@ -311,6 +346,7 @@ def _kernel_modules():
         bitonic_sort,
         flash_attention,
         lrn,
+        mandelbrot,
         matmul,
         prefix_scan,
         softmax,
@@ -318,7 +354,7 @@ def _kernel_modules():
     )
 
     return (matmul, softmax, lrn, avgpool, bitonic_sort, prefix_scan, srad_stencil,
-            flash_attention)
+            flash_attention, mandelbrot)
 
 
 def _zero_launches() -> None:
@@ -980,7 +1016,32 @@ def phase_kernels(torch) -> dict:
             err[key] = max(err[key], e)
     for causal in (False, True):
         _attention_view_case(torch, fa, gen, causal)
+    for n, max_iter in MANDELBROT_CASES:
+        _mandelbrot_case(torch, n, max_iter)
     return err
+
+
+def _mandelbrot_case(torch, n, max_iter) -> None:
+    """Both Mandelbrot kernels bit for bit against the plain escape_time on
+    the card, and one child grid a mixed tile (the plain classification's
+    count)."""
+    from repro_torch.bench.level2.mandelbrot import escape_time, pixel_grid
+    from repro_torch.kernels import mandelbrot
+
+    c = pixel_grid(n).cuda()
+    want = escape_time(c, max_iter)
+    status = mandelbrot.DpStatus("cuda")
+    flat = mandelbrot.mandelbrot_flat_cuda(c, max_iter)
+    adaptive = mandelbrot.mandelbrot_dp_cuda(c, max_iter, status=status)
+    children = status.check()
+    mixed = mandelbrot.mixed_tiles_plain(c, max_iter)
+    print(f"  mandelbrot {n}px i{max_iter}: flat equal {torch.equal(flat, want)}, adaptive equal "
+          f"{torch.equal(adaptive, want)}, child grids {children} for {mixed} mixed tiles of "
+          f"{(n // 32) ** 2}")
+    if not (torch.equal(flat, want) and torch.equal(adaptive, want)):
+        _fail(f"a Mandelbrot kernel differs from escape_time at {n}px i{max_iter}")
+    if children != mixed:
+        _fail(f"mandelbrot_dp_i32 launched {children} child grids for {mixed} mixed tiles")
 
 
 def _expected_launches() -> dict:
@@ -1198,6 +1259,122 @@ def phase_no_kernel(torch) -> dict:
         mod.GRAPHS.clear()
     torch.cuda.empty_cache()
     return launches
+
+
+def _feature_rows(label, rows, names, extra) -> None:
+    """Print a study's rows and hold them to their names and derived keys
+    (the reference's and ``extra``); each row validated itself (raising)."""
+    from repro_torch.benchmarks.common import parse_derived
+
+    if [r[0] for r in rows] != list(names):
+        _fail(f"{label}: rows {[r[0] for r in rows]}, expected {list(names)}")
+    for name, us, derived in rows:
+        print(f"  {name:30s} {us:12.1f} us  {derived}")
+        keys = parse_derived(derived)
+        if not us > 0 or any(k not in keys for k in extra):
+            _fail(f"{label}: row {name} lacks a time or one of {extra}: {derived}")
+
+
+def _hyperq_host_split(torch) -> None:
+    """Where the streams' time goes at 32 instances: host seconds to enqueue
+    one instance's replay and the 32 replays on 32 streams, against the
+    device's wall time for the 32 (one synchronisation)."""
+    import numpy as np
+
+    from repro_torch.bench.level1.pathfinder import min_path_steps
+    from repro_torch.core.features import async_launch
+    from repro_torch.core.graphs import GraphCache
+
+    graphs = GraphCache(capacity=64)
+    grids = list(torch.from_numpy(np.random.default_rng(0).integers(
+        0, 10, (32, 64, 256), dtype=np.int32)).cuda())
+
+    def single(g):
+        return graphs.run(min_path_steps, g)
+
+    args = [(g,) for g in grids]
+    for _ in range(2):  # eager and captured, then a first replay (its upload)
+        async_launch(single, args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single(grids[0])
+    one = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    async_launch(single, args)
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"  streams, 32 instances: host enqueue {enqueue * 1e6:.1f} us ({one * 1e6:.1f} us for "
+          f"one replay on the current stream), wall to the synchronisation {wall * 1e6:.1f} us")
+
+
+def phase_features(torch) -> dict:
+    """The four §V-B studies at the reference's sizes, DP at the suite's
+    preset-4 image, UM on the preset-4 graph, and the HyperQ sweep again in
+    a child process at 32 hardware connections; counters set to 0 just
+    before and read just after each study."""
+    from repro_torch.benchmarks import feat_coop_groups as cg
+    from repro_torch.benchmarks import feat_dynamic_parallelism as dp
+    from repro_torch.benchmarks import feat_hyperq as hq
+    from repro_torch.benchmarks import feat_unified_memory as um
+    from repro_torch.benchmarks.common import parse_derived
+
+    print("== phase 4f: the §V-B feature studies (streams, managed memory, device-side launch, "
+          "cooperative launch)")
+    cg_calls = len(cg.SIZES) * (1 + cg.ITERS + cg.WARMUP)
+    dp_calls = 1 + dp.ITERS + dp.WARMUP
+    n_dp, i_dp = FEATURE_DP_PRESET4
+    nodes, edges = FEATURE_UM_PRESET4
+    hq_names = [f"feat_hyperq.n{n}" for n in hq.INSTANCES]
+    runs = (
+        ("feat_hyperq", hq.rows, hq_names, ("streams_us", "max_connections"), {}),
+        ("feat_unified_memory", um.rows, [f"feat_um.bfs.n{n}" for n, _ in um.GRAPHS],
+         ("concurrent_managed_access",), {}),
+        ("feat_unified_memory, preset-4 graph", lambda: um.rows((FEATURE_UM_PRESET4,)),
+         [f"feat_um.bfs.n{nodes}"], ("concurrent_managed_access",), {}),
+        ("feat_coop_groups", cg.rows, [f"feat_cg.srad.{n}x{n}" for n in cg.SIZES], (),
+         {"srad_fused_f32": cg_calls, "srad_phase1_f32": cg_calls, "srad_phase2_f32": cg_calls}),
+        ("feat_dynamic_parallelism", dp.rows,
+         [f"feat_dp.mandelbrot.{n}px" for n in dp.SIZES], ("mixed_tiles",),
+         {"mandelbrot_flat_i32": len(dp.SIZES) * dp_calls,
+          "mandelbrot_dp_i32": len(dp.SIZES) * dp_calls}),
+        (f"feat_dynamic_parallelism, {n_dp}px i{i_dp}", lambda: dp.rows(i_dp, sizes=(n_dp,)),
+         [f"feat_dp.mandelbrot.{n_dp}px"], ("mixed_tiles",),
+         {"mandelbrot_flat_i32": dp_calls, "mandelbrot_dp_i32": dp_calls}),
+    )
+    total = {}
+    for label, run, names, extra, counts in runs:
+        _zero_launches()
+        t0 = time.perf_counter()
+        rows = run()
+        launches = _read_launches()
+        print(f"{label}: {len(rows)} rows in {time.perf_counter() - t0:.1f} s; launches "
+              f"{_nonzero(launches)}")
+        _feature_rows(label, rows, names, extra)
+        want = {k: counts.get(k, 0) for k in launches}
+        if launches != want:
+            _fail(f"{label}: launch counts {_nonzero(launches)} differ from {_nonzero(want)}")
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+    _hyperq_host_split(torch)
+    env = dict(os.environ, CUDA_DEVICE_MAX_CONNECTIONS=HYPERQ_CONNECTIONS,
+               PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "-m", "repro_torch.benchmarks.run", "--sections",
+                            "feat_hyperq"], env=env, cwd=str(ROOT), capture_output=True,
+                           text=True, timeout=600)
+    print(f"feat_hyperq at CUDA_DEVICE_MAX_CONNECTIONS={HYPERQ_CONNECTIONS} (child process): "
+          f"exit {child.returncode} in {time.perf_counter() - t0:.1f} s")
+    if child.returncode != 0:
+        _fail(f"the HyperQ child failed:\n{child.stdout[-2000:]}\n{child.stderr[-2000:]}")
+    lines = child.stdout.strip().splitlines()
+    if lines[0] != "name,us_per_call,derived":
+        _fail(f"the HyperQ child printed no CSV header: {lines[:2]}")
+    rows = [(n, float(us), d) for n, us, d in (line.split(",", 2) for line in lines[1:])]
+    _feature_rows("feat_hyperq (child)", rows, hq_names, ("streams_us", "max_connections"))
+    if any(parse_derived(d)["max_connections"] != HYPERQ_CONNECTIONS for _, _, d in rows):
+        _fail(f"the HyperQ child's rows do not say max_connections={HYPERQ_CONNECTIONS}")
+    return total
 
 
 def _order(name: str):
@@ -1734,6 +1911,55 @@ def _yardstick_cases(torch, gen, hw):
     return rows
 
 
+def _mandelbrot_yardstick(torch, hw):
+    """The two Mandelbrot kernels at the suite's preset-4 image, against the
+    plain escape_time and mariani_silver (no one PyTorch call computes
+    either). Bound: the Workload's 10 operations an iteration, counted for
+    the iterations this image needs (the escape loop ends early): every
+    pixel's count for the flat kernel, the border pixels' counts and the
+    mixed tiles' pixels' counts for the adaptive one; bytes, the image read
+    once (8 a pixel) and the counts written once (4). -> (rows, the DP
+    kernel's status, to check after timing)."""
+    from repro_torch.bench.level2.mandelbrot import (
+        TILE,
+        _iterate,
+        escape_time,
+        mariani_silver,
+        pixel_grid,
+    )
+    from repro_torch.core.metrics import roofline_terms
+    from repro_torch.kernels import mandelbrot
+
+    n, max_iter = FEATURE_DP_PRESET4
+    c = pixel_grid(n).cuda()
+    t = n // TILE
+    counts = escape_time(c, max_iter).reshape(t, TILE, t, TILE).transpose(1, 2)
+    counts = counts.reshape(-1, TILE * TILE)
+    tiles = c.reshape(t, TILE, t, TILE).transpose(1, 2).reshape(-1, TILE, TILE)
+    border = _iterate(torch.cat([tiles[:, 0, :], tiles[:, -1, :], tiles[:, :, 0],
+                                 tiles[:, :, -1]], dim=1), max_iter)
+    mixed = ~(border == max_iter).all(dim=1)
+    flat_iters = counts.double().sum().item()
+    dp_iters = border.double().sum().item() + counts[mixed].double().sum().item()
+    whole = roofline_terms(10.0 * n * n * max_iter, 12.0 * n * n, dtype=torch.float32, hw=hw)
+    print(f"  mandelbrot {n}px i{max_iter}: {flat_iters:.6g} iterations flat, {dp_iters:.6g} "
+          f"adaptive ({int(mixed.sum())} mixed tiles of {t * t}); the Workload's count "
+          f"(n^2 * max_iter) bounds at {whole.bound_s * 1e3:.4f} ms")
+    status = mandelbrot.DpStatus("cuda")
+    rows = []
+    for key, iters, kernel, plain in (
+        ("mandelbrot_flat_i32", flat_iters,
+         functools.partial(mandelbrot.mandelbrot_flat_cuda, c, max_iter),
+         functools.partial(escape_time, c, max_iter)),
+        ("mandelbrot_dp_i32", dp_iters,
+         functools.partial(mandelbrot.mandelbrot_dp_cuda, c, max_iter, status=status),
+         functools.partial(mariani_silver, c, max_iter)),
+    ):
+        roof = roofline_terms(10.0 * iters, 12.0 * n * n, dtype=torch.float32, hw=hw)
+        rows.append((key, f"{n}px i{max_iter}", roof, (kernel, plain, None)))
+    return rows, status
+
+
 def _visible_pairs(t: int, s: int, causal: bool, window) -> int:
     """(query, key) pairs the masks leave visible, queries at the last t of
     s positions: the work this input needs."""
@@ -1969,7 +2195,9 @@ def phase_yardstick(torch, launches: dict, errors: dict) -> list:
     hw = peaks_for(torch.cuda.get_device_name(0))
     gen = torch.Generator(device="cuda").manual_seed(1)
     out = []
-    for key, shape, roof, (kernel, plain, library) in _yardstick_cases(torch, gen, hw):
+    dp_rows, dp_status = _mandelbrot_yardstick(torch, hw)
+    cases = _yardstick_cases(torch, gen, hw) + dp_rows
+    for key, shape, roof, (kernel, plain, library) in cases:
         # plain, kernel, library, kernel, plain: each side timed twice, in turns
         p1, k1, lib, k2, p2 = (
             _time_ms(torch, f) if f is not None else None
@@ -1996,6 +2224,7 @@ def phase_yardstick(torch, launches: dict, errors: dict) -> list:
               + (" [on no path]" if key in OFF_PATH else ""))
         if key not in OFF_PATH:
             out.append(entry)
+    dp_status.check()  # every child grid of the timed DP calls launched
     _attention_decode_scaling(torch, gen)
     _srad_launches(torch, gen, hw)
     _copy_floor(torch, gen, hw)
@@ -2019,12 +2248,13 @@ def main() -> int:
     dnn_launches = phase_dnn(torch)
     level_launches = phase_levels(torch)
     phase_no_kernel(torch)
+    feature_launches = phase_features(torch)
     phase_small_agreement(torch)
     lm_launches, lm = phase_lm_serving(torch)
-    # Each kernel launched on one path only (every count was checked), so
-    # the sum is each kernel's count on its path.
+    # Every count was checked per path; a kernel's launches are the sum over
+    # the paths that run it (SRAD's three entries: phases 4c and 4f).
     launches = {k: main_launches[k] + dnn_launches[k] + level_launches[k] + lm_launches[k]
-                for k in main_launches}
+                + feature_launches[k] for k in main_launches}
     kernels = phase_yardstick(torch, launches, errors)
     # One row per kernel and shape (matmul_bf16 has two, nn and tn), the
     # kernels of no path left out.

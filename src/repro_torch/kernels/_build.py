@@ -15,6 +15,11 @@ for the life of the process.
 - ``nvcc`` comes from ``PATH`` or ``/usr/local/cuda/bin``. When there is
   none, :func:`library` raises: a CUDA tensor never silently runs the plain
   version instead of its kernel.
+- A source may add flags of its own (:data:`SOURCE_FLAGS`), and each
+  object's hash covers the flags it was compiled with. A source compiled
+  with ``-rdc=true`` (relocatable device code: its kernels launch kernels
+  from the device) goes through one device-link step against ``cudadevrt``
+  (``nvcc -dlink``), whose object joins the shared link.
 - Each C entry point takes ``c_void_p`` device pointers and the CUDA stream
   and returns ``cudaGetLastError()`` after its launch; :func:`check` turns a
   nonzero status into an exception naming the kernel.
@@ -35,12 +40,19 @@ __all__ = ["BuildError", "library", "function", "check", "build_info", "SOURCES_
 
 SOURCES_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
+    *ARCH,
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # Per-kernel registers, shared memory and spills land in the build log.
     "-Xptxas", "-v",
 )
+# Flags of one source on top of NVCC_FLAGS. mandelbrot.cu launches child
+# grids from the device (Dynamic Parallelism), which needs relocatable
+# device code and a device link against the device runtime.
+RDC = "-rdc=true"
+SOURCE_FLAGS = {"mandelbrot.cu": (RDC,)}
+DEVICE_RUNTIME = "-lcudadevrt"
 
 
 class BuildError(RuntimeError):
@@ -90,12 +102,14 @@ def _build() -> tuple[Path, dict]:
     sources = sorted(SOURCES_DIR.glob("*.cu"))
     if not sources:
         raise BuildError(f"no CUDA sources under {SOURCES_DIR}")
-    flags = " ".join(NVCC_FLAGS).encode()
     headers = b"".join(p.read_bytes() for p in sorted(SOURCES_DIR.glob("*.cuh")))
+    flags = {src: (*NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ())) for src in sources}
     objects = {
-        src: BUILD_DIR / f"{src.stem}-{_digest(flags, headers, src.read_bytes())}.o"
+        src: BUILD_DIR / (
+            f"{src.stem}-{_digest(' '.join(flags[src]).encode(), headers, src.read_bytes())}.o")
         for src in sources
     }
+    relocatable = [objects[src] for src in sources if RDC in flags[src]]
     lib_path = BUILD_DIR / (
         "kernels-" + _digest(*(o.name.encode() for o in objects.values())) + ".so"
     )
@@ -113,7 +127,7 @@ def _build() -> tuple[Path, dict]:
             if obj.exists():
                 continue
             tmp_obj = Path(tmp) / obj.name
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(tmp_obj)]
+            cmd = [nvcc, *flags[src], "-c", str(src), "-o", str(tmp_obj)]
             jobs.append((src, obj, tmp_obj, _run(cmd)))
         for src, obj, tmp_obj, proc in jobs:
             out, _ = proc.communicate()
@@ -121,8 +135,18 @@ def _build() -> tuple[Path, dict]:
             if proc.returncode != 0:
                 raise BuildError(f"nvcc failed on {src.name}:\n{out}")
             os.replace(tmp_obj, obj)
+        linked = [str(o) for o in objects.values()]
+        if relocatable:
+            dlink = Path(tmp) / "device-link.o"
+            cmd = [nvcc, *ARCH, "-Xcompiler", "-fPIC", "-dlink", *map(str, relocatable),
+                   "-o", str(dlink), DEVICE_RUNTIME]
+            proc = _run(cmd)
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise BuildError(f"device link of {[o.name for o in relocatable]} failed:\n{out}")
+            linked += [str(dlink), DEVICE_RUNTIME]
         tmp_lib = Path(tmp) / lib_path.name
-        link = [nvcc, "-shared", "-o", str(tmp_lib), *map(str, objects.values())]
+        link = [nvcc, "-shared", "-o", str(tmp_lib), *linked]
         proc = _run(link)
         out, _ = proc.communicate()
         if proc.returncode != 0:

@@ -1120,3 +1120,168 @@ def test_particlefilter_on_the_card_draws_the_same_numbers_each_call(card):
     first, again = wl.fn(meas, seed), wl.fn(meas, seed)
     assert torch.equal(first, again) and not torch.equal(first, wl.fn(meas, seed + 1))
     wl.validate(first, (meas, seed))
+
+
+# -- the feature studies' kernels and CUDA features ------------------------
+
+# (n, max_iter): the Dynamic Parallelism study's sizes, and the suite's
+# preset-4 image.
+MANDELBROT_CASES = [(128, 256), (256, 256), (512, 256), (2048, 1024)]
+
+
+@pytest.mark.parametrize("n,max_iter", MANDELBROT_CASES)
+def test_mandelbrot_kernels_are_bit_equal_to_escape_time(card, n, max_iter):
+    from repro_torch.bench.level2.mandelbrot import escape_time, pixel_grid
+    from repro_torch.kernels import mandelbrot
+
+    c = pixel_grid(n).to(card)
+    want = escape_time(c, max_iter)
+    flat = mandelbrot.mandelbrot_flat_cuda(c, max_iter)
+    status = mandelbrot.DpStatus(card)
+    adaptive = mandelbrot.mandelbrot_dp_cuda(c, max_iter, status=status)
+    children = status.check()
+    assert torch.equal(flat, want)
+    assert torch.equal(adaptive, want)
+    # One child grid a mixed tile; past 128 px some tiles are interior.
+    mixed = mandelbrot.mixed_tiles_plain(c, max_iter)
+    assert children == mixed
+    assert 0 < mixed <= (n // 32) ** 2
+    assert n == 128 or mixed < (n // 32) ** 2
+
+
+def test_mandelbrot_dp_checks_its_own_status_without_one(card):
+    from repro_torch.bench.level2.mandelbrot import mariani_silver, pixel_grid
+    from repro_torch.kernels import mandelbrot
+
+    c = pixel_grid(256).to(card)
+    before = dict(mandelbrot.launches)
+    got = mandelbrot.mandelbrot_dp_kernel(c, 64)
+    assert torch.equal(got, mariani_silver(c, 64))
+    assert mandelbrot.launches["mandelbrot_dp_i32"] == before["mandelbrot_dp_i32"] + 1
+    with pytest.raises(ValueError, match="multiple of the tile"):
+        mandelbrot.mandelbrot_dp_cuda(pixel_grid(48).to(card), 64)
+
+
+def test_managed_buffer_round_trip_advice_and_prefetch(card):
+    from repro_torch.kernels import managed
+
+    host = np.arange(1 << 20, dtype=np.int32)
+    buf = managed.ManagedBuffer.from_host(host)
+    t = buf.tensor()
+    assert t.is_cuda and t.dtype == torch.int32 and t.data_ptr() == buf.ptr
+    concurrent = managed.concurrent_managed_access()
+    assert concurrent in (0, 1)
+    if concurrent:
+        buf.advise("preferred_location", 0)
+        buf.prefetch(0)
+    t.mul_(3)  # the card writes the pages (faulting them over if not prefetched)
+    torch.cuda.synchronize()
+    if concurrent:
+        buf.prefetch(managed.HOST)
+        torch.cuda.synchronize()
+    np.testing.assert_array_equal(buf.host_view(), host * 3)  # read back by the host
+    assert int(t.sum()) == int(host.astype(np.int64).sum() * 3)
+    del t  # the tensor held the buffer; the buffer frees on close
+    buf.close()
+    with pytest.raises(ValueError, match="freed"):
+        buf.host_view()
+
+
+def test_async_launch_on_four_streams_equals_serial_calls(card):
+    from repro_torch.core import features
+
+    rng = np.random.default_rng(0)
+    xs = [torch.from_numpy(rng.standard_normal((512, 512), dtype=np.float32)).to(card)
+          for _ in range(4)]
+
+    def work(x):
+        for _ in range(8):
+            x = torch.tanh(x @ x.T * 1e-2)
+        return x
+
+    want = [work(x) for x in xs]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    got = features.async_launch(work, [(x,) for x in xs])
+    end.record()
+    end.synchronize()
+    # The pair on the current stream covers the side streams' work: when its
+    # second event has passed, every side stream is idle.
+    assert all(s.query() for s in features._pool(card)[:4])
+    assert start.elapsed_time(end) > 0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_hyperq_study_captures_each_graph_once_across_the_sweep(card):
+    from repro_torch.benchmarks import feat_hyperq
+    from repro_torch.core import graphs
+
+    made = []
+
+    def new_graph():
+        made.append(graphs._CudaGraph())
+        return made[-1]
+
+    cache = graphs.GraphCache(capacity=128, new_graph=new_graph)
+    rows = feat_hyperq.rows(graphs=cache)
+    n = max(feat_hyperq.INSTANCES)
+    # Every instance's graph, and one batched graph a sweep point, once.
+    assert len(made) == n + len(feat_hyperq.INSTANCES) == len(cache)
+    assert [r[0] for r in rows] == [f"feat_hyperq.n{k}" for k in feat_hyperq.INSTANCES]
+
+
+def test_lanes_wait_on_cuda_events(card):
+    from repro_torch.serve.lanes import run_closed_loop, serve_loop
+    from repro_torch.serve.loadgen import closed_loop_schedule
+
+    x = torch.ones(1024, 1024, device=card)
+    done = run_closed_loop(lambda: x @ x, concurrency=8, n_lanes=4, duration_s=5.0,
+                           max_requests=32)
+    assert sorted(c.index for c in done) == list(range(32))
+    assert torch.cuda.current_stream().query()  # drained: nothing left in flight
+    for window in (1, 4):
+        done = serve_loop(lambda: x @ x, closed_loop_schedule(8), window=window)
+        assert len(done) == 8 and torch.cuda.current_stream().query()
+
+
+def test_stagers_on_managed_memory_give_the_resident_depths(card):
+    from repro_torch.bench.level1.bfs import bfs_depths, make_random_graph
+    from repro_torch.core import features
+
+    n, e = 1 << 13, 1 << 16
+    src, dst = make_random_graph(n, e, seed=0)
+    want = bfs_depths(n, torch.from_numpy(src).to(card), torch.from_numpy(dst).to(card), 0)
+    stager = features.DemandStager()
+    for _ in range(2):
+        stager.evict()
+        assert torch.equal(bfs_depths(n, stager.get(src), stager.get(dst), 0), want)
+    pf = features.Prefetcher()
+    for _ in range(2):
+        pf.evict()
+        pf.prefetch("g", (src, dst))
+        s, d = pf.get("g")
+        assert torch.equal(bfs_depths(n, s, d, 0), want)
+
+
+def test_feature_studies_run_on_the_card_at_small_sizes(card):
+    from repro_torch.benchmarks import (
+        feat_coop_groups,
+        feat_dynamic_parallelism,
+        feat_unified_memory,
+    )
+    from repro_torch.kernels import srad_stencil
+
+    before = dict(srad_stencil.launches)
+    rows = feat_coop_groups.rows((64, 256))
+    assert [r[0] for r in rows] == ["feat_cg.srad.64x64", "feat_cg.srad.256x256"]
+    calls = 2 * (1 + feat_coop_groups.ITERS + feat_coop_groups.WARMUP)
+    for name in ("srad_fused_f32", "srad_phase1_f32", "srad_phase2_f32"):
+        assert srad_stencil.launches[name] - before[name] == calls
+    rows = feat_unified_memory.rows(((1 << 10, 1 << 13),))
+    assert rows[0][0] == "feat_um.bfs.n1024"
+    assert "concurrent_managed_access=1" in rows[0][2]
+    rows = feat_dynamic_parallelism.rows(64, sizes=(128, 256))
+    assert [r[2].split(";")[-1] for r in rows] == ["mixed_tiles=16", "mixed_tiles=60"]

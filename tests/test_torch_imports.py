@@ -52,6 +52,13 @@ def test_port_imports_no_jax_and_no_reference_module():
         "repro_torch.bench.level0.hostbus", "repro_torch.bench.level0.devicemem",
         "repro_torch.bench.level1.bfs", "repro_torch.bench.level2.mandelbrot",
         "repro_torch.bench.level2.particlefilter",
+        "repro_torch.core.features", "repro_torch.kernels.managed",
+        "repro_torch.kernels.mandelbrot", "repro_torch.obs", "repro_torch.obs.tracer",
+        "repro_torch.serve", "repro_torch.serve.lanes", "repro_torch.serve.loadgen",
+        "repro_torch.serve.latency", "repro_torch.benchmarks", "repro_torch.benchmarks.common",
+        "repro_torch.benchmarks.run", "repro_torch.benchmarks.feat_hyperq",
+        "repro_torch.benchmarks.feat_unified_memory", "repro_torch.benchmarks.feat_coop_groups",
+        "repro_torch.benchmarks.feat_dynamic_parallelism",
     } <= set(mods)
     script = textwrap.dedent(f"""
         import importlib, sys

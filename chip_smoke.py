@@ -70,6 +70,18 @@ exits nonzero without printing its result line:
    wall); then the HyperQ sweep again in a child process
    (``python -m repro_torch.benchmarks.run --sections feat_hyperq``) with
    ``CUDA_DEVICE_MAX_CONNECTIONS=32``, whose failure fails the run;
+4g. the tune stage and the paper's report drivers: gemm_f32_nn,
+   gemm_f32_tn and gemm_bf16_nn at preset 4 with ``--impl kernel --tune``
+   into a temporary ``--cache-dir`` (each candidate's trial µs, the
+   winners, the bf16 row's refused 128x256 tile; the f32 GEMM's launch
+   counter read around each trial, rising in the 128x256 ones), then a
+   second engine on the same directory (0 trials, the same winners, 3 tune
+   hits), the roofline rows of its report; then ``python -m
+   repro_torch.benchmarks.run --preset 4 --sections table1 table2 fig3
+   fig4 fig5 fig12 fig_impl roofline`` in this process, each section's
+   rows and seconds printed, any error row failing the run, and the
+   counters of matmul_f32, softmax_f32, lrn_f32, avgpool_f32 and
+   prefix_scan_f32 nonzero after the phase;
 4b. the kernel rows of all paths at preset 0, kernel against torch on the
    same inputs, f32 products against an f64 evaluation; the Softmax and
    LRN rows at presets 0-3, each call on the redesigned entry and passing
@@ -164,6 +176,13 @@ OFF_PATH = ("sort_kv_f32", "matmul_f32_simt", "matmul_f32_simt_batched", "matmul
             "flash_attention_bf16_simt", "flash_attention_f32_simt", "softmax_f32_online",
             "lrn_f32_smem",
             "srad_fused_f32_gridstride", "srad_phase1_f32_scalar")
+# The tune stage (phase 4g): the f32 GEMM's rows, which have two compiled
+# tiles, and a bf16 row, whose entry compiles 128x128 alone; then the
+# paper's report sections, and the kernels their kernel rows reach
+# (fig_impl, Table II).
+TUNE_PATH = ("gemm_f32_nn", "gemm_f32_tn", "gemm_bf16_nn")
+REPORT_SECTIONS = ("table1", "table2", "fig3", "fig4", "fig5", "fig12", "fig_impl", "roofline")
+REPORT_KERNELS = ("matmul_f32", "softmax_f32", "lrn_f32", "avgpool_f32", "prefix_scan_f32")
 PRESET, ITERS, WARMUP, WINDOW = 4, 5, 2, 4
 # Calls of each pass's function on the main path: the compile stage's first
 # call, the validation call, the sync-mode warm-up and timed calls, and the
@@ -1377,6 +1396,148 @@ def phase_features(torch) -> dict:
     return total
 
 
+def _tune_runs(torch, tmp: str):
+    """The tune path twice on one cache directory, cold then warm, each
+    trial's tile, launches and mean µs logged. -> ({label: (records,
+    counters, metadata)}, trials, the warm run's JSON report)."""
+    from repro_torch.core import suite
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.results import load_run
+
+    trials = []  # (row, tile, launches during the trial, mean µs)
+
+    class Logged(Engine):
+        def _stage_compile(self, spec, workload, args, plan, preset, backward, placement,
+                           impl="torch", tuned_params=None):
+            self.compiling = (spec.name, tuned_params)
+            return super()._stage_compile(spec, workload, args, plan, preset, backward,
+                                          placement, impl, tuned_params)
+
+        def _time_tune_trial(self, entry, args, plan):
+            before = _read_launches()
+            mean_us = super()._time_tune_trial(entry, args, plan)
+            after = _read_launches()
+            trials.append((*self.compiling, _nonzero({k: after[k] - before[k] for k in after}),
+                           mean_us))
+            return mean_us
+
+    cache = os.path.join(tmp, "cache")
+    runs = {}
+    for label in ("cold", "warm"):
+        engine = Logged(cache_dir=cache)
+        jsonl, report = (os.path.join(tmp, f"{label}.{ext}") for ext in ("jsonl", "json"))
+        t0 = time.perf_counter()
+        records = suite.run_suite(
+            names=TUNE_PATH, preset=PRESET, impl="kernel", tune=True, include_backward=False,
+            iters=ITERS, warmup=WARMUP, timing_window=WINDOW, jsonl_path=jsonl,
+            report_path=report, verbose=False, engine=engine)
+        meta, _ = load_run(jsonl)
+        print(f"{label} run: {len(records)} rows in {time.perf_counter() - t0:.1f} s; "
+              f"cache {engine.disk_cache.summary()}")
+        runs[label] = (records, engine.disk_cache.counter_dict(), meta)
+    return runs, trials, report
+
+
+def phase_tune_reports(torch) -> dict:
+    """The tune stage over ``TUNE_PATH`` cold and warm on one cache
+    directory, then the report sections in this process; counters set to 0
+    just before and read just after."""
+    import contextlib
+    import io
+
+    from repro_torch.benchmarks import roofline_table
+    from repro_torch.benchmarks import run as report_run
+    from repro_torch.benchmarks.common import ERROR_PREFIX, parse_derived
+    from repro_torch.kernels.matmul import F32_TILES
+
+    print("== phase 4g: the tune stage (preset 4, --impl kernel --tune, a --cache-dir cold "
+          "then warm), then the report sections at preset 4")
+    _zero_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        runs, trials, report = _tune_runs(torch, tmp)
+        roofline = roofline_table.rows_from_report(report)
+    for row, tile, launched, mean_us in trials:
+        print(f"  trial {row:14s} {tile} {mean_us:.2f} us windowed, launches {launched}")
+    cold, cold_stats, _ = runs["cold"]
+    warm, warm_stats, warm_meta = runs["warm"]
+    for rec in cold + warm:
+        refused = parse_derived(rec.derived).get("tune_refused", "0")
+        print(f"  {rec.name:24s} tuned {rec.tuned_params} tune_trials {rec.tune_trials} "
+              f"tune_trials_us {rec.tune_trials_us:.1f} tune_refused {refused} "
+              f"us_per_call {rec.us_per_call:.1f} windowed {rec.us_per_call_windowed:.1f}")
+        if rec.status != "ok" or rec.impl != "kernel" or rec.impl_interpret is not False:
+            _fail(f"tuned row {rec.name}: status={rec.status} impl={rec.impl} {rec.error}")
+    want_cold = {"gemm_f32_nn": (2, "0"), "gemm_f32_tn": (2, "0"), "gemm_bf16_nn": (1, "1")}
+    by_row = dict(zip(sorted(TUNE_PATH, key=_order), cold, strict=True))
+    for row, rec in by_row.items():
+        got = (rec.tune_trials, parse_derived(rec.derived).get("tune_refused", "0"))
+        if got != want_cold[row] or rec.tuned_params not in F32_TILES:
+            _fail(f"cold {row}: (trials, refused) {got}, winner {rec.tuned_params}; "
+                  f"expected {want_cold[row]} and a compiled tile")
+    if by_row["gemm_bf16_nn"].tuned_params != F32_TILES[0]:
+        _fail("the bf16 row's winner is not its one compiled tile")
+    # The counters are per C entry, not per tile: read around each trial.
+    entry = {"gemm_f32_nn": "matmul_f32", "gemm_f32_tn": "matmul_f32",
+             "gemm_bf16_nn": "matmul_bf16"}
+    logged = {(row, tile["block_n"]): launched for row, tile, launched, _ in trials}
+    want_trials = {(r, t["block_n"]) for r in ("gemm_f32_nn", "gemm_f32_tn") for t in F32_TILES}
+    if set(logged) != want_trials | {("gemm_bf16_nn", 128)} or len(trials) != 5:
+        _fail(f"trials {sorted(logged)}: expected both tiles of the f32 rows and 128 of bf16")
+    for (row, _), launched in logged.items():
+        if launched.get(entry[row], 0) <= 0:
+            _fail(f"{row}: {entry[row]} did not launch during its trial: {launched}")
+    if cold_stats != {"tune_hits": 0, "tune_stores": 3, "tune_fallbacks": 0}:
+        _fail(f"cold run's cache counters {cold_stats}")
+    if (warm_stats != {"tune_hits": 3, "tune_stores": 0, "tune_fallbacks": 0}
+            or warm_meta.cache_stats != warm_stats or not warm_meta.tune):
+        _fail(f"warm run's cache counters {warm_stats}, metadata {warm_meta.cache_stats}")
+    for c, w in zip(cold, warm, strict=True):
+        if w.tune_trials != 0 or w.tune_trials_us != 0.0 or w.tuned_params != c.tuned_params:
+            _fail(f"warm {w.name}: trials {w.tune_trials}, winner {w.tuned_params} against "
+                  f"the cold run's {c.tuned_params}")
+    print(f"  warm run: 0 trials, the same winners, cache {warm_stats}")
+    for name, us, derived in roofline:
+        print(f"  {name:34s} {us:12.2f}  {derived}")
+    if [n for n, _, _ in roofline] != [f"roofline.{r.name}.kernel" for r in warm]:
+        _fail(f"roofline rows {[n for n, _, _ in roofline]} of the warm report")
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = report_run.main(["--preset", str(PRESET), "--sections", *REPORT_SECTIONS])
+    print(f"python -m repro_torch.benchmarks.run --preset {PRESET} --sections "
+          f"{' '.join(REPORT_SECTIONS)}: exit {rc} in {time.perf_counter() - t0:.1f} s")
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print("  " + line)
+    for line in err.getvalue().splitlines():
+        print("  " + line)
+    rows = [line.split(",", 2) for line in lines[1:]]
+    failed = [n for n, _, d in rows if d.startswith(ERROR_PREFIX) or n.endswith(".FAILED")]
+    if rc != 0 or lines[:1] != ["name,us_per_call,derived"] or failed:
+        _fail(f"the report sections exited {rc}; failed rows {failed}")
+    for section in REPORT_SECTIONS[:-1]:  # roofline: rows only where a suite report exists
+        if not any(n.startswith(section + ".") for n, _, _ in rows):
+            _fail(f"section {section} printed no row")
+    impl_rows = {n: parse_derived(d) for n, _, d in rows if n.startswith("fig_impl.")}
+    kernel_rows = {n: f for n, f in impl_rows.items() if n.endswith(".kernel")}
+    if len(impl_rows) != 10 or any(f.get("interpret") != "0" for f in kernel_rows.values()):
+        _fail(f"fig_impl rows: {impl_rows}")
+    launches = _read_launches()
+    print(f"  launches over phase 4g: {_nonzero(launches)}")
+    idle = [k for k in REPORT_KERNELS if launches[k] == 0]
+    if idle:
+        _fail(f"kernels of the report sections that did not launch: {idle}")
+    from repro_torch.bench.level0 import devicemem
+    from repro_torch.bench.level1 import pathfinder
+    from repro_torch.bench.level2 import nw, srad
+
+    for mod in (devicemem, pathfinder, nw, srad):  # the captured loops' memory pools
+        mod.GRAPHS.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _order(name: str):
     from repro_torch.core.registry import get_benchmark
 
@@ -2249,12 +2410,13 @@ def main() -> int:
     level_launches = phase_levels(torch)
     phase_no_kernel(torch)
     feature_launches = phase_features(torch)
+    report_launches = phase_tune_reports(torch)
     phase_small_agreement(torch)
     lm_launches, lm = phase_lm_serving(torch)
     # Every count was checked per path; a kernel's launches are the sum over
     # the paths that run it (SRAD's three entries: phases 4c and 4f).
     launches = {k: main_launches[k] + dnn_launches[k] + level_launches[k] + lm_launches[k]
-                + feature_launches[k] for k in main_launches}
+                + feature_launches[k] + report_launches[k] for k in main_launches}
     kernels = phase_yardstick(torch, launches, errors)
     # One row per kernel and shape (matmul_bf16 has two, nn and tn), the
     # kernels of no path left out.

@@ -55,7 +55,7 @@ register(
         dwarf="Dense linear algebra",
         domain=DNN_DOMAIN,
         cuda_feature=None,
-        gpu_feature="f32 FMA register-blocked GEMM (CUDA)",
+        gpu_feature="TMA ring + f32 FMA GEMM (CUDA)",
         presets=geometric_presets(
             {"batch": 64, "din": 256, "dout": 256},
             scale_keys={"batch": 2.0, "din": 2.0, "dout": 2.0},

@@ -86,7 +86,7 @@ for _impl in ("xla", "im2col"):
             domain=DNN_DOMAIN,
             cuda_feature=None,
             gpu_feature=(
-                "im2col + batched f32 FMA GEMM (CUDA)" if _impl == "im2col"
+                "im2col + batched TMA f32 FMA GEMM (CUDA)" if _impl == "im2col"
                 else "cuDNN convolution, TF32 off"
             ),
             presets=geometric_presets(

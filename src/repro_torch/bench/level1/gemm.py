@@ -57,8 +57,8 @@ for _dtype in ("f32", "bf16"):
                 domain=None,
                 cuda_feature=None,
                 gpu_feature=(
-                    "WMMA bf16 tensor-core GEMM (CUDA)" if _dtype == "bf16"
-                    else "f32 FMA register-blocked GEMM (CUDA)"
+                    "TMA + wgmma bf16 tensor-core GEMM (CUDA)" if _dtype == "bf16"
+                    else "TMA ring + f32 FMA GEMM, tile tuned (CUDA)"
                 ),
                 presets=geometric_presets(
                     {"n": 256, "dtype": _dtype, "transpose": _tr},

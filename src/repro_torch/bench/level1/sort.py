@@ -66,7 +66,7 @@ register(
         dwarf="Sorting",
         domain=None,
         cuda_feature=None,
-        gpu_feature="LSD radix sort, 8-bit digits, stable in-tile ranks (CUDA)",
+        gpu_feature="onesweep LSD radix sort, decoupled look-back (CUDA)",
         presets=geometric_presets({"n": 1 << 12}, scale_keys={"n": 8.0}, round_to=128),
         build=lambda n: _make(n),
     )

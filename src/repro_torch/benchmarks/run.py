@@ -3,9 +3,17 @@
 Counterpart of ``benchmarks/run.py``, with its CLI: ``--sections`` (checked
 before anything is imported; exit 2 and the valid list on an unknown one),
 ``--preset``, CSV ``name,us_per_call,derived`` on stdout, a section that
-raises printed as a ``<section>.FAILED`` row, and exit 1 when any row
-failed. The port has the paper's four §V-B feature studies so far:
+raises printed as a ``<section>.FAILED`` row, each section's seconds on
+stderr, and exit 1 when any row failed. Sections:
 
+  table1                   — the suite listing (Table I)
+  fig12                    — levels 0-1 utilization (Figs. 1-2)
+  fig3 / fig4              — DNN forward / backward utilization
+  fig5                     — level-2 utilization (Fig. 5)
+  fig_impl                 — torch against the hand-written kernels, the
+                             kernels' tiles tuned
+  table2                   — per-layer kernel classification (Table II),
+                             at ``max(--preset, 1)``
   feat_hyperq              — HyperQ: Pathfinder instances through a sync
                              loop, a windowed loop, one batched call and
                              one CUDA stream each
@@ -15,13 +23,21 @@ failed. The port has the paper's four §V-B feature studies so far:
                              step against its two split phases
   feat_dynamic_parallelism — Dynamic Parallelism: Mandelbrot flat against
                              Mariani-Silver with device-side launch
+  roofline                 — roofline rows of the suite report at
+                             ``artifacts/suite_report.json``, if there is one
 
-The studies take their own sizes (the reference's); ``--preset`` is for
-the report sections still to come. ``--device`` is ``cuda`` unless the
-caller asks for the CPU, where the plain versions run; without a CUDA card
-a ``cuda`` run exits 2 before measuring anything. ``CUDA_DEVICE_MAX_CONNECTIONS``
-(HyperQ's hardware queues, 8 unless set before the process starts) is
-recorded in every HyperQ row.
+The suite-backed sections (fig12, fig3, fig4, fig5, fig_impl) run through
+``run_suite`` at ``--preset`` with per-benchmark fault isolation; the
+feature studies take their own sizes (the reference's). The reference's
+``fig_scaling``, ``fig_concurrency``, ``fig_batching``, ``fig_dist`` and
+``fig_trace`` wait for device sweeps, serving and tracing (ROADMAP queue 1,
+items 12, 14 and 15), and its dry-run roofline cells for item 16.5.
+
+``--device`` is ``cuda`` unless the caller asks for the CPU, where the
+plain versions run; without a CUDA card a ``cuda`` run exits 2 before
+measuring anything. ``CUDA_DEVICE_MAX_CONNECTIONS`` (HyperQ's hardware
+queues, 8 unless set before the process starts) is recorded in every
+HyperQ row.
 """
 
 from __future__ import annotations
@@ -32,10 +48,18 @@ import time
 import traceback
 
 SECTION_NAMES = (
+    "table1",
+    "fig12",
+    "fig3",
+    "fig4",
+    "fig5",
+    "fig_impl",
+    "table2",
     "feat_hyperq",
     "feat_unified_memory",
     "feat_coop_groups",
     "feat_dynamic_parallelism",
+    "roofline",
 )
 
 
@@ -68,25 +92,42 @@ def main(argv=None) -> int:
         feat_dynamic_parallelism,
         feat_hyperq,
         feat_unified_memory,
+        fig3_dnn_forward,
+        fig4_dnn_backward,
+        fig5_suite_utilization,
+        fig12_legacy_utilization,
+        fig_impl,
+        roofline_table,
+        table1_suite,
+        table2_dnn_kernels,
     )
     from repro_torch.benchmarks.common import ERROR_PREFIX
 
-    modules = {
-        "feat_hyperq": feat_hyperq,
-        "feat_unified_memory": feat_unified_memory,
-        "feat_coop_groups": feat_coop_groups,
-        "feat_dynamic_parallelism": feat_dynamic_parallelism,
+    preset, device = args.preset, args.device
+    sections = {
+        "table1": table1_suite.rows,
+        "fig12": lambda: fig12_legacy_utilization.rows(preset=preset, device=device),
+        "fig3": lambda: fig3_dnn_forward.rows(preset=preset, device=device),
+        "fig4": lambda: fig4_dnn_backward.rows(preset=preset, device=device),
+        "fig5": lambda: fig5_suite_utilization.rows(preset=preset, device=device),
+        "fig_impl": lambda: fig_impl.rows(preset=preset, device=device),
+        "table2": lambda: table2_dnn_kernels.rows(preset=max(preset, 1), device=device),
+        "feat_hyperq": lambda: feat_hyperq.rows(device=device),
+        "feat_unified_memory": lambda: feat_unified_memory.rows(device=device),
+        "feat_coop_groups": lambda: feat_coop_groups.rows(device=device),
+        "feat_dynamic_parallelism": lambda: feat_dynamic_parallelism.rows(device=device),
+        "roofline": roofline_table.rows_from_latest_report,
     }
     # SECTION_NAMES exists so --sections validates before the imports above;
     # keep the two in sync.
-    assert set(modules) == set(SECTION_NAMES), "update SECTION_NAMES"
+    assert set(sections) == set(SECTION_NAMES), "update SECTION_NAMES"
 
     print("name,us_per_call,derived")
     failures = 0
     for name in selected:
         t0 = time.time()
         try:
-            for n, us, d in modules[name].rows(device=args.device):
+            for n, us, d in sections[name]():
                 if d.startswith(ERROR_PREFIX):
                     failures += 1
                     print(f"# ERROR {n}: {d}", file=sys.stderr, flush=True)

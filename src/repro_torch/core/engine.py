@@ -1,4 +1,4 @@
-"""Staged execution engine: build → place → compile → measure →
+"""Staged execution engine: build → place → [tune] → compile → measure →
 characterize → report.
 
 Counterpart of ``repro/core/engine.py``, main path only. For every selected
@@ -13,13 +13,22 @@ benchmark the engine runs the stages:
   the transfer itself, so their inputs stay where ``make_inputs`` put them,
   except the positions ``meta["device_args"]`` names (a destination buffer,
   a tensor to read back).
+- **tune** (only for kernel passes of plans with ``tune=True``): sweep the
+  kernel's ``tune_space()`` in order, compiling each candidate through the
+  callable cache and timing it with the windowed timer; the winner's
+  parameters join the cache key and go to ``force_impl``, and persist in
+  the disk cache (``core/hlocache.py``, ``cache_dir``), so a warm ``--tune``
+  run restores the winner and performs zero trials. A candidate the kernel
+  refuses before launching (:class:`~repro_torch.kernels.ops.TileRefused`,
+  a tile its routed entry does not compile) is skipped and counted; a
+  refused first candidate, the kernel's defaults, fails the row.
 - **compile**: bind the pass's function to its implementation and make
   one first call, which builds and loads the kernels on first use. The
   bound callable goes into an in-process cache keyed like the reference's
   ``CacheKey`` — ``(name, preset, overrides, backward, device, devices,
   placement, impl, tuned-params)`` — so one engine builds each
-  (pass, implementation) once. The plan's ``impl`` resolves per workload:
-  a kernel plan times torch for host-transfer workloads, for workloads
+  (pass, implementation, tile) once. The plan's ``impl`` resolves per
+  workload: a kernel plan times torch for host-transfer workloads, for workloads
   that declare no kernel and for backward passes, and ``impl_fallback``
   says so (``no_jit``, ``no_kernel``, ``backward_pass``).
 - **measure**: validate one output, then time the bound callable in sync
@@ -47,7 +56,13 @@ the run's metadata: f32 rows are true f32.
 
 Failures are isolated per benchmark: an exception in any stage yields a
 ``status="error"`` record naming the stage, and the suite keeps going.
-Disk caching, tuning, serving and device sweeps are not ported yet.
+Serving and device sweeps are not ported yet, and the disk cache holds the
+tune winners alone.
+
+Rows that replay a captured CUDA graph (``core/graphs.py``) key it by
+addresses and route, not by tile: every such row's kernel has a one-entry
+tune space today, so no swept row is captured. One that is must put the
+candidate into its graph's key.
 """
 
 from __future__ import annotations
@@ -67,6 +82,7 @@ from repro_torch.core.harness import (
     time_fn,
     timing_from_stats,
 )
+from repro_torch.core.hlocache import HloDiskCache
 from repro_torch.core.plan import ExecutionPlan, Placement, PlanError
 from repro_torch.core.registry import BenchmarkSpec, Workload
 from repro_torch.core.results import (
@@ -80,7 +96,7 @@ from repro_torch.kernels import ops as kernel_ops
 __all__ = ["CompileCache", "Engine", "RunResult", "bind_impl"]
 
 # (name, preset, frozen-overrides, backward, device, devices, placement,
-#  impl, tuned-params — always () until the tune stage is ported)
+#  impl, frozen-tuned-params — () when the pass was not tuned)
 CacheKey = tuple[str, int, tuple, bool, str, int, str, str, tuple]
 
 
@@ -97,6 +113,10 @@ class CompileCache:
         self._entries: dict[CacheKey, _CacheEntry] = {}
         self.hits = 0
         self.misses = 0
+
+    def peek(self, key: CacheKey) -> _CacheEntry | None:
+        """Lookup without counting a hit (callers count on actual use)."""
+        return self._entries.get(key)
 
     def lookup(self, key: CacheKey, build: Callable[[], _CacheEntry]) -> _CacheEntry:
         entry = self._entries.get(key)
@@ -122,19 +142,23 @@ class RunResult:
         return [r for r in self.records if r.status == "ok"]
 
 
-def bind_impl(fn: Callable[..., Any], workload: Workload, impl: str) -> Callable[..., Any]:
+def bind_impl(
+    fn: Callable[..., Any], workload: Workload, impl: str, params: dict | None = None
+) -> Callable[..., Any]:
     """``fn`` with its implementation pinned on every call.
 
     Workloads that declare a kernel run each call inside
-    ``ops.force_impl``: the kernel route for ``impl="kernel"``, the plain
-    oracle for ``impl="torch"``. Undeclared workloads run untouched.
+    ``ops.force_impl``: the kernel route for ``impl="kernel"``, with the
+    tuned block ``params`` merged into the kernel's calls, the plain oracle
+    for ``impl="torch"``. Undeclared workloads run untouched.
     """
     if workload.kernel is None:
         return fn
     mode = "kernel" if impl == "kernel" else "ref"
+    params = dict(params or {})
 
     def call(*args):
-        with kernel_ops.force_impl(mode, workload.kernel):
+        with kernel_ops.force_impl(mode, workload.kernel, **params):
             return fn(*args)
 
     return call
@@ -142,10 +166,15 @@ def bind_impl(fn: Callable[..., Any], workload: Workload, impl: str) -> Callable
 
 class Engine:
     """Executes plans. Holds the callable cache, so a long-lived engine
-    reuses bound callables (and their first-call builds) across runs."""
+    reuses bound callables (and their first-call builds) across runs, and,
+    given ``cache_dir``, the disk cache of tune winners shared across
+    processes."""
 
-    def __init__(self, cache: CompileCache | None = None) -> None:
+    def __init__(
+        self, cache: CompileCache | None = None, cache_dir: str | None = None
+    ) -> None:
         self.cache = cache if cache is not None else CompileCache()
+        self.disk_cache = HloDiskCache(cache_dir) if cache_dir else None
 
     # -- stages ------------------------------------------------------------
 
@@ -157,6 +186,7 @@ class Engine:
         backward: bool,
         placement: Placement,
         impl: str = "torch",
+        tuned_params: dict | None = None,
     ) -> CacheKey:
         return (
             spec.name,
@@ -167,7 +197,7 @@ class Engine:
             placement.devices,
             placement.mode,
             impl,
-            (),  # tuned block params: none until the tune stage is ported
+            tuple(sorted((tuned_params or {}).items())),
         )
 
     def _resolve_impl(
@@ -220,14 +250,15 @@ class Engine:
         backward: bool,
         placement: Placement,
         impl: str = "torch",
+        tuned_params: dict | None = None,
     ) -> _CacheEntry:
         fn = workload.fn_bwd if backward else workload.fn
         if backward and fn is None:
             raise ValueError(f"workload {workload.name!r} has no backward pass")
-        key = self._cache_key(spec, plan, preset, backward, placement, impl)
+        key = self._cache_key(spec, plan, preset, backward, placement, impl, tuned_params)
 
         def build() -> _CacheEntry:
-            bound = bind_impl(fn, workload, impl)
+            bound = bind_impl(fn, workload, impl, tuned_params)
             # The first call builds and loads the kernels it reaches (nvcc
             # on first use in the process), like the reference's compile.
             bound(*args)
@@ -235,6 +266,78 @@ class Engine:
             return _CacheEntry(executable=bound)
 
         return self.cache.lookup(key, build)
+
+    def _stage_tune(
+        self,
+        spec: BenchmarkSpec,
+        workload: Workload,
+        args: tuple,
+        plan: ExecutionPlan,
+        preset: int,
+        backward: bool,
+        placement: Placement,
+        impl: str,
+    ) -> tuple[dict | None, int | None, float | None, int]:
+        """Sweep the kernel's ``tune_space()`` -> (winner, trials, wall µs,
+        refused candidates).
+
+        Runs between place and compile, only for kernel passes of tuning
+        plans; every other pass returns ``(None, None, None, 0)`` and costs
+        nothing. Candidates are swept in ``tune_space()`` order, each
+        compiled through the callable cache under its full key (the
+        winner's later compile stage is a hit) and timed with the windowed
+        timer (``_time_tune_trial``). Ties keep the earliest candidate, so a
+        deterministic timer gives a deterministic winner. A one-entry space
+        wins at zero trials. A candidate the kernel refuses before launching
+        (``TileRefused``) is skipped and counted, never timed and never the
+        winner; a refused first candidate, the kernel's defaults, raises, as
+        does any other error. The winner persists in the disk cache under
+        the *base* key (parameters left out: the lookup must not need the
+        answer), so a warm run restores it at zero trials.
+        """
+        if impl != "kernel" or not plan.tune:
+            return None, None, None, 0
+        space = kernel_ops.tune_space(workload.kernel) or ({},)
+        if len(space) == 1:
+            return dict(space[0]), 0, 0.0, 0
+        base_key = self._cache_key(spec, plan, preset, backward, placement, impl)
+        if self.disk_cache is not None:
+            won = self.disk_cache.load_tuned(base_key, candidates=space)
+            if won is not None:
+                return won, 0, 0.0, 0
+        best_us: float | None = None
+        best: dict = {}
+        trials = refused = 0
+        trials_us = 0.0  # the sum of the timed candidates' wall spans
+        for i, cand in enumerate(space):
+            c0 = time.perf_counter()
+            try:
+                entry = self._stage_compile(
+                    spec, workload, args, plan, preset, backward, placement, impl, dict(cand)
+                )
+            except kernel_ops.TileRefused:
+                if i == 0:
+                    raise
+                refused += 1
+                continue
+            mean_us = self._time_tune_trial(entry, args, plan)
+            trials_us += (time.perf_counter() - c0) * 1e6
+            trials += 1
+            if best_us is None or mean_us < best_us:
+                best_us, best = mean_us, dict(cand)
+        if self.disk_cache is not None:
+            self.disk_cache.store_tuned(base_key, best, trials, trials_us)
+        return best, trials, trials_us, refused
+
+    def _time_tune_trial(self, entry: _CacheEntry, args: tuple, plan: ExecutionPlan) -> float:
+        """One candidate's figure of merit (mean µs a call, windowed). A
+        seam: tests replace it to pin the sweep's timing."""
+        mean_us, _ = time_fn(
+            entry.executable, args,
+            iters=min(plan.iters, 3),  # a sweep trial, not the measurement
+            warmup=1, window=plan.timing_window, device=plan.device,
+        )
+        return mean_us
 
     def _stage_measure(
         self,
@@ -296,19 +399,7 @@ class Engine:
         verbose: bool = False,
     ) -> RunResult:
         specs = plan.select()
-        if plan.devices != 1 or plan.placement.mode != "replicate":
-            raise PlanError(
-                f"plan requests {plan.devices} devices with placement "
-                f"{plan.placement.mode!r}; the port runs on one device, replicate"
-            )
-        if plan.device == "cuda" and not torch.cuda.is_available():
-            raise PlanError(
-                "plan runs on cuda but torch.cuda.is_available() is False; "
-                "ask for device='cpu' to run on the CPU"
-            )
-        # f32 rows are true f32: no TF32 in matmuls or cuDNN convolutions.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        _prepare_device(plan)
         metadata = RunMetadata.capture(
             device=plan.device,
             preset=plan.preset,
@@ -316,6 +407,7 @@ class Engine:
             placement=plan.placement.mode,
             timing_window=plan.timing_window,
             impl=plan.impl,
+            tune=plan.tune,
         )
         records: list[BenchmarkRecord] = []
         if verbose:
@@ -330,11 +422,50 @@ class Engine:
                     if verbose:
                         print(rec.csv(), flush=True)
         finally:
+            if self.disk_cache is not None:
+                # A report must say whether its run was warm.
+                metadata = dataclasses.replace(
+                    metadata, cache_stats=self.disk_cache.counter_dict()
+                )
             if writer is not None:
+                writer.write_meta(metadata)
                 writer.close()
         if report_path:
             write_report(records, report_path)
         return RunResult(records=records, metadata=metadata, cache=self.cache)
+
+    def characterize(
+        self,
+        spec: BenchmarkSpec,
+        plan: ExecutionPlan,
+        *,
+        backward: bool = False,
+        workload: Workload | None = None,
+    ) -> CompiledInfo:
+        """Compile (through the cache) and characterize, without timing.
+
+        For characterization-only consumers (Table II): shares callables
+        with full runs of the same plan parameters, and a cached entry whose
+        analysis is memoized returns without making inputs. Pass
+        ``workload`` to reuse one already built. Always the kernel's
+        default blocks: ``plan.tune`` is a timing concern.
+        """
+        _prepare_device(plan)
+        preset = plan.resolve_preset(spec)
+        if workload is None:
+            workload = spec.build_preset(preset, **plan.overrides_for(spec.name))
+        impl, _ = self._resolve_impl(workload, plan, backward)
+        cached = self.cache.peek(
+            self._cache_key(spec, plan, preset, backward, plan.placement, impl)
+        )
+        if cached is not None and cached.info is not None:
+            self.cache.hits += 1
+            return cached.info
+        args = self._stage_place(workload, workload.make_inputs(plan.seed), plan)
+        entry = self._stage_compile(
+            spec, workload, args, plan, preset, backward, plan.placement, impl
+        )
+        return self._stage_characterize(workload, entry, args, plan, backward)
 
     @contextlib.contextmanager
     def _timed_stage(self, name: str, timings: dict):
@@ -394,9 +525,18 @@ class Engine:
         timings: dict[str, float] = dict(base_timings)
         try:
             impl, impl_fallback = self._resolve_impl(workload, plan, backward)
+            tuned_params, tune_trials, tune_trials_us, tune_refused = None, None, None, 0
+            if plan.tune:  # an untuned row keeps the stages it always had
+                stage = "tune"
+                with self._timed_stage("tune", timings):
+                    tuned_params, tune_trials, tune_trials_us, tune_refused = self._stage_tune(
+                        spec, workload, args, plan, preset, backward, placement, impl
+                    )
+                stage = "compile"
             with self._timed_stage("compile", timings):
                 entry = self._stage_compile(
-                    spec, workload, args, plan, preset, backward, placement, impl
+                    spec, workload, args, plan, preset, backward, placement, impl,
+                    tuned_params,
                 )
             stage = "measure"
             with self._timed_stage("measure", timings):
@@ -412,7 +552,12 @@ class Engine:
                 # check of the path, never a kernel number. None on torch rows.
                 impl_interpret=(plan.device == "cpu") if impl == "kernel" else None,
                 impl_fallback=impl_fallback,
+                tuned_params=tuned_params,
+                tune_trials=tune_trials,
+                tune_trials_us=tune_trials_us,
             )
+            if tune_refused:
+                rec.derived += f";tune_refused={tune_refused}"
             rec.stage_timings_us = timings
             return rec
         except Exception as e:  # noqa: BLE001 — fault isolation is the contract
@@ -422,6 +567,24 @@ class Engine:
             )
             err.stage_timings_us = timings
             return err
+
+
+def _prepare_device(plan: ExecutionPlan) -> None:
+    """Refuse what the port cannot run (more than one device, a missing
+    card), and make f32 rows true f32: no TF32 in matmuls or cuDNN
+    convolutions."""
+    if plan.devices != 1 or plan.placement.mode != "replicate":
+        raise PlanError(
+            f"plan requests {plan.devices} devices with placement "
+            f"{plan.placement.mode!r}; the port runs on one device, replicate"
+        )
+    if plan.device == "cuda" and not torch.cuda.is_available():
+        raise PlanError(
+            "plan runs on cuda but torch.cuda.is_available() is False; "
+            "ask for device='cpu' to run on the CPU"
+        )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def _synchronize(device: str) -> None:

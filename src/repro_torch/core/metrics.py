@@ -112,6 +112,10 @@ class RooflineTerms:
         """The least time the card could take: the larger term."""
         return max(self.compute_s, self.memory_s, self.collective_s)
 
+    def arithmetic_intensity(self) -> float:
+        """FLOPs per HBM byte."""
+        return self.flops / max(self.hbm_bytes, 1.0)
+
 
 def roofline_terms(
     flops: float,

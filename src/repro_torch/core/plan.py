@@ -7,14 +7,14 @@ Rodinia-style per-benchmark overrides), *which passes* (forward, and
 backward where a workload defines one), *how to measure* (iters / warmup /
 seed, plus ``timing_window``: sync-mode timing always runs, and a window
 K > 1 additionally times K back-to-back calls per measurement), *which
-implementation* (``impl``: the torch path or the hand-written kernels),
-and *where* (``device``: ``cuda`` unless the caller asks for ``cpu``, and a
+implementation* (``impl``: the torch path or the hand-written kernels,
+whose tiles ``tune`` sweeps), and *where* (``device``: ``cuda`` unless the caller asks for ``cpu``, and a
 :class:`Placement`).
 
 The port runs on one device so far: a plan's placement must be one device,
 ``replicate`` (the engine refuses anything else with :class:`PlanError`).
-Device sweeps, tuning and serving are not ported yet; a plan that asks to
-serve is refused.
+Device sweeps and serving are not ported yet; a plan that asks to serve is
+refused.
 
 Plans carry no execution state: the engine (``core/engine.py``) consumes a
 plan, owns the callable cache and the stage sequence, and emits records.
@@ -126,6 +126,11 @@ class ExecutionPlan:
     # times the hand-written kernel for workloads that declare one
     # (Workload.kernel), with a recorded fallback to torch otherwise.
     impl: str = "torch"
+    # Autotune: sweep each kernel's tune_space() in a stage between place and
+    # compile, timing candidates with the windowed timer; the winner persists
+    # in the engine's disk cache (--cache-dir) so warm runs skip the sweep.
+    # No-op for impl="torch" (there is nothing to tune on the torch path).
+    tune: bool = False
     # "cuda" (default) or "cpu". A CPU run of impl="kernel" runs the
     # kernels' plain versions, and its rows say so (impl_interpret=True).
     device: str = "cuda"

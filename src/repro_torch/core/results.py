@@ -43,6 +43,7 @@ __all__ = [
     "to_csv_lines",
     "write_report",
     "load_run",
+    "load_records",
     "gpu_name_and_power_limit",
 ]
 
@@ -70,6 +71,11 @@ class BenchmarkRecord:
     (``torch`` or ``kernel``); ``impl_interpret=True`` marks a kernel row
     that ran the kernels' plain versions on the CPU, never a kernel number;
     ``impl_fallback`` says why a kernel plan timed torch for this row.
+    ``tuned_params`` / ``tune_trials`` / ``tune_trials_us`` report the tune
+    stage: the winning tile, how many candidates were timed (0 = the winner
+    was restored from the disk cache, or the kernel has one candidate), and
+    the sweep's wall time; a candidate the kernel refused adds
+    ``tune_refused=N`` to ``derived``.
 
     The placement, tuning, serving and distributed columns are the
     reference's, kept so both packages' reports share one schema; the port
@@ -147,6 +153,9 @@ class BenchmarkRecord:
         impl: str = "torch",
         impl_interpret: bool | None = None,
         impl_fallback: str | None = None,
+        tuned_params: dict | None = None,
+        tune_trials: int | None = None,
+        tune_trials_us: float | None = None,
     ) -> "BenchmarkRecord":
         r = compiled.roofline
         bound = r.bound_s if r.bound_s > 0 else 1.0
@@ -174,6 +183,9 @@ class BenchmarkRecord:
             impl=impl,
             impl_interpret=impl_interpret,
             impl_fallback=impl_fallback,
+            tuned_params=tuned_params,
+            tune_trials=tune_trials,
+            tune_trials_us=tune_trials_us,
         )
 
     @classmethod
@@ -231,6 +243,12 @@ class BenchmarkRecord:
                 extra += ";interpret=1"
             if self.impl_fallback is not None:
                 extra += f";impl_fallback={self.impl_fallback}"
+        if self.tuned_params is not None:
+            tuned = "/".join(f"{k}={v}" for k, v in sorted(self.tuned_params.items()))
+            extra += (
+                f";tuned={tuned or 'default'};tune_trials={self.tune_trials};"
+                f"tune_us={self.tune_trials_us:.0f}"
+            )
         return (
             f"{self.name},{self.us_per_call:.2f},{self.devices},"
             f"{self.placement},{self.derived}{extra}"
@@ -263,12 +281,16 @@ class RunMetadata:
     placement: str = "replicate"
     timing_window: int = 1
     impl: str = "torch"
+    tune: bool = False  # whether the tune stage was enabled
     torch_version: str | None = None
     cuda_version: str | None = None  # the CUDA torch was built with
     device_name: str | None = None  # torch.cuda.get_device_name(), or "cpu"
     gpu_power_limit: str | None = None  # nvidia-smi name,power.limit
     allow_tf32_matmul: bool | None = None
     allow_tf32_cudnn: bool | None = None
+    # The disk cache's counters (core/hlocache.py), stamped at the end of a
+    # run that had a --cache-dir; None otherwise.
+    cache_stats: dict | None = None
 
     @classmethod
     def capture(
@@ -280,6 +302,7 @@ class RunMetadata:
         placement: str = "replicate",
         timing_window: int = 1,
         impl: str = "torch",
+        tune: bool = False,
     ) -> "RunMetadata":
         cuda = device == "cuda"
         return cls(
@@ -290,6 +313,7 @@ class RunMetadata:
             placement=placement,
             timing_window=timing_window,
             impl=impl,
+            tune=tune,
             torch_version=torch.__version__,
             cuda_version=torch.version.cuda,
             device_name=torch.cuda.get_device_name(0) if cuda else "cpu",
@@ -331,6 +355,12 @@ class JsonlReportWriter:
 
     def write(self, record: BenchmarkRecord) -> None:
         self._emit({"kind": "record", **dataclasses.asdict(record)})
+
+    def write_meta(self, metadata: RunMetadata) -> None:
+        """Emit another meta line. ``load_run`` keeps the last one, so the
+        engine writes the end-of-run metadata (with its cache counters) just
+        before closing, and a killed run still has the header."""
+        self._emit({"kind": "meta", **dataclasses.asdict(metadata)})
 
     def close(self) -> None:
         if not self._f.closed:
@@ -377,3 +407,7 @@ def load_run(path: str) -> tuple[RunMetadata | None, list[BenchmarkRecord]]:
         else:
             records.append(_record_from_dict(obj))
     return meta, records
+
+
+def load_records(path: str) -> list[BenchmarkRecord]:
+    return load_run(path)[1]

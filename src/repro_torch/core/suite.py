@@ -11,13 +11,19 @@ plus optional JSON and streaming JSONL reports.
 exit 2 and the reason; it never carries on on the CPU unless ``--device
 cpu`` asks for it. ``--impl kernel`` times the hand-written kernels for the
 workloads that declare one; on the CPU their plain versions run and the
-rows say so (``impl_interpret``).
+rows say so (``impl_interpret``). ``--tune`` sweeps each kernel's tiles
+before compiling and times the winner (``tuned_params``, ``tune_trials``,
+``tune_trials_us`` in the row); ``--cache-dir`` keeps the winners on disk,
+so a warm tuned run performs zero trials, and the CLI prints the cache's
+counters on stderr.
 
 Exit codes: 0 every row ok, 1 error rows present, 2 a configuration error
 (unknown name, bad override, no such device).
 
     PYTHONPATH=src python -m repro_torch.core.suite --names gemm_bf16_nn \\
         softmax --preset 4 --impl kernel --no-backward --jsonl run.jsonl
+    PYTHONPATH=src python -m repro_torch.core.suite --names gemm_f32_tn \\
+        --preset 4 --impl kernel --no-backward --tune --cache-dir /tmp/tune
 """
 
 from __future__ import annotations
@@ -45,12 +51,18 @@ def run_suite(
     seed: int = 0,
     timing_window: int = 4,
     impl: str = "torch",
+    tune: bool = False,
     device: str = "cuda",
     report_path: str | None = None,
     jsonl_path: str | None = None,
     verbose: bool = True,
     engine: Engine | None = None,
+    cache_dir: str | None = None,
 ) -> list[BenchmarkRecord]:
+    """Run a plan of these parameters on ``engine``, or on a new engine
+    with its tune winners under ``cache_dir`` (give one or the other)."""
+    if engine is not None and cache_dir is not None:
+        raise ValueError("pass engine or cache_dir, not both: the engine owns its disk cache")
     plan = ExecutionPlan(
         levels=tuple(levels),
         names=tuple(names) if names is not None else None,
@@ -62,9 +74,10 @@ def run_suite(
         seed=seed,
         timing_window=timing_window,
         impl=impl,
+        tune=tune,
         device=device,
     )
-    result = (engine or Engine()).run(
+    result = (engine or Engine(cache_dir=cache_dir)).run(
         plan, report_path=report_path, jsonl_path=jsonl_path, verbose=verbose
     )
     return result.records
@@ -113,6 +126,14 @@ def main(argv: Sequence[str] | None = None) -> int:
                     help="implementation to time: the plain PyTorch path "
                          "(torch, default) or the hand-written kernels "
                          "(kernel) for workloads that declare one")
+    ap.add_argument("--tune", action="store_true",
+                    help="sweep each kernel's tile candidates before compiling "
+                         "(windowed-timer trials); the winner joins the row "
+                         "(tuned_params) and persists in --cache-dir")
+    ap.add_argument("--cache-dir", type=str, default=None,
+                    help="keep tune winners here, versioned by the port's "
+                         "source, torch, CUDA and the device, so warm --tune "
+                         "runs skip the sweep")
     ap.add_argument("--device", choices=DEVICES, default="cuda",
                     help="where to run (default cuda; a missing CUDA device "
                          "is an error, never a silent CPU run)")
@@ -121,6 +142,7 @@ def main(argv: Sequence[str] | None = None) -> int:
     ap.add_argument("--jsonl", type=str, default=None,
                     help="streaming JSONL report path (with run metadata)")
     args = ap.parse_args(argv)
+    engine = Engine(cache_dir=args.cache_dir)
     try:
         records = run_suite(
             levels=args.levels,
@@ -132,17 +154,22 @@ def main(argv: Sequence[str] | None = None) -> int:
             seed=args.seed,
             timing_window=args.timing_window,
             impl=args.impl,
+            tune=args.tune,
             device=args.device,
             include_backward=not args.no_backward,
             report_path=args.report,
             jsonl_path=args.jsonl,
             verbose=False,
+            engine=engine,
         )
     except (PlanError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     for line in to_csv_lines(records):
         print(line)
+    if engine.disk_cache is not None:
+        # A disk cache that never hits is otherwise invisible from the CLI.
+        print(f"# {engine.disk_cache.summary()}", file=sys.stderr)
     errors = [r for r in records if r.status != "ok"]
     for r in errors:
         print(f"# ERROR {r.name}: {r.error}", file=sys.stderr)

@@ -214,10 +214,13 @@ def _batch_stride(t: torch.Tensor) -> int:
 
 
 def _check_tile(name: str, block_m: int, block_n: int) -> None:
-    """Raise unless entry ``name`` compiles the tile (block_m, block_n)."""
+    """Raise :class:`~repro_torch.kernels.ops.TileRefused` unless entry
+    ``name`` compiles the tile (block_m, block_n)."""
+    from repro_torch.kernels.ops import TileRefused  # ops imports this module
+
     tiles = F32_TILES if name == "matmul_f32" else (_TILE,)
     if {"block_m": block_m, "block_n": block_n} not in tiles:
-        raise ValueError(
+        raise TileRefused(
             f"no compiled tile ({block_m}, {block_n}) for {name}; compiled: {list(tiles)}"
         )
 

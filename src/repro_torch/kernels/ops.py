@@ -20,6 +20,10 @@ every call, and the engine enters the context around every call it makes.
 ``KERNEL_OPS`` names the ops that have a kernel, each mapped to its module
 (whose ``tune_space()`` the tune stage sweeps). Only ops with a kernel are
 listed, so nothing can ask for a kernel that does not exist.
+
+:class:`TileRefused` is what a kernel raises, before any launch, for block
+parameters it has no compiled tile for: the tune stage skips such a
+candidate and counts it, where any other error fails the row.
 """
 
 from __future__ import annotations
@@ -42,10 +46,16 @@ from repro_torch.kernels import srad_stencil as _srad_mod
 
 __all__ = [
     "matmul", "attention", "softmax", "lrn", "avgpool", "srad_step", "prefix_scan", "sort_kv",
-    "force_impl", "takes_kernel", "tune_space", "KERNEL_OPS", "MODES",
+    "force_impl", "takes_kernel", "tune_space", "KERNEL_OPS", "MODES", "TileRefused",
 ]
 
 Mode = Literal["auto", "kernel", "ref"]
+
+
+class TileRefused(ValueError):
+    """Block parameters naming a tile the routed entry does not compile,
+    raised before anything is launched."""
+
 MODES = ("auto", "kernel", "ref")
 
 # op name -> kernel module exporting tune_space(). A Workload's ``kernel``

@@ -1285,3 +1285,52 @@ def test_feature_studies_run_on_the_card_at_small_sizes(card):
     assert "concurrent_managed_access=1" in rows[0][2]
     rows = feat_dynamic_parallelism.rows(64, sizes=(128, 256))
     assert [r[2].split(";")[-1] for r in rows] == ["mixed_tiles=16", "mixed_tiles=60"]
+
+
+def test_bf16_matmul_refuses_the_wide_tile_before_launching_and_tune_skips_it(card):
+    from repro_torch.kernels.ops import TileRefused
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    a, b = (torch.randn(256, 256, generator=gen, device=card).bfloat16() for _ in range(2))
+    assert matmul._route(a, b) == "matmul_bf16"
+    before = dict(matmul.launches)
+    with pytest.raises(TileRefused, match="no compiled tile"):
+        matmul.matmul_cuda(a, b, block_n=256)
+    torch.cuda.synchronize()
+    assert matmul.launches == before  # refused before any launch
+    res = Engine().run(ExecutionPlan(
+        names=("gemm_bf16_nn",), preset=0, iters=2, warmup=1, include_backward=False,
+        impl="kernel", tune=True,
+    ))
+    (rec,) = res.records
+    assert rec.status == "ok", rec.error
+    assert rec.tuned_params == matmul.F32_TILES[0] and rec.tune_trials == 1
+    assert rec.derived.endswith(";tune_refused=1")
+    assert matmul.launches["matmul_bf16"] > before["matmul_bf16"]
+
+
+def test_tune_of_gemm_f32_tn_on_the_card_cold_then_warm(card, tmp_path):
+    plan = ExecutionPlan(names=("gemm_f32_tn",), preset=0, iters=2, warmup=1,
+                         include_backward=False, impl="kernel", tune=True)
+    launched = []
+
+    class Logged(Engine):
+        def _time_tune_trial(self, entry, args, plan):
+            before = matmul.launches["matmul_f32"]
+            us = super()._time_tune_trial(entry, args, plan)
+            launched.append(matmul.launches["matmul_f32"] - before)
+            return us
+
+    cold = Logged(cache_dir=str(tmp_path))
+    (rec,) = cold.run(plan).records
+    assert rec.status == "ok", rec.error
+    assert rec.tune_trials == 2 and rec.tuned_params in matmul.F32_TILES
+    # Each trial: warm-up 1, then min(iters, 3) windows of timing_window calls.
+    assert launched == [1 + 2 * plan.timing_window] * 2
+    assert cold.disk_cache.tune_stores == 1
+    warm = Logged(cache_dir=str(tmp_path))
+    (rec2,) = warm.run(plan).records
+    assert rec2.status == "ok", rec2.error
+    assert rec2.tune_trials == 0 and rec2.tuned_params == rec.tuned_params
+    assert warm.disk_cache.tune_hits == 1 and len(launched) == 2
+    assert torch.cuda.get_device_name(0).replace(" ", "_") in warm.disk_cache.root

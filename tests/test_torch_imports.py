@@ -59,6 +59,12 @@ def test_port_imports_no_jax_and_no_reference_module():
         "repro_torch.benchmarks.run", "repro_torch.benchmarks.feat_hyperq",
         "repro_torch.benchmarks.feat_unified_memory", "repro_torch.benchmarks.feat_coop_groups",
         "repro_torch.benchmarks.feat_dynamic_parallelism",
+        "repro_torch.core.hlocache", "repro_torch.benchmarks.table1_suite",
+        "repro_torch.benchmarks.table2_dnn_kernels", "repro_torch.benchmarks.fig3_dnn_forward",
+        "repro_torch.benchmarks.fig4_dnn_backward",
+        "repro_torch.benchmarks.fig5_suite_utilization",
+        "repro_torch.benchmarks.fig12_legacy_utilization", "repro_torch.benchmarks.fig_impl",
+        "repro_torch.benchmarks.roofline_table",
     } <= set(mods)
     script = textwrap.dedent(f"""
         import importlib, sys

@@ -38,7 +38,12 @@ exits nonzero without printing its result line:
    shape, aligned and off 16 bytes; both Mandelbrot kernels (flat, and
    Mariani-Silver with device-side launch) bit for bit against escape_time
    at the Dynamic Parallelism study's sizes and the preset-4 image, the
-   adaptive kernel's child grids equal to the mixed tiles;
+   adaptive kernel's child grids equal to the mixed tiles; the bf16 GEMM's
+   batch axis at the served shapes (4 x 4096^3 and 4 x 1024^3, A batched
+   or broadcast, "nn" and "tn"), one launch, each member bit-equal to the
+   2-D kernel's product; and each kernel op's batching rule under
+   ``torch.vmap`` (one launch over the folded batch, or one a member for
+   the scan, the sort and SRAD) against the plain version of each member;
 4. the main path: the port's suite at preset 4 with ``--impl kernel`` over
    the 8 benchmarks of the first slice (forward), with every launch counter
    set to 0 just before and read just after (each kernel must have
@@ -82,6 +87,17 @@ exits nonzero without printing its result line:
    rows and seconds printed, any error row failing the run, and the
    counters of matmul_f32, softmax_f32, lrn_f32, avgpool_f32 and
    prefix_scan_f32 nonzero after the phase;
+4h. serving: ``benchmarks.fig_concurrency`` at preset 4 with ``--impl
+   kernel`` (Pathfinder and the f32 GEMM at lanes 1-32 under the single and
+   the threaded client, 0.3 s each, and the co-located pair), then mixed
+   serving of gemm_bf16_nn (p4 and p4 n=1024, max batch 4) and softmax (p3
+   and p3 classes=16384, max batch 8): every (bucket, width) call checked
+   against the width-1 call on each member's inputs, a saturating loop run,
+   then loop, lanes, batched and dynamic replaying one trace at 0.8x the
+   loop's achieved QPS; then ``benchmarks.fig_batching`` at the reference's
+   defaults. Every suite run's launch counters equal the calls its rows
+   made (counted through the engine's serve seam, warm-ups and first calls
+   included); the WMMA kernel never launches;
 4b. the kernel rows of all paths at preset 0, kernel against torch on the
    same inputs, f32 products against an f64 evaluation; the Softmax and
    LRN rows at presets 0-3, each call on the redesigned entry and passing
@@ -103,8 +119,9 @@ exits nonzero without printing its result line:
    work (attention at the serving path's prefill and decode shapes, against
    ``F.scaled_dot_product_attention`` as the yardstick; the f32 kernel and
    the SIMT f32 kernel it replaced also at the f32 smoke run's own shapes),
-   the replaced kernels (the SIMT f32
-   GEMM, 2-D and batched; the WMMA bf16 GEMM; SIMT attention; the online
+   the bf16 GEMM's batch axis at the served shapes against batched
+   ``torch.matmul`` (and the 2-D kernel at 1024^3), the replaced kernels
+   (the SIMT f32 GEMM, 2-D and batched; the WMMA bf16 GEMM; SIMT attention; the online
    softmax; the shared-memory LRN) timed beside their successors at the
    same shapes; the f32 GEMM at each compiled tile; a device copy of the
    softmax's and the LRN's inputs (the bytes alone); the decode kernel at
@@ -181,6 +198,32 @@ OFF_PATH = ("sort_kv_f32", "matmul_f32_simt", "matmul_f32_simt_batched", "matmul
 # paper's report sections, and the kernels their kernel rows reach
 # (fig_impl, Table II).
 TUNE_PATH = ("gemm_f32_nn", "gemm_f32_tn", "gemm_bf16_nn")
+# Serving (phase 4h): fig_concurrency's workloads and lane counts (the
+# reference's defaults) at preset 4; the mixed rows, each (plan preset,
+# --serve-mix, --max-batch, the op's tolerance); the kernel a served call of
+# each row reaches at width 1 and at width > 1; the calls of a measured row
+# besides its first (validation, warm-up 0, 1 timed, 4 windowed).
+SERVE_CONCURRENCY = ("pathfinder", "gemm_f32_nn")
+SERVE_LANES = (1, 2, 4, 8, 16, 32)
+SERVE_DURATION = 0.3
+MIXED_SERVE = {
+    "gemm_bf16_nn": (4, "4@1,4/n=1024@2", 4, 2e-2),
+    "softmax": (3, "3@2,3/classes=16384@1", 8, 1e-5),
+}
+MIXED_DISPATCH = ("loop", "lanes", "batched", "dynamic")
+MIXED_DURATION = 0.5
+MIXED_SATURATE_QPS = 20000.0
+SERVE_SLO_US = 20000.0
+SERVE_KERNELS = {
+    "pathfinder": {},
+    "gemm_f32_nn": {1: "matmul_f32", "w": "matmul_f32_batched"},
+    "gemm_bf16_nn": {1: "matmul_bf16", "w": "matmul_bf16_batched"},
+    "softmax": {1: "softmax_f32", "w": "softmax_f32"},
+}
+MEASURE_CALLS = 1 + 0 + 1 + 1 * 4
+# The served bf16 products (batch, n, A broadcast, layout).
+SERVED_BF16 = [(4, 4096, False, "nn"), (4, 4096, False, "tn"), (4, 4096, True, "nn"),
+               (4, 1024, False, "nn"), (4, 1024, False, "tn"), (4, 1024, True, "nn")]
 REPORT_SECTIONS = ("table1", "table2", "fig3", "fig4", "fig5", "fig12", "fig_impl", "roofline")
 REPORT_KERNELS = ("matmul_f32", "softmax_f32", "lrn_f32", "avgpool_f32", "prefix_scan_f32")
 PRESET, ITERS, WARMUP, WINDOW = 4, 5, 2, 4
@@ -305,6 +348,8 @@ KERNEL_SOURCES = {
                                 "src/repro/kernels/matmul.py:55"),
     "matmul_bf16": ("src/repro_torch/kernels/csrc/matmul_wgmma.cu",
                     "src/repro/kernels/matmul.py:55"),
+    "matmul_bf16_batched": ("src/repro_torch/kernels/csrc/matmul_wgmma.cu",
+                            "src/repro/kernels/matmul.py:55"),
     "matmul_bf16_wmma": ("src/repro_torch/kernels/csrc/matmul.cu",
                          "src/repro/kernels/matmul.py:55"),
     "softmax_f32": ("src/repro_torch/kernels/csrc/softmax.cu", "src/repro/kernels/softmax.py:68"),
@@ -549,6 +594,102 @@ def _batched_matmul_case(torch, matmul, gen, dt, batch, m, k, n, shared, block_n
     if not ok:
         _fail(f"{what} disagrees with its plain version")
     return key, max_diff
+
+
+def _bf16_batched_case(torch, matmul, gen, batch, n, shared, trans) -> float:
+    """A served bf16 product: ``batch`` members of (n x n) @ (n x n), A
+    batched (or one A broadcast to every member), "nn" or "tn" (A's
+    transposed view). One launch, counted under matmul_bf16_batched; each
+    member bit-equal to the 2-D kernel's product on that member, and the
+    batch within the exact check's bound of f64 and of the plain version.
+    -> max abs kernel - plain."""
+    dt = torch.bfloat16
+    shape = () if shared else (batch,)
+    if trans == "tn":
+        a = torch.randn(*shape, n, n, generator=gen, device="cuda").to(dt).transpose(-1, -2)
+    else:
+        a = torch.randn(*shape, n, n, generator=gen, device="cuda").to(dt)
+    b = torch.randn(batch, n, n, generator=gen, device="cuda").to(dt)
+    if matmul._route(a, b) != "matmul_bf16":
+        _fail(f"the served bf16 product {batch}x{n}^3 {trans} routed to {matmul._route(a, b)}")
+    before = dict(matmul.launches)
+    out = matmul.matmul_cuda(a, b)
+    torch.cuda.synchronize()
+    launched = {k: matmul.launches[k] - before[k] for k in before if matmul.launches[k] != before[k]}
+    if launched != {"matmul_bf16_batched": 1} or tuple(out.shape) != (batch, n, n):
+        _fail(f"batched bf16 {batch}x{n}^3: launches {launched}, shape {tuple(out.shape)}")
+    members = [torch.equal(out[j], matmul.matmul_cuda(a if shared else a[j], b[j]))
+               for j in range(batch)]
+    plain = matmul.matmul_plain(a, b)
+    exact = torch.matmul(a.double(), b.double())
+    ok, line, diff = _exact_check(out.float(), plain.float(), exact, n, _rms(a) * _rms(b), dt)
+    ref_ok = bool(((out.float() - plain.float()).abs() <= 2e-2 + 2e-2 * plain.float().abs()).all())
+    print(f"  matmul_bf16_batched {'shared a' if shared else 'both'} {trans} {batch}x({n},{n},{n}) "
+          f"{line}; reference tolerance 2e-2 {'ok' if ref_ok else 'FAIL'}; members equal to "
+          f"the 2-D kernel's {sum(members)}/{batch}")
+    if not (ok and ref_ok and all(members)):
+        _fail(f"the batched bf16 product {batch}x{n}^3 {trans} disagrees")
+    return diff
+
+
+def _batching_rule_cases(torch, gen) -> None:
+    """Each kernel op's batching rule under torch.vmap on the card: the
+    launches the rule makes (one for the folding rules, one a member for
+    the looped ones) and each member against the plain version of that
+    member, at the reference's tolerances."""
+    from repro_torch.kernels import ops
+
+    w = 3
+
+    def r(*shape, dt=torch.float32):
+        return torch.randn(w, *shape, generator=gen, device="cuda").to(dt)
+
+    bf = torch.bfloat16
+    cases = (
+        ("matmul f32", lambda x, y: ops.matmul(x, y), (r(130, 72), r(72, 96)),
+         {"matmul_f32_batched": 1}, 1e-5),
+        ("matmul f32 tn", lambda x, y: ops.matmul(x.T, y), (r(72, 128), r(72, 96)),
+         {"matmul_f32_batched": 1}, 1e-5),
+        ("matmul bf16", lambda x, y: ops.matmul(x, y), (r(256, 128, dt=bf), r(128, 256, dt=bf)),
+         {"matmul_bf16_batched": 1}, 2e-2),
+        ("matmul bf16 tn", lambda x, y: ops.matmul(x.T, y),
+         (r(128, 256, dt=bf), r(128, 256, dt=bf)), {"matmul_bf16_batched": 1}, 2e-2),
+        ("softmax", lambda x: ops.softmax(x), (5 * r(64, 1000),), {"softmax_f32": 1}, 1e-5),
+        ("lrn", lambda x: ops.lrn(x, size=5), (r(2, 64, 8, 8),), {"lrn_f32": 1}, 1e-5),
+        ("avgpool", lambda x: ops.avgpool(x, ksize=2), (r(2, 8, 16, 16),), {"avgpool_f32": 1},
+         1e-6),
+        ("attention", lambda q, k, v: ops.attention(q, k, v, causal=True),
+         (r(2, 4, 64, 64, dt=bf), r(2, 2, 64, 64, dt=bf), r(2, 2, 64, 64, dt=bf)),
+         {"flash_attention_bf16_wgmma": 1}, 2e-2),
+        ("prefix_scan", lambda x: ops.prefix_scan(x), (r(5000),), {"prefix_scan_f32": w}, 1e-4),
+        ("sort_kv", lambda k, v: ops.sort_kv(k, v),
+         (torch.randint(0, 100, (w, 5000), generator=gen, device="cuda", dtype=torch.int32),
+          torch.arange(w * 5000, device="cuda", dtype=torch.int32).view(w, 5000)),
+         {"sort_kv_i32": w}, 0.0),
+        ("srad_step", lambda x: ops.srad_step(x), (r(64, 64).abs() + 0.5,),
+         {"srad_fused_f32": w}, 0.0),
+    )
+    for what, fn, args, want, tol in cases:
+        before = _read_launches()
+        with ops.force_impl("kernel"):
+            got = torch.vmap(fn)(*args)
+        torch.cuda.synchronize()
+        after = _read_launches()
+        launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        got = got if isinstance(got, tuple) else (got,)
+        worst = 0.0
+        for j in range(w):
+            with ops.force_impl("ref"):
+                plain = fn(*(x[j] for x in args))
+            for g, p in zip(got, plain if isinstance(plain, tuple) else (plain,)):
+                d = (g[j].float() - p.float()).abs()
+                worst = max(worst, d.max().item())
+                if not bool((d <= tol + tol * p.float().abs()).all()):
+                    _fail(f"batching rule of {what}: member {j} disagrees with its plain version")
+        print(f"  batching rule {what:15s} width {w}: launches {launched}, members against "
+              f"their plain versions max_abs {worst:.3e} [tolerance {tol:g}] ok")
+        if launched != want:
+            _fail(f"batching rule of {what}: launches {launched}, expected {want}")
 
 
 def _softmax_agrees(out, want, dt):
@@ -937,6 +1078,10 @@ def phase_kernels(torch) -> dict:
     key, e = _batched_matmul_case(torch, matmul, gen, torch.float32, images, o, ckk, ohw, True,
                                   entry="matmul_f32_simt")  # for phase 5
     err[key] = max(err[key], e)
+    for batch, n, shared, trans in SERVED_BF16:  # the served bf16 products (phase 4h)
+        err["matmul_bf16_batched"] = max(err["matmul_bf16_batched"], _bf16_batched_case(
+            torch, matmul, gen, batch, n, shared, trans))
+    _batching_rule_cases(torch, gen)
     for dt in (torch.float32, torch.bfloat16):
         for r, c in SOFTMAX_SMALL:
             _softmax_case(torch, softmax, gen, dt, r, c)
@@ -1538,6 +1683,226 @@ def phase_tune_reports(torch) -> dict:
     return launches
 
 
+def _counting_engine():
+    """An engine whose serve seam counts each served row's calls by (row,
+    width), and which records, for each run, the launch counters' deltas,
+    the cache entries it built and the calls it served."""
+    import threading
+
+    from repro_torch.core.engine import Engine
+
+    class CountingEngine(Engine):
+        def __init__(self) -> None:
+            super().__init__()
+            self.runs = []
+            self._lock = threading.Lock()
+            self._calls = {}
+
+        def run(self, plan, **kw):
+            self._calls = {}
+            keys, before = set(self.cache._entries), _read_launches()
+            res = super().run(plan, **kw)
+            after = _read_launches()
+            self.runs.append(dict(
+                plan=plan, records=res.records, served=dict(self._calls),
+                new_keys=[k for k in self.cache._entries if k not in keys],
+                launched={k: after[k] - before[k] for k in after if after[k] != before[k]},
+            ))
+            return res
+
+        def _served(self, name, width, call):
+            key = (name, width)
+
+            def counted():
+                with self._lock:  # the threaded client's lanes call at once
+                    self._calls[key] = self._calls.get(key, 0) + 1
+                return call()
+
+            return counted
+
+    return CountingEngine()
+
+
+def _check_served_launches(runs) -> dict:
+    """Each run's launch deltas against the calls its rows made: a first
+    call for every callable it built, MEASURE_CALLS for every measured row,
+    and every served call (warm-ups included), each under the kernel its
+    width reaches (SERVE_KERNELS). -> the launches of all the runs."""
+    total = {}
+    for run in runs:
+        bad = [r for r in run["records"] if r.status != "ok"]
+        if bad:
+            _fail(f"served rows failed: {[(r.name, r.error) for r in bad]}")
+        want = {}
+
+        def add(name, width, n):
+            kernel = SERVE_KERNELS[name].get("w" if width > 1 else 1)
+            if kernel and n:
+                want[kernel] = want.get(kernel, 0) + n
+
+        for key in run["new_keys"]:  # a key ending ("vmap", w) is a width-w callable
+            add(key[0], key[-1] if key[-2:-1] == ("vmap",) else 1, 1)
+        for name in run["plan"].names:
+            add(name, 1, MEASURE_CALLS)
+        for (name, width), n in run["served"].items():
+            add(name, width, n)
+        if run["launched"] != want:
+            names = ",".join(run["plan"].names)
+            _fail(f"serving {names}: launches {run['launched']} against the calls the rows "
+                  f"made {want} (served {run['served']})")
+        for k, n in run["launched"].items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def _served_calls_match_members(torch, name, preset, mix, max_batch, tol) -> None:
+    """Before serving: every (bucket, width) call the engine builds for this
+    mix, member j of its output against the width-1 call on
+    ``make_inputs(seed + j)``, within the op's tolerance."""
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core.harness import commit_args
+    from repro_torch.core.plan import ExecutionPlan, ServeSpec
+    from repro_torch.core.registry import get_benchmark
+    from repro_torch.core.suite import _parse_mix
+
+    spec = get_benchmark(name)
+    serve = ServeSpec(mode="open", qps=1.0, dispatch="dynamic", mix=_parse_mix(mix),
+                      max_batch=max_batch)
+    plan = ExecutionPlan(names=(name,), preset=preset, impl="kernel", serve=serve)
+    engine_mod._prepare_device(plan)
+    eng = engine_mod.Engine()
+    calls = eng._build_bucket_calls(spec, plan, preset, plan.placement, "kernel", None)
+    for bucket in serve.mix:
+        wl = spec.build_preset(bucket.preset, **dict(bucket.overrides))
+        one = engine_mod.bind_impl(wl.fn, wl, "kernel")
+        wants = [one(*commit_args(wl.make_inputs(plan.seed + j), "cuda"))
+                 for j in range(max(calls[bucket.label]))]
+        for width, call in calls[bucket.label].items():
+            out = call().clone()
+            worst = 0.0
+            for j in range(width):
+                want = wants[j]
+                got = out if width == 1 else out[j]
+                d = (got.double() - want.double()).abs()
+                worst = max(worst, d.max().item())
+                if not bool((d <= tol + tol * want.double().abs()).all()):
+                    _fail(f"{name} {bucket.label} width {width}: member {j} differs from the "
+                          f"width-1 call on its inputs")
+            print(f"  {name} {bucket.label:18s} width {width}: {width} members against the "
+                  f"width-1 call on make_inputs(seed + j): max_abs {worst:.3e} "
+                  f"[tolerance {tol:g}] ok")
+        del calls[bucket.label], wants
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_serving(torch) -> dict:
+    """fig_concurrency at preset 4, then mixed serving over kernel rows
+    (each (bucket, width) call checked first; offered load 0.8x the loop
+    dispatch's achieved QPS; one trace replayed by every dispatch), then
+    fig_batching at its reference defaults. Every run's launch counters
+    are held to the calls its rows made."""
+    from repro_torch.benchmarks import fig_batching, fig_concurrency
+    from repro_torch.benchmarks.common import ERROR_PREFIX, parse_derived
+    from repro_torch.core.plan import ServeSpec
+    from repro_torch.core.suite import _parse_mix, run_suite
+
+    print(f"== phase 4h: serving (fig_concurrency at preset {PRESET}, --impl kernel; mixed "
+          "serving over kernel rows; fig_batching at its defaults)")
+    t0 = time.perf_counter()
+    eng = _counting_engine()
+    rows = fig_concurrency.lane_sweep_rows(
+        preset=PRESET, names=SERVE_CONCURRENCY, lanes_sweep=SERVE_LANES,
+        duration_s=SERVE_DURATION, engine=eng, impl="kernel",
+    ) + fig_concurrency.colocation_rows(
+        preset=PRESET, names=SERVE_CONCURRENCY, duration_s=SERVE_DURATION, engine=eng,
+        impl="kernel",
+    )
+    for name, us, derived in rows:
+        f = parse_derived(derived)
+        print(f"  {name:52s} qps {f.get('qps')} p50_us {f.get('p50_us')} p99_us "
+              f"{f.get('p99_us')} dispatch_speedup {f.get('dispatch_speedup', '-')} "
+              f"dispatch_overhead_us {f.get('dispatch_overhead_us', '-')}"
+              + (f" slowdown {f['slowdown']}" if "slowdown" in f else ""))
+        if derived.startswith(ERROR_PREFIX) or not float(f.get("qps", 0)) > 0:
+            _fail(f"fig_concurrency row {name}: {derived}")
+    if len(rows) != 2 * len(SERVE_LANES) * 2 + 2:
+        _fail(f"fig_concurrency printed {len(rows)} rows")
+    launches = _check_served_launches(eng.runs)
+    served = sum(n for run in eng.runs for n in run["served"].values())
+    print(f"  fig_concurrency: {len(eng.runs)} suite runs, {served} served calls, launches "
+          f"{launches} (each run's equal to its rows' calls) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name, (preset, mix, max_batch, tol) in MIXED_SERVE.items():
+        t1 = time.perf_counter()
+        _served_calls_match_members(torch, name, preset, mix, max_batch, tol)
+        common = dict(mode="open", duration_s=MIXED_DURATION, concurrency=16, lanes=4,
+                      slo_us=SERVE_SLO_US, mix=_parse_mix(mix), max_batch=max_batch,
+                      batch_budget_us=1000.0)
+        fast = dict(names=[name], preset=preset, impl="kernel", iters=1, warmup=0,
+                    include_backward=False, verbose=False)
+        sat = _counting_engine()
+        (rec,) = run_suite(serve=ServeSpec(qps=MIXED_SATURATE_QPS, dispatch="loop", **dict(
+            common, duration_s=0.25)), engine=sat, **fast)
+        if rec.status != "ok":
+            _fail(f"{name}: the saturating loop run failed: {rec.error}")
+        offered = 0.8 * rec.achieved_qps
+        print(f"  {name} mix {mix}: loop dispatch at {MIXED_SATURATE_QPS:.0f} offered achieved "
+              f"{rec.achieved_qps:.1f} qps; offering 0.8x = {offered:.1f} qps to each dispatch")
+        runs = sat.runs
+        requests = set()
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = os.path.join(tmp, f"{name}.jsonl")
+            for dispatch in MIXED_DISPATCH:
+                e = _counting_engine()
+                (rec,) = run_suite(serve=ServeSpec(qps=offered, dispatch=dispatch,
+                                                   trace=trace, **common), engine=e, **fast)
+                if rec.status != "ok":
+                    _fail(f"{name} {dispatch}: {rec.error}")
+                runs += e.runs
+                requests.add(rec.serve_requests)
+                widths = sorted({w for (_, w) in e.runs[0]["served"]})
+                print(f"  {name} {dispatch:8s} goodput {rec.goodput_qps:.1f} qps (achieved "
+                      f"{rec.achieved_qps:.1f}) p50 {rec.latency_p50_us:.1f} us p99 "
+                      f"{rec.latency_p99_us:.1f} us occupancy {rec.batch_occupancy:.3f} "
+                      f"padding_waste {rec.padding_waste:.3f} batches {rec.serve_batches} "
+                      f"requests {rec.serve_requests} widths {widths} launches "
+                      f"{e.runs[0]['launched']}")
+        if len(requests) != 1:
+            _fail(f"{name}: the replayed trace served {sorted(requests)} requests")
+        got = _check_served_launches(runs)
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        print(f"  {name}: launches {got} (each run's equal to its rows' calls) in "
+              f"{time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    eng = _counting_engine()
+    rows = fig_batching.rows(engine=eng)
+    for name, us, derived in rows:
+        print(f"  {name:40s} {derived}")
+        if derived.startswith(ERROR_PREFIX):
+            _fail(f"fig_batching row {name}: {derived}")
+    if [r[0].rsplit(".", 1)[1] for r in rows] != list(fig_batching.DEFAULT_DISPATCHES):
+        _fail(f"fig_batching rows {[r[0] for r in rows]}")
+    if _check_served_launches(eng.runs):  # Pathfinder: no kernel
+        _fail("fig_batching launched a kernel")
+    print(f"  fig_batching (pathfinder, preset 0, the reference's defaults) in "
+          f"{time.perf_counter() - t1:.1f} s")
+    if launches.get("matmul_bf16_wmma", 0) or launches.get("matmul_bf16_wmma_batched", 0):
+        _fail(f"serving launched the WMMA kernel: {launches}")
+    for kernel in ("matmul_f32", "matmul_bf16", "matmul_bf16_batched", "softmax_f32"):
+        if not launches.get(kernel):
+            _fail(f"kernel {kernel} did not launch while serving")
+    from repro_torch.bench.level1 import pathfinder
+
+    pathfinder.GRAPHS.clear()
+    torch.cuda.empty_cache()
+    print(f"  launches over phase 4h: {launches}; phase 4h {time.perf_counter() - t0:.1f} s")
+    out = {k: 0 for k in _read_launches()}
+    out.update(launches)
+    return out
+
+
 def _order(name: str):
     from repro_torch.core.registry import get_benchmark
 
@@ -1958,6 +2323,30 @@ def _yardstick_cases(torch, gen, hw):
         roof = roofline_terms(2.0 * n**3, 3.0 * n * n * dt.itemsize, dtype=dt, hw=hw)
         tile = f" tile 128x{bn}" if key == "matmul_f32" else ""
         rows.append((key, f"{n}x{n}x{n} {trans}{tile}", roof, cases))
+    # The served bf16 products (phase 4h) on the kernel's batch axis against
+    # batched torch.matmul; each input read once (a broadcast A once in
+    # all), the output written once. Beside them the 2-D kernel at 1024^3,
+    # the served product's other size.
+    for batch, m, shared, trans in SERVED_BF16:
+        a = torch.randn(*(() if shared else (batch,)), m, m, generator=gen,
+                        device="cuda").bfloat16()
+        if trans == "tn":
+            a = a.transpose(-1, -2)
+        b = torch.randn(batch, m, m, generator=gen, device="cuda").bfloat16()
+        cases = (functools.partial(matmul.matmul_cuda, a, b),
+                 functools.partial(matmul.matmul_plain, a, b),
+                 functools.partial(torch.matmul, a, b))
+        nbytes = 2.0 * m * m * ((1 if shared else batch) + 2 * batch)
+        roof = roofline_terms(2.0 * batch * m**3, nbytes, dtype=torch.bfloat16, hw=hw)
+        rows.append(("matmul_bf16_batched",
+                     f"{batch}x{m}x{m}x{m} {trans}{' shared a' if shared else ''}", roof, cases))
+    m = 1024
+    a, b = (torch.randn(m, m, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    rows.append(("matmul_bf16", f"{m}x{m}x{m} nn",
+                 roofline_terms(2.0 * m**3, 6.0 * m * m, dtype=torch.bfloat16, hw=hw),
+                 (functools.partial(matmul._launch, "matmul_bf16", a, b),
+                  functools.partial(matmul.matmul_plain, a, b),
+                  functools.partial(torch.matmul, a, b))))
     # Softmax at preset 4 on the register kernel and on the online kernel it
     # replaced on the path.
     r, c = SOFTMAX_PRESET4
@@ -2411,15 +2800,18 @@ def main() -> int:
     phase_no_kernel(torch)
     feature_launches = phase_features(torch)
     report_launches = phase_tune_reports(torch)
+    serve_launches = phase_serving(torch)
     phase_small_agreement(torch)
     lm_launches, lm = phase_lm_serving(torch)
     # Every count was checked per path; a kernel's launches are the sum over
     # the paths that run it (SRAD's three entries: phases 4c and 4f).
     launches = {k: main_launches[k] + dnn_launches[k] + level_launches[k] + lm_launches[k]
-                + feature_launches[k] + report_launches[k] for k in main_launches}
+                + feature_launches[k] + report_launches[k] + serve_launches[k]
+                for k in main_launches}
     kernels = phase_yardstick(torch, launches, errors)
-    # One row per kernel and shape (matmul_bf16 has two, nn and tn), the
-    # kernels of no path left out.
+    # One row per kernel and shape (matmul_bf16 has three, nn and tn at
+    # 4096^3 and nn at 1024^3; matmul_bf16_batched six), the kernels of no
+    # path left out.
     if {k["name"] for k in kernels} != set(KERNEL_SOURCES) - set(OFF_PATH):
         _fail("the kernels line does not list every kernel of the paths")
     idle = [k["name"] for k in kernels if k["launches"] == 0]

@@ -91,6 +91,9 @@ def _make(n: int, op: str) -> Workload:
         # As the reference: stream and reduce are data-parallel over the
         # element dim; vmem is one tile sliced from x.
         batch_dims=(0, 0) if op in ("stream", "reduce") else None,
+        # vmem replays a captured graph: a width-w serve call captures the
+        # batched loop as one graph of its own (core/engine.py).
+        meta={"graph_replay": True} if op == "vmem" else {},
     )
 
 

@@ -65,6 +65,9 @@ def _make(rows: int, cols: int) -> Workload:
         # Opt out, as the reference: rows are the sequential axis and each
         # step mixes neighbouring columns.
         batch_dims=None,
+        # fn replays a captured graph: a width-w serve call captures the
+        # batched loop as one graph of its own (core/engine.py).
+        meta={"graph_replay": True},
     )
 
 

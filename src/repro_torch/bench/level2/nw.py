@@ -92,6 +92,9 @@ def _make(n: int) -> Workload:
         validate=validate,
         # Opt out, as the reference: the wavefront is sequential.
         batch_dims=None,
+        # fn replays a captured graph: a width-w serve call captures the
+        # batched loop as one graph of its own (core/engine.py).
+        meta={"graph_replay": True},
     )
 
 

@@ -46,8 +46,9 @@ def srad_iterations(img: torch.Tensor, iters: int, lam: float, fused: bool) -> t
     graph of the loop (:data:`GRAPHS`, keyed by :func:`graph_key`): the
     first call for a key runs the loop eagerly and captures it, each later
     call replays it and returns the graph's static output tensor, which the
-    next call with the same key overwrites."""
-    if not img.is_cuda or iters == 0:
+    next call with the same key overwrites. Under ``torch.vmap`` the loop
+    runs eagerly, each step through ``srad_step``'s batching rule."""
+    if not img.is_cuda or iters == 0 or ops.is_batched(img):
         return _steps(img, iters, lam, fused)
     counters = [mod.launches for mod in ops.KERNEL_OPS.values()]
     return GRAPHS(graph_key(img, iters, lam, fused), _steps, (img, iters, lam, fused),

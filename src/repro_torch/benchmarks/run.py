@@ -25,13 +25,19 @@ stderr, and exit 1 when any row failed. Sections:
                              Mariani-Silver with device-side launch
   roofline                 — roofline rows of the suite report at
                              ``artifacts/suite_report.json``, if there is one
+  fig_concurrency          — dispatch lanes under the single and the
+                             threaded client, and a co-located pair
+  fig_batching             — loop, lanes and the dynamic batcher replaying
+                             one mixed-shape trace
 
-The suite-backed sections (fig12, fig3, fig4, fig5, fig_impl) run through
-``run_suite`` at ``--preset`` with per-benchmark fault isolation; the
+The suite-backed sections (fig12, fig3, fig4, fig5, fig_impl,
+fig_concurrency, fig_batching) run through ``run_suite`` at ``--preset``
+with per-benchmark fault isolation, ``--impl`` naming the implementation of
+the two serving sections (torch, the reference's default, or kernel); the
 feature studies take their own sizes (the reference's). The reference's
-``fig_scaling``, ``fig_concurrency``, ``fig_batching``, ``fig_dist`` and
-``fig_trace`` wait for device sweeps, serving and tracing (ROADMAP queue 1,
-items 12, 14 and 15), and its dry-run roofline cells for item 16.5.
+``fig_scaling``, ``fig_dist`` and ``fig_trace`` wait for device sweeps,
+distributed load generation and tracing (ROADMAP queue 1, items 12 and
+15), and its dry-run roofline cells for item 16.5.
 
 ``--device`` is ``cuda`` unless the caller asks for the CPU, where the
 plain versions run; without a CUDA card a ``cuda`` run exits 2 before
@@ -60,6 +66,8 @@ SECTION_NAMES = (
     "feat_coop_groups",
     "feat_dynamic_parallelism",
     "roofline",
+    "fig_concurrency",
+    "fig_batching",
 )
 
 
@@ -70,6 +78,9 @@ def main(argv=None) -> int:
                     help=f"subset of sections to run; valid: {', '.join(SECTION_NAMES)}")
     ap.add_argument("--preset", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--impl", choices=("torch", "kernel"), default="torch",
+                    help="implementation the serving sections time (default torch, "
+                         "the reference's default)")
     args = ap.parse_args(argv)
 
     selected = args.sections or list(SECTION_NAMES)
@@ -93,6 +104,8 @@ def main(argv=None) -> int:
         feat_hyperq,
         feat_unified_memory,
         fig3_dnn_forward,
+        fig_batching,
+        fig_concurrency,
         fig4_dnn_backward,
         fig5_suite_utilization,
         fig12_legacy_utilization,
@@ -103,7 +116,7 @@ def main(argv=None) -> int:
     )
     from repro_torch.benchmarks.common import ERROR_PREFIX
 
-    preset, device = args.preset, args.device
+    preset, device, impl = args.preset, args.device, args.impl
     sections = {
         "table1": table1_suite.rows,
         "fig12": lambda: fig12_legacy_utilization.rows(preset=preset, device=device),
@@ -117,6 +130,8 @@ def main(argv=None) -> int:
         "feat_coop_groups": lambda: feat_coop_groups.rows(device=device),
         "feat_dynamic_parallelism": lambda: feat_dynamic_parallelism.rows(device=device),
         "roofline": roofline_table.rows_from_latest_report,
+        "fig_concurrency": lambda: fig_concurrency.rows(preset=preset, impl=impl, device=device),
+        "fig_batching": lambda: fig_batching.rows(preset=preset, impl=impl, device=device),
     }
     # SECTION_NAMES exists so --sections validates before the imports above;
     # keep the two in sync.

@@ -40,6 +40,23 @@ benchmark the engine runs the stages:
   for the row's dtype, memoized beside the callable. A host-transfer row
   gets none: its bytes cross the host bus, and HBM's rate is no bound for
   them.
+- **serve** (only when the plan carries a
+  :class:`~repro_torch.core.plan.ServeSpec`, forward passes only): serve
+  the measure stage's bound callable under generated load through
+  ``repro_torch.serve`` — open-loop arrivals at a target QPS or closed-loop
+  at fixed concurrency, across N dispatch lanes, issued by the spec's
+  client (``single``: every lane from this thread; ``threaded``: a thread a
+  lane, all on the device's current stream) — and fold the latency
+  percentiles, achieved QPS and truncation flag into the record. With
+  ``colocate`` the workload is also served against a partner on split
+  lanes, and both rows carry their p50 slowdown against isolation. With a
+  mix of :class:`~repro_torch.core.plan.ShapeBucket` s (or a trace, or a
+  batcher dispatch) the stage builds one callable per (bucket, batch
+  width), width w being ``torch.vmap`` of the pass's function over w
+  requests' stacked inputs (kernel routes reach their batching rules in
+  ``kernels/ops.py``), and serves the schedule through
+  ``serve/batcher.py``, recording occupancy, padding waste and per-bucket
+  percentiles.
 - **report**: a :class:`BenchmarkRecord`, streamed to the JSONL writer as
   it is produced.
 
@@ -56,8 +73,9 @@ the run's metadata: f32 rows are true f32.
 
 Failures are isolated per benchmark: an exception in any stage yields a
 ``status="error"`` record naming the stage, and the suite keeps going.
-Serving and device sweeps are not ported yet, and the disk cache holds the
-tune winners alone.
+Device sweeps, distributed load generation and the serve stage's trace
+events are not ported yet, and the disk cache holds the tune winners
+alone.
 
 Rows that replay a captured CUDA graph (``core/graphs.py``) key it by
 addresses and route, not by tile: every such row's kernel has a one-entry
@@ -69,6 +87,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import os
 import time
 from typing import Any, Callable
 
@@ -82,9 +102,10 @@ from repro_torch.core.harness import (
     time_fn,
     timing_from_stats,
 )
+from repro_torch.core.graphs import GraphCache
 from repro_torch.core.hlocache import HloDiskCache
-from repro_torch.core.plan import ExecutionPlan, Placement, PlanError
-from repro_torch.core.registry import BenchmarkSpec, Workload
+from repro_torch.core.plan import ExecutionPlan, Placement, PlanError, ServeSpec
+from repro_torch.core.registry import BenchmarkSpec, Workload, get_benchmark
 from repro_torch.core.results import (
     BenchmarkRecord,
     JsonlReportWriter,
@@ -96,7 +117,10 @@ from repro_torch.kernels import ops as kernel_ops
 __all__ = ["CompileCache", "Engine", "RunResult", "bind_impl"]
 
 # (name, preset, frozen-overrides, backward, device, devices, placement,
-#  impl, frozen-tuned-params — () when the pass was not tuned)
+#  impl, frozen-tuned-params — () when the pass was not tuned). Mixed-shape
+# serving appends ("vmap", width) for batch widths > 1; a bucket's width-1
+# callable at the plan's own preset and overrides shares the measure
+# stage's key (and its callable).
 CacheKey = tuple[str, int, tuple, bool, str, int, str, str, tuple]
 
 
@@ -175,6 +199,8 @@ class Engine:
     ) -> None:
         self.cache = cache if cache is not None else CompileCache()
         self.disk_cache = HloDiskCache(cache_dir) if cache_dir else None
+        # Width-w serve calls of graph-replay workloads, captured whole.
+        self._graphs = GraphCache(capacity=64)
 
     # -- stages ------------------------------------------------------------
 
@@ -256,16 +282,8 @@ class Engine:
         if backward and fn is None:
             raise ValueError(f"workload {workload.name!r} has no backward pass")
         key = self._cache_key(spec, plan, preset, backward, placement, impl, tuned_params)
-
-        def build() -> _CacheEntry:
-            bound = bind_impl(fn, workload, impl, tuned_params)
-            # The first call builds and loads the kernels it reaches (nvcc
-            # on first use in the process), like the reference's compile.
-            bound(*args)
-            _synchronize(plan.device)
-            return _CacheEntry(executable=bound)
-
-        return self.cache.lookup(key, build)
+        return self.cache.lookup(key, functools.partial(
+            self._bind_first_call, fn, workload, impl, tuned_params, args, plan.device))
 
     def _stage_tune(
         self,
@@ -388,6 +406,352 @@ class Engine:
             )
         return entry.info
 
+    # -- serving -----------------------------------------------------------
+
+    def _served(self, name: str, width: int, call: Callable[[], Any]) -> Callable[[], Any]:
+        """The callable a serving run of row ``name`` makes its width-``width``
+        calls through: ``call`` itself. A seam: a harness wraps it to count
+        the calls each served row makes (``chip_smoke.py`` holds the launch
+        counters to them)."""
+        return call
+
+    def _serve_call(self, call: Callable[[], Any], serve: ServeSpec, seed: int):
+        """One isolated serving run of a bound callable, under the spec's
+        client: ``single`` dispatches every lane from this thread;
+        ``threaded`` gives each lane its own issuing thread fed from a
+        per-lane deterministic sub-schedule, with its per-request dispatch
+        overhead in the stats. Open-loop stats carry the schedule's
+        ``truncated`` flag, so a capped run never claims the full target."""
+        from repro_torch.serve.client import run_closed_loop_threaded, run_open_loop_threaded
+        from repro_torch.serve.lanes import run_closed_loop, run_open_loop
+        from repro_torch.serve.latency import stats_from_completions
+        from repro_torch.serve.loadgen import open_loop_lane_schedules, open_loop_schedule
+
+        # Fill the whole pipeline (every in-flight slot) before measuring:
+        # requests into an empty window see less queueing than steady state.
+        warmup = max(serve.concurrency, serve.lanes, 2)
+        if serve.mode == "open":
+            if serve.client == "threaded":
+                lane_schedules = open_loop_lane_schedules(
+                    qps=serve.qps, duration_s=serve.duration_s, n_lanes=serve.lanes,
+                    seed=seed, warmup=warmup,
+                )
+                result = run_open_loop_threaded(
+                    call, lane_schedules, concurrency=serve.concurrency
+                )
+                return stats_from_completions(
+                    result.completions,
+                    offered_qps=serve.qps,
+                    slo_us=serve.slo_us,
+                    truncated=any(s.truncated for s in lane_schedules),
+                    dispatch_overhead_us=result.dispatch_overhead_us,
+                    n_lanes=serve.lanes,
+                )
+            schedule = open_loop_schedule(
+                qps=serve.qps, duration_s=serve.duration_s, seed=seed, warmup=warmup
+            )
+            completions = run_open_loop(
+                call, schedule, n_lanes=serve.lanes, concurrency=serve.concurrency
+            )
+            return stats_from_completions(
+                completions,
+                offered_qps=serve.qps,
+                slo_us=serve.slo_us,
+                truncated=schedule.truncated,
+                n_lanes=serve.lanes,
+            )
+        if serve.client == "threaded":
+            result = run_closed_loop_threaded(
+                call, concurrency=serve.concurrency, n_lanes=serve.lanes,
+                duration_s=serve.duration_s, warmup=warmup,
+            )
+            return stats_from_completions(
+                result.completions,
+                slo_us=serve.slo_us,
+                dispatch_overhead_us=result.dispatch_overhead_us,
+                n_lanes=serve.lanes,
+            )
+        completions = run_closed_loop(
+            call, concurrency=serve.concurrency, n_lanes=serve.lanes,
+            duration_s=serve.duration_s, warmup=warmup,
+        )
+        return stats_from_completions(completions, slo_us=serve.slo_us, n_lanes=serve.lanes)
+
+    def _bucket_key(
+        self,
+        spec: BenchmarkSpec,
+        bucket_preset: int,
+        merged_overrides: dict,
+        plan: ExecutionPlan,
+        placement: Placement,
+        impl: str,
+        tuned_params: dict | None,
+        width: int,
+    ) -> tuple:
+        """Cache key of one (shape bucket, batch width) callable. Width 1
+        has the ordinary key's shape, so a bucket at the plan's own preset
+        and overrides *is* the measure stage's callable; wider calls append
+        ``("vmap", width)``."""
+        base = (
+            spec.name,
+            bucket_preset,
+            tuple(sorted(merged_overrides.items())),
+            False,
+            plan.device,
+            placement.devices,
+            placement.mode,
+            impl,
+            tuple(sorted((tuned_params or {}).items())),
+        )
+        return base if width == 1 else base + ("vmap", width)
+
+    def _build_bucket_calls(
+        self,
+        spec: BenchmarkSpec,
+        plan: ExecutionPlan,
+        preset: int,
+        placement: Placement,
+        impl: str,
+        tuned_params: dict | None,
+    ) -> dict[str, dict[int, Callable[[], Any]]]:
+        """One callable per (shape bucket, batch width), through the cache.
+
+        Width 1 is the workload's bound callable (at the plan's own preset
+        and overrides, the measure stage's entry: no new build). Width w > 1
+        is ``bind_impl(torch.vmap(fn), ...)`` over w *distinct* requests:
+        member j's inputs come from ``make_inputs(seed + j)``, stacked on a
+        new leading axis and moved to the device once, at the widest width;
+        a narrower call takes the first w members (a view). The row's tuned tile
+        is reused. A workload whose ``fn`` replays a captured graph
+        (``meta["graph_replay"]``) gets its width-w call captured as one
+        graph of its own on the card (``core/graphs.py``). Each callable is
+        called once here (and synchronized), so no first-call cost lands in
+        a served request. A width-w call that fails (an ``fn`` that
+        ``torch.vmap`` cannot batch) fails the row, naming the cause.
+        """
+        from repro_torch.serve.batcher import bucket_widths
+
+        serve = plan.serve
+        widths = bucket_widths(serve.dispatch, serve.max_batch)
+        calls: dict[str, dict[int, Callable[[], Any]]] = {}
+        for bucket in serve.buckets(preset):
+            bp = bucket.preset if bucket.preset in spec.presets else min(spec.presets)
+            merged = {**plan.overrides_for(spec.name), **dict(bucket.overrides)}
+            workload = spec.build_preset(bp, **merged)
+            if workload.meta.get("no_jit"):
+                raise ValueError(
+                    f"mixed-shape serving needs a device workload; "
+                    f"{workload.name!r} is no_jit (host-transfer)"
+                )
+            instances = [workload.make_inputs(plan.seed + j) for j in range(max(widths))]
+            stacked = (_stack_members(instances, plan.device) if max(widths) > 1 else None)
+            per_width: dict[int, Callable[[], Any]] = {}
+            for width in widths:
+                key = self._bucket_key(spec, bp, merged, plan, placement, impl, tuned_params,
+                                       width)
+                if width == 1:
+                    wargs = commit_args(instances[0], plan.device)
+                    build = functools.partial(self._bind_first_call, workload.fn, workload,
+                                              impl, tuned_params, wargs, plan.device)
+                else:
+                    wargs, in_dims = stacked
+                    wargs = tuple(a[:width] if d == 0 else a for a, d in zip(wargs, in_dims))
+                    build = functools.partial(self._build_width, workload, impl, tuned_params,
+                                              wargs, in_dims, width, plan.device)
+                entry = self.cache.lookup(key, build)
+                call = self._served(spec.name, width, functools.partial(entry.executable, *wargs))
+                call()  # warm: allocations, first dispatch
+                _synchronize(plan.device)
+                per_width[width] = call
+            calls[bucket.label] = per_width
+        return calls
+
+    def _bind_first_call(self, fn, workload, impl, tuned_params, args, device) -> _CacheEntry:
+        """``fn`` bound to its implementation, called once: the first call
+        builds and loads the kernels it reaches (nvcc on first use in the
+        process), like the reference's compile."""
+        bound = bind_impl(fn, workload, impl, tuned_params)
+        bound(*args)
+        _synchronize(device)
+        return _CacheEntry(executable=bound)
+
+    def _build_width(self, workload, impl, tuned_params, wargs, in_dims, width,
+                     device) -> _CacheEntry:
+        """The width-``width`` callable of ``workload``, called once."""
+        # Members are independent requests: random draws differ between them.
+        batched = torch.vmap(workload.fn, in_dims=in_dims, randomness="different")
+        bound = bind_impl(batched, workload, impl, tuned_params)
+        if device == "cuda" and workload.meta.get("graph_replay"):
+            graph = self._graphs
+
+            def executable(*args):
+                return graph.run(bound, *args)
+        else:
+            executable = bound
+        try:
+            executable(*wargs)
+            _synchronize(device)
+        except Exception as e:  # noqa: BLE001 — re-raised, naming the cause
+            raise ValueError(
+                f"{workload.name}: its width-{width} call under torch.vmap failed "
+                f"({type(e).__name__}: {e})"
+            ) from e
+        return _CacheEntry(executable=executable)
+
+    def _mixed_schedule(self, serve: ServeSpec, seed: int, bucket_labels):
+        """The mixed-shape request stream: ``serve.trace`` verbatim when the
+        file exists (the trace is the load; the qps and mix knobs are
+        ignored on replay), else seeded Poisson arrivals with each request's
+        bucket drawn from the mix, saved to ``serve.trace`` if one was
+        named, so the next run (any dispatch) replays this exact stream."""
+        from repro_torch.serve.loadgen import load_trace, open_loop_schedule, sample_mix, save_trace
+
+        warmup = max(serve.concurrency, serve.max_batch, serve.lanes, 2)
+        if serve.trace is not None and os.path.exists(serve.trace):
+            schedule = load_trace(serve.trace)
+            unknown = {r.bucket for r in schedule} - set(bucket_labels)
+            if unknown:
+                raise ValueError(
+                    f"trace {serve.trace!r} names buckets {sorted(map(str, unknown))} "
+                    f"absent from this run's mix {sorted(bucket_labels)}"
+                )
+            return schedule
+        schedule = open_loop_schedule(
+            qps=serve.qps, duration_s=serve.duration_s, seed=seed, warmup=warmup
+        )
+        schedule = sample_mix(
+            schedule,
+            {b.label: b.weight for b in serve.buckets(0)}
+            if serve.mix is not None
+            else {label: 1.0 for label in bucket_labels},
+            seed=seed,
+        )
+        if serve.trace is not None:
+            save_trace(schedule, serve.trace)
+        return schedule
+
+    def _serve_mixed(
+        self,
+        spec: BenchmarkSpec,
+        plan: ExecutionPlan,
+        preset: int,
+        placement: Placement,
+        impl: str,
+        tuned_params: dict | None,
+    ):
+        """The continuous-batching serve path: per-(bucket, width)
+        callables, a mixed-shape schedule (generated or replayed), and the
+        spec's dispatch policy from ``repro_torch.serve.batcher``. The
+        stats carry occupancy, padding waste and per-bucket percentiles."""
+        from repro_torch.serve.batcher import (
+            serve_dynamic,
+            serve_fixed_batched,
+            serve_mixed_lanes,
+            serve_mixed_loop,
+        )
+        from repro_torch.serve.latency import stats_from_completions
+
+        serve = plan.serve
+        calls = self._build_bucket_calls(spec, plan, preset, placement, impl, tuned_params)
+        schedule = self._mixed_schedule(serve, plan.seed, set(calls))
+        if serve.dispatch == "loop":
+            report = serve_mixed_loop(calls, schedule)
+        elif serve.dispatch == "lanes":
+            report = serve_mixed_lanes(
+                calls, schedule, n_lanes=serve.lanes, concurrency=serve.concurrency
+            )
+        elif serve.dispatch == "batched":
+            report = serve_fixed_batched(
+                calls, schedule, batch=serve.max_batch, concurrency=serve.concurrency
+            )
+        else:
+            report = serve_dynamic(
+                calls, schedule, budget_s=serve.batch_budget_us / 1e6,
+                concurrency=serve.concurrency,
+            )
+        return stats_from_completions(
+            report.completions,
+            # A replayed trace's offered load is the trace's, not the
+            # spec's qps knob (which replay ignores).
+            offered_qps=(
+                schedule.offered_qps if schedule.offered_qps is not None else serve.qps
+            ),
+            slo_us=serve.slo_us,
+            truncated=schedule.truncated,
+            n_lanes=serve.lanes if serve.dispatch == "lanes" else 1,
+            batch_occupancy=report.occupancy,
+            padding_waste=report.padding_waste,
+            n_batches=len(report.batches),
+        )
+
+    def _stage_serve(
+        self,
+        spec: BenchmarkSpec,
+        entry: _CacheEntry,
+        args: tuple,
+        plan: ExecutionPlan,
+        preset: int,
+        placement: Placement,
+        impl: str = "torch",
+        tuned_params: dict | None = None,
+    ) -> tuple[Any, str | None, float | None, list[BenchmarkRecord]]:
+        """Serve the measured callable under the plan's ServeSpec.
+
+        Returns ``(stats, colocate, slowdown, partner_records)``. Without
+        co-location this serves the cache entry the measure stage built: no
+        new build. With ``colocate`` the partner benchmark is built, placed
+        and bound through the same cache (at the plan's implementation, as
+        its own row would be), both tenants are served isolated and then
+        together (``serve.interference``), and the partner's co-located row
+        is returned for the report. A mixed spec goes through
+        :meth:`_serve_mixed`. Every callable served is the bound one, which
+        enters ``force_impl`` on each call, on whichever thread makes it.
+        """
+        serve = plan.serve
+        if serve.is_mixed:
+            stats = self._serve_mixed(spec, plan, preset, placement, impl, tuned_params)
+            return stats, None, None, []
+        call = self._served(spec.name, 1, functools.partial(entry.executable, *args))
+        if serve.colocate is None:
+            return self._serve_call(call, serve, plan.seed), None, None, []
+
+        from repro_torch.serve.interference import measure_colocation
+
+        partner_spec = get_benchmark(serve.colocate)
+        p_preset = plan.resolve_preset(partner_spec)
+        p_workload, p_args = self._stage_build(partner_spec, plan, p_preset)
+        p_args = self._stage_place(p_workload, p_args, plan)
+        p_impl, _ = self._resolve_impl(p_workload, plan, False)
+        p_entry = self._stage_compile(
+            partner_spec, p_workload, p_args, plan, p_preset, False, placement, p_impl
+        )
+        p_call = self._served(partner_spec.name, 1, functools.partial(p_entry.executable, *p_args))
+
+        a_name = spec.name
+        b_name = serve.colocate if serve.colocate != spec.name else spec.name + "#2"
+        result = measure_colocation(
+            {a_name: call, b_name: p_call},
+            concurrency=serve.concurrency,
+            n_lanes=serve.lanes,
+            duration_s=serve.duration_s,
+            warmup=max(serve.concurrency, serve.lanes, 2),
+            slo_us=serve.slo_us,
+        )
+        partner = BenchmarkRecord.from_serve(
+            partner_spec,
+            p_preset,
+            result.colocated[b_name],
+            mode=serve.mode,
+            lanes=serve.lanes,
+            client=serve.client,
+            name=f"{b_name}@{a_name}",
+            colocate=a_name,
+            slowdown=result.slowdown(b_name),
+            devices=placement.devices,
+            placement=placement.mode,
+        )
+        return result.colocated[a_name], b_name, result.slowdown(a_name), [partner]
+
     # -- orchestration -----------------------------------------------------
 
     def run(
@@ -399,6 +763,16 @@ class Engine:
         verbose: bool = False,
     ) -> RunResult:
         specs = plan.select()
+        if plan.serve is not None and plan.serve.colocate is not None:
+            try:
+                get_benchmark(plan.serve.colocate)
+            except KeyError as e:
+                raise PlanError(str(e)) from None
+        if plan.serve is not None and plan.serve.is_mixed and plan.devices > 1:
+            raise PlanError(
+                "mixed-shape serving (mix/trace/batcher dispatch) is "
+                f"single-device; the plan asks for {plan.devices} devices"
+            )
         _prepare_device(plan)
         metadata = RunMetadata.capture(
             device=plan.device,
@@ -408,6 +782,7 @@ class Engine:
             timing_window=plan.timing_window,
             impl=plan.impl,
             tune=plan.tune,
+            serve=plan.serve,
         )
         records: list[BenchmarkRecord] = []
         if verbose:
@@ -501,7 +876,7 @@ class Engine:
             return [rec]
         out: list[BenchmarkRecord] = []
         for backward in plan.passes(workload):
-            out.append(
+            out.extend(
                 self._run_pass(
                     spec, workload, args, plan, preset, backward, placement,
                     base_timings,
@@ -519,7 +894,7 @@ class Engine:
         backward: bool,
         placement: Placement,
         base_timings: dict[str, float],
-    ) -> BenchmarkRecord:
+    ) -> list[BenchmarkRecord]:
         stage = "compile"
         impl = "torch"
         timings: dict[str, float] = dict(base_timings)
@@ -559,14 +934,33 @@ class Engine:
             if tune_refused:
                 rec.derived += f";tune_refused={tune_refused}"
             rec.stage_timings_us = timings
-            return rec
+            extra: list[BenchmarkRecord] = []
+            # Serving measures request-level concurrency of the forward
+            # pass; backward rows keep their isolation-mode meaning.
+            if plan.serve is not None and not backward:
+                stage = "serve"
+                with self._timed_stage("serve", timings):
+                    stats, colocate, slowdown, extra = self._stage_serve(
+                        spec, entry, args, plan, preset, placement, impl, tuned_params,
+                    )
+                rec.apply_serve(
+                    stats,
+                    mode=plan.serve.mode,
+                    lanes=plan.serve.lanes,
+                    client=plan.serve.client,
+                    colocate=colocate,
+                    slowdown=slowdown,
+                    dispatch=plan.serve.dispatch,
+                    mix=_mix_label(plan.serve),
+                )
+            return [rec] + extra
         except Exception as e:  # noqa: BLE001 — fault isolation is the contract
             err = BenchmarkRecord.from_error(
                 spec, preset, stage=stage, error=_err_text(e), backward=backward,
                 devices=placement.devices, placement=placement.mode, impl=impl,
             )
             err.stage_timings_us = timings
-            return err
+            return [err]
 
 
 def _prepare_device(plan: ExecutionPlan) -> None:
@@ -594,6 +988,31 @@ def _synchronize(device: str) -> None:
 
 def _device_name(device: str) -> str | None:
     return torch.cuda.get_device_name(0) if device == "cuda" else None
+
+
+def _stack_members(instances: list[tuple], device: str) -> tuple[tuple, tuple]:
+    """Member inputs stacked on a new leading axis and moved to ``device``
+    once -> (args, in_dims). A non-tensor argument (Dropout's and
+    ParticleFilter's seed) cannot be batched: member 0's passes to every
+    member unbatched, and their random draws still differ between members
+    (``torch.vmap(..., randomness="different")``)."""
+    args, in_dims = [], []
+    for leaves in zip(*instances):
+        if all(isinstance(x, torch.Tensor) for x in leaves):
+            args.append(torch.stack(leaves))
+            in_dims.append(0)
+        else:
+            args.append(leaves[0])
+            in_dims.append(None)
+    return commit_args(args, device), tuple(in_dims)
+
+
+def _mix_label(serve: ServeSpec) -> str | None:
+    """The record's compact mix: ``label@weight`` per bucket (None outside
+    a mix)."""
+    if not serve.is_mixed or serve.mix is None:
+        return None
+    return ",".join(f"{b.label}@{b.weight:g}" for b in serve.mix)
 
 
 def _err_text(e: BaseException, limit: int = 500) -> str:

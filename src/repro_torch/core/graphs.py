@@ -25,6 +25,10 @@ counterpart of that ``jit``: it captures the loop once into a
 :meth:`GraphCache.run` is the common case, a static loop over tensors:
 keyed on the function, each tensor's address and layout and every other
 argument's value, replayed on the card and called plainly on the CPU.
+Under ``torch.vmap`` (the serve stage's width-w calls) its tensors are
+BatchedTensors, with no address of their own: the loop then runs eagerly,
+batched, and the caller may capture the whole batched call instead (the
+engine does, for a workload whose ``meta["graph_replay"]`` says so).
 """
 
 from __future__ import annotations
@@ -35,6 +39,9 @@ from collections.abc import Callable, Hashable, Sequence
 from typing import Any
 
 import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ops import is_batched
 
 __all__ = ["GraphCache", "args_key"]
 
@@ -95,7 +102,7 @@ class GraphCache:
             entry.graph.replay()
             for counter, delta in entry.launched:
                 for name, n in delta.items():
-                    counter[name] += n
+                    _build.count(counter, name, n)
             return entry.out
         out = fn(*args)
         self._entries[key] = self._capture(fn, args, counters)
@@ -106,8 +113,10 @@ class GraphCache:
     def run(self, fn: Callable[..., Any], *args: Any) -> Any:
         """``fn(*args)``, for a loop that launches no counted kernel: on CUDA
         tensors one replay of its graph, keyed by :func:`args_key`; on CPU
-        tensors a plain call."""
-        if not any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+        tensors, and under ``torch.vmap``, a plain call."""
+        if not any(isinstance(a, torch.Tensor) and a.is_cuda for a in args) or any(
+            is_batched(a) for a in args
+        ):
             return fn(*args)
         return self(args_key(fn, args), fn, args, ())
 
@@ -125,7 +134,7 @@ class GraphCache:
                 delta = {k: n - was.get(k, 0) for k, n in counter.items()
                          if n != was.get(k, 0)}
                 for k, n in delta.items():
-                    counter[k] -= n
+                    _build.count(counter, k, -n)
                 launched.append((counter, delta))
         return _Entry(graph, out, launched)
 

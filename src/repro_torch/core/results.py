@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.core.harness import CompiledInfo, TimingResult
 from repro_torch.core.metrics import utilization_scale10
+from repro_torch.core.plan import ServeSpec
 
 __all__ = [
     "SCHEMA_VERSION",
@@ -77,9 +78,13 @@ class BenchmarkRecord:
     the sweep's wall time; a candidate the kernel refused adds
     ``tune_refused=N`` to ``derived``.
 
-    The placement, tuning, serving and distributed columns are the
-    reference's, kept so both packages' reports share one schema; the port
-    fills the ones its stages produce.
+    The serving columns (``serve_*``, ``latency_*``, ``*_qps``,
+    ``dispatch_overhead_us``, ``lane_qps``, and for the mixed-shape paths
+    ``batch_occupancy``, ``padding_waste``, ``serve_batches`` and
+    ``bucket_latency_us``) are filled when the plan carried a
+    :class:`~repro_torch.core.plan.ServeSpec`, as the reference fills them
+    (:meth:`apply_serve`). The placement and distributed columns are the
+    reference's, kept so both packages' reports share one schema.
     """
 
     name: str
@@ -139,6 +144,96 @@ class BenchmarkRecord:
     # Stage name -> wall microseconds this row spent in that stage (build
     # and place timings are copied into every pass's row).
     stage_timings_us: dict | None = None
+
+    def apply_serve(
+        self,
+        stats,
+        *,
+        mode: str,
+        lanes: int,
+        client: str = "single",
+        colocate: str | None = None,
+        slowdown: float | None = None,
+        dispatch: str | None = None,
+        mix: str | None = None,
+    ) -> "BenchmarkRecord":
+        """Fold a ``serve.latency.LatencyStats`` into this record."""
+        self.serve_mode = mode
+        self.serve_lanes = lanes
+        self.serve_requests = stats.requests
+        self.latency_p50_us = stats.p50_us
+        self.latency_p95_us = stats.p95_us
+        self.latency_p99_us = stats.p99_us
+        self.latency_max_us = stats.max_us
+        self.achieved_qps = stats.achieved_qps
+        self.offered_qps = stats.offered_qps
+        self.goodput_qps = stats.goodput_qps
+        self.serve_colocate = colocate
+        self.slowdown_vs_isolated = slowdown
+        self.serve_client = client
+        self.serve_truncated = stats.truncated
+        self.serve_slo_us = stats.slo_us
+        self.dispatch_overhead_us = stats.dispatch_overhead_us
+        self.lane_qps = list(stats.lane_qps) if stats.lane_qps is not None else None
+        # The batching columns are None outside the mixed-shape paths.
+        self.serve_dispatch = dispatch
+        self.serve_mix = mix
+        self.batch_occupancy = stats.batch_occupancy
+        self.padding_waste = stats.padding_waste
+        self.serve_batches = stats.n_batches
+        self.bucket_latency_us = (
+            {
+                label: {
+                    "requests": b.requests,
+                    "p50_us": b.p50_us,
+                    "p95_us": b.p95_us,
+                    "p99_us": b.p99_us,
+                }
+                for label, b in stats.bucket_stats
+            }
+            if stats.bucket_stats
+            else None
+        )
+        return self
+
+    @classmethod
+    def from_serve(
+        cls,
+        spec,
+        preset: int,
+        stats,
+        *,
+        mode: str,
+        lanes: int,
+        client: str = "single",
+        name: str | None = None,
+        colocate: str | None = None,
+        slowdown: float | None = None,
+        devices: int = 1,
+        placement: str = "replicate",
+    ) -> "BenchmarkRecord":
+        """A serve-only row (the co-location partner, served but not
+        measured on its own): ``us_per_call`` is its p50 serving latency."""
+        rec = cls(
+            name=name if name is not None else spec.name,
+            level=spec.level,
+            dwarf=spec.dwarf,
+            domain=spec.domain,
+            preset=preset,
+            us_per_call=stats.p50_us,
+            achieved_gflops=0.0,
+            achieved_gbps=0.0,
+            compute_util10=0,
+            memory_util10=0,
+            dominant="serve",
+            derived=f"colocated_with={colocate}" if colocate else "serve",
+            devices=devices,
+            placement=placement,
+        )
+        return rec.apply_serve(
+            stats, mode=mode, lanes=lanes, client=client,
+            colocate=colocate, slowdown=slowdown,
+        )
 
     @classmethod
     def from_measurement(
@@ -251,8 +346,46 @@ class BenchmarkRecord:
             )
         return (
             f"{self.name},{self.us_per_call:.2f},{self.devices},"
-            f"{self.placement},{self.derived}{extra}"
+            f"{self.placement},{self.derived}{extra}{self._serve_csv()}"
         )
+
+    def _serve_csv(self) -> str:
+        """The serve part of the derived text, as the reference writes it."""
+        if self.serve_mode is None:
+            return ""
+        serve = (
+            f";serve={self.serve_mode};client={self.serve_client or 'single'};"
+            f"lanes={self.serve_lanes};"
+            f"p50_us={self.latency_p50_us:.1f};"
+            f"p99_us={self.latency_p99_us:.1f};qps={self.achieved_qps:.1f}"
+        )
+        if self.serve_truncated:
+            serve += ";truncated=1"
+        if self.serve_slo_us is not None:
+            serve += f";slo_us={self.serve_slo_us:.0f};goodput_qps={self.goodput_qps:.1f}"
+        if self.dispatch_overhead_us is not None:
+            serve += f";dispatch_us={self.dispatch_overhead_us:.1f}"
+        if self.client_procs:
+            serve += f";client_procs={self.client_procs}"
+        if self.serve_dispatch is not None and self.serve_dispatch != "lanes":
+            serve += f";dispatch={self.serve_dispatch}"
+        if self.batch_occupancy is not None:
+            serve += (
+                f";occupancy={self.batch_occupancy:.3f};"
+                f"padding_waste={self.padding_waste:.3f}"
+            )
+        if self.bucket_latency_us:
+            buckets = "/".join(
+                f"{label}:p50={b['p50_us']:.0f}"
+                for label, b in sorted(self.bucket_latency_us.items())
+            )
+            serve += f";buckets={buckets}"
+        if self.slowdown_vs_isolated is not None:
+            serve += (
+                f";colocate={self.serve_colocate};"
+                f"slowdown={self.slowdown_vs_isolated:.2f}"
+            )
+        return serve
 
 
 def gpu_name_and_power_limit() -> str | None:
@@ -282,6 +415,7 @@ class RunMetadata:
     timing_window: int = 1
     impl: str = "torch"
     tune: bool = False  # whether the tune stage was enabled
+    serve: ServeSpec | None = None  # the plan's ServeSpec, None for isolation runs
     torch_version: str | None = None
     cuda_version: str | None = None  # the CUDA torch was built with
     device_name: str | None = None  # torch.cuda.get_device_name(), or "cpu"
@@ -291,6 +425,14 @@ class RunMetadata:
     # The disk cache's counters (core/hlocache.py), stamped at the end of a
     # run that had a --cache-dir; None otherwise.
     cache_stats: dict | None = None
+
+    def __post_init__(self) -> None:
+        # JSON round-trips the ServeSpec as a dict (its mix as dicts too).
+        if isinstance(self.serve, dict):
+            fields = {f.name for f in dataclasses.fields(ServeSpec)}
+            object.__setattr__(
+                self, "serve", ServeSpec(**{k: v for k, v in self.serve.items() if k in fields})
+            )
 
     @classmethod
     def capture(
@@ -303,6 +445,7 @@ class RunMetadata:
         timing_window: int = 1,
         impl: str = "torch",
         tune: bool = False,
+        serve: ServeSpec | None = None,
     ) -> "RunMetadata":
         cuda = device == "cuda"
         return cls(
@@ -314,6 +457,7 @@ class RunMetadata:
             timing_window=timing_window,
             impl=impl,
             tune=tune,
+            serve=serve,
             torch_version=torch.__version__,
             cuda_version=torch.version.cuda,
             device_name=torch.cuda.get_device_name(0) if cuda else "cpu",

@@ -17,13 +17,34 @@ before compiling and times the winner (``tuned_params``, ``tune_trials``,
 so a warm tuned run performs zero trials, and the CLI prints the cache's
 counters on stderr.
 
-Exit codes: 0 every row ok, 1 error rows present, 2 a configuration error
-(unknown name, bad override, no such device).
+Serving flags, the reference's: ``--serve {open,closed}`` serves every
+selected workload under generated load after measuring it (``--qps``
+open-loop arrival rate, ``--concurrency`` in-flight cap, ``--lanes``
+dispatch lanes, ``--serve-duration`` seconds); ``--serve-client
+{single,threaded}`` picks the host's issue architecture; ``--slo-us`` adds
+a latency SLO and ``goodput_qps``; ``--colocate NAME`` serves each
+workload against a partner and records both slowdowns. Mixed-shape
+serving: ``--serve-mix PRESET[/PARAM=VALUE...][@WEIGHT],...`` draws each
+open-loop request's shape from a weighted mix, ``--serve-dispatch
+{lanes,loop,batched,dynamic}`` picks how requests map onto device calls
+(``dynamic``, the continuous batcher, coalesces a bucket's queue into a
+``torch.vmap`` call of up to ``--max-batch`` requests under
+``--batch-latency-budget`` microseconds), and ``--serve-trace PATH`` saves
+the arrival and shape stream, or replays it when the file exists.
+``--client-procs`` (distributed load generation) parses and is refused
+with exit 2: it is not ported yet (ROADMAP queue 1 item 15).
+
+Exit codes: 0 every row ok, 1 error rows present (or a malformed
+``--serve-mix``, as in the reference), 2 a configuration error (unknown
+name, bad override, no such device, a serve flag without ``--serve``).
 
     PYTHONPATH=src python -m repro_torch.core.suite --names gemm_bf16_nn \\
         softmax --preset 4 --impl kernel --no-backward --jsonl run.jsonl
     PYTHONPATH=src python -m repro_torch.core.suite --names gemm_f32_tn \\
         --preset 4 --impl kernel --no-backward --tune --cache-dir /tmp/tune
+    PYTHONPATH=src python -m repro_torch.core.suite --names gemm_bf16_nn \\
+        --preset 4 --impl kernel --no-backward --serve open --qps 2000 \\
+        --serve-mix "4@1,4/n=1024@2" --serve-dispatch dynamic --max-batch 4
 """
 
 from __future__ import annotations
@@ -33,7 +54,17 @@ import sys
 from typing import Any, Mapping, Sequence
 
 from repro_torch.core.engine import Engine
-from repro_torch.core.plan import DEVICES, IMPLS, ExecutionPlan, PlanError
+from repro_torch.core.plan import (
+    DEVICES,
+    IMPLS,
+    SERVE_CLIENTS,
+    SERVE_DISPATCH,
+    SERVE_MODES,
+    ExecutionPlan,
+    PlanError,
+    ServeSpec,
+    ShapeBucket,
+)
 from repro_torch.core.results import BenchmarkRecord, to_csv_lines
 
 __all__ = ["run_suite", "main"]
@@ -53,6 +84,7 @@ def run_suite(
     impl: str = "torch",
     tune: bool = False,
     device: str = "cuda",
+    serve: ServeSpec | None = None,
     report_path: str | None = None,
     jsonl_path: str | None = None,
     verbose: bool = True,
@@ -76,6 +108,7 @@ def run_suite(
         impl=impl,
         tune=tune,
         device=device,
+        serve=serve,
     )
     result = (engine or Engine(cache_dir=cache_dir)).run(
         plan, report_path=report_path, jsonl_path=jsonl_path, verbose=verbose
@@ -108,6 +141,108 @@ def _parse_value(value: str) -> Any:
     return {"true": True, "false": False}.get(value.lower(), value)
 
 
+def _parse_mix(text: str) -> tuple[ShapeBucket, ...]:
+    """``"0@2,0/cols=256@1"`` -> weighted ShapeBuckets.
+
+    Grammar per comma-separated bucket: ``PRESET[/PARAM=VALUE...][@WEIGHT]``
+    (weight defaults to 1.0; values parse as int, then float, then str, the
+    reference's ``--serve-mix`` convention). A malformed mix exits with its
+    message (exit 1), as the reference's does.
+    """
+
+    def parse_value(value: str) -> Any:
+        try:
+            return int(value)
+        except ValueError:
+            try:
+                return float(value)
+            except ValueError:
+                return value
+
+    buckets = []
+    for part in text.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        weight = 1.0
+        if "@" in part:
+            part, w = part.rsplit("@", 1)
+            try:
+                weight = float(w)
+            except ValueError:
+                raise SystemExit(
+                    f"bad --serve-mix weight {w!r} in {text!r}; expected a number"
+                ) from None
+        fields = part.split("/")
+        try:
+            preset = int(fields[0])
+        except ValueError:
+            raise SystemExit(
+                f"bad --serve-mix bucket {part!r} in {text!r}; expected "
+                "PRESET[/PARAM=VALUE...][@WEIGHT], e.g. 0@2,1/cols=256@1"
+            ) from None
+        overrides = []
+        for field in fields[1:]:
+            if "=" not in field:
+                raise SystemExit(
+                    f"bad --serve-mix override {field!r} in {text!r}; expected PARAM=VALUE"
+                )
+            k, v = field.split("=", 1)
+            overrides.append((k, parse_value(v)))
+        buckets.append(ShapeBucket(preset=preset, weight=weight, overrides=tuple(overrides)))
+    if not buckets:
+        raise SystemExit(f"bad --serve-mix {text!r}; no buckets given")
+    return tuple(buckets)
+
+
+def _parse_serve(args) -> ServeSpec | None:
+    """A ServeSpec when any serving flag was used (``--colocate`` alone
+    implies a closed-loop serve), else None. Serve-tuning flags without a
+    serve mode are a configuration error, not silently dropped."""
+    tuning = {
+        "--qps": args.qps,
+        "--concurrency": args.concurrency,
+        "--lanes": args.lanes,
+        "--serve-duration": args.serve_duration,
+        "--serve-client": args.serve_client,
+        "--slo-us": args.slo_us,
+        "--serve-dispatch": args.serve_dispatch,
+        "--serve-mix": args.serve_mix,
+        "--serve-trace": args.serve_trace,
+        "--batch-latency-budget": args.batch_latency_budget,
+        "--max-batch": args.max_batch,
+        "--client-procs": args.client_procs,
+    }
+    if args.serve is None and args.colocate is None:
+        stray = [flag for flag, value in tuning.items() if value is not None]
+        if stray:
+            raise PlanError(
+                f"{', '.join(stray)} require --serve {{open,closed}} or --colocate NAME"
+            )
+        return None
+    spec = ServeSpec()  # defaults live on the dataclass, not the CLI
+
+    def given(value, default):
+        return value if value is not None else default
+
+    return ServeSpec(
+        mode=args.serve or "closed",
+        qps=given(args.qps, 50.0),
+        concurrency=given(args.concurrency, spec.concurrency),
+        lanes=given(args.lanes, spec.lanes),
+        duration_s=given(args.serve_duration, spec.duration_s),
+        colocate=args.colocate,
+        client=given(args.serve_client, spec.client),
+        slo_us=args.slo_us,
+        dispatch=given(args.serve_dispatch, spec.dispatch),
+        mix=_parse_mix(args.serve_mix) if args.serve_mix is not None else None,
+        trace=args.serve_trace,
+        batch_budget_us=given(args.batch_latency_budget, spec.batch_budget_us),
+        max_batch=given(args.max_batch, spec.max_batch),
+        client_procs=given(args.client_procs, spec.client_procs),
+    )
+
+
 def main(argv: Sequence[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Run the Mirovia/Altis suite (PyTorch port)")
     ap.add_argument("--levels", type=int, nargs="*", default=[0, 1, 2])
@@ -137,6 +272,50 @@ def main(argv: Sequence[str] | None = None) -> int:
     ap.add_argument("--device", choices=DEVICES, default="cuda",
                     help="where to run (default cuda; a missing CUDA device "
                          "is an error, never a silent CPU run)")
+    ap.add_argument("--serve", choices=SERVE_MODES, default=None,
+                    help="serve each selected workload under load after measuring "
+                         "it: open-loop arrivals at --qps or closed-loop at "
+                         "--concurrency")
+    ap.add_argument("--qps", type=float, default=None,
+                    help="open-loop arrival rate (requests/s, default 50)")
+    ap.add_argument("--concurrency", type=int, default=None,
+                    help="closed-loop in-flight requests (also the open-loop "
+                         "in-flight cap; default 4)")
+    ap.add_argument("--lanes", type=int, default=None,
+                    help="dispatch lanes (HyperQ-style work queues, default 2)")
+    ap.add_argument("--serve-duration", type=float, default=None, metavar="SECONDS",
+                    help="serving duration per workload (default 2.0)")
+    ap.add_argument("--serve-client", choices=SERVE_CLIENTS, default=None,
+                    help="host issue architecture: 'single' dispatches every lane "
+                         "from one thread (default); 'threaded' gives each lane "
+                         "its own issuing thread (all on the device's current "
+                         "stream) and records dispatch overhead and per-lane QPS")
+    ap.add_argument("--slo-us", type=float, default=None, metavar="US",
+                    help="latency SLO in microseconds; rows gain goodput_qps")
+    ap.add_argument("--client-procs", type=int, default=None, metavar="N",
+                    help="distributed load generation: not ported yet (ROADMAP "
+                         "queue 1 item 15); any N > 0 exits 2")
+    ap.add_argument("--serve-dispatch", choices=SERVE_DISPATCH, default=None,
+                    help="how requests map onto device calls: N-lane dispatch "
+                         "(lanes, default), or the mixed-shape paths: sync "
+                         "per request (loop), a fixed-width torch.vmap call that "
+                         "waits to fill (batched), the continuous batcher (dynamic)")
+    ap.add_argument("--serve-mix", type=str, default=None, metavar="P[/K=V...][@W],...",
+                    help="weighted request-shape mix for open-loop serving, e.g. "
+                         "'0@2,1@1' or '0@3,0/cols=256@1'")
+    ap.add_argument("--serve-trace", type=str, default=None, metavar="PATH",
+                    help="replayable JSONL arrival and shape trace: replayed when "
+                         "PATH exists, else the generated schedule is saved there")
+    ap.add_argument("--batch-latency-budget", type=float, default=None, metavar="US",
+                    help="dynamic batcher wait budget in microseconds (default "
+                         "2000)")
+    ap.add_argument("--max-batch", type=int, default=None, metavar="N",
+                    help="largest batch width (default 8); dynamic uses powers "
+                         "of two up to N per bucket, batched exactly N")
+    ap.add_argument("--colocate", type=str, default=None, metavar="NAME",
+                    help="co-locate every served workload with this benchmark "
+                         "and record slowdown against isolation (implies "
+                         "--serve closed)")
     ap.add_argument("--no-backward", action="store_true")
     ap.add_argument("--report", type=str, default=None, help="JSON report path")
     ap.add_argument("--jsonl", type=str, default=None,
@@ -156,6 +335,7 @@ def main(argv: Sequence[str] | None = None) -> int:
             impl=args.impl,
             tune=args.tune,
             device=args.device,
+            serve=_parse_serve(args),
             include_backward=not args.no_backward,
             report_path=args.report,
             jsonl_path=args.jsonl,

@@ -23,6 +23,14 @@ for the life of the process.
 - Each C entry point takes ``c_void_p`` device pointers and the CUDA stream
   and returns ``cudaGetLastError()`` after its launch; :func:`check` turns a
   nonzero status into an exception naming the kernel.
+- Each wrapper counts its launches with :func:`count`, under one lock, so
+  the threaded serving client's lanes lose no count.
+- The library carries its own CUDA runtime. On a host thread that has not
+  yet touched the device (a serving client's lane thread), that runtime
+  finds no current context and refuses a launch that sets a kernel
+  attribute first ("invalid argument"); :func:`function` therefore makes
+  torch's current device current on each new thread before handing out an
+  entry point.
 """
 
 from __future__ import annotations
@@ -33,10 +41,11 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
-__all__ = ["BuildError", "library", "function", "check", "build_info", "SOURCES_DIR"]
+__all__ = ["BuildError", "library", "function", "check", "count", "build_info", "SOURCES_DIR"]
 
 SOURCES_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -177,8 +186,24 @@ def build_info() -> dict:
     return dict(_LOADED.info)
 
 
+_THREAD = threading.local()
+
+
+def _bind_thread() -> None:
+    """Make torch's current CUDA device (and its context) current on this
+    host thread, once a thread."""
+    if not getattr(_THREAD, "bound", False):
+        import torch
+
+        if torch.cuda.is_available():
+            torch.cuda.set_device(torch.cuda.current_device())
+        _THREAD.bound = True
+
+
 def function(name: str, argtypes: list) -> ctypes._CFuncPtr:
-    """The C entry point ``name`` with its argument types declared once."""
+    """The C entry point ``name`` with its argument types declared once,
+    the calling thread bound to the device first."""
+    _bind_thread()
     lib = library()
     assert _LOADED is not None
     fn = _LOADED.functions.get(name)
@@ -195,3 +220,13 @@ def check(status: int, name: str) -> None:
     if status != 0:
         text = library().repro_cuda_error_string(status).decode()
         raise RuntimeError(f"kernel {name} failed to launch: {text} ({status})")
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count(counter: dict, name: str, n: int = 1) -> None:
+    """``counter[name] += n`` under one lock: a launch counter read exactly
+    stays exact when several threads launch."""
+    with _COUNT_LOCK:
+        counter[name] += n

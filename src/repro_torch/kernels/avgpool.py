@@ -77,7 +77,7 @@ def avgpool_cuda(x: torch.Tensor, *, ksize: int = 2) -> torch.Tensor:
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = fn(x.data_ptr(), y.data_ptr(), n * c, h, w, ksize, stream)
     _build.check(status, "avgpool_f32")
-    launches["avgpool_f32"] += 1
+    _build.count(launches, "avgpool_f32")
     return y
 
 

@@ -114,7 +114,7 @@ def sort_kv_cuda(keys: torch.Tensor, values: torch.Tensor) -> tuple[torch.Tensor
     status = fn(keys.data_ptr(), values.data_ptr(), keys_out.data_ptr(), values_out.data_ptr(),
                 tmp_keys.data_ptr(), tmp_values.data_ptr(), scratch.data_ptr(), n, stream)
     _build.check(status, name)
-    launches[name] += 1
+    _build.count(launches, name)
     return keys_out, values_out
 
 

@@ -417,7 +417,7 @@ def _decode_launch(q, k, v, causal, window, scale, splits, part, counters, out, 
         _strides_arg(q, k, v, q if out is None else out), splits, stream,
     )
     _build.check(status, name)
-    launches[name] += 1
+    _build.count(launches, name)
 
 
 def _decode(q, k, v, causal, window, scale, splits=None):
@@ -567,7 +567,7 @@ def _run(name: str, q, k, v, causal, window, scale) -> torch.Tensor:
             stream,
         )
     _build.check(status, name)
-    launches[name] += 1
+    _build.count(launches, name)
     return out
 
 

@@ -142,7 +142,7 @@ def _launch(name: str, x: torch.Tensor, *, size: int = 5, alpha: float = 1e-4,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = fn(x.data_ptr(), y.data_ptr(), n, c, h * w, size // 2, alpha, beta, k, stream)
     _build.check(status, name)
-    launches[name] += 1
+    _build.count(launches, name)
     return y
 
 

@@ -92,7 +92,7 @@ def mandelbrot_flat_cuda(c: torch.Tensor, max_iter: int) -> torch.Tensor:
     fn = _build.function("mandelbrot_flat_i32", _FLAT_ARGS)
     stream = torch.cuda.current_stream(c.device).cuda_stream
     _build.check(fn(c.data_ptr(), out.data_ptr(), n, max_iter, stream), "mandelbrot_flat_i32")
-    launches["mandelbrot_flat_i32"] += 1
+    _build.count(launches, "mandelbrot_flat_i32")
     return out
 
 
@@ -113,7 +113,7 @@ def mandelbrot_dp_cuda(c: torch.Tensor, max_iter: int, *,
         stream = torch.cuda.current_stream(c.device).cuda_stream
         _build.check(fn(c.data_ptr(), out.data_ptr(), status.words.data_ptr(), n, max_iter,
                         stream), "mandelbrot_dp_i32")
-        launches["mandelbrot_dp_i32"] += 1
+        _build.count(launches, "mandelbrot_dp_i32")
     if own:
         status.check()
     return out

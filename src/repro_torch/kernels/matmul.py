@@ -7,7 +7,7 @@ Hopper (see the note at the top of each source for its bound and design):
 
 - ``matmul_bf16`` (``csrc/matmul_wgmma.cu``): persistent CTAs, TMA loads
   through a 4-stage mbarrier ring, wgmma m64n256k16 on the tensor cores,
-  for 2-D bf16 operands that TMA can read (:func:`_route`);
+  for bf16 operands that TMA can read, 2-D and batched (:func:`_route`);
 - ``matmul_f32`` (``csrc/matmul_f32_tma.cu``): true f32 on the FMA pipes,
   persistent CTAs fed by a TMA ring, register-blocked consumers whose
   shared-memory reads are free of bank conflicts, for f32 operands that TMA
@@ -23,8 +23,8 @@ never copied. A third grid axis runs a batch of products in one launch,
 each operand offset by its own batch stride; a stride of 0 broadcasts an
 operand, such as Convolution's shared weight. The TMA kernels read a
 transposed A (the gemm "tn" specs pass ``a.T``) through its tensor map, and
-TMA's zero fill covers their ragged edges; ``matmul_f32`` takes the batch as
-a coordinate of a 3-D tensor map (a broadcast operand keeps a 2-D map).
+TMA's zero fill covers their ragged edges; both take the batch as a
+coordinate of a 3-D tensor map (a broadcast operand keeps a 2-D map).
 
 - :func:`_route` names the entry a pair of operands goes to, from dtype,
   rank, strides and alignment alone (it runs on CPU tensors too); it
@@ -40,7 +40,8 @@ a coordinate of a 3-D tensor map (a broadcast operand keeps a 2-D map).
   (:func:`matmul_plain`, the ``ref.py`` oracle), the way the reference runs
   its Pallas kernel interpreted off-TPU.
 - ``launches`` counts launches per C entry point, batched launches (a 3-D
-  result) under their own ``*_batched`` key; ``plain_calls`` counts
+  result; for ``matmul_bf16`` a batch of more than 1) under their own
+  ``*_batched`` key; ``plain_calls`` counts
   kernel-route calls that ran the plain version because their tensors lay
   on the CPU.
 """
@@ -65,8 +66,8 @@ __all__ = [
 
 launches = {
     "matmul_f32": 0, "matmul_f32_batched": 0, "matmul_f32_simt": 0,
-    "matmul_f32_simt_batched": 0, "matmul_bf16": 0, "matmul_bf16_wmma": 0,
-    "matmul_bf16_wmma_batched": 0,
+    "matmul_f32_simt_batched": 0, "matmul_bf16": 0, "matmul_bf16_batched": 0,
+    "matmul_bf16_wmma": 0, "matmul_bf16_wmma_batched": 0,
 }
 plain_calls = 0
 
@@ -79,8 +80,8 @@ MAX_BATCH = 65535  # the WMMA and SIMT kernels' grid z extent
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6 + [
     ctypes.c_void_p,
 ]
-# matmul_bf16: a, b, c, M, N, K, a_m_major, lda, ldb, stream
-_TMA_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2 + [
+# matmul_bf16: a, b, c, batch, M, N, K, a_m_major, lda, sab, ldb, sbb, stream
+_TMA_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4 + [
     ctypes.c_void_p,
 ]
 # matmul_f32: a, b, c, batch, M, N, K, a_m_major, lda, sab, ldb, sbb, block_n, stream
@@ -132,21 +133,25 @@ def _tma_layout(t: torch.Tensor, rows_major: bool) -> int | None:
     return lead if lead > 0 and lead % per16 == 0 else None
 
 
-def _tma_operands(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int] | None:
-    """(a_m_major, lda, ldb) for the bf16 TMA kernel, or None: 2-D bf16 (or
-    a batch of 1) with B row-major and A row- or column-major."""
-    if a.dtype != torch.bfloat16 or any(t.dim() == 3 and t.shape[0] != 1 for t in (a, b)):
+def _tma_operands(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int, int, int] | None:
+    """(a_m_major, lda, sab, ldb, sbb) for the bf16 TMA kernel, or None:
+    bf16, 2-D or batched, with B row-major and A row- or column-major, every
+    base 16-byte aligned and every leading and batch stride a multiple of 8
+    elements. A batch stride of 0 (a 2-D operand, a batch of 1, an expanded
+    batch) broadcasts."""
+    if a.dtype != torch.bfloat16:
         return None
-    a2 = a[0] if a.dim() == 3 else a
-    b2 = b[0] if b.dim() == 3 else b
-    ldb = _tma_layout(b2, rows_major=True)
+    sab, sbb = _batch_stride(a), _batch_stride(b)
+    if sab % 8 or sbb % 8:
+        return None
+    ldb = _tma_layout(b, rows_major=True)
     if ldb is None:
         return None
-    lda = _tma_layout(a2, rows_major=True)
-    if lda is not None:
-        return 0, lda, ldb
-    lda = _tma_layout(a2, rows_major=False)
-    return None if lda is None else (1, lda, ldb)
+    for a_m_major in (0, 1):
+        lda = _tma_layout(a, rows_major=not a_m_major)
+        if lda is not None:
+            return a_m_major, lda, sab, ldb, sbb
+    return None
 
 
 def _f32_tma_operands(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int, int, int] | None:
@@ -196,9 +201,10 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
 def _route(a: torch.Tensor, b: torch.Tensor) -> str:
     """The C entry point ``a @ b`` goes to: ``matmul_f32`` (TMA) for float32
     operands :func:`_f32_tma_operands` takes, 2-D or batched;
-    ``matmul_bf16`` (TMA + wgmma) for 2-D bf16 (or a batch of 1) whose B
-    is row-major, whose A is row- or column-major, whose bases are 16-byte
-    aligned and whose leading strides are multiples of 8 elements;
+    ``matmul_bf16`` (TMA + wgmma) for bf16, 2-D or batched, whose B is
+    row-major, whose A is row- or column-major, whose bases are 16-byte
+    aligned and whose leading and batch strides are multiples of 8
+    elements;
     ``matmul_f32_simt`` and ``matmul_bf16_wmma`` for every other pair.
     Raises ``ValueError`` on what no entry takes. Looks only at dtype,
     shapes, strides and addresses, so it answers for CPU tensors too."""
@@ -275,10 +281,10 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor, *, block_n: int = 128) 
         return c.zero_()
     stream = torch.cuda.current_stream(a.device).cuda_stream
     if name == "matmul_bf16":
-        a_m_major, lda, ldb = _tma_operands(a, b)
+        a_m_major, lda, sab, ldb, sbb = _tma_operands(a, b)
         fn = _build.function(name, _TMA_ARGTYPES)
-        status = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, a_m_major, lda, ldb,
-                    stream)
+        status = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), batch, m, n, k, a_m_major, lda,
+                    sab, ldb, sbb, stream)
     elif name == "matmul_f32":
         a_m_major, lda, sab, ldb, sbb = _f32_tma_operands(a, b)
         fn = _build.function(name, _F32_TMA_ARGTYPES)
@@ -294,7 +300,8 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor, *, block_n: int = 128) 
         )
     _build.check(status, name)
     # A batch of 1 on the bf16 TMA kernel is its 2-D product.
-    launches[name + "_batched" if batched and name != "matmul_bf16" else name] += 1
+    _build.count(launches, name + "_batched" if batched and (name != "matmul_bf16" or batch > 1)
+                 else name)
     return c
 
 

@@ -24,6 +24,34 @@ listed, so nothing can ask for a kernel that does not exist.
 :class:`TileRefused` is what a kernel raises, before any launch, for block
 parameters it has no compiled tile for: the tune stage skips such a
 candidate and counts it, where any other error fails the row.
+
+**Batching rules.** Under ``torch.vmap`` (the serve stage's width-w calls,
+``core.features.concurrent_instances``) a kernel route meets a
+BatchedTensor, whose data pointer the C entries cannot take. The
+reference's ``jax.vmap`` of a ``pallas_call`` adds a grid axis through
+Pallas's batching rule; here each op has a rule of its own, reached
+through one ``torch.autograd.Function`` with a ``vmap`` staticmethod
+(:class:`_KernelOp`, ``generate_vmap_rule = False``). The rule receives the
+physical tensors with their batch dims and launches the same hand-written
+kernels on them: it is no fallback, and a CUDA tensor under it launches a
+kernel or raises. Folding rules put the batch into one launch of an
+existing entry:
+
+- ``matmul``: (w, M, K) @ (K, N) or (w, K, N), and a broadcast (M, K) @
+  (w, K, N), as one batched product (the f32 TMA kernel's 3-D tensor maps,
+  the bf16 kernel's batch axis); a batched (B, M, K) operand folds w into
+  B. Other rank pairs run one product a member.
+- ``softmax``: (w, R, C) as (w·R, C) rows; ``lrn`` and ``avgpool``:
+  (w, N, C, H, W) as (w·N, C, H, W); ``attention``: w folded into B (an
+  unbatched k or v is expanded to w, a copy).
+
+``prefix_scan``, ``sort_kv`` and ``srad_step`` have no batch axis in their
+kernels: their rule launches the kernel once a member, each launch counted
+under its entry (ROADMAP queue 2 holds their batched entries). Only a
+batched call takes a rule (:func:`is_batched`), so an unbatched call keeps
+its direct path, with no dispatcher cost on the measured rows; on CPU
+tensors the rule runs over the plain versions, which is how the tests here
+reach it.
 """
 
 from __future__ import annotations
@@ -46,7 +74,8 @@ from repro_torch.kernels import srad_stencil as _srad_mod
 
 __all__ = [
     "matmul", "attention", "softmax", "lrn", "avgpool", "srad_step", "prefix_scan", "sort_kv",
-    "force_impl", "takes_kernel", "tune_space", "KERNEL_OPS", "MODES", "TileRefused",
+    "force_impl", "takes_kernel", "tune_space", "is_batched", "KERNEL_OPS", "MODES",
+    "TileRefused",
 ]
 
 Mode = Literal["auto", "kernel", "ref"]
@@ -131,6 +160,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, mode: Mode = "auto", **blocks):
     ``torch.matmul``."""
     use, blocks = _resolve("matmul", mode, a, blocks)
     if use:
+        if is_batched(a) or is_batched(b):
+            return _KernelOp.apply("matmul", _frozen(blocks), a, b)
         return _matmul_mod.matmul_kernel(a, b, **blocks)
     return _ref.matmul_ref(a, b)
 
@@ -150,6 +181,9 @@ def attention(
     queries at the last T of the S key positions."""
     use, blocks = _resolve("attention", mode, q, blocks)
     if use:
+        if any(is_batched(t) for t in (q, k, v)):
+            params = _frozen(dict(blocks, causal=causal, window=window, scale=scale))
+            return _KernelOp.apply("attention", params, q, k, v)
         return _attention_mod.flash_attention_kernel(
             q, k, v, causal=causal, window=window, scale=scale, **blocks
         )
@@ -159,6 +193,8 @@ def attention(
 def softmax(x: torch.Tensor, *, mode: Mode = "auto"):
     use, _ = _resolve("softmax", mode, x, {})  # no block parameters
     if use:
+        if is_batched(x):
+            return _KernelOp.apply("softmax", (), x)
         return _softmax_mod.softmax_kernel(x)
     return _ref.softmax_ref(x)
 
@@ -166,6 +202,9 @@ def softmax(x: torch.Tensor, *, mode: Mode = "auto"):
 def lrn(x: torch.Tensor, *, size=5, alpha=1e-4, beta=0.75, k=2.0, mode: Mode = "auto"):
     use, _ = _resolve("lrn", mode, x, {})  # no block parameters
     if use:
+        if is_batched(x):
+            params = _frozen(dict(size=size, alpha=alpha, beta=beta, k=k))
+            return _KernelOp.apply("lrn", params, x)
         return _lrn_mod.lrn_kernel(x, size=size, alpha=alpha, beta=beta, k=k)
     return _ref.lrn_ref(x, size=size, alpha=alpha, beta=beta, k=k)
 
@@ -173,6 +212,8 @@ def lrn(x: torch.Tensor, *, size=5, alpha=1e-4, beta=0.75, k=2.0, mode: Mode = "
 def avgpool(x: torch.Tensor, *, ksize=2, mode: Mode = "auto"):
     use, _ = _resolve("avgpool", mode, x, {})  # no block parameters
     if use:
+        if is_batched(x):
+            return _KernelOp.apply("avgpool", _frozen(dict(ksize=ksize)), x)
         return _avgpool_mod.avgpool_kernel(x, ksize=ksize)
     return _ref.avgpool_ref(x, ksize=ksize)
 
@@ -182,6 +223,9 @@ def srad_step(img: torch.Tensor, *, lam=0.5, q0sqr=0.05, fused: bool = True,
     """One SRAD step: the cooperative fused kernel, or its two phases."""
     use, _ = _resolve("srad_step", mode, img, {})  # no block parameters
     if use:
+        if is_batched(img):
+            params = _frozen(dict(lam=lam, q0sqr=q0sqr, fused=fused))
+            return _KernelOp.apply("srad_step", params, img)
         return _srad_mod.srad_step_kernel(img, lam=lam, q0sqr=q0sqr, fused=fused)
     return _ref.srad_step_ref(img, lam=lam, q0sqr=q0sqr)
 
@@ -189,6 +233,8 @@ def srad_step(img: torch.Tensor, *, lam=0.5, q0sqr=0.05, fused: bool = True,
 def prefix_scan(x: torch.Tensor, *, mode: Mode = "auto", **blocks):
     use, blocks = _resolve("prefix_scan", mode, x, blocks)
     if use:
+        if is_batched(x):
+            return _KernelOp.apply("prefix_scan", _frozen(blocks), x)
         return _scan_mod.prefix_scan_kernel(x, **blocks)
     return _ref.prefix_scan_ref(x)
 
@@ -198,5 +244,141 @@ def sort_kv(keys: torch.Tensor, values: torch.Tensor, *, mode: Mode = "auto"):
     (the reference pads to a power of two for its bitonic network)."""
     use, _ = _resolve("sort_kv", mode, keys, {})  # no block parameters
     if use:
+        if is_batched(keys) or is_batched(values):
+            return _KernelOp.apply("sort_kv", (), keys, values)
         return _sort_mod.sort_kv_kernel(keys, values)
     return _ref.sort_kv_ref(keys, values)
+
+
+# -- batching rules -----------------------------------------------------------
+
+
+def is_batched(t) -> bool:
+    """Whether ``t`` is a tensor that ``torch.vmap`` is batching (a
+    BatchedTensor, which has no storage of its own)."""
+    return isinstance(t, torch.Tensor) and torch._C._functorch.is_batchedtensor(t)
+
+
+def _frozen(params: dict) -> tuple:
+    """Keyword parameters as a tuple of pairs: a leaf structure the vmap
+    machinery passes through untouched."""
+    return tuple(sorted(params.items()))
+
+
+def _first(x: torch.Tensor, dim: int | None, w: int) -> torch.Tensor:
+    """``x`` with its batch dim first, dense (a no-op for a stacked input);
+    an unbatched operand expanded to ``w`` members."""
+    if dim is None:
+        return x.expand(w, *x.shape)
+    return x.movedim(dim, 0).contiguous()
+
+
+def _member(x: torch.Tensor, dim: int | None, j: int) -> torch.Tensor:
+    return x if dim is None else x.select(dim, j)
+
+
+def _per_member(w: int, dims: tuple, fn, *operands):
+    """``fn`` once a member, the results stacked on a new leading axis: the
+    rule of an op whose kernel has no batch axis (one launch a member)."""
+    outs = [fn(*(_member(x, d, j) for x, d in zip(operands, dims))) for j in range(w)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(parts) for parts in zip(*outs)), (0,) * len(outs[0])
+    return torch.stack(outs), 0
+
+
+def _matmul_rule(w, dims, params, a, b):
+    """One batched product where the ranks allow it (see the module
+    docstring), else one product a member."""
+    blocks = dict(params)
+    ad, bd = dims
+    ra, rb = a.dim() - (ad is not None), b.dim() - (bd is not None)
+    if ra == 2 and rb == 2:
+        # (w, M, K) @ (K, N) / (M, K) @ (w, K, N) / (w, M, K) @ (w, K, N).
+        a1 = a if ad is None else a.movedim(ad, 0)
+        b1 = b if bd is None else b.movedim(bd, 0)
+        return matmul(a1, b1, mode="kernel", **blocks), 0
+    if ra == 3 and ad is not None and rb in (2, 3):
+        # Members of (B, M, K) products: w folds into B, a shared (K, N)
+        # broadcast, a batched (B, K, N) folded alike.
+        a1 = _first(a, ad, w)
+        n_b = a1.shape[1]
+        b1 = b if bd is None else _first(b, bd, w)
+        if rb == 2 and bd is None or rb == 3 and bd is not None and b1.shape[1] == n_b:
+            out = matmul(a1.flatten(0, 1), b1 if bd is None else b1.flatten(0, 1),
+                         mode="kernel", **blocks)
+            return out.unflatten(0, (w, n_b)), 0
+    return _per_member(w, dims, lambda x, y: matmul(x, y, mode="kernel", **blocks), a, b)
+
+
+def _attention_rule(w, dims, params, q, k, v):
+    p = dict(params)
+    opts = {key: p.pop(key) for key in ("causal", "window", "scale")}
+    q1, k1, v1 = (_first(t, d, w) for t, d in zip((q, k, v), dims))
+    out = attention(q1.flatten(0, 1), k1.flatten(0, 1), v1.flatten(0, 1),
+                    mode="kernel", **opts, **p)
+    return out.unflatten(0, (w, q1.shape[1])), 0
+
+
+def _softmax_rule(w, dims, params, x):
+    """(w, R, C) softmaxes as (w·R, C) rows of one launch."""
+    return softmax(_first(x, dims[0], w), mode="kernel"), 0
+
+
+def _images_rule(op):
+    """lrn / avgpool: (w, N, C, H, W) as (w·N, C, H, W), one launch."""
+
+    def rule(w, dims, params, x):
+        x1 = _first(x, dims[0], w)
+        out = op(x1.flatten(0, 1), mode="kernel", **dict(params))
+        return out.unflatten(0, (w, x1.shape[1])), 0
+
+    return rule
+
+
+def _looped_rule(op):
+    """prefix_scan / sort_kv / srad_step: one launch of the op's kernel a
+    member (its kernel has no batch axis)."""
+
+    def rule(w, dims, params, *operands):
+        return _per_member(w, dims, lambda *xs: op(*xs, mode="kernel", **dict(params)),
+                           *operands)
+
+    return rule
+
+
+_RULES = {
+    "matmul": _matmul_rule,
+    "attention": _attention_rule,
+    "softmax": _softmax_rule,
+    "lrn": _images_rule(lrn),
+    "avgpool": _images_rule(avgpool),
+    "prefix_scan": _looped_rule(prefix_scan),
+    "sort_kv": _looped_rule(sort_kv),
+    "srad_step": _looped_rule(srad_step),
+}
+_OPS = {"matmul": matmul, "attention": attention, "softmax": softmax, "lrn": lrn,
+        "avgpool": avgpool, "prefix_scan": prefix_scan, "sort_kv": sort_kv,
+        "srad_step": srad_step}
+
+
+class _KernelOp(torch.autograd.Function):
+    """A kernel op behind its batching rule (:data:`_RULES`).
+
+    The ops apply it only to a batched call; ``torch.vmap`` then calls
+    :meth:`vmap` with the physical tensors and their batch dims (one level
+    of vmap; a rule's own calls meet the next level the same way). Outside
+    ``torch.vmap`` it runs the op's kernel route directly."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def forward(op, params, *tensors):
+        return _OPS[op](*tensors, mode="kernel", **dict(params))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, op, params, *tensors):
+        return _RULES[op](info.batch_size, in_dims[2:], params, *tensors)

@@ -78,7 +78,7 @@ def prefix_scan_cuda(x: torch.Tensor, *, block_n: int = 2048) -> torch.Tensor:
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = fn(x.data_ptr(), y.data_ptr(), n, scratch.data_ptr(), stream)
     _build.check(status, "prefix_scan_f32")
-    launches["prefix_scan_f32"] += 1
+    _build.count(launches, "prefix_scan_f32")
     return y
 
 

@@ -142,7 +142,7 @@ def _launch(name: str, x: torch.Tensor) -> torch.Tensor:
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = fn(x2.data_ptr(), y.data_ptr(), r, c, x2.stride(0), y.stride(0), stream)
     _build.check(status, name)
-    launches[name] += 1
+    _build.count(launches, name)
     return y.view(x.shape)
 
 

@@ -183,7 +183,7 @@ def _call(name: str, img: torch.Tensor, *args) -> None:
     fn = _build.function(name, _ARGTYPES[name])
     stream = torch.cuda.current_stream(img.device).cuda_stream
     _build.check(fn(*args, stream), name)
-    launches[name] += 1
+    _build.count(launches, name)
 
 
 def _launch(name: str, img: torch.Tensor, *, lam: float = 0.5,

@@ -23,6 +23,7 @@ from repro_torch.kernels import (
     softmax,
     srad_stencil,
 )
+from repro_torch.kernels import ops
 from repro_torch.kernels.ops import attention as ops_attention
 from repro_torch.kernels.ops import sort_kv, srad_step
 
@@ -338,8 +339,9 @@ def test_dnn_kernel_rows_on_the_card_launch_the_kernels(card):
     # im2col's operands are contiguous: every call on the TMA kernel.
     assert deltas == {
         "matmul_f32": 0, "matmul_f32_batched": calls, "matmul_f32_simt": 0,
-        "matmul_f32_simt_batched": 0, "matmul_bf16": 0, "matmul_bf16_wmma": 0,
-        "matmul_bf16_wmma_batched": 0, "lrn_f32": calls, "lrn_f32_smem": 0,
+        "matmul_f32_simt_batched": 0, "matmul_bf16": 0, "matmul_bf16_batched": 0,
+        "matmul_bf16_wmma": 0, "matmul_bf16_wmma_batched": 0, "lrn_f32": calls,
+        "lrn_f32_smem": 0,
         "avgpool_f32": calls,
     }
 
@@ -1334,3 +1336,145 @@ def test_tune_of_gemm_f32_tn_on_the_card_cold_then_warm(card, tmp_path):
     assert rec2.tune_trials == 0 and rec2.tuned_params == rec.tuned_params
     assert warm.disk_cache.tune_hits == 1 and len(launched) == 2
     assert torch.cuda.get_device_name(0).replace(" ", "_") in warm.disk_cache.root
+
+
+# Batched bf16 products on the TMA + wgmma kernel: the served GEMM's shapes
+# scaled down, ragged M, N and K, A batched or broadcast, "nn" and "tn"
+# (A's transposed view), and a broadcast B.
+BF16_BATCHED = [(4, 256, 256, 256), (3, 200, 72, 136), (2, 1000, 1000, 1000), (5, 64, 64, 64)]
+
+
+@pytest.mark.parametrize("batch,m,k,n", BF16_BATCHED)
+@pytest.mark.parametrize("layout", ["nn", "tn"])
+@pytest.mark.parametrize("shared", ["a", "b", None])
+def test_batched_bf16_matmul_on_the_tma_kernel_matches_plain(card, batch, m, k, n, layout,
+                                                              shared):
+    gen = torch.Generator(device=card).manual_seed(batch * m + k)
+
+    def operand(rows, cols, batched, transposed=False):
+        shape = (batch,) * batched + ((cols, rows) if transposed else (rows, cols))
+        t = torch.randn(*shape, generator=gen, device=card).bfloat16()
+        return t.transpose(-1, -2) if transposed else t
+
+    a = operand(m, k, shared != "a", transposed=layout == "tn")
+    b = operand(k, n, shared != "b")
+    assert matmul._route(a, b) == "matmul_bf16"
+    before = dict(matmul.launches)
+    got = matmul.matmul_cuda(a, b)
+    torch.cuda.synchronize()
+    assert {key: matmul.launches[key] - before[key] for key in before} == {
+        key: int(key == "matmul_bf16_batched") for key in before}
+    assert got.shape == (batch, m, n) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), matmul.matmul_plain(a, b).float(),
+                               rtol=2e-2, atol=2e-2)
+    # Each product equals the 2-D kernel's on that member: the same tiles,
+    # the same order of K.
+    for j in range(batch):
+        one = matmul.matmul_cuda(a if a.dim() == 2 else a[j], b if b.dim() == 2 else b[j])
+        assert torch.equal(got[j], one)
+
+
+# op, the members' inputs (w = 3), launches a width-3 call makes, tolerance.
+def _rule_cases(card):
+    gen = torch.Generator(device=card).manual_seed(7)
+
+    def r(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=card).to(dtype)
+
+    return {
+        "matmul_f32": (lambda x, y: ops.matmul(x, y), (r(3, 130, 72), r(3, 72, 96)),
+                       {"matmul_f32_batched": 1}, 1e-5),
+        "matmul_bf16": (lambda x, y: ops.matmul(x, y),
+                        (r(3, 256, 128, dtype=torch.bfloat16), r(3, 128, 256, dtype=torch.bfloat16)),
+                        {"matmul_bf16_batched": 1}, 2e-2),
+        "softmax": (lambda x: ops.softmax(x), (r(3, 64, 1000),), {"softmax_f32": 1}, 1e-5),
+        "lrn": (lambda x: ops.lrn(x, size=5), (r(3, 2, 64, 8, 8),), {"lrn_f32": 1}, 1e-5),
+        "avgpool": (lambda x: ops.avgpool(x, ksize=2), (r(3, 2, 8, 16, 16),),
+                    {"avgpool_f32": 1}, 1e-6),
+        "attention": (lambda q, k, v: ops.attention(q, k, v, causal=True),
+                      (r(3, 2, 4, 64, 64, dtype=torch.bfloat16),
+                       r(3, 2, 2, 64, 64, dtype=torch.bfloat16),
+                       r(3, 2, 2, 64, 64, dtype=torch.bfloat16)),
+                      {"flash_attention_bf16_wgmma": 1}, 2e-2),
+        "prefix_scan": (lambda x: ops.prefix_scan(x), (r(3, 5000),), {"prefix_scan_f32": 3},
+                        1e-4),
+        "sort_kv": (lambda k, v: ops.sort_kv(k, v),
+                    (torch.randint(0, 100, (3, 5000), generator=gen, device=card,
+                                   dtype=torch.int32),
+                     torch.arange(15000, device=card, dtype=torch.int32).view(3, 5000)),
+                    {"sort_kv_i32": 3}, 0.0),
+        "srad_step": (lambda x: ops.srad_step(x), (r(3, 64, 64).abs() + 0.5,),
+                      {"srad_fused_f32": 3}, 0.0),
+    }
+
+
+@pytest.mark.parametrize("case", ["matmul_f32", "matmul_bf16", "softmax", "lrn", "avgpool",
+                                  "attention", "prefix_scan", "sort_kv", "srad_step"])
+def test_each_ops_batching_rule_launches_the_kernel_and_matches_each_member(card, case):
+    """torch.vmap over the kernel route on the card: one launch for the
+    folding rules, one a member for the looped ones, each member equal to
+    the plain version of that member."""
+    fn, args, launched, tol = _rule_cases(card)[case]
+    mods = (matmul, softmax, lrn, avgpool, flash_attention, prefix_scan, bitonic_sort,
+            srad_stencil)
+    before = {k: v for m in mods for k, v in m.launches.items()}
+    with ops.force_impl("kernel"):
+        got = torch.vmap(fn)(*args)
+    torch.cuda.synchronize()
+    after = {k: v for m in mods for k, v in m.launches.items()}
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == launched
+    got = got if isinstance(got, tuple) else (got,)
+    for j in range(3):
+        with ops.force_impl("ref"):
+            want = fn(*(x[j] for x in args))
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g[j].float(), w.float(), rtol=tol, atol=tol)
+
+
+def test_served_kernel_rows_launch_once_per_call_of_their_width(card):
+    """A mixed, dynamically batched serve of gemm_bf16_nn: every call of
+    width > 1 is one matmul_bf16_batched launch, every width-1 call one
+    matmul_bf16 launch, and the WMMA kernel never runs."""
+    from repro_torch.core.plan import ServeSpec, ShapeBucket
+
+    serve = ServeSpec(mode="open", qps=2000.0, duration_s=0.3, dispatch="dynamic",
+                      max_batch=4, batch_budget_us=500.0,
+                      mix=(ShapeBucket(preset=0), ShapeBucket(preset=0, overrides=(("n", 128),))))
+    before = dict(matmul.launches)
+    res = Engine().run(ExecutionPlan(names=("gemm_bf16_nn",), preset=0, iters=1, warmup=0,
+                                     include_backward=False, impl="kernel", serve=serve))
+    (rec,) = res.records
+    assert rec.status == "ok", rec.error
+    delta = {k: matmul.launches[k] - before[k] for k in before}
+    assert delta["matmul_bf16_wmma"] == delta["matmul_bf16_wmma_batched"] == 0
+    assert delta["matmul_bf16_batched"] > 0
+    # measure (1 + 1 + 0 + 1 + 4 calls) + build (1 + 2 + 2 / 2 + 2 + 2) + batches
+    measure = 1 + 1 + 0 + 1 + 1 * 4
+    assert delta["matmul_bf16"] + delta["matmul_bf16_batched"] == (
+        measure + 5 + 6 + rec.serve_batches)
+
+
+def test_a_kernel_launches_from_a_thread_that_never_touched_the_card(card):
+    """The threaded serving client's lane threads call the kernels first
+    thing: the f32 TMA GEMM (which sets its shared-memory attribute before
+    launching) must launch there as on the main thread."""
+    import threading
+
+    a = torch.randn(256, 256, device=card)
+    b = torch.randn(256, 256, device=card)
+    want = matmul.matmul_cuda(a, b)
+    out = {}
+
+    def run():
+        try:
+            out["c"] = matmul.matmul_cuda(a, b)
+        except Exception as e:  # noqa: BLE001 — reported below
+            out["err"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert "err" not in out, out.get("err")
+    torch.cuda.synchronize()
+    assert torch.equal(out["c"], want)

@@ -115,7 +115,7 @@ def test_tune_space_lists_each_compiled_f32_tile_default_first():
     ((_f(64, 64), _f(64, 64)), (256, 128)),
     ((_f(1, 256), _f(256, 33)), (128, 256)),  # matmul_f32_simt: 128 x 128 alone
     ((_f(64, 64).bfloat16(), _f(64, 64).bfloat16()), (128, 256)),  # matmul_bf16
-    ((_f(3, 8, 8).bfloat16(), _f(3, 8, 8).bfloat16()), (128, 256)),  # matmul_bf16_wmma
+    ((_f(3, 8, 8).bfloat16(), _f(3, 8, 8).bfloat16()), (128, 256)),  # matmul_bf16, batched
 ])
 def test_a_tile_no_entry_compiles_raises_before_any_launch(operands, tile):
     a, b = operands

@@ -65,6 +65,9 @@ def test_port_imports_no_jax_and_no_reference_module():
         "repro_torch.benchmarks.fig5_suite_utilization",
         "repro_torch.benchmarks.fig12_legacy_utilization", "repro_torch.benchmarks.fig_impl",
         "repro_torch.benchmarks.roofline_table",
+        "repro_torch.serve.client", "repro_torch.serve.batcher",
+        "repro_torch.serve.interference", "repro_torch.benchmarks.fig_concurrency",
+        "repro_torch.benchmarks.fig_batching",
     } <= set(mods)
     script = textwrap.dedent(f"""
         import importlib, sys

@@ -483,7 +483,8 @@ def test_matmul_route_sends_the_paths_bf16_products_to_the_tma_kernel(layout):
     b = _bf(n, n)
     assert tmatmul._route(a, b) == "matmul_bf16"
     assert tmatmul._route(a[None], b) == "matmul_bf16"
-    assert tmatmul._tma_operands(a, b) == (int(layout == "tn"), n, n)
+    # (a_m_major, lda, sab, ldb, sbb): 2-D operands, batch strides 0.
+    assert tmatmul._tma_operands(a, b) == (int(layout == "tn"), n, 0, n, 0)
     assert tmatmul._route(a.float(), b.float()) == "matmul_f32"
 
 
@@ -491,8 +492,9 @@ def test_matmul_route_keeps_the_wmma_kernel_for_other_bf16_layouts():
     wmma = "matmul_bf16_wmma"
     assert tmatmul._route(_bf(1, 256), _bf(256, 33)) == wmma  # B's row stride 33
     assert tmatmul._route(_bf(130, 70), _bf(70, 50)) == wmma  # row strides 70 and 50
-    assert tmatmul._route(_bf(3, 8, 8), _bf(3, 8, 8)) == wmma  # a batch
-    assert tmatmul._route(_bf(8, 8), _bf(3, 8, 8)) == wmma  # a broadcast batch
+    ragged = _bf(200).as_strided((3, 8, 8), (68, 8, 1))  # batch stride 68
+    assert tmatmul._route(ragged, _bf(3, 8, 8)) == wmma  # a batch
+    assert tmatmul._route(_bf(8, 8), ragged) == wmma  # a broadcast batch
     assert tmatmul._route(_bf(8, 8), _bf(8, 8).T) == wmma  # column-major B
     odd = _bf(1 + 64 * 64)[1:].view(64, 64)  # one element into its storage
     assert odd.data_ptr() % 16 != 0

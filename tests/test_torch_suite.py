@@ -495,7 +495,7 @@ def test_plan_validation():
         ExecutionPlan(impl="pallas")
     with pytest.raises(PlanError, match="device"):
         ExecutionPlan(device="tpu")
-    with pytest.raises(PlanError, match="serving"):
+    with pytest.raises(PlanError, match="serve must be a ServeSpec"):
         ExecutionPlan(serve={"mode": "closed"})
 
 

@@ -98,6 +98,21 @@ exits nonzero without printing its result line:
    defaults. Every suite run's launch counters equal the calls its rows
    made (counted through the engine's serve seam, warm-ups and first calls
    included); the WMMA kernel never launches;
+4i. tracing and distributed load generation: the suite over fig_trace's
+   names (gemm_f32_nn, pathfinder, softmax) at preset 4 with ``--impl
+   kernel --trace-out``: one span a stage a pass, each within 1 us of its
+   record's ``stage_timings_us``, the counter snapshot in the JSONL
+   metadata, ``matmul_f32`` and ``softmax_f32`` launched as often as the
+   rows called them; then gemm_bf16_nn at preset 4, ``--impl kernel
+   --tune``, served open loop at 2000 QPS by 2 client processes (each its
+   own CUDA context on the card), cold and then warm on one
+   ``--cache-dir``, and by the threaded client in this process: each
+   client's ``matmul_bf16`` launches equal to the requests it served (its
+   warm-up included; no other kernel), the clients' requests adding up to
+   the merged stream, every client on the launcher's cached library at zero
+   tune trials; then ``benchmarks.fig_dist`` at its defaults (Pathfinder,
+   1, 2 and 4 processes at 2k, 8k and 20k offered QPS), each point printed
+   beside the card's name and power limit;
 4b. the kernel rows of all paths at preset 0, kernel against torch on the
    same inputs, f32 products against an f64 evaluation; the Softmax and
    LRN rows at presets 0-3, each call on the redesigned entry and passing
@@ -227,6 +242,14 @@ SERVED_BF16 = [(4, 4096, False, "nn"), (4, 4096, False, "tn"), (4, 4096, True, "
 REPORT_SECTIONS = ("table1", "table2", "fig3", "fig4", "fig5", "fig12", "fig_impl", "roofline")
 REPORT_KERNELS = ("matmul_f32", "softmax_f32", "lrn_f32", "avgpool_f32", "prefix_scan_f32")
 PRESET, ITERS, WARMUP, WINDOW = 4, 5, 2, 4
+# Tracing and distributed load generation (phase 4i): fig_trace's names
+# traced through the suite; the row served by client processes (count,
+# offered QPS, seconds, in-flight cap, lanes); the stages an untuned pass
+# runs.
+TRACE_PATH = ("gemm_f32_nn", "pathfinder", "softmax")
+TRACE_STAGES = ("build", "place", "compile", "measure", "characterize")
+DIST_ROW = "gemm_bf16_nn"
+DIST_PROCS, DIST_QPS, DIST_DURATION, DIST_CONCURRENCY, DIST_LANES = 2, 2000.0, 1.0, 8, 2
 # Calls of each pass's function on the main path: the compile stage's first
 # call, the validation call, the sync-mode warm-up and timed calls, and the
 # windowed calls.
@@ -1903,6 +1926,202 @@ def phase_serving(torch) -> dict:
     return out
 
 
+def _trace_run(torch) -> dict:
+    """The suite over fig_trace's names at preset 4 with --trace-out: one
+    span a stage a pass, each equal to its record's stage time, the counter
+    snapshot stamped, each kernel launched as often as the rows called it.
+    -> the launches."""
+    from repro_torch.benchmarks import fig_trace
+    from repro_torch.core import suite
+    from repro_torch.core.registry import get_benchmark
+    from repro_torch.core.results import load_run
+
+    if tuple(fig_trace.DEFAULT_NAMES) != TRACE_PATH:
+        _fail(f"fig_trace's names are {fig_trace.DEFAULT_NAMES}, not {TRACE_PATH}")
+    _zero_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace, jsonl = os.path.join(tmp, "run.trace.json"), os.path.join(tmp, "run.jsonl")
+        t0 = time.perf_counter()
+        rc = suite.main([
+            "--names", *TRACE_PATH, "--preset", str(PRESET), "--impl", "kernel",
+            "--no-backward", "--iters", str(ITERS), "--warmup", str(WARMUP),
+            "--timing-window", str(WINDOW), "--jsonl", jsonl, "--trace-out", trace,
+        ])
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        meta, records = load_run(jsonl)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    if rc != 0 or [r.status for r in records] != ["ok"] * len(TRACE_PATH):
+        _fail(f"the traced suite run exited {rc}: {[(r.name, r.error) for r in records]}")
+    spans = sorted((e for e in events if e["ph"] == "X" and e["cat"] == "engine"),
+                   key=lambda e: e["ts"])
+    if len(spans) != len(TRACE_STAGES) * len(records):
+        _fail(f"{len(spans)} engine spans for {len(records)} passes of "
+              f"{len(TRACE_STAGES)} stages")
+    names = sorted(TRACE_PATH, key=_order)
+    worst = 0.0
+    for i, (name, rec) in enumerate(zip(names, records, strict=True)):
+        mine = spans[i * len(TRACE_STAGES):(i + 1) * len(TRACE_STAGES)]
+        if tuple(e["name"] for e in mine) != TRACE_STAGES:
+            _fail(f"{rec.name}: spans {[e['name'] for e in mine]}")
+        if [e["args"]["bench"] for e in mine] != [name] * 2 + [rec.name] * 3:
+            _fail(f"{rec.name}: spans of {[e['args']['bench'] for e in mine]}")
+        for e in mine:
+            d = abs(e["dur"] - rec.stage_timings_us[e["name"]])
+            worst = max(worst, d)
+            if d > 1.0:
+                _fail(f"{rec.name}: span {e['name']} {e['dur']} us against the record's "
+                      f"{rec.stage_timings_us[e['name']]} us")
+        total = sum(rec.stage_timings_us.values())
+        print(f"  {rec.name:28s} " + " ".join(
+            f"{e['name']} {e['dur']:.0f} us ({e['dur'] / total:.1%})" for e in mine))
+    if meta is None or meta.counters is None:
+        _fail(f"the traced run's metadata carries no counters: {meta}")
+    want = {k: 0 for k in launches}
+    for name in TRACE_PATH:
+        size = get_benchmark(name).presets[PRESET]
+        kernel = {"gemm_f32_nn": "matmul_f32", "softmax": "softmax_f32"}.get(name)
+        if kernel:
+            want[kernel] += size.get("chain", 1) * CALLS_PER_PASS
+    if launches != want:
+        _fail(f"traced run: launches {launches} against the rows' calls {want}")
+    print(f"  traced suite run: {len(spans)} spans ({len(records)} passes x "
+          f"{len(TRACE_STAGES)} stages), each within {worst:.3f} us of its record's stage "
+          f"time; counters {meta.counters}; launches {_nonzero(launches)} in {wall:.1f} s")
+    return launches
+
+
+def _dist_engine(cache_dir):
+    """An engine that keeps each row's serving statistics (the merged
+    distributed ones carry each client's Done)."""
+    from repro_torch.core.engine import Engine
+
+    class StatsEngine(Engine):
+        def __init__(self) -> None:
+            super().__init__(cache_dir=cache_dir)
+            self.stats = []
+
+        def _stage_serve(self, *args, **kw):
+            out = super()._stage_serve(*args, **kw)
+            self.stats.append(out[0])
+            return out
+
+    return StatsEngine()
+
+
+def _dist_runs(torch, smi) -> dict:
+    """DIST_ROW at preset 4 tuned, served open loop by DIST_PROCS client
+    processes cold and then warm on one --cache-dir, then by the threaded
+    client in this process: each client's matmul_bf16 launches equal to the
+    requests it served, the merged requests equal to the clients', the
+    warm clients on a cached library at zero tune trials. -> the launches
+    (this process's and the clients')."""
+    from repro_torch.core.plan import ServeSpec
+    from repro_torch.core.suite import run_suite
+
+    total = {k: 0 for k in _read_launches()}
+    fast = dict(names=[DIST_ROW], preset=PRESET, impl="kernel", tune=True, iters=1,
+                warmup=0, include_backward=False, verbose=False)
+    serve = dict(mode="open", qps=DIST_QPS, duration_s=DIST_DURATION,
+                 concurrency=DIST_CONCURRENCY, lanes=DIST_LANES)
+    with tempfile.TemporaryDirectory() as cache:
+        for label in ("cold", "warm", "threaded"):
+            eng = _dist_engine(cache)
+            spec = (ServeSpec(client="threaded", **serve) if label == "threaded"
+                    else ServeSpec(client_procs=DIST_PROCS, **serve))
+            _zero_launches()
+            t0 = time.perf_counter()
+            (rec,) = run_suite(serve=spec, engine=eng, **fast)
+            wall = time.perf_counter() - t0
+            parent = _read_launches()
+            if rec.status != "ok":
+                _fail(f"{DIST_ROW} {label}: {rec.error}")
+            (st,) = eng.stats
+            served = st.requests + st.warmup_requests
+            # This process: the measure stage's calls after a first call; on
+            # a cold cache that first call is the tune trial's of the 128x128
+            # tile, then a warm-up call and a window (128x256 is refused
+            # unlaunched, and the winner's compile is the trial's entry).
+            calls = MEASURE_CALLS + (1 + 1 + WINDOW if label == "cold" else 1)
+            if label == "threaded":
+                calls += served
+            if _nonzero(parent) != {"matmul_bf16": calls}:
+                _fail(f"{DIST_ROW} {label}: this process launched {_nonzero(parent)}, "
+                      f"its calls were {calls}")
+            for k, n in parent.items():
+                total[k] += n
+            line = (f"  {DIST_ROW} {label:8s} offered {DIST_QPS:.0f} qps achieved "
+                    f"{rec.achieved_qps:.1f} p50 {rec.latency_p50_us:.1f} us p99 "
+                    f"{rec.latency_p99_us:.1f} us requests {rec.serve_requests} "
+                    f"(+{st.warmup_requests} warm-up) wall {wall:.1f} s")
+            if label == "threaded":
+                print(line + f" dispatch_us {rec.dispatch_overhead_us:.1f} ({smi})")
+                continue
+            if rec.client_procs != DIST_PROCS or len(rec.proc_qps) != DIST_PROCS or min(
+                    rec.proc_qps) <= 0:
+                _fail(f"{DIST_ROW} {label}: client_procs {rec.client_procs} proc_qps "
+                      f"{rec.proc_qps}")
+            dones = st.client_dones
+            if sum(d.requests for d in dones) != served:
+                _fail(f"{DIST_ROW} {label}: the clients served "
+                      f"{[d.requests for d in dones]}, the merged stream {served}")
+            for d in dones:
+                if d.launches != {"matmul_bf16": d.requests}:
+                    _fail(f"{DIST_ROW} {label}: client {d.proc_id} served {d.requests} "
+                          f"requests and launched {d.launches}")
+                c = d.cache_counters
+                if c.get("tune_trials") != 0 or c.get("tune_hits") != 1 or c.get(
+                        "library_cached") != 1:
+                    _fail(f"{DIST_ROW} {label}: client {d.proc_id} counters {c}")
+                total["matmul_bf16"] += d.launches["matmul_bf16"]
+            print(line + f" proc_qps {','.join(f'{q:.1f}' for q in rec.proc_qps)} clients "
+                  + "; ".join(f"{d.proc_id}: {d.requests} requests, launches {d.launches}, "
+                              f"{d.cache_counters}" for d in dones) + f" ({smi})")
+    return total
+
+
+def _dist_figure(torch, smi) -> None:
+    """fig_dist at its defaults on the card: each point's achieved QPS and
+    p99 beside the card."""
+    from repro_torch.benchmarks import fig_dist
+    from repro_torch.benchmarks.common import ERROR_PREFIX, parse_derived
+
+    t0 = time.perf_counter()
+    _zero_launches()
+    rows = fig_dist.rows()
+    if _nonzero(_read_launches()):  # Pathfinder: no kernel
+        _fail(f"fig_dist launched a kernel: {_nonzero(_read_launches())}")
+    if len(rows) != len(fig_dist.DEFAULT_PROCS) * len(fig_dist.DEFAULT_QPS):
+        _fail(f"fig_dist printed {len(rows)} rows")
+    for name, us, derived in rows:
+        if derived.startswith(ERROR_PREFIX):
+            _fail(f"fig_dist row {name}: {derived}")
+        f = parse_derived(derived)
+        print(f"  {name:40s} procs {f['procs']} offered {f['offered_qps']} achieved "
+              f"{f['qps']} qps p50 {f['p50_us']} us p99 {f['p99_us']} us"
+              + (f" proc_qps {f['proc_qps']}" if "proc_qps" in f else "") + f" ({smi})")
+    print(f"  fig_dist ({fig_dist.DEFAULT_NAME}, preset 0, the reference's defaults; "
+          f"cpu_count {os.cpu_count()}) in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_trace_dist(torch, smi) -> dict:
+    """Tracing (a traced suite run) and distributed load generation (client
+    processes on the card, then fig_dist). -> the launches."""
+    print(f"== phase 4i: tracing and distributed load generation (suite --trace-out over "
+          f"{', '.join(TRACE_PATH)}; {DIST_ROW} served by {DIST_PROCS} client processes; "
+          "fig_dist at its defaults)")
+    t0 = time.perf_counter()
+    launches = _trace_run(torch)
+    for k, n in _dist_runs(torch, smi).items():
+        launches[k] += n
+    _dist_figure(torch, smi)
+    torch.cuda.empty_cache()
+    print(f"  launches over phase 4i: {_nonzero(launches)}; phase 4i "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def _order(name: str):
     from repro_torch.core.registry import get_benchmark
 
@@ -2801,13 +3020,14 @@ def main() -> int:
     feature_launches = phase_features(torch)
     report_launches = phase_tune_reports(torch)
     serve_launches = phase_serving(torch)
+    dist_launches = phase_trace_dist(torch, smi)
     phase_small_agreement(torch)
     lm_launches, lm = phase_lm_serving(torch)
     # Every count was checked per path; a kernel's launches are the sum over
     # the paths that run it (SRAD's three entries: phases 4c and 4f).
     launches = {k: main_launches[k] + dnn_launches[k] + level_launches[k] + lm_launches[k]
                 + feature_launches[k] + report_launches[k] + serve_launches[k]
-                for k in main_launches}
+                + dist_launches[k] for k in main_launches}
     kernels = phase_yardstick(torch, launches, errors)
     # One row per kernel and shape (matmul_bf16 has three, nn and tn at
     # 4096^3 and nn at 1024^3; matmul_bf16_batched six), the kernels of no

@@ -29,15 +29,19 @@ stderr, and exit 1 when any row failed. Sections:
                              threaded client, and a co-located pair
   fig_batching             — loop, lanes and the dynamic batcher replaying
                              one mixed-shape trace
+  fig_trace                — each stage's share of a pass, from a traced
+                             engine run (span count in every row)
+  fig_dist                 — achieved QPS and p99 against offered load, one
+                             threaded client against 2 and 4 client
+                             processes
 
 The suite-backed sections (fig12, fig3, fig4, fig5, fig_impl,
-fig_concurrency, fig_batching) run through ``run_suite`` at ``--preset``
-with per-benchmark fault isolation, ``--impl`` naming the implementation of
-the two serving sections (torch, the reference's default, or kernel); the
-feature studies take their own sizes (the reference's). The reference's
-``fig_scaling``, ``fig_dist`` and ``fig_trace`` wait for device sweeps,
-distributed load generation and tracing (ROADMAP queue 1, items 12 and
-15), and its dry-run roofline cells for item 16.5.
+fig_concurrency, fig_batching, fig_trace, fig_dist) run through
+``run_suite`` at ``--preset`` with per-benchmark fault isolation, ``--impl``
+naming the implementation of the serving and tracing sections (torch, the
+reference's default, or kernel); the feature studies take their own sizes
+(the reference's). The reference's ``fig_scaling`` waits for device sweeps
+(ROADMAP queue 1, item 12), and its dry-run roofline cells for item 16.5.
 
 ``--device`` is ``cuda`` unless the caller asks for the CPU, where the
 plain versions run; without a CUDA card a ``cuda`` run exits 2 before
@@ -68,6 +72,8 @@ SECTION_NAMES = (
     "roofline",
     "fig_concurrency",
     "fig_batching",
+    "fig_trace",
+    "fig_dist",
 )
 
 
@@ -79,8 +85,8 @@ def main(argv=None) -> int:
     ap.add_argument("--preset", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--impl", choices=("torch", "kernel"), default="torch",
-                    help="implementation the serving sections time (default torch, "
-                         "the reference's default)")
+                    help="implementation the serving and tracing sections time "
+                         "(default torch, the reference's default)")
     args = ap.parse_args(argv)
 
     selected = args.sections or list(SECTION_NAMES)
@@ -106,10 +112,12 @@ def main(argv=None) -> int:
         fig3_dnn_forward,
         fig_batching,
         fig_concurrency,
+        fig_dist,
         fig4_dnn_backward,
         fig5_suite_utilization,
         fig12_legacy_utilization,
         fig_impl,
+        fig_trace,
         roofline_table,
         table1_suite,
         table2_dnn_kernels,
@@ -132,6 +140,8 @@ def main(argv=None) -> int:
         "roofline": roofline_table.rows_from_latest_report,
         "fig_concurrency": lambda: fig_concurrency.rows(preset=preset, impl=impl, device=device),
         "fig_batching": lambda: fig_batching.rows(preset=preset, impl=impl, device=device),
+        "fig_trace": lambda: fig_trace.rows(preset=preset, impl=impl, device=device),
+        "fig_dist": lambda: fig_dist.rows(preset=preset, impl=impl, device=device),
     }
     # SECTION_NAMES exists so --sections validates before the imports above;
     # keep the two in sync.

@@ -71,11 +71,27 @@ forces the kernel route, ``torch`` forces the plain oracle.
 At the start of a run both TF32 switches are turned off and recorded in
 the run's metadata: f32 rows are true f32.
 
+With ``client_procs`` the serve stage hands the row to
+``repro_torch.dist.launcher.run_distributed``: N client processes, each
+building the workload through its own engine on the plan's device and
+replaying its share of one seeded open-loop stream; the launcher merges
+their completions into one set of statistics with per-process QPS.
+
+Tracing (``Engine(tracer=...)``, ``repro_torch.obs``): every stage is one
+span, recorded from the same ``perf_counter`` pair that fills the record's
+``stage_timings_us``, so the two are equal; the tune stage adds one event a
+trial and the ``tune.trials`` counter; the serve stage adds one event a
+request (``serve`` track, a tid a lane) and one a dispatched batch
+(``batcher`` track), built afterwards from the stamps the lanes took; and
+the counter snapshot lands in ``RunMetadata.counters``. The spans are host
+clock: the measure stage's span closes after its CUDA events have been
+synchronised, and no span is a device time. The timer's loops
+(``core/harness.py``) consult no tracer.
+
 Failures are isolated per benchmark: an exception in any stage yields a
 ``status="error"`` record naming the stage, and the suite keeps going.
-Device sweeps, distributed load generation and the serve stage's trace
-events are not ported yet, and the disk cache holds the tune winners
-alone.
+Device sweeps are not ported yet, and the disk cache holds the tune
+winners alone.
 
 Rows that replay a captured CUDA graph (``core/graphs.py``) key it by
 addresses and route, not by tile: every such row's kernel has a one-entry
@@ -113,6 +129,7 @@ from repro_torch.core.results import (
     write_report,
 )
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.obs import NULL_TRACER, NullTracer, Tracer, use_tracer
 
 __all__ = ["CompileCache", "Engine", "RunResult", "bind_impl"]
 
@@ -192,13 +209,20 @@ class Engine:
     """Executes plans. Holds the callable cache, so a long-lived engine
     reuses bound callables (and their first-call builds) across runs, and,
     given ``cache_dir``, the disk cache of tune winners shared across
-    processes."""
+    processes (distributed clients are pointed at the same directory)."""
 
     def __init__(
-        self, cache: CompileCache | None = None, cache_dir: str | None = None
+        self,
+        cache: CompileCache | None = None,
+        cache_dir: str | None = None,
+        tracer: Tracer | NullTracer | None = None,
     ) -> None:
         self.cache = cache if cache is not None else CompileCache()
+        self.cache_dir = cache_dir
         self.disk_cache = HloDiskCache(cache_dir) if cache_dir else None
+        # NULL_TRACER by default: falsy, no-op, its counters swallowed; the
+        # disabled cost at a guarded call site is one attribute read.
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         # Width-w serve calls of graph-replay workloads, captured whole.
         self._graphs = GraphCache(capacity=64)
 
@@ -326,7 +350,11 @@ class Engine:
         best_us: float | None = None
         best: dict = {}
         trials = refused = 0
-        trials_us = 0.0  # the sum of the timed candidates' wall spans
+        # The sum of the timed candidates' wall spans: each trial's pair
+        # (c0, c1) is added here and is its trace event, so the record's
+        # tune_trials_us and the trace cannot disagree.
+        trials_us = 0.0
+        tracer = self.tracer
         for i, cand in enumerate(space):
             c0 = time.perf_counter()
             try:
@@ -339,8 +367,15 @@ class Engine:
                 refused += 1
                 continue
             mean_us = self._time_tune_trial(entry, args, plan)
-            trials_us += (time.perf_counter() - c0) * 1e6
+            c1 = time.perf_counter()
+            trials_us += (c1 - c0) * 1e6
             trials += 1
+            if tracer.enabled:
+                tracer.event(
+                    "tune.trial", t_start=c0, t_end=c1, track="engine",
+                    bench=spec.name, params=dict(cand), mean_us=mean_us,
+                )
+                tracer.counters.inc("tune.trials")
             if best_us is None or mean_us < best_us:
                 best_us, best = mean_us, dict(cand)
         if self.disk_cache is not None:
@@ -408,6 +443,43 @@ class Engine:
 
     # -- serving -----------------------------------------------------------
 
+    def _trace_completions(self, completions) -> None:
+        """One trace event a served request, on its dispatch lane (``serve``
+        track, a tid a lane), made after the run from the stamps the lanes
+        took: the serving loop itself is never instrumented."""
+        tracer = self.tracer
+        if not tracer.enabled:
+            return
+        for c in completions:
+            attrs = {"index": c.index, "warmup": c.warmup}
+            if c.bucket is not None:
+                attrs["bucket"] = c.bucket
+            tracer.event(
+                "request", t_start=c.t_submit, t_end=c.t_done,
+                track="serve", tid=f"lane {c.lane}", **attrs,
+            )
+        tracer.counters.inc("serve.requests", len(completions))
+
+    def _trace_batches(self, report) -> None:
+        """One trace event a dispatched call of a ``BatchReport`` (``batcher``
+        track, a tid a bucket queue), and the flush, expiry and padding
+        counters."""
+        tracer = self.tracer
+        if not tracer.enabled:
+            return
+        counters = tracer.counters
+        for b in report.batches:
+            tracer.event(
+                f"batch[{b.width}]", t_start=b.t_dispatch, t_end=b.t_done,
+                track="batcher", tid=f"queue {b.bucket}",
+                width=b.width, filled=b.filled, cause=b.cause,
+            )
+            counters.inc("batcher.flushes")
+            if b.cause == "expired":
+                counters.inc("batcher.budget_expiries")
+            counters.inc("batcher.dispatched_slots", b.width)
+            counters.inc("batcher.padded_slots", b.width - b.filled)
+
     def _served(self, name: str, width: int, call: Callable[[], Any]) -> Callable[[], Any]:
         """The callable a serving run of row ``name`` makes its width-``width``
         calls through: ``call`` itself. A seam: a harness wraps it to count
@@ -439,6 +511,7 @@ class Engine:
                 result = run_open_loop_threaded(
                     call, lane_schedules, concurrency=serve.concurrency
                 )
+                self._trace_completions(result.completions)
                 return stats_from_completions(
                     result.completions,
                     offered_qps=serve.qps,
@@ -453,6 +526,7 @@ class Engine:
             completions = run_open_loop(
                 call, schedule, n_lanes=serve.lanes, concurrency=serve.concurrency
             )
+            self._trace_completions(completions)
             return stats_from_completions(
                 completions,
                 offered_qps=serve.qps,
@@ -465,6 +539,7 @@ class Engine:
                 call, concurrency=serve.concurrency, n_lanes=serve.lanes,
                 duration_s=serve.duration_s, warmup=warmup,
             )
+            self._trace_completions(result.completions)
             return stats_from_completions(
                 result.completions,
                 slo_us=serve.slo_us,
@@ -475,6 +550,7 @@ class Engine:
             call, concurrency=serve.concurrency, n_lanes=serve.lanes,
             duration_s=serve.duration_s, warmup=warmup,
         )
+        self._trace_completions(completions)
         return stats_from_completions(completions, slo_us=serve.slo_us, n_lanes=serve.lanes)
 
     def _bucket_key(
@@ -669,6 +745,8 @@ class Engine:
                 calls, schedule, budget_s=serve.batch_budget_us / 1e6,
                 concurrency=serve.concurrency,
             )
+        self._trace_completions(report.completions)
+        self._trace_batches(report)
         return stats_from_completions(
             report.completions,
             # A replayed trace's offered load is the trace's, not the
@@ -706,10 +784,31 @@ class Engine:
         is returned for the report. A mixed spec goes through
         :meth:`_serve_mixed`. Every callable served is the bound one, which
         enters ``force_impl`` on each call, on whichever thread makes it.
+        With ``client_procs`` the row is served by that many client
+        processes (``repro_torch.dist``), each building the workload on the
+        plan's device through its own engine; a tuning plan's clients
+        restore the winner this engine stored in the shared ``cache_dir``
+        (without one, each client sweeps for itself, and its trials show in
+        the clients' counters).
         """
         serve = plan.serve
         if serve.is_mixed:
             stats = self._serve_mixed(spec, plan, preset, placement, impl, tuned_params)
+            return stats, None, None, []
+        if serve.client_procs > 0:
+            from repro_torch.dist.launcher import run_distributed
+
+            stats = run_distributed(
+                benchmark=spec.name,
+                preset=preset,
+                overrides=dict(plan.overrides_for(spec.name)),
+                serve=serve,
+                seed=plan.seed,
+                device=plan.device,
+                impl=impl,
+                tune=plan.tune,
+                cache_dir=self.cache_dir,
+            )
             return stats, None, None, []
         call = self._served(spec.name, 1, functools.partial(entry.executable, *args))
         if serve.colocate is None:
@@ -789,19 +888,18 @@ class Engine:
             print(BenchmarkRecord.csv_header(), flush=True)
         writer = JsonlReportWriter(jsonl_path, metadata) if jsonl_path else None
         try:
-            for spec in specs:
-                for rec in self._run_benchmark(spec, plan):
-                    records.append(rec)
-                    if writer is not None:
-                        writer.write(rec)
-                    if verbose:
-                        print(rec.csv(), flush=True)
+            # The engine's tracer is the ambient one for the run, so the
+            # serve layer (lane workers, the threaded client) reaches it.
+            with use_tracer(self.tracer):
+                for spec in specs:
+                    for rec in self._run_benchmark(spec, plan):
+                        records.append(rec)
+                        if writer is not None:
+                            writer.write(rec)
+                        if verbose:
+                            print(rec.csv(), flush=True)
         finally:
-            if self.disk_cache is not None:
-                # A report must say whether its run was warm.
-                metadata = dataclasses.replace(
-                    metadata, cache_stats=self.disk_cache.counter_dict()
-                )
+            metadata = self._final_metadata(metadata)
             if writer is not None:
                 writer.write_meta(metadata)
                 writer.close()
@@ -836,21 +934,48 @@ class Engine:
         if cached is not None and cached.info is not None:
             self.cache.hits += 1
             return cached.info
-        args = self._stage_place(workload, workload.make_inputs(plan.seed), plan)
-        entry = self._stage_compile(
-            spec, workload, args, plan, preset, backward, plan.placement, impl
-        )
-        return self._stage_characterize(workload, entry, args, plan, backward)
+        # Characterize-only flows still time their stages as spans (no-ops
+        # under NULL_TRACER), so a traced report run accounts for its time.
+        timings: dict[str, float] = {}
+        with self._timed_stage("place", timings, bench=spec.name):
+            args = self._stage_place(workload, workload.make_inputs(plan.seed), plan)
+        with self._timed_stage("compile", timings, bench=spec.name):
+            entry = self._stage_compile(
+                spec, workload, args, plan, preset, backward, plan.placement, impl
+            )
+        with self._timed_stage("characterize", timings, bench=spec.name):
+            return self._stage_characterize(workload, entry, args, plan, backward)
+
+    def _final_metadata(self, metadata: RunMetadata) -> RunMetadata:
+        """The end of a run stamped into its metadata: the disk cache's
+        totals whenever there is a ``cache_dir`` (a report must say whether
+        its run was warm), and, when tracing, the counter snapshot with
+        those totals folded in under ``cache.``."""
+        cache_stats = self.disk_cache.counter_dict() if self.disk_cache is not None else None
+        if self.tracer.enabled and cache_stats:
+            for k, v in cache_stats.items():
+                # set, not inc: the disk cache counts across a long-lived
+                # engine's runs; adding again would count twice.
+                self.tracer.counters.set(f"cache.{k}", v)
+        counters = self.tracer.counters.snapshot() if self.tracer.enabled else None
+        if cache_stats is None and counters is None:
+            return metadata
+        return dataclasses.replace(metadata, cache_stats=cache_stats, counters=counters)
 
     @contextlib.contextmanager
-    def _timed_stage(self, name: str, timings: dict):
-        """One engine stage = one ``stage_timings_us`` entry from a
-        perf_counter pair; the entry lands even when the stage raises."""
+    def _timed_stage(self, name: str, timings: dict, **attrs: Any):
+        """One engine stage = one ``stage_timings_us`` entry and one trace
+        span, both from a single perf_counter pair: the record's stage time
+        and its span are the same number. Both land even when the stage
+        raises, so an error record says where its time went."""
         t0 = time.perf_counter()
         try:
             yield
         finally:
-            timings[name] = (time.perf_counter() - t0) * 1e6
+            t1 = time.perf_counter()
+            timings[name] = (t1 - t0) * 1e6
+            if self.tracer.enabled:
+                self.tracer.event(name, t_start=t0, t_end=t1, track="engine", **attrs)
 
     def _run_benchmark(
         self, spec: BenchmarkSpec, plan: ExecutionPlan
@@ -862,10 +987,10 @@ class Engine:
         base_timings: dict[str, float] = {}
         stage = "build"
         try:
-            with self._timed_stage("build", base_timings):
+            with self._timed_stage("build", base_timings, bench=spec.name):
                 workload, args = self._stage_build(spec, plan, preset)
             stage = "place"
-            with self._timed_stage("place", base_timings):
+            with self._timed_stage("place", base_timings, bench=spec.name):
                 args = self._stage_place(workload, args, plan)
         except Exception as e:  # noqa: BLE001 — fault isolation is the contract
             rec = BenchmarkRecord.from_error(
@@ -898,26 +1023,28 @@ class Engine:
         stage = "compile"
         impl = "torch"
         timings: dict[str, float] = dict(base_timings)
+        span_attrs = dict(bench=workload.name + (".bwd" if backward else ""))
         try:
             impl, impl_fallback = self._resolve_impl(workload, plan, backward)
+            span_attrs["impl"] = impl
             tuned_params, tune_trials, tune_trials_us, tune_refused = None, None, None, 0
             if plan.tune:  # an untuned row keeps the stages it always had
                 stage = "tune"
-                with self._timed_stage("tune", timings):
+                with self._timed_stage("tune", timings, **span_attrs):
                     tuned_params, tune_trials, tune_trials_us, tune_refused = self._stage_tune(
                         spec, workload, args, plan, preset, backward, placement, impl
                     )
                 stage = "compile"
-            with self._timed_stage("compile", timings):
+            with self._timed_stage("compile", timings, **span_attrs):
                 entry = self._stage_compile(
                     spec, workload, args, plan, preset, backward, placement, impl,
                     tuned_params,
                 )
             stage = "measure"
-            with self._timed_stage("measure", timings):
+            with self._timed_stage("measure", timings, **span_attrs):
                 timing = self._stage_measure(workload, entry, args, plan, backward)
             stage = "characterize"
-            with self._timed_stage("characterize", timings):
+            with self._timed_stage("characterize", timings, **span_attrs):
                 info = self._stage_characterize(workload, entry, args, plan, backward)
             rec = BenchmarkRecord.from_measurement(
                 spec, preset, timing, info,
@@ -939,7 +1066,7 @@ class Engine:
             # pass; backward rows keep their isolation-mode meaning.
             if plan.serve is not None and not backward:
                 stage = "serve"
-                with self._timed_stage("serve", timings):
+                with self._timed_stage("serve", timings, **span_attrs):
                     stats, colocate, slowdown, extra = self._stage_serve(
                         spec, entry, args, plan, preset, placement, impl, tuned_params,
                     )

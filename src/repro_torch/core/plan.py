@@ -149,9 +149,13 @@ class ServeSpec:
     - ``batch_budget_us`` / ``max_batch``: the dynamic batcher's knobs (how
       long the oldest queued request may wait, and the widest batch;
       widths are powers of two up to it).
-    - ``client_procs``: distributed load generation, the reference's
-      ``repro.dist``; not ported (ROADMAP queue 1 item 15), so anything but
-      0 is refused.
+    - ``client_procs``: distributed load generation (``repro_torch.dist``).
+      0 (default) generates all load in this process; N > 0 spawns N
+      client processes on the plan's device, each replaying its seeded
+      share of one open-loop stream (``SeedSequence.spawn`` off the plan's
+      seed: the merged stream is still Poisson at ``qps``) from one thread
+      across ``lanes`` lanes and streaming its completion stamps back over
+      a local socket. Open loop only.
 
     The checks are the reference's, case for case; a spec that is not
     mixed serves the measure stage's callable as it is.
@@ -241,11 +245,30 @@ class ServeSpec:
         if self.client_procs < 0:
             raise PlanError(f"client_procs must be >= 0, got {self.client_procs}")
         if self.client_procs > 0:
-            raise PlanError(
-                f"client_procs={self.client_procs}: distributed load generation "
-                "is not ported yet (ROADMAP queue 1 item 15); serve from this "
-                "process (client_procs=0)"
-            )
+            if self.mode != "open":
+                raise PlanError(
+                    "distributed client processes replay seeded arrival "
+                    "sub-schedules; client_procs requires mode='open', "
+                    f"got {self.mode!r}"
+                )
+            if self.is_mixed:
+                raise PlanError(
+                    "distributed serving covers the classic lanes path; "
+                    "client_procs cannot be combined with mix/trace/"
+                    f"dispatch != 'lanes' (got dispatch={self.dispatch!r})"
+                )
+            if self.colocate is not None:
+                raise PlanError(
+                    "co-location is a closed-loop single-process "
+                    f"measurement; got colocate={self.colocate!r} with "
+                    f"client_procs={self.client_procs}"
+                )
+            if self.client != "single":
+                raise PlanError(
+                    "each distributed client process dispatches its "
+                    "sub-schedule from one thread; client_procs requires "
+                    f"client='single', got {self.client!r}"
+                )
 
     @property
     def is_mixed(self) -> bool:

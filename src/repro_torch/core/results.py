@@ -175,6 +175,11 @@ class BenchmarkRecord:
         self.serve_slo_us = stats.slo_us
         self.dispatch_overhead_us = stats.dispatch_overhead_us
         self.lane_qps = list(stats.lane_qps) if stats.lane_qps is not None else None
+        # Only a distributed run's stats (dist.launcher.DistLatencyStats)
+        # carry the process accounting.
+        self.client_procs = getattr(stats, "client_procs", None) or None
+        proc_qps = getattr(stats, "proc_qps", None)
+        self.proc_qps = list(proc_qps) if proc_qps is not None else None
         # The batching columns are None outside the mixed-shape paths.
         self.serve_dispatch = dispatch
         self.serve_mix = mix
@@ -425,6 +430,10 @@ class RunMetadata:
     # The disk cache's counters (core/hlocache.py), stamped at the end of a
     # run that had a --cache-dir; None otherwise.
     cache_stats: dict | None = None
+    # The tracer's counter snapshot (repro_torch.obs), with the disk
+    # cache's totals under a ``cache.`` prefix, stamped at the end of a
+    # traced run; None when tracing was off.
+    counters: dict | None = None
 
     def __post_init__(self) -> None:
         # JSON round-trips the ServeSpec as a dict (its mix as dicts too).

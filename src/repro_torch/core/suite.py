@@ -31,8 +31,14 @@ open-loop request's shape from a weighted mix, ``--serve-dispatch
 ``torch.vmap`` call of up to ``--max-batch`` requests under
 ``--batch-latency-budget`` microseconds), and ``--serve-trace PATH`` saves
 the arrival and shape stream, or replays it when the file exists.
-``--client-procs`` (distributed load generation) parses and is refused
-with exit 2: it is not ported yet (ROADMAP queue 1 item 15).
+``--client-procs N`` (distributed load generation, open loop) serves each
+row from N client processes on ``--device``, each replaying its seeded share
+of the stream; the rows carry ``client_procs`` and the per-process
+``proc_qps``, and the clients' summed cache counters print on stderr as
+``# dist-cache[N procs]: ...``. ``--trace-out PATH`` records the run with a
+tracer (a span a stage, an event a served request and a batch) and writes
+it as Chrome trace-event JSON, printing the event count on stderr; the
+counter snapshot lands in the JSONL metadata.
 
 Exit codes: 0 every row ok, 1 error rows present (or a malformed
 ``--serve-mix``, as in the reference), 2 a configuration error (unknown
@@ -45,6 +51,9 @@ name, bad override, no such device, a serve flag without ``--serve``).
     PYTHONPATH=src python -m repro_torch.core.suite --names gemm_bf16_nn \\
         --preset 4 --impl kernel --no-backward --serve open --qps 2000 \\
         --serve-mix "4@1,4/n=1024@2" --serve-dispatch dynamic --max-batch 4
+    PYTHONPATH=src python -m repro_torch.core.suite --names gemm_bf16_nn \\
+        --preset 4 --impl kernel --no-backward --serve open --qps 2000 \\
+        --client-procs 2 --cache-dir /tmp/cache --trace-out run.trace.json
 """
 
 from __future__ import annotations
@@ -66,6 +75,7 @@ from repro_torch.core.plan import (
     ShapeBucket,
 )
 from repro_torch.core.results import BenchmarkRecord, to_csv_lines
+from repro_torch.obs import Tracer
 
 __all__ = ["run_suite", "main"]
 
@@ -293,8 +303,10 @@ def main(argv: Sequence[str] | None = None) -> int:
     ap.add_argument("--slo-us", type=float, default=None, metavar="US",
                     help="latency SLO in microseconds; rows gain goodput_qps")
     ap.add_argument("--client-procs", type=int, default=None, metavar="N",
-                    help="distributed load generation: not ported yet (ROADMAP "
-                         "queue 1 item 15); any N > 0 exits 2")
+                    help="distributed load generation (open loop): N client "
+                         "processes on --device, each replaying its seeded share "
+                         "of the arrival stream; rows carry client_procs and "
+                         "per-process proc_qps (share --cache-dir with them)")
     ap.add_argument("--serve-dispatch", choices=SERVE_DISPATCH, default=None,
                     help="how requests map onto device calls: N-lane dispatch "
                          "(lanes, default), or the mixed-shape paths: sync "
@@ -320,8 +332,14 @@ def main(argv: Sequence[str] | None = None) -> int:
     ap.add_argument("--report", type=str, default=None, help="JSON report path")
     ap.add_argument("--jsonl", type=str, default=None,
                     help="streaming JSONL report path (with run metadata)")
+    ap.add_argument("--trace-out", type=str, default=None, metavar="PATH",
+                    help="write a Chrome trace-event JSON file (Perfetto or "
+                         "chrome://tracing): a span a stage on the engine "
+                         "track, a served request a lane, a batch a queue "
+                         "(host clock)")
     args = ap.parse_args(argv)
-    engine = Engine(cache_dir=args.cache_dir)
+    tracer = Tracer() if args.trace_out else None
+    engine = Engine(cache_dir=args.cache_dir, tracer=tracer)
     try:
         records = run_suite(
             levels=args.levels,
@@ -350,6 +368,10 @@ def main(argv: Sequence[str] | None = None) -> int:
     if engine.disk_cache is not None:
         # A disk cache that never hits is otherwise invisible from the CLI.
         print(f"# {engine.disk_cache.summary()}", file=sys.stderr)
+    if tracer is not None:
+        n = tracer.export_chrome(args.trace_out)
+        print(f"# trace: {n} spans -> {args.trace_out} (load in https://ui.perfetto.dev "
+              "or chrome://tracing)", file=sys.stderr)
     errors = [r for r in records if r.status != "ok"]
     for r in errors:
         print(f"# ERROR {r.name}: {r.error}", file=sys.stderr)

@@ -45,7 +45,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["BuildError", "library", "function", "check", "count", "build_info", "SOURCES_DIR"]
+__all__ = ["BuildError", "library", "function", "check", "count", "build_info", "loaded_info",
+           "SOURCES_DIR"]
 
 SOURCES_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -184,6 +185,12 @@ def build_info() -> dict:
     library()
     assert _LOADED is not None
     return dict(_LOADED.info)
+
+
+def loaded_info() -> dict | None:
+    """:func:`build_info` of the library this process has loaded, or None
+    when it has loaded none (no kernel launched yet): asks, never builds."""
+    return dict(_LOADED.info) if _LOADED is not None else None
 
 
 _THREAD = threading.local()

@@ -73,12 +73,6 @@ launches = {
 plain_calls = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# The prefill kernel's tile, the one the op's block parameters name: 128
-# packed rows (two wgmma warpgroups of 64), 128 keys a tile. The decode
-# kernel's (16 rows at most, 64 keys), the f32 kernel's (128 rows, or 16 at
-# most 16 rows per KV head; 64 keys) and the SIMT kernel's (32 rows, 64
-# keys) are fixed.
-_TILE = {"block_q": 128, "block_k": 128}
 HEAD_DIMS = (8, 16, 32, 64, 128)  # the head dims csrc instantiates
 TC_HEAD_DIMS = (64, 128)  # ... of which the wgmma and decode kernels take
 DECODE_ROWS = 16  # packed rows per KV head (group * T) the decode kernel holds
@@ -107,9 +101,18 @@ def tune_space() -> tuple[dict, ...]:
     the op's block parameters name is the prefill kernel's: ``block_q`` the
     packed rows of one CTA (two warpgroups of 64, wgmma's row count) and
     ``block_k`` the keys of one tile in the TMA ring. It is the only tile
-    compiled; the decode and SIMT kernels each have one fixed tile.
+    compiled; the decode and SIMT kernels each have one fixed tile. A
+    literal, so ``python -m repro_torch.check`` can read it.
     """
-    return (dict(_TILE),)
+    return ({"block_q": 128, "block_k": 128},)
+
+
+# The prefill kernel's tile, the one the op's block parameters name: 128
+# packed rows (two wgmma warpgroups of 64), 128 keys a tile. The decode
+# kernel's (16 rows at most, 64 keys), the f32 kernel's (128 rows, or 16 at
+# most 16 rows per KV head; 64 keys) and the SIMT kernel's (32 rows, 64
+# keys) are fixed.
+_TILE = tune_space()[0]
 
 
 def _check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:

@@ -73,7 +73,6 @@ plain_calls = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _TILE = {"block_m": 128, "block_n": 128}  # the one tile of the WMMA, SIMT and bf16 TMA kernels
-F32_TILES = ({"block_m": 128, "block_n": 128}, {"block_m": 128, "block_n": 256})
 MAX_BATCH = 65535  # the WMMA and SIMT kernels' grid z extent
 # matmul_f32_simt, matmul_bf16_wmma: a, b, c, batch, M, N, K, sab, sam, sak,
 # sbb, sbk, sbn, stream
@@ -99,9 +98,13 @@ def tune_space() -> tuple[dict, ...]:
     bf16 TMA kernels compile 128 x 128 alone (the bf16 TMA kernel's
     128 x 256 wgmma tile is fixed by its instruction shape and is not a
     tune parameter), so 128 x 256 is taken by f32 operands TMA can read
-    and refused by every other entry.
+    and refused by every other entry. A literal, so ``python -m
+    repro_torch.check`` can read it; each call returns new dicts.
     """
-    return tuple(dict(t) for t in F32_TILES)
+    return ({"block_m": 128, "block_n": 128}, {"block_m": 128, "block_n": 256})
+
+
+F32_TILES = tune_space()  # the tiles matmul_f32 compiles
 
 
 def _strides(t: torch.Tensor, name: str) -> tuple[int, int]:

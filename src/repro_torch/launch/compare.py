@@ -24,6 +24,17 @@ calls (host time included), the device's time per call from
 back to back in one CUDA graph, replayed (the device's pace with no host
 time, gaps between a call's kernels included). One JSON line per run and
 shape.
+
+With ``--suite NAME ...`` the runs time suite rows instead: ``run_suite``
+at preset 4 with ``--impl kernel``, forward, 20 timed calls after 2
+warm-up calls, on an engine built with its defaults (what a user's
+run gets, tracing off). One JSON line per run and row: ``us_per_call``,
+``us_per_call_windowed`` and the row's staged wall (the sum of its
+``stage_timings_us``). That is how the disabled tracer's cost on a row is
+read against a tree without one:
+
+    python -m repro_torch.launch.compare --a build/parent --b . \\
+        --suite gemm_f32_nn softmax pathfinder
 """
 
 from __future__ import annotations
@@ -158,6 +169,24 @@ for name, dtype, b, hq, hkv, t, s, d, causal in shapes:
 """
 
 
+_SUITE_CHILD = r"""
+import json, subprocess, sys
+tree, names = sys.argv[1], json.loads(sys.argv[2])
+sys.path.insert(0, tree + "/src")
+from repro_torch.core.suite import run_suite
+
+smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                     capture_output=True, text=True).stdout.strip().splitlines()
+records = run_suite(names=names, preset=4, impl="kernel", include_backward=False,
+                    iters=20, warmup=2, verbose=False, device="cuda")
+for r in records:
+    print(json.dumps({"tree": tree, "row": r.name, "status": r.status,
+                      "us_per_call": r.us_per_call, "us_per_call_windowed": r.us_per_call_windowed,
+                      "stage_wall_us": sum((r.stage_timings_us or {}).values()),
+                      "card": smi[0] if smi else None}), flush=True)
+"""
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -172,6 +201,9 @@ def main(argv=None) -> int:
                     help="time flash_attention_cuda at ATTENTION_SHAPES instead of serving")
     ap.add_argument("--match", default="",
                     help="with --attention, only the shapes whose name holds this text")
+    ap.add_argument("--suite", nargs="+", default=None, metavar="NAME",
+                    help="time these suite rows (preset 4, --impl kernel, forward) "
+                         "instead of serving")
     args = ap.parse_args(argv)
     for tree in (args.a, args.b):
         if not os.path.isdir(os.path.join(tree, "src", "repro_torch")):
@@ -179,7 +211,10 @@ def main(argv=None) -> int:
             return 2
     rc = 0
     for tree in (args.a, args.b, args.b, args.a):
-        if args.attention:
+        if args.suite:
+            cmd = [sys.executable, "-c", _SUITE_CHILD, os.path.abspath(tree),
+                   json.dumps(args.suite)]
+        elif args.attention:
             shapes = [sh for sh in ATTENTION_SHAPES if args.match in sh[0]]
             cmd = [sys.executable, "-c", _ATTENTION_CHILD, os.path.abspath(tree),
                    json.dumps(shapes)]
@@ -193,7 +228,7 @@ def main(argv=None) -> int:
                   file=sys.stderr)
             rc = 1
             continue
-        print("\n".join(lines if args.attention else lines[-1:]), flush=True)
+        print("\n".join(lines if args.attention or args.suite else lines[-1:]), flush=True)
     return rc
 
 

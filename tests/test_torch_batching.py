@@ -219,6 +219,11 @@ SPECS = [
                                      {"preset": 0, "weight": 1.0,
                                       "overrides": [["cols", 128]]}]),
     dict(client_procs=-1),
+    dict(mode="open", qps=10.0, client_procs=2),
+    dict(mode="closed", client_procs=2),
+    dict(mode="open", qps=10.0, client_procs=2, dispatch="batched"),
+    dict(mode="open", qps=10.0, client_procs=2, client="threaded"),
+    dict(mode="open", qps=10.0, client_procs=2, trace="/tmp/t.jsonl"),
 ]
 
 
@@ -251,9 +256,14 @@ def test_serve_spec_checks_agree_case_for_case(i):
 @pytest.mark.parametrize("kw", [dict(mode="open", qps=10.0, client_procs=2),
                                 dict(mode="open", qps=10.0, client_procs=4, lanes=4)])
 def test_client_procs_is_refused_naming_the_roadmap_item(kw):
-    jplan.ServeSpec(**kw)  # the reference serves it through repro.dist
-    with pytest.raises(tplan.PlanError, match="item 15"):
-        tplan.ServeSpec(**kw)
+    """Distributed load generation is ported (repro_torch.dist): an open
+    loop spec with client procs is taken by both packages, field for
+    field, and the record carries them through RunMetadata."""
+    want, got = jplan.ServeSpec(**kw), tplan.ServeSpec(**kw)
+    assert (got.client_procs, got.lanes, got.is_mixed) == (
+        want.client_procs, want.lanes, want.is_mixed)
+    meta = RunMetadata.capture(device="cpu", serve=got)
+    assert RunMetadata(**dataclasses.asdict(meta)).serve.client_procs == kw["client_procs"]
 
 
 def test_serve_spec_round_trips_through_run_metadata_json():
@@ -300,10 +310,13 @@ def test_cli_serve_configuration_errors_exit_2_in_both(argv, flag, capsys):
 
 
 def test_cli_client_procs_parses_and_exits_2_naming_item_15(capsys):
-    rc = tsuite.main(["--device", "cpu", "--names", "pathfinder", "--serve", "open",
-                      "--qps", "100", "--client-procs", "2"])
-    assert rc == 2
-    assert "item 15" in capsys.readouterr().err
+    """``--client-procs`` runs (tests/test_torch_dist.py serves with it);
+    on a closed loop both suites refuse it as a configuration error (exit
+    2), naming the mode it needs, before anything runs."""
+    argv = ["--names", "pathfinder", "--serve", "closed", "--client-procs", "2"]
+    for main in (jsuite.main, lambda a: tsuite.main(a + ["--device", "cpu"])):
+        assert main(argv) == 2
+        assert "client_procs requires mode='open'" in capsys.readouterr().err
 
 
 # -- traces ------------------------------------------------------------------

@@ -1478,3 +1478,42 @@ def test_a_kernel_launches_from_a_thread_that_never_touched_the_card(card):
     assert "err" not in out, out.get("err")
     torch.cuda.synchronize()
     assert torch.equal(out["c"], want)
+
+
+def test_two_client_processes_serve_the_bf16_gemm_on_the_card(card, tmp_path):
+    """``ServeSpec(client_procs=2)`` on the card: each client process builds
+    the row through its own engine and CUDA context, loads the library this
+    process built, restores the tune winner this process stored, and
+    launches matmul_bf16 once a request it served; the merged stream holds
+    every client's requests."""
+    from repro_torch.core.plan import ServeSpec
+    from repro_torch.core.suite import run_suite
+    from repro_torch.dist import launcher
+
+    got = []
+    real = launcher.run_distributed
+
+    def keep(**kw):
+        got.append(real(ready_timeout_s=300.0, done_timeout_s=120.0,
+                        **{k: v for k, v in kw.items()
+                           if k not in ("ready_timeout_s", "done_timeout_s")}))
+        return got[-1]
+
+    launcher.run_distributed = keep
+    try:
+        (rec,) = run_suite(
+            names=["gemm_bf16_nn"], preset=0, impl="kernel", tune=True, iters=1, warmup=0,
+            include_backward=False, verbose=False, cache_dir=str(tmp_path),
+            serve=ServeSpec(mode="open", qps=400.0, duration_s=0.5, concurrency=8, lanes=2,
+                            client_procs=2),
+        )
+    finally:
+        launcher.run_distributed = real
+    assert rec.status == "ok", rec.error
+    assert rec.client_procs == 2 and len(rec.proc_qps) == 2 and min(rec.proc_qps) > 0
+    (st,) = got
+    assert sum(d.requests for d in st.client_dones) == st.requests + st.warmup_requests
+    for d in st.client_dones:
+        assert d.launches == {"matmul_bf16": d.requests}
+        assert d.cache_counters["library_cached"] == 1
+        assert d.cache_counters["tune_trials"] == 0 and d.cache_counters["tune_hits"] == 1

@@ -68,6 +68,12 @@ def test_port_imports_no_jax_and_no_reference_module():
         "repro_torch.serve.client", "repro_torch.serve.batcher",
         "repro_torch.serve.interference", "repro_torch.benchmarks.fig_concurrency",
         "repro_torch.benchmarks.fig_batching",
+        "repro_torch.dist", "repro_torch.dist.proto", "repro_torch.dist.client_proc",
+        "repro_torch.dist.launcher", "repro_torch.check", "repro_torch.check.__main__",
+        "repro_torch.check.core", "repro_torch.check.contracts", "repro_torch.check.cachekey",
+        "repro_torch.check.stages", "repro_torch.check.schema", "repro_torch.check.concurrency",
+        "repro_torch.check.distproto", "repro_torch.benchmarks.fig_trace",
+        "repro_torch.benchmarks.fig_dist",
     } <= set(mods)
     script = textwrap.dedent(f"""
         import importlib, sys
@@ -93,6 +99,37 @@ def test_suite_without_cuda_exits_2_instead_of_running_on_the_cpu():
     assert out.returncode == 2, out.stdout + out.stderr
     assert "cuda" in out.stderr.lower()
     assert "gemm" not in out.stdout  # no row was measured anywhere
+
+
+def test_checker_and_wire_format_import_neither_torch_nor_numpy():
+    """``python -m repro_torch.check`` and ``dist/proto.py`` are stdlib only,
+    like the reference's: the checker runs where torch is not installed,
+    and a client can speak the protocol before any heavy import."""
+    script = textwrap.dedent("""
+        import sys
+        from repro_torch.check import run_checks
+        import repro_torch.check.__main__, repro_torch.dist.proto
+        run_checks(sys.argv[1])
+        heavy = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "numpy"))
+        print("HEAVY", heavy)
+        sys.exit(1 if heavy else 0)
+    """)
+    out = _run([sys.executable, "-c", script, str(ROOT)])
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("argv", [
+    ["-m", "repro_torch.benchmarks.fig_trace"],
+    ["-m", "repro_torch.benchmarks.fig_dist", "--procs", "2"],
+    ["-m", "repro_torch.core.suite", "--names", "pathfinder", "--serve", "open",
+     "--qps", "100", "--client-procs", "2"],
+])
+def test_trace_and_dist_entry_points_without_cuda_exit_2(argv):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the check is for hosts without one")
+    out = _run([sys.executable, *argv])
+    assert out.returncode == 2, out.stdout + out.stderr
+    assert "cuda" in out.stderr.lower()
 
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result():

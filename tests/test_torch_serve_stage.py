@@ -51,11 +51,23 @@ def _filled(rec) -> set[str]:
     return {c for c in SERVE_COLUMNS if getattr(rec, c) is not None}
 
 
-def _serve_both(engines, names, **serve):
+def _serve_both(engines, names, tries=5, **serve):
+    """Serve ``names`` through both engines, the window doubled (both
+    engines served again) while a row of either served warm-up requests
+    alone. On a loaded host a 0.15 s closed-loop window can close before
+    one measured request completes (a co-located tenant gets half the
+    spec's slots); the row is then an error row ("no measured completions")
+    and says nothing about its columns. Every other error fails at once."""
     jeng, teng = engines
-    jrecs = jeng.run(JPlan(names=names, serve=JServe(**serve), **FAST)).records
-    trecs = teng.run(ExecutionPlan(names=names, serve=ServeSpec(**serve), impl="kernel",
-                                   device="cpu", **FAST)).records
+    for attempt in range(tries):
+        jrecs = jeng.run(JPlan(names=names, serve=JServe(**serve), **FAST)).records
+        trecs = teng.run(ExecutionPlan(names=names, serve=ServeSpec(**serve), impl="kernel",
+                                       device="cpu", **FAST)).records
+        bad = [r for r in jrecs + trecs if r.status != "ok"]
+        if not bad or attempt == tries - 1 or not all(
+                "no measured completions" in r.error for r in bad):
+            break
+        serve = dict(serve, duration_s=2 * serve["duration_s"])
     for r in jrecs + trecs:
         assert r.status == "ok", (r.name, r.error)
     return jrecs, trecs

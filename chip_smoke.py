@@ -127,6 +127,23 @@ exits nonzero without printing its result line:
    set to 0 just before and read just after (80 launches of the wgmma
    prefill kernel, 5040 of the decode kernel, no other; the stream's
    decode counters all 0 after it);
+4j. training (``launch.train.train``, qwen1.5-0.5b): attention under
+   autograd (the kernel forward, ``attention_bwd_torch`` behind it) against
+   autograd of ``attention_ref`` at the full width's bf16 shape and the
+   strict step's f32 shape, beside SDPA's backward; the smoke config in f32,
+   one loss and gradient through the kernel route against the plain route
+   (loss within 1e-5, every gradient within 2e-4, non-zero and finite); the
+   CPU test's interrupted-and-resumed run on the card, bit for bit; then the
+   full qwen1.5-0.5b (24 layers, d_model 1024, bf16, remat, f32 moments,
+   random weights from a seed) trained 20 steps at batch 8 x 1024, counters
+   set to 0 just before and read just after (48 launches of the wgmma
+   kernel a step, 24 backward calls, nothing else), step 0 against the
+   plain route (loss, gradient norm and each attention leaf's gradient
+   norm; the kernel route again on the same weights repeating train's step
+   0 bit for bit), the loss falling, step times by events, peak memory, one
+   profiled step's device time split into attention forward, backward and
+   the rest, and the async checkpoint at step 10 restored and run on to
+   step 20 byte for byte;
 5. yardstick: each kernel of the paths, its plain version and the one
    PyTorch call that computes the same function (where there is one),
    timed with CUDA events at the paths' shapes (and the kernel's own device
@@ -154,6 +171,7 @@ repository: without either it exits 1.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -362,6 +380,33 @@ LM_SMOKE_SERVE = dict(n_requests=8, batch=4, prompt_len=16, gen_len=16, max_len=
 LM_SERVE = dict(n_requests=16, batch=8, prompt_len=1024, gen_len=64, max_len=1096)
 LM_TEACHER_STEPS = 4
 LM_SMOKE_TOL = 2e-4  # f32 smoke: attention's tolerance, the only part in another order
+# Training (phase 4j): qwen1.5-0.5b. The strict f32 step on the smoke
+# config (batch 8 x 64, train's default sequence); the CPU test's resume
+# check (tests/test_torch_train.py); the full width as published, bf16,
+# remat, f32 moments, batch 8 x 1024, 20 steps, an async checkpoint at 10.
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_SMOKE = dict(batch=8, seq=64)
+TRAIN_RESUME = dict(batch=4, seq=16, lr=1e-3, save_every=5, seed=3)
+TRAIN_FULL = dict(steps=20, batch=8, seq=1024, lr=1e-3, save_every=10, seed=0)
+# Attention's shapes on the training path (B, Hq, Hkv, T, S, D), causal:
+# the full width's (bf16) and the strict step's (f32).
+ATTN_TRAIN_FULL = (8, 16, 16, 1024, 1024, 64)
+ATTN_TRAIN_SMOKE = (8, 4, 4, 64, 64, 16)
+# Bounds fixed before the first run on the card (PERF.md, PR 25): the
+# backward's max |error| over the reference gradient's max |value| (bf16: one
+# rounding of each side's f32 gradient; f32: the order of the sums); the
+# forward at the reference's kernel tolerances; the strict step's loss and
+# gradients; the full width's step-0 loss and gradient norm against the
+# plain route. Fixed later, before the run that first applied it (PERF.md,
+# PR 25): the norm of each attention leaf's gradient over the layers (wq,
+# wk, wv, wo, bq, bk, bv) at the full width against the plain route.
+TRAIN_BWD_BOUND = {"bfloat16": 2.0**-7, "float32": 1e-5}
+TRAIN_FWD_TOL = {"bfloat16": 2e-2, "float32": 2e-4}
+TRAIN_SMOKE_LOSS_RTOL = 1e-5
+TRAIN_FULL_LOSS_RTOL = 1e-2
+TRAIN_FULL_NORM_RTOL = 5e-2
+TRAIN_FULL_ATTN_RTOL = 5e-2
+TRAIN_ATTN_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 KERNEL_SOURCES = {
     "matmul_f32": ("src/repro_torch/kernels/csrc/matmul_f32_tma.cu",
                    "src/repro/kernels/matmul.py:55"),
@@ -2489,6 +2534,393 @@ def phase_lm_serving(torch) -> tuple[dict, dict]:
     return launches, info
 
 
+def _same_bytes(torch, a, b) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def _train_states_equal(torch, a: dict, b: dict) -> bool:
+    """Parameters, moments and step counter of two ``train`` results (or a
+    restored model and state), byte for byte."""
+    pa, pb = a["params"], b["params"]
+    sa, sb = a["opt_state"], b["opt_state"]
+    return (set(pa) == set(pb) and all(_same_bytes(torch, pa[k], pb[k]) for k in pa)
+            and _same_bytes(torch, sa.step, sb.step)
+            and all(_same_bytes(torch, sa.m[k], sb.m[k]) and _same_bytes(torch, sa.v[k], sb.v[k])
+                    for k in pa))
+
+
+def _attention_backward_case(torch, gen, shape, dt) -> dict:
+    """One training attention call on the card: the kernel forward and the
+    torch backward (``ops.attention`` under autograd) against autograd of
+    ``attention_ref`` on the same inputs, within TRAIN_BWD_BOUND; then the
+    backward's event time beside SDPA's backward. -> numbers to print."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_ref
+
+    b, hq, hkv, t, s, d = shape
+    name = _dtname(dt)
+
+    def rand(*dims):
+        return torch.randn(dims, generator=gen, device="cuda").to(dt)
+
+    q, k, v = rand(b, hq, t, d), rand(b, hkv, s, d), rand(b, hkv, s, d)
+    dout = rand(b, hq, t, d)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    entry = "flash_attention_bf16_wgmma" if dt == torch.bfloat16 else "flash_attention_f32"
+    _zero_launches()
+    calls0 = fa.backward_calls["attention_bwd_torch"]
+    out = ops.attention(q, k, v, causal=True)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    launched = _nonzero(_read_launches())
+    calls = fa.backward_calls["attention_bwd_torch"] - calls0
+    if launched != {entry: 1} or calls != 1:
+        _fail(f"training attention {shape} {name}: launches {launched}, backward calls {calls}; "
+              f"expected {entry} once and attention_bwd_torch once")
+    want_out = attention_ref(q, k, v, causal=True)
+    want = torch.autograd.grad(want_out, (q, k, v), dout)
+    tol = TRAIN_FWD_TOL[name]
+    fwd = (out.float() - want_out.float()).abs()
+    ok = bool((fwd <= tol + tol * want_out.float().abs()).all())
+    line = [f"forward max_abs {fwd.max().item():.3e} [{tol:g} abs and rel]"]
+    bound = TRAIN_BWD_BOUND[name]
+    worst = 0.0
+    for gname, g, w in zip(("dq", "dk", "dv"), got, want, strict=True):
+        err = (g.float() - w.float()).abs().max().item()
+        rel = err / w.float().abs().max().item()
+        worst = max(worst, rel)
+        ok = ok and g.dtype == dt and bool(torch.isfinite(g).all()) and rel <= bound
+        line.append(f"{gname} max_abs {err:.3e} = {rel:.3e} of max|ref|")
+    print(f"  attention {name} B{b} H{hq}/{hkv} T{t} S{s} D{d} causal, kernel forward ({entry}) + "
+          f"torch backward against autograd of attention_ref: {'; '.join(line)} "
+          f"[bound {bound:.4g}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        _fail(f"training attention {shape} {name}: the backward disagrees beyond {bound:.4g}")
+    # Event times: the torch backward alone, and the library's (SDPA's
+    # backward, enable_gqa not needed: the path is MHA) on the same inputs.
+    qd, kd, vd = (x.detach() for x in (q, k, v))
+    bwd_ms = _time_ms(torch, lambda: fa.attention_bwd_torch(qd, kd, vd, dout, causal=True),
+                      reps=5, warmup=1)
+    sdpa_out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    lib_ms = _time_ms(torch, lambda: torch.autograd.grad(sdpa_out, (q, k, v), dout,
+                                                         retain_graph=True), reps=5, warmup=1)
+    from repro_torch.core.metrics import peaks_for, roofline_terms
+
+    pairs = b * hq * _visible_pairs(t, s, True, None)
+    # Five products of 2*D operations a visible pair (S again, dV, dP, dQ,
+    # dK) at the inputs' dtype's peak; bytes: q, k, v, dO read, dq, dk, dv
+    # written once.
+    nbytes = 2 * (q.numel() + k.numel() + v.numel()) * q.element_size()
+    roof = roofline_terms(10.0 * d * pairs, nbytes, dtype=dt,
+                          hw=peaks_for(torch.cuda.get_device_name(0)))
+    bound_ms = max(roof.compute_s, roof.memory_s) * 1e3
+    print(f"  attention_bwd_torch {name} at that shape: {bwd_ms:.4f} ms by events; SDPA's backward "
+          f"{lib_ms:.4f} ms; bound {bound_ms:.4f} ms")
+    return {"bwd_ms": bwd_ms, "lib_ms": lib_ms, "bound_ms": bound_ms, "worst": worst}
+
+
+def _strict_train_step(torch) -> dict:
+    """The qwen1.5-0.5b smoke config in f32: one loss and gradient on the
+    kernel route against the plain route, on the card. -> launches."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_smoke_config(TRAIN_ARCH), dtype="float32")
+    model = Model(cfg, device="cuda", remat=False)  # a smoke run trains without remat
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+             SyntheticLM(vocab=cfg.vocab, seed=0, **TRAIN_SMOKE).batch_at(0).items()}
+    names = [n for n, _ in model.named_parameters()]
+    out = {}
+    for route in ("kernel", "ref"):
+        _zero_launches()
+        calls0 = fa.backward_calls["attention_bwd_torch"]
+        with ops.force_impl("ref") if route == "ref" else contextlib.nullcontext():
+            loss, _ = model.loss_fn(batch)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        out[route] = (loss.item(), grads, _read_launches(),
+                      fa.backward_calls["attention_bwd_torch"] - calls0)
+    launches = out["kernel"][2]
+    if (_nonzero(launches) != {"flash_attention_f32": cfg.n_layers}
+            or out["kernel"][3] != cfg.n_layers or _nonzero(out["ref"][2]) or out["ref"][3]):
+        _fail(f"strict train step launches: kernel route {_nonzero(launches)} with "
+              f"{out['kernel'][3]} backward calls, plain route {_nonzero(out['ref'][2])} with "
+              f"{out['ref'][3]}; expected flash_attention_f32 and attention_bwd_torch "
+              f"{cfg.n_layers} times on the kernel route, nothing on the plain")
+    (loss, grads, _, _), (want_loss, want_grads, _, _) = out["kernel"], out["ref"]
+    loss_rel = abs(loss - want_loss) / abs(want_loss)
+    tol = LM_SMOKE_TOL
+    worst, smallest = (0.0, ""), (math.inf, "")
+    ok = loss_rel <= TRAIN_SMOKE_LOSS_RTOL
+    for n, g, w in zip(names, grads, want_grads, strict=True):
+        diff = (g - w).abs()
+        worst = max(worst, (diff.max().item(), n))
+        for x in (g, w):
+            smallest = min(smallest, (x.abs().max().item(), n))
+            ok = ok and bool(torch.isfinite(x).all())
+        ok = ok and bool((diff <= tol + tol * w.abs()).all())
+    ok = ok and smallest[0] > 0
+    shape = f"{TRAIN_SMOKE['batch']} x {TRAIN_SMOKE['seq']}"
+    print(f"  strict step, {cfg.name} f32 batch {shape}: loss {loss:.7f} against "
+          f"{want_loss:.7f}, rel {loss_rel:.3e} [{TRAIN_SMOKE_LOSS_RTOL:g}]; "
+          f"{len(names)} gradients, worst max_abs {worst[0]:.3e} ({worst[1]}) [{tol:g} abs and "
+          f"rel]; smallest max|grad| {smallest[0]:.3e} ({smallest[1]}), all finite "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        _fail("strict train step: kernel and plain routes disagree, or a gradient is zero "
+              "or not finite")
+    return launches
+
+
+def _train_resume_on_card(torch) -> dict:
+    """The CPU test's interrupted-and-resumed run on the card. -> launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import train
+
+    common = dict(arch=TRAIN_ARCH, smoke=True, log_every=0, device="cuda", **TRAIN_RESUME)
+    _zero_launches()
+    calls0 = fa.backward_calls["attention_bwd_torch"]
+    with tempfile.TemporaryDirectory() as tmp:
+        full = train(steps=10, checkpoint_dir=f"{tmp}/a", **common)
+        train(steps=10, stop_after=5, checkpoint_dir=f"{tmp}/b", **common)
+        resumed = train(steps=10, checkpoint_dir=f"{tmp}/b", resume=True, **common)
+    launches = _read_launches()
+    calls = fa.backward_calls["attention_bwd_torch"] - calls0
+    layers = full["model"].cfg.n_layers
+    if _nonzero(launches) != {"flash_attention_f32": 20 * layers} or calls != 20 * layers:
+        _fail(f"resume runs: launches {_nonzero(launches)}, backward calls {calls}; expected "
+              f"{20 * layers} of each (20 smoke steps without remat)")
+    # Parameters, moments, step counter and losses, bit for bit: PERF.md
+    # names no op of the card's that would make the run non-deterministic.
+    exact = _train_states_equal(torch, full, resumed) and resumed["losses"] == full["losses"][5:]
+    rel = max((resumed["params"][k].float() - p.float()).abs().max().item()
+              / max(p.float().abs().max().item(), 1e-30) for k, p in full["params"].items())
+    print(f"  resume on the card ({TRAIN_RESUME['batch']} x {TRAIN_RESUME['seq']}, 10 steps, "
+          f"stopped at 5, resumed): bit for bit {'yes' if exact else 'NO'} (parameters' max rel "
+          f"{rel:.3e}); losses {', '.join(f'{x:.4f}' for x in full['losses'])}")
+    if not exact:
+        _fail(f"resumed run differs from the uninterrupted one (parameters' max rel {rel:.3e}, "
+              f"or the moments, step counter or losses)")
+    return launches
+
+
+def _profiled_step_ms(torch, step_fn, opt_state, batch) -> tuple:
+    """One train step under ``torch.profiler``: (device ms, of it in the flash
+    kernels, of it under the ``attention_bwd_torch`` annotation), or Nones
+    where the profiler delivered no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step_fn(opt_state, batch)
+        torch.cuda.synchronize()
+    total = fwd = 0.0
+    for e in prof.key_averages():
+        # Kernels and copies only: a record_function span shows up on the
+        # device too, as a user annotation covering its kernels.
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        total += e.self_device_time_total
+        fwd += e.self_device_time_total if "flash_" in e.key else 0.0
+    # The backward's kernels: those of the host-side span and everything
+    # under it.
+    bwd = sum(e.device_time_total for e in prof.events()
+              if e.name == "attention_bwd_torch" and e.device_type == DeviceType.CPU)
+    if total <= 0:
+        return None, None, None
+    return total / 1e3, fwd / 1e3, (bwd / 1e3 if bwd > 0 else None)
+
+
+def phase_train(torch) -> tuple[dict, dict]:
+    """Training, qwen1.5-0.5b: attention's backward at the path's two shapes,
+    the strict f32 step and the resume check, then the full width through
+    ``launch.train.train``. -> (launches on the path, numbers)."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW, global_norm, warmup_cosine
+    from repro_torch.runtime import make_train_step
+
+    print(f"== phase 4j: training (launch.train.train, {TRAIN_ARCH})")
+    t_phase = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        _fail("f32 products would run in TF32 (torch.backends.cuda.matmul.allow_tf32)")
+    info = {}
+    # (a) The backward at the path's two shapes.
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    info["bwd_full"] = _attention_backward_case(torch, gen, ATTN_TRAIN_FULL, torch.bfloat16)
+    info["bwd_smoke"] = _attention_backward_case(torch, gen, ATTN_TRAIN_SMOKE, torch.float32)
+    # (b) The strict f32 step, and the resume check.
+    strict = _strict_train_step(torch)
+    resume = _train_resume_on_card(torch)
+    launches = {k: strict[k] + resume[k] for k in strict}
+
+    # (c) Full width.
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    kw = TRAIN_FULL
+    n_params = sum(p.numel() for p in Model(cfg, device="meta").parameters())
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads}, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}: "
+          f"{n_params} parameters, {cfg.dtype}, remat, f32 moments; batch {kw['batch']} x "
+          f"{kw['seq']}, {kw['steps']} steps")
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        calls0 = fa.backward_calls["attention_bwd_torch"]
+        t0 = time.perf_counter()
+        out = train(arch=TRAIN_ARCH, smoke=False, checkpoint_dir=tmp, log_every=5, device="cuda",
+                    **kw)
+        wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        full = _read_launches()
+        calls = fa.backward_calls["attention_bwd_torch"] - calls0
+        steps, layers = kw["steps"], cfg.n_layers
+        if (_nonzero(full) != {"flash_attention_bf16_wgmma": 2 * layers * steps}
+                or calls != layers * steps):
+            _fail(f"full-width launches {_nonzero(full)}, backward calls {calls}; expected "
+                  f"flash_attention_bf16_wgmma {2 * layers} a step (forward and remat "
+                  f"recompute) x {steps} and attention_bwd_torch {layers} x {steps}, nothing else")
+        launches = {k: v + full[k] for k, v in launches.items()}
+        losses = out["losses"]
+        last5 = sum(losses[-5:]) / 5
+        ms = sorted(out["step_ms"])
+        median = ms[len(ms) // 2] if len(ms) % 2 else (ms[len(ms) // 2 - 1] + ms[len(ms) // 2]) / 2
+        info.update(step_ms=median, step_ms_min=ms[0], step_ms_max=ms[-1], peak_gb=peak_gb,
+                    tokens_per_s=kw["batch"] * kw["seq"] / (median / 1e3), wall_s=wall)
+        print(f"  full width: {len(losses)} steps in {wall:.1f} s; loss {losses[0]:.4f} -> mean of "
+              f"the last 5 {last5:.4f}; step {median:.2f} ms median by events (min {ms[0]:.2f}, "
+              f"max {ms[-1]:.2f}; step 0 {out['step_ms'][0]:.2f}) = "
+              f"{info['tokens_per_s']:.1f} tokens/s; peak memory {peak_gb:.2f} GB; launches "
+              f"{_nonzero(full)}, attention_bwd_torch {calls}")
+        print(f"  losses {', '.join(f'{x:.4f}' for x in losses)}")
+        if not last5 < losses[0]:
+            _fail(f"the loss did not fall: {losses[0]:.4f} -> {last5:.4f}")
+
+        # Step 0 against the plain route: the same weights (train's seed)
+        # and batch, and the kernel route again on them, which must give
+        # train's step 0 bit for bit. Each attention leaf's gradient norm
+        # over the layers too: a cut gradient through the kernel would zero
+        # wq, wk, bq and bk, which the loss and the global norm hardly see.
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in SyntheticLM(
+            vocab=cfg.vocab, batch=kw["batch"], seq=kw["seq"], seed=kw["seed"]).batch_at(0).items()}
+        model = Model(cfg, device="cuda")
+        model.init_weights(torch.Generator(device="cuda").manual_seed(kw["seed"]))
+        names = [n for n, _ in model.named_parameters()]
+        step0 = {}
+        for route in ("kernel", "ref"):
+            with ops.force_impl("ref") if route == "ref" else contextlib.nullcontext():
+                loss, _ = model.loss_fn(batch)
+                grads = torch.autograd.grad(loss, list(model.parameters()))
+            by_name = dict(zip(names, grads))
+            attn = {leaf: global_norm({n: g for n, g in by_name.items()
+                                       if n.endswith(f".mixer.{leaf}")}).item()
+                    for leaf in TRAIN_ATTN_LEAVES}
+            step0[route] = (loss.item(), global_norm(by_name).item(), attn)
+            del grads, by_name
+        del model
+        loss_rel = abs(losses[0] - step0["ref"][0]) / abs(step0["ref"][0])
+        norm_rel = abs(out["grad_norms"][0] - step0["ref"][1]) / step0["ref"][1]
+        again = step0["kernel"][0] == losses[0] and step0["kernel"][1] == out["grad_norms"][0]
+        attn_rel = {leaf: abs(step0["kernel"][2][leaf] - want) / want if want > 0 else math.inf
+                    for leaf, want in step0["ref"][2].items()}
+        attn_ok = all(math.isfinite(step0["kernel"][2][leaf]) and step0["kernel"][2][leaf] > 0
+                      and r <= TRAIN_FULL_ATTN_RTOL for leaf, r in attn_rel.items())
+        ok = (loss_rel <= TRAIN_FULL_LOSS_RTOL and norm_rel <= TRAIN_FULL_NORM_RTOL and again
+              and attn_ok)
+        print(f"  step 0 against the plain route: loss {losses[0]:.6f} / {step0['ref'][0]:.6f}, "
+              f"rel {loss_rel:.3e} [{TRAIN_FULL_LOSS_RTOL:g}]; gradient norm "
+              f"{out['grad_norms'][0]:.6f} / {step0['ref'][1]:.6f}, rel {norm_rel:.3e} "
+              f"[{TRAIN_FULL_NORM_RTOL:g}]; the kernel route again on the same weights equals "
+              f"train's step 0 bit for bit {'yes' if again else 'NO'}")
+        print("  attention leaves' gradient norms over the layers, kernel / plain route: "
+              + "; ".join(f"{leaf} {step0['kernel'][2][leaf]:.6g} / {step0['ref'][2][leaf]:.6g} "
+                          f"rel {attn_rel[leaf]:.3e}" for leaf in TRAIN_ATTN_LEAVES)
+              + f" [{TRAIN_FULL_ATTN_RTOL:g}, each non-zero] {'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail("full-width step 0: kernel and plain routes disagree beyond their bounds, or "
+                  "the kernel route does not repeat train's step 0 bit for bit")
+
+        # The checkpoints: step 10 (async) and step 20 (the final, blocking save).
+        ck = Checkpointer(tmp)
+        if ck.all_steps() != [10, 20]:
+            _fail(f"checkpoints on disk {ck.all_steps()}, expected [10, 20]")
+        fresh = Model(cfg, device="cuda")
+        fresh_state = AdamW().init(dict(fresh.named_parameters()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, restored = ck.restore({"params": fresh.state_dict(), "opt": fresh_state, "cursor": 0},
+                                 step=steps)
+        fresh.load_state_dict(restored["params"])
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same20 = _train_states_equal(
+            torch, {"params": fresh.state_dict(), "opt_state": restored["opt"]}, out)
+        del fresh, fresh_state, restored
+        # Step 20 gone, the run resumes from the async step-10 checkpoint.
+        shutil.rmtree(os.path.join(tmp, f"step_{steps:010d}"))
+        _zero_launches()
+        resumed = train(arch=TRAIN_ARCH, smoke=False, checkpoint_dir=tmp, resume=True,
+                        log_every=0, device="cuda", **kw)
+        full = _read_launches()
+        launches = {k: v + full[k] for k, v in launches.items()}
+        same = _train_states_equal(torch, resumed, out) and resumed["losses"] == losses[10:]
+        info.update(save_s=out["save_s"], write_s=out["write_s"], restore_s=restore_s,
+                    resume_restore_s=resumed["restore_s"])
+        print(f"  checkpoints: save at step 10 (async) {out['save_s'][0]:.3f} s on the host + "
+              f"{out['write_s'][0]:.3f} s writing on its thread; at step 20 (blocking) "
+              f"{out['save_s'][-1]:.3f} s; restore of step 20 into a fresh model and optimizer "
+              f"{restore_s:.3f} s, byte for byte {'yes' if same20 else 'NO'}; resumed from step "
+              f"10 (restore {resumed['restore_s']:.3f} s) and run to 20: byte for byte equal to "
+              f"the uninterrupted run {'yes' if same else 'NO'}")
+        if not (same20 and same):
+            _fail("a restored checkpoint differs from the state it saved")
+        # One profiled step more on the trained state (batch 20), after the
+        # checkpoints were compared with it.
+        sched = functools.partial(warmup_cosine, peak_lr=kw["lr"],
+                                  warmup_steps=max(1, steps // 20), total_steps=steps)
+        step_fn = make_train_step(out["model"], AdamW(), sched)
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in SyntheticLM(
+            vocab=cfg.vocab, batch=kw["batch"], seq=kw["seq"], seed=kw["seed"]).batch_at(
+                steps).items()}
+        dev_ms, fwd_ms, bwd_ms = _profiled_step_ms(torch, step_fn, out["opt_state"], batch)
+        if dev_ms is None:
+            print("  profiled step: torch.profiler delivered no device time (not measured)")
+        else:
+            bwd_text = "not measured" if bwd_ms is None else \
+                f"{bwd_ms:.3f} ms ({100 * bwd_ms / dev_ms:.1f}%)"
+            rest = dev_ms - fwd_ms - (bwd_ms or 0.0)
+            by_events = cfg.n_layers * info["bwd_full"]["bwd_ms"]
+            print(f"  profiled step (torch.profiler): {dev_ms:.3f} ms on the device; attention "
+                  f"forward (flash kernels) {fwd_ms:.3f} ms ({100 * fwd_ms / dev_ms:.1f}%), "
+                  f"attention backward (attention_bwd_torch) {bwd_text} (by events, "
+                  f"{cfg.n_layers} x {info['bwd_full']['bwd_ms']:.4f} = {by_events:.3f} ms), "
+                  f"everything else {rest:.3f} ms ({100 * rest / dev_ms:.1f}%)")
+        info.update(device_ms=dev_ms, attn_fwd_ms=fwd_ms, attn_bwd_ms=bwd_ms)
+        del step_fn, out, resumed
+    torch.cuda.empty_cache()
+    info["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 4j {info['phase_s']:.1f} s")
+    return launches, info
+
+
 def _nonzero(launches: dict) -> dict:
     return {k: v for k, v in launches.items() if v}
 
@@ -3023,11 +3455,12 @@ def main() -> int:
     dist_launches = phase_trace_dist(torch, smi)
     phase_small_agreement(torch)
     lm_launches, lm = phase_lm_serving(torch)
+    train_launches, tr = phase_train(torch)
     # Every count was checked per path; a kernel's launches are the sum over
     # the paths that run it (SRAD's three entries: phases 4c and 4f).
     launches = {k: main_launches[k] + dnn_launches[k] + level_launches[k] + lm_launches[k]
                 + feature_launches[k] + report_launches[k] + serve_launches[k]
-                + dist_launches[k] for k in main_launches}
+                + dist_launches[k] + train_launches[k] for k in main_launches}
     kernels = phase_yardstick(torch, launches, errors)
     # One row per kernel and shape (matmul_bf16 has three, nn and tn at
     # 4096^3 and nn at 1024^3; matmul_bf16_batched six), the kernels of no
@@ -3045,6 +3478,9 @@ def main() -> int:
         _fail(f"the port pulled in JAX or the JAX package: {leaked[:5]}")
     print(f"LM serving, granite-3-8b full, bf16: {lm['tokens_per_s']:.1f} tokens/s, prefill "
           f"{lm['prefill_ms']:.3f} ms, decode step {lm['decode_step_ms']:.4f} ms ({smi})")
+    print(f"LM training, {TRAIN_ARCH} full, bf16, batch {TRAIN_FULL['batch']} x "
+          f"{TRAIN_FULL['seq']}: step {tr['step_ms']:.2f} ms median, {tr['tokens_per_s']:.1f} "
+          f"tokens/s, peak memory {tr['peak_gb']:.2f} GB ({smi})")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

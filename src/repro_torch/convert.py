@@ -19,8 +19,9 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ArchConfig
+from repro_torch.optim.adamw import AdamWState
 
-__all__ = ["from_reference", "model_state_from_reference"]
+__all__ = ["from_reference", "model_state_from_reference", "adamw_state_from_reference"]
 
 
 def _tensor(a) -> torch.Tensor:
@@ -57,6 +58,12 @@ def model_state_from_reference(cfg: ArchConfig, params: dict) -> dict[str, torch
     leading ``n_periods`` axis); the port holds one block per layer. A dense
     config's period is one block, so layer i is index i of each leaf. The
     weights keep their (d_in, d_out) layout on both sides.
+
+    This is the name map between the two trees: the reference's leaf
+    ``blocks[0][group][name]`` row i is the port's ``blocks.<i>.<group>.<name>``,
+    and a top-level leaf keeps its name. Any tree shaped like the parameters
+    converts the same way (gradients, AdamW moments), so a test compares
+    them name for name.
     """
     period = cfg.block_period()
     if len(period) != 1 or cfg.n_periods != cfg.n_layers:
@@ -75,3 +82,14 @@ def model_state_from_reference(cfg: ArchConfig, params: dict) -> dict[str, torch
         if name in params:
             state[name] = _tensor(params[name])
     return state
+
+
+def adamw_state_from_reference(cfg: ArchConfig, state) -> AdamWState:
+    """The port's ``AdamWState`` (on the CPU) for the reference's, given as
+    numpy arrays (``jax.tree.map(np.asarray, state)``): the step counter as
+    a 0-d int32 tensor, each moment by the port's parameter name."""
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32),
+        m=model_state_from_reference(cfg, state.m),
+        v=model_state_from_reference(cfg, state.v),
+    )

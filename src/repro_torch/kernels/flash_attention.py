@@ -40,6 +40,14 @@ note at the top of each source for its bound and design:
   kernel's tile range and the wrapper's choice of splits.
 - ``launches`` (per C entry point) and ``plain_calls`` count as in
   ``kernels/matmul.py``.
+
+**Training.** :class:`FlashAttentionFunction` makes the kernel route
+differentiable: its forward is :func:`flash_attention_kernel` (the routed C
+entry on the card), its backward :func:`attention_bwd_torch`, the gradient
+of the reference's ``sdpa`` (``repro/models/layers.py``) written out in
+torch operations, counted in ``backward_calls["attention_bwd_torch"]``. The
+reference has no backward kernel either (its training attention is XLA's
+gradient of ``sdpa``), so none is written here.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ import ctypes
 import functools
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_ref as flash_attention_plain
@@ -56,6 +65,8 @@ __all__ = [
     "flash_attention_cuda",
     "flash_attention_kernel",
     "flash_attention_plain",
+    "FlashAttentionFunction",
+    "attention_bwd_torch",
     "flash_decode_cuda",
     "flash_decode_plain",
     "decode_tiles",
@@ -63,6 +74,7 @@ __all__ = [
     "tune_space",
     "launches",
     "plain_calls",
+    "backward_calls",
     "HEAD_DIMS",
 ]
 
@@ -71,6 +83,10 @@ launches = {
     "flash_attention_bf16_wgmma": 0, "flash_decode_bf16": 0,
 }
 plain_calls = 0
+# The backward is torch operations, not a C entry: its calls count here.
+backward_calls = {"attention_bwd_torch": 0}
+# Bytes of one f32 (query rows, keys) block of the backward's scores.
+BWD_BLOCK_BYTES = 1 << 26
 
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (8, 16, 32, 64, 128)  # the head dims csrc instantiates
@@ -591,3 +607,98 @@ def flash_attention_kernel(
         plain_calls += 1
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
     return flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale, **blocks)
+
+
+# -- the backward ---------------------------------------------------------------
+
+
+def attention_bwd_torch(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    causal: bool = False,
+    window: int | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of attention of q (B, Hq, T, D) over k, v (B, Hkv, S, D)
+    for the output's gradient ``dout`` (B, Hq, T, D): the gradient of the
+    reference's ``sdpa``, in f32, each cast to its input's dtype.
+
+    One block of query rows at a time, each block's (rows, keys) f32 scores
+    at most :data:`BWD_BLOCK_BYTES`, over the keys some row of the block
+    sees (a causal or window mask cuts the rest). A block recomputes
+    S = scale·QKᵀ under the mask and P = softmax(S), then dV += PᵀdO,
+    dP = dO·Vᵀ, dS = P∘(dP − rowsum(P∘dP)), dQ = scale·dS·K, dK +=
+    scale·dSᵀ·Q, the GQA group summed into its KV head. The rowsum is
+    flash attention's rowsum(dO∘O), equal in exact arithmetic and the
+    softmax's own gradient: the block holds whole rows of P, so it needs no
+    saved output and carries none of its rounding to bf16. A row that sees
+    no key has P = 0 and gradient 0.
+    """
+    b, hq, t, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
+    g = hq // hkv
+    if scale is None:
+        scale = d**-0.5
+    qf = q.float().reshape(b, hkv, g, t, d)
+    dof = dout.float().reshape(b, hkv, g, t, d)
+    kf, vf = k.float(), v.float()
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    rows = max(1, BWD_BLOCK_BYTES // max(1, b * hq * s * 4))
+    for t0 in range(0, t, rows):
+        t1 = min(t, t0 + rows)
+        # Absolute positions: the queries sit at the last T of the S keys.
+        lo, hi = 0, s
+        if causal:
+            hi = min(s, t1 + s - t)
+        if window is not None:
+            lo = max(0, t0 + s - t - window + 1)
+        if hi <= lo:
+            continue
+        q_pos = torch.arange(t0, t1, device=q.device)[:, None] + (s - t)
+        k_pos = torch.arange(lo, hi, device=q.device)[None, :]
+        mask = torch.ones((t1 - t0, hi - lo), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos <= q_pos
+        if window is not None:
+            mask &= k_pos > q_pos - window
+        qb, dob = qf[:, :, :, t0:t1], dof[:, :, :, t0:t1]
+        kb, vb = kf[:, :, lo:hi], vf[:, :, lo:hi]
+        sc = torch.einsum("bkgtd,bksd->bkgts", qb, kb) * scale
+        sc = sc.masked_fill(~mask, float("-inf"))
+        p = torch.softmax(sc, dim=-1)
+        p = torch.where(mask.any(dim=-1)[:, None], p, 0.0)
+        dv[:, :, lo:hi] += torch.einsum("bkgts,bkgtd->bksd", p, dob)
+        dp = torch.einsum("bkgtd,bksd->bkgts", dob, vb)
+        ds = p * (dp - torch.sum(p * dp, dim=-1, keepdim=True))
+        dq[:, :, :, t0:t1] = torch.einsum("bkgts,bksd->bkgtd", ds, kb) * scale
+        dk[:, :, lo:hi] += torch.einsum("bkgts,bkgtd->bksd", ds, qb) * scale
+    return (dq.reshape(b, hq, t, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Attention through the kernel route, differentiable: the forward is
+    :func:`flash_attention_kernel` (the routed C entry for CUDA tensors, the
+    plain version for CPU ones), the backward :func:`attention_bwd_torch`.
+    ``ops.attention`` applies it only where a gradient is wanted."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, blocks):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, scale=scale)
+        return flash_attention_kernel(q, k, v, causal=causal, window=window, scale=scale,
+                                      **dict(blocks))
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        with record_function("attention_bwd_torch"):
+            dq, dk, dv = attention_bwd_torch(q, k, v, dout, **ctx.opts)
+        _build.count(backward_calls, "attention_bwd_torch")
+        return dq, dk, dv, None, None, None, None

@@ -74,7 +74,8 @@ from repro_torch.kernels import srad_stencil as _srad_mod
 
 __all__ = [
     "matmul", "attention", "softmax", "lrn", "avgpool", "srad_step", "prefix_scan", "sort_kv",
-    "force_impl", "takes_kernel", "tune_space", "is_batched", "KERNEL_OPS", "MODES",
+    "force_impl", "reenter_impl", "takes_kernel", "tune_space", "is_batched", "KERNEL_OPS",
+    "MODES",
     "TileRefused",
 ]
 
@@ -123,6 +124,24 @@ def force_impl(mode: Mode, op: str | None = None, **params):
         yield
     finally:
         _FORCED.reset(token)
+
+
+def reenter_impl():
+    """A context manager that sets the :func:`force_impl` state active at
+    this call again, for work that runs later on another thread: autograd
+    runs a CUDA backward (a checkpointed block's recomputation with it) on
+    a thread of its own, which the context variable does not reach."""
+    state = _FORCED.get()
+
+    @contextlib.contextmanager
+    def again():
+        token = _FORCED.set(state)
+        try:
+            yield
+        finally:
+            _FORCED.reset(token)
+
+    return again()
 
 
 def _resolve(op: str, mode: Mode, x: torch.Tensor, blocks: dict) -> tuple[bool, dict]:
@@ -178,12 +197,20 @@ def attention(
     **blocks,
 ):
     """GQA attention of q (B, Hq, T, D) over k, v (B, Hkv, S, D), the
-    queries at the last T of the S key positions."""
+    queries at the last T of the S key positions.
+
+    On the kernel route, a call that autograd records (grad mode on, q, k
+    or v requiring grad) goes through ``FlashAttentionFunction``: the
+    kernel forward, the torch backward. Other calls keep the direct path."""
     use, blocks = _resolve("attention", mode, q, blocks)
     if use:
         if any(is_batched(t) for t in (q, k, v)):
             params = _frozen(dict(blocks, causal=causal, window=window, scale=scale))
             return _KernelOp.apply("attention", params, q, k, v)
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _attention_mod.FlashAttentionFunction.apply(
+                q, k, v, causal, window, scale, _frozen(blocks))
         return _attention_mod.flash_attention_kernel(
             q, k, v, causal=causal, window=window, scale=scale, **blocks
         )

@@ -52,7 +52,7 @@ def resolve_device(name: str) -> torch.device:
         raise ValueError(f"device must be 'cuda' or 'cpu', got {name!r}")
     if name == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "serve runs on cuda but torch.cuda.is_available() is False; "
+            "the run asks for cuda but torch.cuda.is_available() is False; "
             "ask for the CPU with device='cpu' (--device cpu)"
         )
     return torch.device(name)

@@ -9,6 +9,13 @@ is what the state dict names (``blocks.<i>.mixer.wq``, ...). The other block
 kinds (MoE, Mamba, xLSTM) raise ``NotImplementedError``: they are ROADMAP.md
 queue 1, item 16.
 
+Training: ``loss_fn`` is the reference's next-token cross entropy over f32
+logits. With ``remat`` on (the default, as the reference's), ``forward``
+under autograd wraps each block in ``torch.utils.checkpoint``, the
+counterpart of the reference's ``jax.checkpoint`` of a period: a block keeps
+only its input for the backward pass and runs again there. Attention inside
+it is differentiable through the flash kernel (``kernels/ops.py``).
+
 Serving mirrors the reference: ``prefill`` runs the prompt and packs each
 layer's K/V into the decode cache (a linear buffer, or a ring of ``window``
 slots for sliding-window configs); ``decode_step`` runs one token for the
@@ -19,8 +26,11 @@ cache's valid slots through views, so a step allocates no cache.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ArchConfig
@@ -68,6 +78,12 @@ class Block(nn.Module):
                 group[name].copy_(value)
 
 
+def _route_contexts():
+    """``checkpoint``'s contexts: none for the forward, the forward's
+    ``force_impl`` state again for the recomputation."""
+    return contextlib.nullcontext(), ops.reenter_impl()
+
+
 def _cache_len(cfg: ArchConfig, max_len: int) -> int:
     return min(cfg.window, max_len) if cfg.window else max_len
 
@@ -99,7 +115,8 @@ class Model(nn.Module):
     generator, or ``load_state_dict`` from ``convert.model_state_from_reference``.
     """
 
-    def __init__(self, cfg: ArchConfig, *, device: str | torch.device = "cuda") -> None:
+    def __init__(self, cfg: ArchConfig, *, device: str | torch.device = "cuda",
+                 remat: bool = True) -> None:
         super().__init__()
         cfg.validate()
         other = sorted(set(cfg.block_kinds()) - {"attn_mlp"})
@@ -115,6 +132,7 @@ class Model(nn.Module):
             )
         check_supported(cfg)
         self.cfg = cfg
+        self.remat = remat
         dt = dtype_of(cfg)
         self.blocks = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
         self.ln_f = nn.Parameter(torch.ones(cfg.d_model, dtype=dt, device=device))
@@ -161,12 +179,39 @@ class Model(nn.Module):
         return x, kv
 
     # ---- forward ------------------------------------------------------------
+    def _block_out(self, block: Block, x: torch.Tensor, positions: torch.Tensor):
+        return self._block(block, x, positions)[0]
+
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, T) -> logits (B, T, V), f32."""
         x, positions = self._embed_in(tokens)
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x, _ = self._block(block, x, positions)
+            if remat:
+                # The block is deterministic (no dropout): no RNG state to
+                # keep. Its recomputation, on autograd's thread, takes the
+                # routes this forward took.
+                x = checkpoint(self._block_out, block, x, positions, use_reentrant=False,
+                               preserve_rng_state=False, context_fn=_route_contexts)
+            else:
+                x = self._block_out(block, x, positions)
         return self._unembed(rms_norm(x, self.ln_f, self.cfg.norm_eps))
+
+    def loss_fn(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Mean next-token cross entropy of ``batch`` ({"tokens", "labels"}
+        (B, T), optional "loss_mask"), from f32 logits: logsumexp less the
+        gold logit, masked, over the mask's sum clamped to at least 1.
+        -> (loss, {"loss", "tokens"}), 0-d f32 tensors on the device."""
+        logits = self.forward(batch["tokens"].long())  # (B, T, V) f32
+        labels = batch["labels"].long()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        nll = logz - gold
+        mask = batch.get("loss_mask")
+        mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
+        tokens = torch.sum(mask)
+        loss = torch.sum(nll * mask) / torch.clamp(tokens, min=1.0)
+        return loss, {"loss": loss, "tokens": tokens}
 
     # ---- serving --------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> list[dict]:

@@ -1517,3 +1517,56 @@ def test_two_client_processes_serve_the_bf16_gemm_on_the_card(card, tmp_path):
         assert d.launches == {"matmul_bf16": d.requests}
         assert d.cache_counters["library_cached"] == 1
         assert d.cache_counters["tune_trials"] == 0 and d.cache_counters["tune_hits"] == 1
+
+
+# -- training -------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTENTION_CASES)
+def test_attention_under_autograd_launches_the_kernel_and_its_torch_backward(card, case, dtype):
+    """``ops.attention`` on inputs that want a gradient: one launch of the
+    routed entry forward, one ``attention_bwd_torch`` backward, gradients
+    as autograd of the plain version in f32 (bf16: one rounding, 2^-8)."""
+    from repro_torch.kernels.ref import attention_ref
+
+    b, hq, hkv, t, s, d, causal, window = case
+    g = torch.Generator(device=card).manual_seed(7)
+    q, k, v = (torch.randn(shape, generator=g, device=card).to(dtype).requires_grad_()
+               for shape in ((b, hq, t, d), (b, hkv, s, d), (b, hkv, s, d)))
+    dout = torch.randn((b, hq, t, d), generator=g, device=card).to(dtype)
+    before = dict(flash_attention.launches)
+    calls = flash_attention.backward_calls["attention_bwd_torch"]
+    out = ops_attention(q, k, v, causal=causal, window=window)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in flash_attention.launches.items() if c != before[n]}
+    assert sum(launched.values()) == 1, launched
+    assert flash_attention.backward_calls["attention_bwd_torch"] == calls + 1
+    q32, k32, v32 = (x.detach().float().requires_grad_() for x in (q, k, v))
+    want = torch.autograd.grad(attention_ref(q32, k32, v32, causal=causal, window=window),
+                               (q32, k32, v32), dout.float())
+    rtol = 0.0 if dtype == torch.float32 else 2.0**-8
+    for name, a, w in zip("qkv", got, want, strict=True):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), w, rtol=rtol, atol=1e-5 * w.abs().max().item(),
+                                   msg=f"d{name}")
+
+
+def test_prefetch_copies_each_batch_on_a_side_stream_in_order(card):
+    from repro_torch.data import Prefetch, SyntheticLM
+
+    data = SyntheticLM(vocab=300, batch=4, seq=32, seed=1)
+    pf = Prefetch(data.batch_at, start_step=2, device=card)
+    try:
+        it = iter(pf)
+        for want_step in (2, 3, 4, 5):
+            step, batch = next(it)
+            assert step == want_step
+            host = data.batch_at(step)
+            for key in ("tokens", "labels"):
+                assert batch[key].is_cuda
+                assert np.array_equal(batch[key].cpu().numpy(), host[key])
+    finally:
+        pf.close()
+    assert not pf._thread.is_alive()

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+``ml_dtypes``, which the card's machine does not have), and
 without a CUDA card its entry points refuse to run instead of falling back
 to the CPU.
 
@@ -74,6 +75,12 @@ def test_port_imports_no_jax_and_no_reference_module():
         "repro_torch.check.stages", "repro_torch.check.schema", "repro_torch.check.concurrency",
         "repro_torch.check.distproto", "repro_torch.benchmarks.fig_trace",
         "repro_torch.benchmarks.fig_dist",
+        "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.optim.clip",
+        "repro_torch.optim.schedule", "repro_torch.data", "repro_torch.data.synthetic",
+        "repro_torch.data.pipeline", "repro_torch.checkpoint",
+        "repro_torch.checkpoint.checkpointer", "repro_torch.runtime",
+        "repro_torch.runtime.steps", "repro_torch.runtime.straggler",
+        "repro_torch.runtime.elastic", "repro_torch.launch.train", "repro_torch.convert",
     } <= set(mods)
     script = textwrap.dedent(f"""
         import importlib, sys
@@ -82,8 +89,8 @@ def test_port_imports_no_jax_and_no_reference_module():
         from repro_torch.core.registry import all_benchmarks
         all_benchmarks()  # registers every ported benchmark
         bad = sorted(m for m in sys.modules
-                     if m in ("jax", "jaxlib", "repro")
-                     or m.startswith(("jax.", "jaxlib.", "repro.")))
+                     if m in ("jax", "jaxlib", "repro", "ml_dtypes")
+                     or m.startswith(("jax.", "jaxlib.", "repro.", "ml_dtypes.")))
         print("LEAKED", bad)
         sys.exit(1 if bad else 0)
     """)

@@ -32,7 +32,10 @@ exits nonzero without printing its result line:
    every split count, bit-equal at the path's shape to the plain merge of
    the kernel's own partials, on a second stream and in a replayed CUDA
    graph, its counters back at 0), TMA f32 kernel or SIMT kernels (the f32
-   cases on both f32 entries); all five SRAD entries
+   cases on both f32 entries); at the MoE path's group 6 (48 query heads
+   over 8 KV heads, D 128) the SIMT bf16 prefill its route picks, at a
+   window shorter than T and at one batch row of the timed serve's shape,
+   and the decode kernel over a full 4096-slot ring; all five SRAD entries
    (the band kernel or the grid-stride one it replaced, the float4 walk or
    the one-pixel phase 1 it replaced, phase 2) bit for bit at every SRAD
    shape, aligned and off 16 bytes; both Mandelbrot kernels (flat, and
@@ -97,7 +100,10 @@ exits nonzero without printing its result line:
    loop's achieved QPS; then ``benchmarks.fig_batching`` at the reference's
    defaults. Every suite run's launch counters equal the calls its rows
    made (counted through the engine's serve seam, warm-ups and first calls
-   included); the WMMA kernel never launches;
+   included); the WMMA kernel never launches; then BFS, Where, NW and
+   Mandelbrot (flat and adaptive) at preset 4, each the engine's width-2
+   call (``torch.vmap`` of its ``fn``) on two requests' inputs, each member
+   bit-equal to the width-1 call on its own;
 4i. tracing and distributed load generation: the suite over fig_trace's
    names (gemm_f32_nn, pathfinder, softmax) at preset 4 with ``--impl
    kernel --trace-out``: one span a stage a pass, each within 1 us of its
@@ -144,6 +150,24 @@ exits nonzero without printing its result line:
    profiled step's device time split into attention forward, backward and
    the rest, and the async checkpoint at step 10 restored and run on to
    step 20 byte for byte;
+4k. MoE serving (``launch.serve.serve``, mixtral-8x22b and dbrx-132b): each
+   smoke config in f32 through the kernel and the plain route (logits
+   within 2e-4, tokens equal); mixtral-8x22b at full width (d_model 6144,
+   48/8 heads, 8 experts top-2, window 4096, bf16, random weights from a
+   seed), depth cut to 4 of 56 layers: a 5120-token prompt's prefill and
+   four teacher-forced decode steps against the plain route one layer at a
+   time, each layer fed the plain route's input on both routes and its
+   expert assignment recorded (rows whose experts agree within
+   MOE_LAYER_ULPS bf16 ulps of their largest value; the share of rows
+   whose experts differ in some layer under its bound), then a timed serve of 8
+   requests, batch 4, 6144-token prompts and 64 generated tokens, the ring
+   of 4096 slots wrapping in prefill and decode, counters set to 0 just
+   before and read just after (8 launches of the SIMT prefill, 504 of the
+   decode kernel, no other), one prefill's and one decode step's device
+   time split into attention, MoE and the rest; dbrx-132b at full width,
+   2 of 40 layers, the same teacher-forced check at 2048 tokens; the strict
+   f32 training step on mixtral's smoke config (the router's gradient
+   among the others);
 5. yardstick: each kernel of the paths, its plain version and the one
    PyTorch call that computes the same function (where there is one),
    timed with CUDA events at the paths' shapes (and the kernel's own device
@@ -155,7 +179,11 @@ exits nonzero without printing its result line:
    ``torch.matmul`` (and the 2-D kernel at 1024^3), the replaced kernels
    (the SIMT f32 GEMM, 2-D and batched; the WMMA bf16 GEMM; SIMT attention; the online
    softmax; the shared-memory LRN) timed beside their successors at the
-   same shapes; the f32 GEMM at each compiled tile; a device copy of the
+   same shapes; the SIMT bf16 attention at the MoE serve's prefill (group
+   6, window 4096; the plain version a batch row at a time, SDPA given the
+   window as a mask), the decode kernel at its group-6 step and the wgmma
+   prefill at the training path's shape; the f32 GEMM at each compiled
+   tile; a device copy of the
    softmax's and the LRN's inputs (the bytes alone); the decode kernel at
    other cache lengths and batches; SRAD's five entries at preset 4, each
    entry eagerly and back to back in a CUDA graph at 8x8 and 1024^2, a
@@ -217,14 +245,14 @@ NO_KERNEL_PATH = (
 )
 # Kernels no path launches: the f32-key sort (the Sort benchmark's keys are
 # int32), and the GEMMs' SIMT f32 and WMMA bf16 kernels, attention's SIMT
-# bf16 and f32 kernels, the online softmax, the shared-memory LRN and SRAD's
+# f32 kernel, the online softmax, the shared-memory LRN and SRAD's
 # grid-stride step and one-pixel phase 1, which keep the layouts their
 # successors do not take. Phase 3 checks them and phase 5
 # times them; the kernels line, which carries each kernel's launches on its
-# path, leaves them out.
+# path, leaves them out. (Attention's SIMT bf16 kernel is on the MoE path:
+# the wgmma prefill takes groups that divide 128, and mixtral's is 6.)
 OFF_PATH = ("sort_kv_f32", "matmul_f32_simt", "matmul_f32_simt_batched", "matmul_bf16_wmma",
-            "flash_attention_bf16_simt", "flash_attention_f32_simt", "softmax_f32_online",
-            "lrn_f32_smem",
+            "flash_attention_f32_simt", "softmax_f32_online", "lrn_f32_smem",
             "srad_fused_f32_gridstride", "srad_phase1_f32_scalar")
 # The tune stage (phase 4g): the f32 GEMM's rows, which have two compiled
 # tiles, and a bf16 row, whose entry compiles 128x128 alone; then the
@@ -254,6 +282,9 @@ SERVE_KERNELS = {
     "softmax": {1: "softmax_f32", "w": "softmax_f32"},
 }
 MEASURE_CALLS = 1 + 0 + 1 + 1 * 4
+# The rows whose width-w call needed an out-of-place write or a batched host
+# loop (phase 4h serves each at width 2 against its width-1 calls).
+WIDTH_TWO_ROWS = ("bfs", "where", "nw", "mandelbrot_flat", "mandelbrot_ms")
 # The served bf16 products (batch, n, A broadcast, layout).
 SERVED_BF16 = [(4, 4096, False, "nn"), (4, 4096, False, "tn"), (4, 4096, True, "nn"),
                (4, 1024, False, "nn"), (4, 1024, False, "tn"), (4, 1024, True, "nn")]
@@ -400,13 +431,52 @@ ATTN_TRAIN_SMOKE = (8, 4, 4, 64, 64, 16)
 # plain route. Fixed later, before the run that first applied it (PERF.md,
 # PR 25): the norm of each attention leaf's gradient over the layers (wq,
 # wk, wv, wo, bq, bk, bv) at the full width against the plain route.
+# Tightened before the run that first applied them (PERF.md, PR 26): the
+# full width's loss, norm and leaves, from PR 25's readings (1.105e-5,
+# 1.165e-4, at most 5.694e-4).
 TRAIN_BWD_BOUND = {"bfloat16": 2.0**-7, "float32": 1e-5}
 TRAIN_FWD_TOL = {"bfloat16": 2e-2, "float32": 2e-4}
 TRAIN_SMOKE_LOSS_RTOL = 1e-5
-TRAIN_FULL_LOSS_RTOL = 1e-2
-TRAIN_FULL_NORM_RTOL = 5e-2
-TRAIN_FULL_ATTN_RTOL = 5e-2
+TRAIN_FULL_LOSS_RTOL = 1e-4
+TRAIN_FULL_NORM_RTOL = 2e-3
+TRAIN_FULL_ATTN_RTOL = 2e-3
 TRAIN_ATTN_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+# MoE serving (phase 4k): mixtral-8x22b and dbrx-132b. Their smoke configs
+# in f32 strictly against the plain route (as 4d's); then each at its full
+# width, bf16, depth cut to what one card holds beside the plain route's
+# scores (mixtral 4 of 56 layers, 20.8 GB; dbrx 2 of 40, 15.5 GB):
+# teacher-forced at batch 1 (the plain route's (B, Hq, T, S) f32 scores are
+# 5.0 GB at mixtral's 5120 tokens), a prompt past mixtral's window and a
+# multiple of the group size; then mixtral's timed serve, whose 6144-token
+# prompts wrap the 4096-slot ring in prefill and decode; then the strict f32
+# training step on mixtral's smoke config.
+MOE_ARCHS = ("mixtral-8x22b", "dbrx-132b")
+MOE_DEPTH = {"mixtral-8x22b": 4, "dbrx-132b": 2}
+MOE_TEACHER = {"mixtral-8x22b": dict(batch=1, prompt_len=5120, max_len=5128),
+               "dbrx-132b": dict(batch=1, prompt_len=2048, max_len=2056)}
+MOE_SERVE = dict(n_requests=8, batch=4, prompt_len=6144, gen_len=64, max_len=6216)
+# The full-width check compares the routes one layer at a time, each layer
+# fed the plain route's input on both (PERF.md, PR 26, where its bounds were
+# fixed before its first run): within a layer the routes differ only in
+# attention, which the kernel computes to within one bf16 ulp of the plain
+# version. A row (a token) whose kept experts agree in the layer holds
+# MOE_LAYER_ULPS ulps of its largest |value| in the layer's output: one
+# ulp for each bf16 rounding that such a difference can flip there and that
+# reaches the row's scale (the residual after attention, the combine
+# weight, the FFN's output, the layer's output). The share of rows whose
+# kept experts differ in some layer (a top-k choice flipped by the layer's
+# own attention, or a slot moved over the capacity by such a flip) is at
+# most MOE_FLIP_SHARE.
+MOE_LAYER_ULPS = 4
+MOE_FLIP_SHARE = 0.02
+# Attention at group 6 (48 query heads over 8 KV heads, D 128): the timed
+# serve's prefill (causal, mixtral's window) and decode over the full ring;
+# phase 3's prefill at a window shorter than T, and one batch row at the
+# serve's shape.
+MOE_WINDOW = 4096
+ATTN_G6_PREFILL = (4, 48, 8, 6144, 6144, 128)
+ATTN_G6_DECODE = (4, 48, 8, 1, 4096, 128)
+ATTN_G6_SMALL = (2, 48, 8, 1024, 1024, 128)
 KERNEL_SOURCES = {
     "matmul_f32": ("src/repro_torch/kernels/csrc/matmul_f32_tma.cu",
                    "src/repro/kernels/matmul.py:55"),
@@ -1229,6 +1299,19 @@ def phase_kernels(torch) -> dict:
         key, e = _attention_case(torch, fa, gen, bf16, *shape, causal, None,
                                  entry="flash_attention_bf16_simt")
         err[key] = max(err[key], e)
+    # Group 6 (the MoE path's 48/8 heads): the prefill on the SIMT kernel it
+    # routes to, at a window shorter than T and at one batch row of the timed
+    # serve's shape; decode over a full 4096-slot ring on the decode kernel.
+    b, hq, hkv, t, s, d = ATTN_G6_PREFILL
+    for shape, causal, window, want in (
+        (ATTN_G6_SMALL, True, ATTN_G6_SMALL[3] // 2, "flash_attention_bf16_simt"),
+        ((1, hq, hkv, t, s, d), True, MOE_WINDOW, "flash_attention_bf16_simt"),
+        (ATTN_G6_DECODE, False, None, "flash_decode_bf16"),
+    ):
+        key, e = _attention_case(torch, fa, gen, bf16, *shape, causal, window)
+        if key != want:
+            _fail(f"group-6 attention {shape} routed to {key}, not {want}")
+        err[key] = max(err[key], e)
     for case in DECODE_SPLIT_CASES:
         _decode_split_case(torch, fa, gen, *case)
     err["flash_decode_bf16"] = max(err["flash_decode_bf16"], _fused_decode_case(torch, fa, gen))
@@ -1864,6 +1947,53 @@ def _served_calls_match_members(torch, name, preset, mix, max_batch, tol) -> Non
     torch.cuda.empty_cache()
 
 
+def _width_two_rows(torch) -> dict:
+    """The rows whose width-w call runs an out-of-place write or a batched
+    host loop, at preset 4: the engine's width-2 call (``torch.vmap`` of the
+    row's ``fn``, NW's captured as one graph) on two requests' inputs, each
+    member equal bit for bit to the width-1 call on its own inputs.
+    -> the launches of those calls (Where's scan, once a member)."""
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core.harness import commit_args
+    from repro_torch.core.plan import ExecutionPlan, ServeSpec
+    from repro_torch.core.registry import get_benchmark
+
+    total = {}
+    for name in WIDTH_TWO_ROWS:
+        t0 = time.perf_counter()
+        spec = get_benchmark(name)
+        plan = ExecutionPlan(names=(name,), preset=PRESET, impl="kernel",
+                             serve=ServeSpec(mode="open", qps=1.0, dispatch="batched",
+                                             max_batch=2))
+        engine_mod._prepare_device(plan)
+        before = _read_launches()
+        calls = engine_mod.Engine()._build_bucket_calls(spec, plan, PRESET, plan.placement,
+                                                        "kernel", None)
+        (per_width,) = calls.values()
+        got = per_width[2]()
+        wl = spec.build_preset(PRESET)
+        one = engine_mod.bind_impl(wl.fn, wl, "kernel")
+        for j in range(2):
+            want = one(*commit_args(wl.make_inputs(plan.seed + j), "cuda"))
+            for g, w in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,), strict=True):
+                if g[j].dtype != w.dtype or not torch.equal(g[j], w):
+                    _fail(f"{name} at width 2: member {j} differs from its width-1 call")
+        torch.cuda.synchronize()
+        after = _read_launches()
+        delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        for k, n in delta.items():
+            total[k] = total.get(k, 0) + n
+        print(f"  {wl.name:28s} width 2 (torch.vmap of fn) against the width-1 call on "
+              f"make_inputs(seed + j): both members bit-equal; launches {delta} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        del calls, per_width, got
+    if set(total) != {"prefix_scan_f32"}:
+        _fail(f"the five rows at width 2 launched {total}; expected Where's prefix_scan_f32 only")
+    torch.cuda.empty_cache()
+    return total
+
+
 def phase_serving(torch) -> dict:
     """fig_concurrency at preset 4, then mixed serving over kernel rows
     (each (bucket, width) call checked first; offered load 0.8x the loop
@@ -1943,6 +2073,8 @@ def phase_serving(torch) -> dict:
             launches[k] = launches.get(k, 0) + n
         print(f"  {name}: launches {got} (each run's equal to its rows' calls) in "
               f"{time.perf_counter() - t1:.1f} s")
+    for k, n in _width_two_rows(torch).items():
+        launches[k] = launches.get(k, 0) + n
     t1 = time.perf_counter()
     eng = _counting_engine()
     rows = fig_batching.rows(engine=eng)
@@ -2409,41 +2541,53 @@ def _depth_compare(torch, bound):
     return compare
 
 
-def phase_lm_serving(torch) -> tuple[dict, dict]:
-    """Serve granite-3-8b: the smoke config in f32 strictly against the plain
-    route, then the full config in bf16. -> (launches on the path, numbers)."""
-    import numpy as np
-
-    from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.kernels import flash_attention as fa
+def _strict_serve(torch, arch: str) -> dict:
+    """``arch``'s smoke config in f32 served through the kernel route and
+    the plain route: launches on flash_attention_f32 alone, one a layer a
+    call; greedy tokens equal; prefill and decode logits within
+    LM_SMOKE_TOL, teacher-forced. -> the kernel route's launches."""
+    from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
     from repro_torch.models import Model
 
-    print("== phase 4d: LM serving (launch.serve.serve, granite-3-8b)")
-    # 1. Strict, small: the smoke config in f32, kernel route against plain.
-    cfg = dataclasses.replace(get_smoke_config(LM_ARCH), dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     model = Model(cfg, device="cuda")
     model.init_weights(torch.Generator(device="cuda").manual_seed(0))
     kw = LM_SMOKE_SERVE
     _zero_launches()
-    stats = serve(arch=LM_ARCH, device="cuda", model=model, **kw)
+    stats = serve(arch=arch, device="cuda", model=model, **kw)
     launches = _read_launches()
     rounds = -(-kw["n_requests"] // kw["batch"])
     want = {k: 0 for k in launches}
     want["flash_attention_f32"] = cfg.n_layers * rounds * len(stats.outputs[0])
-    print(f"  smoke serve: {stats.requests} requests, {stats.prefill_tokens} prefill + "
-          f"{stats.decoded_tokens} decoded tokens; launches {_nonzero(launches)}")
+    print(f"  smoke serve ({cfg.name}, f32): {stats.requests} requests, {stats.prefill_tokens} "
+          f"prefill + {stats.decoded_tokens} decoded tokens; launches {_nonzero(launches)}")
     if launches != want:
-        _fail(f"LM smoke launch counts {launches} differ from the expected {want}")
+        _fail(f"{cfg.name} launch counts {launches} differ from the expected {want}")
     with ops.force_impl("ref"), _Recorded(torch, model, gaps=True) as rec:
-        plain = serve(arch=LM_ARCH, device="cuda", model=model, **kw)
+        plain = serve(arch=arch, device="cuda", model=model, **kw)
     if _read_launches() != launches:
         _fail("the plain route launched a kernel")
     _check_tokens(stats.outputs, plain.outputs, rec.gaps, kw["batch"], LM_SMOKE_TOL,
                   "smoke serve")
     _teacher_forced(torch, model, kw, _strict_compare(torch, LM_SMOKE_TOL))
-    del model
+    return launches
+
+
+def phase_lm_serving(torch) -> tuple[dict, dict]:
+    """Serve granite-3-8b: the smoke config in f32 strictly against the plain
+    route, then the full config in bf16. -> (launches on the path, numbers)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Model
+
+    print("== phase 4d: LM serving (launch.serve.serve, granite-3-8b)")
+    # 1. Strict, small: the smoke config in f32, kernel route against plain.
+    launches = _strict_serve(torch, LM_ARCH)
 
     # 2. Full width: granite-3-8b as published, bf16, random weights.
     torch.cuda.empty_cache()
@@ -2531,6 +2675,362 @@ def phase_lm_serving(torch) -> tuple[dict, dict]:
           f"{info['prefill_attention_ms']:.3f} of it in flash_attention_bf16_wgmma; decode step "
           f"{info['decode_device_ms']:.4f} ms, {info['decode_attention_ms']:.4f} of it in "
           f"flash_decode_bf16")
+    return launches, info
+
+
+def _assignment(moe, x):
+    """The experts each token of x selects (top-k) and those that process it
+    (with room in their capacity), as ``moe.route`` finds them: two bool
+    (tokens, E)."""
+    from repro_torch.models.moe import route
+
+    combine_w, keep, _ = route(moe.params(), moe.cfg, x)
+    n = combine_w.shape[-1]
+    return (combine_w > 0).reshape(-1, n), keep.reshape(-1, n)
+
+
+class _Routing:
+    """Forward hooks on every MoE of ``model`` inside a ``with``: each call's
+    expert assignment (:func:`_assignment`), per layer in call order."""
+
+    def __init__(self, model) -> None:
+        self.model, self.calls, self._hooks = model, [], []
+
+    def __enter__(self):
+        def hook(moe, args, out):
+            self.calls.append(_assignment(moe, args[0]))
+
+        self._hooks = [b.ffn.register_forward_hook(hook) for b in self.model.blocks]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self._hooks:
+            h.remove()
+        return False
+
+    def take(self) -> list:
+        calls, self.calls = self.calls, []
+        return calls
+
+
+class _LayerFeed:
+    """Wraps ``model._block`` (prefill) and ``model._decode_block`` (decode)
+    inside a ``with``: each layer call's input and output are kept, in call
+    order. With ``feed`` (the inputs another run kept), each call takes its
+    input from there instead, so that every layer sees what it saw in that
+    run."""
+
+    def __init__(self, model, feed: list | None = None) -> None:
+        self.model, self.feed = model, feed
+        self.inputs, self.outputs = [], []
+
+    def _take(self, x):
+        x = x if self.feed is None else self.feed[len(self.inputs)]
+        self.inputs.append(x)
+        return x
+
+    def __enter__(self):
+        model = self.model
+        block_fn, decode_fn = model._block, model._decode_block
+
+        def block(blk, x, positions):
+            out, kv = block_fn(blk, self._take(x), positions)
+            self.outputs.append(out)
+            return out, kv
+
+        def decode(blk, entry, x_t, positions_t, pos):
+            out = decode_fn(blk, entry, self._take(x_t), positions_t, pos)
+            self.outputs.append(out)
+            return out
+
+        model._block, model._decode_block = block, decode
+        return self
+
+    def __exit__(self, *exc):
+        del self.model._block, self.model._decode_block
+        return False
+
+
+def _bf16_ulp(torch, x):
+    """The bf16 ulp of each value of ``x`` (> 0): 2^(floor(log2 x) - 7)."""
+    return torch.exp2(torch.floor(torch.log2(x)) - 7)
+
+
+def _moe_teacher_forced(torch, model, kw) -> dict:
+    """The first round's prompts (``serve``'s draws with seed 0) through
+    ``prefill`` and LM_TEACHER_STEPS decode steps (fed the plain route's
+    greedy tokens), first on the plain route, then on the kernel route with
+    every layer fed the plain route's input to that layer: the two routes
+    then differ only inside the layer compared, in its attention, and the
+    caches they build stay bit-equal (checked). Per layer, a row whose kept
+    experts agree on both routes holds MOE_LAYER_ULPS ulps of its largest
+    |value|; the rows whose kept experts differ in some layer are counted
+    against MOE_FLIP_SHARE. -> {rows, flipped (kept experts differ),
+    selection_flips (top-k choice differs), worst_ulps, share}."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    batch, prompt_len, max_len = kw["batch"], kw["prompt_len"], kw["max_len"]
+    tokens = torch.from_numpy(np.stack([rng.integers(0, cfg.vocab, prompt_len)
+                                        for _ in range(batch)])).to(model.embed.device, torch.long)
+    tally = {"rows": 0, "flipped": 0, "selection_flips": 0, "worst_ulps": 0.0}
+
+    def compare(what, kernel, plain, kernel_routes, plain_routes, cache_k, cache_p):
+        if not (len(kernel.outputs) == len(plain.outputs) == len(kernel_routes)
+                == len(plain_routes) == cfg.n_layers):
+            _fail(f"MoE {cfg.name} {what}: {len(kernel.outputs)} and {len(plain.outputs)} layer "
+                  f"calls, {len(kernel_routes)} and {len(plain_routes)} routed")
+        if not all(_same_bytes(torch, a[n], b[n])
+                   for a, b in zip(cache_k, cache_p, strict=True) for n in ("k", "v")):
+            _fail(f"MoE {cfg.name} {what}: the routes' caches differ, though every layer was "
+                  "fed the same input")
+        flipped = chosen = None
+        for layer, (yk, yp, (sel_k, keep_k), (sel_p, keep_p)) in enumerate(zip(
+                kernel.outputs, plain.outputs, kernel_routes, plain_routes, strict=True)):
+            yk, yp = yk.reshape(-1, cfg.d_model).float(), yp.reshape(-1, cfg.d_model).float()
+            agree = (keep_k == keep_p).all(-1)
+            same_choice = (sel_k == sel_p).all(-1)
+            flipped = ~agree if flipped is None else flipped | ~agree
+            chosen = ~same_choice if chosen is None else chosen | ~same_choice
+            ulps = (yk - yp).abs().amax(-1) / _bf16_ulp(torch, yp.abs().amax(-1))
+            worst = ulps[agree].max().item() if bool(agree.any()) else 0.0
+            moved = int((ulps[agree] > 0).sum())
+            ok = bool(torch.isfinite(yk).all()) and worst <= MOE_LAYER_ULPS
+            tally["worst_ulps"] = max(tally["worst_ulps"], worst)
+            print(f"  full {what}, layer {layer}: rows whose kept experts differ "
+                  f"{int((~agree).sum())} (top-k choice {int((~same_choice).sum())}) of "
+                  f"{agree.numel()}; the others: {moved} moved, worst {worst:g} ulps of the "
+                  f"row's largest |value| [bound {MOE_LAYER_ULPS}] {'ok' if ok else 'FAIL'}")
+            if not ok:
+                _fail(f"MoE full-width {cfg.name} {what}, layer {layer}: the kernel route is "
+                      f"{worst:g} ulps from the plain route on a row whose experts agree, over "
+                      f"{MOE_LAYER_ULPS}")
+        tally["rows"] += flipped.numel()
+        tally["flipped"] += int(flipped.sum())
+        tally["selection_flips"] += int(chosen.sum())
+
+    with _Routing(model) as rec:
+        with ops.force_impl("ref"), _LayerFeed(model) as plain:
+            cache_p, logits_p = model.prefill(tokens, max_len)
+        plain_routes = rec.take()
+        with _LayerFeed(model, plain.inputs) as kernel:
+            cache_k, _ = model.prefill(tokens, max_len)
+        compare("prefill", kernel, plain, rec.take(), plain_routes, cache_k, cache_p)
+        last = logits_p[:, -1].argmax(-1)
+        del plain, kernel, logits_p
+        for i in range(LM_TEACHER_STEPS):
+            with ops.force_impl("ref"), _LayerFeed(model) as plain:
+                logits_p, cache_p = model.decode_step(cache_p, last, prompt_len + i)
+            plain_routes = rec.take()
+            with _LayerFeed(model, plain.inputs) as kernel:
+                _, cache_k = model.decode_step(cache_k, last, prompt_len + i)
+            compare(f"decode step {i + 1}", kernel, plain, rec.take(), plain_routes, cache_k,
+                    cache_p)
+            last = logits_p.argmax(-1)
+    share = tally["flipped"] / tally["rows"]
+    ok = share <= MOE_FLIP_SHARE
+    print(f"  rows whose kept experts differ between the routes in some layer: "
+          f"{tally['flipped']} of {tally['rows']} = {share:.3e} (top-k choice "
+          f"{tally['selection_flips']}) [bound {MOE_FLIP_SHARE:g}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        _fail(f"MoE full width {cfg.name}: {share:.3e} of the rows flipped experts, over "
+              f"{MOE_FLIP_SHARE}")
+    tally["share"] = share
+    return tally
+
+
+def _moe_model(torch, arch: str):
+    """``arch`` at full width, bf16, depth cut to MOE_DEPTH, weights from a
+    seeded CUDA generator. -> (model, its description)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=MOE_DEPTH[arch])
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    model.eval()
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    text = (f"{cfg.name}: {cfg.n_layers} of {full.n_layers} layers, d_model {cfg.d_model}, heads "
+            f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, "
+            f"{cfg.n_experts} experts top-{cfg.top_k}, capacity factor {cfg.capacity_factor}, "
+            f"group {cfg.moe_group_size}, vocab {cfg.vocab}, window {cfg.window}: {n} "
+            f"parameters, {n * 2 / 1e9:.2f} GB bf16 (the router f32), built and initialised in "
+            f"{time.perf_counter() - t0:.1f} s")
+    print(f"  {text}")
+    return model, text
+
+
+def _moe_device_split(torch, model, call, attempts: int = 3) -> dict:
+    """One ``call`` (a prefill or a decode step) under ``torch.profiler``,
+    host and device, with every ``MoE`` forward and every ``route`` inside
+    it in a ``record_function`` range: from that one trace, the call's
+    device ms, the attention kernels' part (names with ``flash_``), the
+    part of the kernels launched inside the MoE ranges (router and slot
+    positions, dispatch, expert products, combine), of which inside the
+    ``route`` ranges; the rest is the projections, norms, embedding and
+    unembedding. A trace whose MoE ranges hold no device time is taken
+    again, up to ``attempts`` times in all; then the MoE parts are None."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import moe as moe_mod
+
+    names = ("chip_smoke.moe", "chip_smoke.moe.route")
+    ranges = []
+
+    def enter(name):
+        ranges.append(record_function(name))
+        ranges[-1].__enter__()
+
+    def leave(*_):
+        ranges.pop().__exit__(None, None, None)
+
+    def route(*args, **kw):
+        enter(names[1])
+        try:
+            return plain_route(*args, **kw)
+        finally:
+            leave()
+
+    plain_route = moe_mod.route
+    call()
+    torch.cuda.synchronize()
+    hooks = [h for b in model.blocks for h in (
+        b.ffn.register_forward_pre_hook(lambda *_: enter(names[0])),
+        b.ffn.register_forward_hook(leave))]
+    moe_mod.route = route
+    try:
+        for attempt in range(1, attempts + 1):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            total = attention = 0.0
+            part = dict.fromkeys(names, 0.0)
+            for e in prof.events():
+                if e.name in part and e.device_type == DeviceType.CPU:
+                    part[e.name] += e.device_time_total
+                elif e.device_type == DeviceType.CUDA and e.name not in part:
+                    total += e.device_time_total
+                    attention += e.device_time_total if "flash_" in e.name else 0.0
+            if total <= 0:
+                _fail("torch.profiler saw no device activity")
+            if part[names[0]] > 0:
+                break
+            print(f"  (torch.profiler: no device time inside the MoE ranges, attempt {attempt} "
+                  f"of {attempts})")
+    finally:
+        moe_mod.route = plain_route
+        for h in hooks:
+            h.remove()
+    moe = part[names[0]] / 1e3 if part[names[0]] > 0 else None
+    return {"device_ms": total / 1e3, "attention_ms": attention / 1e3, "moe_ms": moe,
+            "moe_router_ms": None if moe is None else part[names[1]] / 1e3,
+            "rest_ms": None if moe is None else (total - attention) / 1e3 - moe}
+
+
+def phase_moe(torch, smi: str) -> tuple[dict, dict]:
+    """MoE serving: mixtral-8x22b and dbrx-132b. -> (launches on the path,
+    numbers)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import serve
+
+    print("== phase 4k: MoE serving (launch.serve.serve, mixtral-8x22b and dbrx-132b)")
+    t_phase = time.perf_counter()
+    # (a) Strict, small: each smoke config in f32, kernel route against plain.
+    launches = {k: 0 for k in _read_launches()}
+    for arch in MOE_ARCHS:
+        for k, n in _strict_serve(torch, arch).items():
+            launches[k] += n
+    info = {}
+    # (b) mixtral-8x22b at full width, depth cut.
+    torch.cuda.empty_cache()
+    arch = MOE_ARCHS[0]
+    model, info["mixtral"] = _moe_model(torch, arch)
+    cfg = model.cfg
+    info["mixtral_teacher"] = _moe_teacher_forced(torch, model, MOE_TEACHER[arch])
+    torch.cuda.empty_cache()
+    kw = MOE_SERVE
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    with _Recorded(torch, model) as rec:
+        stats = serve(arch=arch, smoke=False, device="cuda", model=model, **kw)
+    full = _read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rounds = -(-kw["n_requests"] // kw["batch"])
+    calls = len(stats.outputs[0])
+    want = {k: 0 for k in full}
+    want["flash_attention_bf16_simt"] = cfg.n_layers * rounds
+    want["flash_decode_bf16"] = cfg.n_layers * rounds * (calls - 1)
+    if (full != want or want["flash_attention_bf16_simt"] != 8
+            or want["flash_decode_bf16"] != 504):
+        _fail(f"MoE serve launches {_nonzero(full)}; expected flash_attention_bf16_simt "
+              f"{cfg.n_layers} layers x {rounds} rounds = 8, flash_decode_bf16 {cfg.n_layers} x "
+              f"{rounds} x {calls - 1} steps = 504, nothing else")
+    counters = fa.scratch.counters(torch.device("cuda", 0), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if counters is None or bool(counters.any()):
+        _fail(f"the decode counters after the MoE serve: {counters}")
+    for k, n in full.items():
+        launches[k] += n
+    toks = np.array(stats.outputs)
+    if toks.shape != (kw["n_requests"], kw["gen_len"]) or toks.min() < 0 or \
+            toks.max() >= cfg.vocab:
+        _fail(f"MoE serve's outputs: shape {toks.shape}, range [{toks.min()}, {toks.max()}]")
+    prefill_ms, decode_ms = rec.ms("prefill"), rec.ms("decode")
+    num = {
+        "tokens_per_s": stats.tokens_per_s, "wall_s": stats.wall_s,
+        "prefill_ms": sum(prefill_ms) / len(prefill_ms),
+        "decode_step_ms": sum(decode_ms) / len(decode_ms), "peak_gb": peak_gb,
+    }
+    print(f"  mixtral serve: {stats.requests} requests, batch {kw['batch']}, "
+          f"{stats.prefill_tokens} prefill + {stats.decoded_tokens} decoded tokens in "
+          f"{stats.wall_s:.3f} s = {stats.tokens_per_s:.1f} tokens/s; prefill "
+          f"{num['prefill_ms']:.3f} ms per call (runs {', '.join(f'{x:.3f}' for x in prefill_ms)}"
+          f"), decode step {num['decode_step_ms']:.4f} ms mean over {len(decode_ms)} (min "
+          f"{min(decode_ms):.4f}, max {max(decode_ms):.4f}); peak memory {peak_gb:.2f} GB; "
+          f"launches {_nonzero(full)}; decode counters all 0 ({smi})")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(np.stack([rng.integers(0, cfg.vocab, kw["prompt_len"])
+                                        for _ in range(kw["batch"])])).to("cuda", torch.long)
+    cache, logits = model.prefill(tokens, kw["max_len"])
+    last = logits[:, -1].argmax(-1)
+    del logits
+    num["prefill_split"] = _moe_device_split(
+        torch, model, lambda: model.prefill(tokens, kw["max_len"]))
+    num["decode_split"] = _moe_device_split(
+        torch, model, lambda: model.decode_step(cache, last, kw["prompt_len"]))
+    del cache
+    for what in ("prefill", "decode"):
+        sp = num[f"{what}_split"]
+        print(f"  device time (torch.profiler), one {what} call: {sp['device_ms']:.3f} ms; "
+              f"attention {sp['attention_ms']:.3f}, MoE {_ms_text(sp['moe_ms'], 3)} (router and "
+              f"slots {_ms_text(sp['moe_router_ms'], 3)}), the rest "
+              f"{_ms_text(sp['rest_ms'], 3)}")
+    info["mixtral_serve"] = num
+    del model, rec, tokens, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) dbrx-132b at full width, depth cut; the same check.
+    arch = MOE_ARCHS[1]
+    model, info["dbrx"] = _moe_model(torch, arch)
+    info["dbrx_teacher"] = _moe_teacher_forced(torch, model, MOE_TEACHER[arch])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) The strict training step on mixtral's smoke config.
+    for k, n in _strict_train_step(torch, MOE_ARCHS[0]).items():
+        launches[k] += n
+    print(f"  phase 4k {time.perf_counter() - t_phase:.1f} s")
     return launches, info
 
 
@@ -2623,16 +3123,16 @@ def _attention_backward_case(torch, gen, shape, dt) -> dict:
     return {"bwd_ms": bwd_ms, "lib_ms": lib_ms, "bound_ms": bound_ms, "worst": worst}
 
 
-def _strict_train_step(torch) -> dict:
-    """The qwen1.5-0.5b smoke config in f32: one loss and gradient on the
-    kernel route against the plain route, on the card. -> launches."""
+def _strict_train_step(torch, arch: str = TRAIN_ARCH) -> dict:
+    """``arch``'s smoke config in f32: one loss and gradient on the kernel
+    route against the plain route, on the card. -> launches."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models import Model
 
-    cfg = dataclasses.replace(get_smoke_config(TRAIN_ARCH), dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     model = Model(cfg, device="cuda", remat=False)  # a smoke run trains without remat
     model.init_weights(torch.Generator(device="cuda").manual_seed(0))
     batch = {k: torch.from_numpy(v).to("cuda") for k, v in
@@ -2745,8 +3245,6 @@ def phase_train(torch) -> tuple[dict, dict]:
     the strict f32 step and the resume check, then the full width through
     ``launch.train.train``. -> (launches on the path, numbers)."""
     import shutil
-
-    import numpy as np
 
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import get_config
@@ -3173,55 +3671,86 @@ def _visible_pairs(t: int, s: int, causal: bool, window) -> int:
     return total
 
 
+def _plain_by_row(torch, fa, q, k, v, causal, window):
+    """The plain attention one batch row at a time, concatenated."""
+    return torch.cat([fa.flash_attention_plain(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                               causal=causal, window=window)
+                      for i in range(q.shape[0])])
+
+
 def _attention_yardstick(torch, gen, hw):
-    """The attention entries at the serving path's shapes: the wgmma prefill
-    kernel (bf16 prefill), the decode kernel (bf16 decode step: one launch,
-    the merge in its epilogue, as the path launches it), the SIMT kernel
-    they replaced on the path (at both shapes), and the f32 TMA kernel and
-    the SIMT f32 kernel it replaced: at the f32 smoke run's own prefill and
-    decode shapes, where its launches are, and at the serving path's
-    prefill shape (full width). The bound counts 4*D operations per visible
-    pair (two products) at the dtype's peak, and q, k, v and o once each.
-    The yardstick is F.scaled_dot_product_attention (GQA through
-    ``enable_gqa``), which the port never calls."""
+    """The attention entries at the paths' shapes: the wgmma prefill kernel
+    (bf16 prefill; also at the training path's shape), the decode kernel
+    (bf16 decode step: one launch, the merge in its epilogue, as the path
+    launches it; also at the MoE serve's group 6 over its full ring), the
+    SIMT kernel (the MoE serve's prefill, group 6 with mixtral's window;
+    and at the dense serving path's two shapes, where the others replaced
+    it), and the f32 TMA kernel and the SIMT f32 kernel it replaced: at the
+    f32 smoke run's own prefill and decode shapes, where its launches are,
+    and at the serving path's prefill shape (full width). The bound counts
+    4*D operations per visible pair (two products) at the dtype's peak, and
+    q, k, v and o once each. The yardstick is
+    F.scaled_dot_product_attention (GQA through ``enable_gqa``; the window
+    as a boolean mask), which the port never calls."""
     import torch.nn.functional as F
 
     from repro_torch.core.metrics import roofline_terms
     from repro_torch.kernels import flash_attention as fa
 
     rows = []
-    for key, dt, (b, hq, hkv, t, s, d), causal, what in (
-        ("flash_attention_bf16_wgmma", torch.bfloat16, ATTN_PREFILL, True, ""),
-        ("flash_decode_bf16", torch.bfloat16, ATTN_DECODE, False, " (one launch)"),
-        ("flash_attention_bf16_simt", torch.bfloat16, ATTN_PREFILL, True, ""),
-        ("flash_attention_bf16_simt", torch.bfloat16, ATTN_DECODE, False, ""),
-        ("flash_attention_f32", torch.float32, ATTN_SMOKE_PREFILL, True, " (smoke prefill)"),
-        ("flash_attention_f32", torch.float32, ATTN_SMOKE_DECODE, False, " (smoke decode)"),
-        ("flash_attention_f32", torch.float32, ATTN_PREFILL, True, ""),
-        ("flash_attention_f32_simt", torch.float32, ATTN_SMOKE_PREFILL, True, " (smoke prefill)"),
-        ("flash_attention_f32_simt", torch.float32, ATTN_SMOKE_DECODE, False, " (smoke decode)"),
-        ("flash_attention_f32_simt", torch.float32, ATTN_PREFILL, True, ""),
+    bf16, f32 = torch.bfloat16, torch.float32
+    for key, dt, (b, hq, hkv, t, s, d), causal, window, what in (
+        ("flash_attention_bf16_wgmma", bf16, ATTN_PREFILL, True, None, ""),
+        ("flash_attention_bf16_wgmma", bf16, ATTN_TRAIN_FULL, True, None, " (training)"),
+        ("flash_decode_bf16", bf16, ATTN_DECODE, False, None, " (one launch)"),
+        ("flash_decode_bf16", bf16, ATTN_G6_DECODE, False, None, " (MoE ring, one launch)"),
+        ("flash_attention_bf16_simt", bf16, ATTN_G6_PREFILL, True, MOE_WINDOW, " (MoE)"),
+        ("flash_attention_bf16_simt", bf16, ATTN_PREFILL, True, None, ""),
+        ("flash_attention_bf16_simt", bf16, ATTN_DECODE, False, None, ""),
+        ("flash_attention_f32", f32, ATTN_SMOKE_PREFILL, True, None, " (smoke prefill)"),
+        ("flash_attention_f32", f32, ATTN_SMOKE_DECODE, False, None, " (smoke decode)"),
+        ("flash_attention_f32", f32, ATTN_PREFILL, True, None, ""),
+        ("flash_attention_f32_simt", f32, ATTN_SMOKE_PREFILL, True, None, " (smoke prefill)"),
+        ("flash_attention_f32_simt", f32, ATTN_SMOKE_DECODE, False, None, " (smoke decode)"),
+        ("flash_attention_f32_simt", f32, ATTN_PREFILL, True, None, ""),
     ):
         q = torch.randn(b, hq, t, d, generator=gen, device="cuda").to(dt)
         k, v = (torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(dt)
                 for _ in range(2))
-        plain = functools.partial(fa.flash_attention_plain, q, k, v, causal=causal)
-        library = functools.partial(F.scaled_dot_product_attention, q, k, v,
-                                    is_causal=causal and t == s, enable_gqa=True)
+        plain = functools.partial(fa.flash_attention_plain, q, k, v, causal=causal,
+                                  window=window)
+        if window is not None:
+            # At the MoE prefill's shape the plain version's f32 scores take
+            # 7.2 GB a batch row: it runs one row at a time. SDPA gets the
+            # window as a boolean mask and k, v expanded to the query heads
+            # (setup, not timed), so the memory-efficient kernel takes it.
+            plain = functools.partial(_plain_by_row, torch, fa, q, k, v, causal, window)
+            pos = torch.arange(s, device="cuda")
+            q_pos = pos[s - t:, None]
+            mask = (pos[None, :] <= q_pos) & (pos[None, :] > q_pos - window)
+            kx, vx = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+            library = functools.partial(F.scaled_dot_product_attention, q, kx, vx,
+                                        attn_mask=mask)
+        else:
+            library = functools.partial(F.scaled_dot_product_attention, q, k, v,
+                                        is_causal=causal and t == s, enable_gqa=True)
         try:
             want = plain()
             _close_case(torch, f"F.scaled_dot_product_attention {_dtname(dt)} vs plain",
                         library().float(), want.float(), ATTN_TOL[_dtname(dt)],
                         ATTN_TOL[_dtname(dt)])
+            del want
         except TypeError as e:  # a torch without enable_gqa
             print(f"  library call: none ({e})")
             library = None
-        pairs = b * hq * _visible_pairs(t, s, causal, None)
+        pairs = b * hq * _visible_pairs(t, s, causal, window)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         roof = roofline_terms(4.0 * d * pairs, nbytes, dtype=dt, hw=hw)
-        shape = f"B{b} Hq{hq} Hkv{hkv} T{t} S{s} D{d} {'causal' if causal else 'full'}{what}"
+        shape = (f"B{b} Hq{hq} Hkv{hkv} T{t} S{s} D{d} {'causal' if causal else 'full'}"
+                 + (f" window {window}" if window is not None else "") + what)
         rows.append((key, shape, roof, (
-            functools.partial(fa._launch, key, q, k, v, causal=causal), plain, library,
+            functools.partial(fa._launch, key, q, k, v, causal=causal, window=window), plain,
+            library,
         )))
     return rows
 
@@ -3398,7 +3927,8 @@ def phase_yardstick(torch, launches: dict, errors: dict) -> list:
     out = []
     dp_rows, dp_status = _mandelbrot_yardstick(torch, hw)
     cases = _yardstick_cases(torch, gen, hw) + dp_rows
-    for key, shape, roof, (kernel, plain, library) in cases:
+    for case in cases:
+        key, shape, roof, (kernel, plain, library) = case
         # plain, kernel, library, kernel, plain: each side timed twice, in turns
         p1, k1, lib, k2, p2 = (
             _time_ms(torch, f) if f is not None else None
@@ -3456,11 +3986,12 @@ def main() -> int:
     phase_small_agreement(torch)
     lm_launches, lm = phase_lm_serving(torch)
     train_launches, tr = phase_train(torch)
+    moe_launches, moe = phase_moe(torch, smi)
     # Every count was checked per path; a kernel's launches are the sum over
     # the paths that run it (SRAD's three entries: phases 4c and 4f).
     launches = {k: main_launches[k] + dnn_launches[k] + level_launches[k] + lm_launches[k]
                 + feature_launches[k] + report_launches[k] + serve_launches[k]
-                + dist_launches[k] + train_launches[k] for k in main_launches}
+                + dist_launches[k] + train_launches[k] + moe_launches[k] for k in main_launches}
     kernels = phase_yardstick(torch, launches, errors)
     # One row per kernel and shape (matmul_bf16 has three, nn and tn at
     # 4096^3 and nn at 1024^3; matmul_bf16_batched six), the kernels of no
@@ -3481,6 +4012,13 @@ def main() -> int:
     print(f"LM training, {TRAIN_ARCH} full, bf16, batch {TRAIN_FULL['batch']} x "
           f"{TRAIN_FULL['seq']}: step {tr['step_ms']:.2f} ms median, {tr['tokens_per_s']:.1f} "
           f"tokens/s, peak memory {tr['peak_gb']:.2f} GB ({smi})")
+    ms = moe["mixtral_serve"]
+    print(f"MoE serving, mixtral-8x22b full width at depth {MOE_DEPTH['mixtral-8x22b']}, bf16, "
+          f"batch {MOE_SERVE['batch']} x {MOE_SERVE['prompt_len']}: {ms['tokens_per_s']:.1f} "
+          f"tokens/s, prefill {ms['prefill_ms']:.3f} ms, decode step {ms['decode_step_ms']:.4f} "
+          f"ms, peak memory {ms['peak_gb']:.2f} GB; rows with flipped experts: mixtral "
+          f"{moe['mixtral_teacher']['share']:.3e}, dbrx {moe['dbrx_teacher']['share']:.3e} "
+          f"({smi})")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

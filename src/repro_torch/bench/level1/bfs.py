@@ -11,7 +11,9 @@ data-dependent trip count. Here it is a host-checked loop: one scalar read
 counts as touched when at least one active edge ends there: ``index_add``
 of the active flags as int32 counts (exact in any order), not an
 ``index_put_`` over duplicate destinations, where the last write would
-win.
+win. The serve stage's width-w call (``torch.vmap``) runs the w graphs as
+the rows of one loop until every frontier is empty, as ``jax.vmap`` of the
+reference's ``while_loop`` does.
 
 ``validate`` runs a level-synchronous BFS in numpy over a CSR of the
 graph, independent of the torch code. The reference's oracle walks the
@@ -20,9 +22,12 @@ edges in Python, minutes at preset 4 (2^25 edges).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from repro_torch.core.hostloop import rows_call
 from repro_torch.core.presets import geometric_presets
 from repro_torch.core.registry import BenchmarkSpec, Workload, register
 
@@ -59,21 +64,35 @@ def bfs_host_reference(n_nodes: int, src: np.ndarray, dst: np.ndarray, root: int
     return depth
 
 
-def bfs_depths(n_nodes: int, src: torch.Tensor, dst: torch.Tensor, root: int) -> torch.Tensor:
-    """Frontier-parallel BFS: per-node depth (int32, UNREACHED if none)."""
-    depth = torch.full((n_nodes,), UNREACHED, dtype=torch.int32, device=src.device)
-    depth[root] = 0
-    frontier = torch.zeros(n_nodes, dtype=torch.bool, device=src.device)
-    frontier[root] = True
+def _bfs_rows(n_nodes: int, root: int, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """BFS of each row's graph at once: src, dst (W, E) -> depth (W, n_nodes).
+    Row r's nodes are r * n_nodes + [0, n_nodes) of one graph, so a level
+    is one gather and one ``index_add`` over every row, and the host's
+    frontier check ends the loop when every row's frontier is empty."""
+    w = src.shape[0]
+    dev = src.device
+    base = torch.arange(w, dtype=src.dtype, device=dev)[:, None] * n_nodes
+    src, dst = (src + base).flatten(), (dst + base).flatten()
+    depth = torch.full((w, n_nodes), UNREACHED, dtype=torch.int32, device=dev)
+    depth[:, root] = 0
+    frontier = torch.zeros((w, n_nodes), dtype=torch.bool, device=dev)
+    frontier[:, root] = True
     level = 0
     while bool(frontier.any()):  # the loop's one host read a level
-        active = frontier[src].to(torch.int32)
-        touched = torch.zeros(n_nodes, dtype=torch.int32, device=src.device).index_add_(
-            0, dst, active) > 0
+        active = frontier.view(-1)[src].to(torch.int32)
+        touched = torch.index_add(torch.zeros(w * n_nodes, dtype=torch.int32, device=dev),
+                                  0, dst, active).view(w, n_nodes) > 0
         frontier = touched & (depth > level + 1)
         depth = torch.where(frontier, level + 1, depth)
         level += 1
     return depth
+
+
+def bfs_depths(n_nodes: int, src: torch.Tensor, dst: torch.Tensor, root: int) -> torch.Tensor:
+    """Frontier-parallel BFS: per-node depth (int32, UNREACHED if none).
+    Under ``torch.vmap`` the members' graphs run as the rows of one loop
+    (``core/hostloop.py``)."""
+    return rows_call(functools.partial(_bfs_rows, n_nodes, root), src, dst)
 
 
 def _make(n_nodes: int, n_edges: int) -> Workload:

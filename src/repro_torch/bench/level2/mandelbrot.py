@@ -21,7 +21,10 @@ of "any pixel still active" every :data:`CHECK_EVERY` steps, all else on
 the device. An escaped pixel is frozen, so steps past the last escape
 change nothing and the counts equal those of a check every step. The
 adaptive version reads one more thing on the host: which tiles are mixed
-(one ``nonzero``).
+(one ``nonzero``). Under ``torch.vmap`` (the serve stage's width-w call)
+both run over the members' images at once (``core/hostloop.py``): the
+check sees every member, and the mixed tiles of all of them iterate as
+one batch.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.core.hostloop import rows_call
 from repro_torch.core.presets import geometric_presets
 from repro_torch.core.registry import BenchmarkSpec, Workload, register
 
@@ -67,23 +71,29 @@ def _iterate(c: torch.Tensor, max_iter: int) -> torch.Tensor:
 
 
 def escape_time(c: torch.Tensor, max_iter: int) -> torch.Tensor:
-    return _iterate(c, max_iter)
+    return rows_call(functools.partial(_iterate, max_iter=max_iter), c)
 
 
-def mariani_silver(c: torch.Tensor, max_iter: int, tile: int = TILE) -> torch.Tensor:
-    n = c.shape[0]
+def _mariani_silver_rows(c: torch.Tensor, max_iter: int, tile: int) -> torch.Tensor:
+    """Mariani-Silver over images (W, n, n): every image's tile borders in
+    one batch, then every mixed tile of every image in one batch."""
+    w, n = c.shape[0], c.shape[1]
     assert n % tile == 0
     t = n // tile
-    tiles = c.reshape(t, tile, t, tile).transpose(1, 2).reshape(-1, tile, tile)
+    tiles = c.reshape(w, t, tile, t, tile).transpose(2, 3).reshape(-1, tile, tile)
     border = torch.cat(
         [tiles[:, 0, :], tiles[:, -1, :], tiles[:, :, 0], tiles[:, :, -1]], dim=1
     )
     interior = torch.all(_iterate(border, max_iter) == max_iter, dim=1)
-    out = torch.full((t * t, tile, tile), max_iter, dtype=torch.int32, device=c.device)
+    out = torch.full((w * t * t, tile, tile), max_iter, dtype=torch.int32, device=c.device)
     mixed = torch.nonzero(~interior).flatten()  # the tiles that iterate
     if mixed.numel():
         out[mixed] = _iterate(tiles[mixed], max_iter)
-    return out.reshape(t, t, tile, tile).transpose(1, 2).reshape(n, n)
+    return out.reshape(w, t, t, tile, tile).transpose(2, 3).reshape(w, n, n)
+
+
+def mariani_silver(c: torch.Tensor, max_iter: int, tile: int = TILE) -> torch.Tensor:
+    return rows_call(functools.partial(_mariani_silver_rows, max_iter=max_iter, tile=tile), c)
 
 
 def _make(n: int, max_iter: int, adaptive: bool) -> Workload:

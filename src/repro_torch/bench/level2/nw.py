@@ -8,8 +8,10 @@ diagonals. Here the table is held by diagonals, (2n + 1) × (n + 1) int32,
 with the boundary cells (i·GAP, j·GAP) and the cells off the table (NEG)
 written before the sweep, and the match/mismatch scores of every cell
 computed in one pass from the two sequences. Each diagonal's interior is
-then one slice (static bounds) computed from the two before it, four
-elementwise launches. On the card the 2n − 1 diagonals are one CUDA graph
+then one slice (static bounds) computed from the two before it, five
+elementwise launches. The table takes the layout of the scores, so under
+``torch.vmap`` (the serve stage's width-w call) each member sweeps a table of
+its own. On the card the 2n − 1 diagonals are one CUDA graph
 replay a call (:data:`GRAPHS`); on the CPU a plain loop. Integer
 arithmetic: the score equals the reference's exactly.
 
@@ -40,13 +42,15 @@ def wavefront(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     # Every cell's substitution score (garbage off the table, never read).
     sub = torch.where(a[(i - 1).clamp(0, n - 1)] == b[(j - 1).clamp(0, n - 1)],
                       MATCH, MISMATCH).to(torch.int32)
-    table = torch.where((j >= 0) & (j <= n), torch.where(i == 0, j * GAP, i * GAP), NEG)
-    table = table.to(torch.int32)  # cells with i == 0 or j == 0 are final now
+    # The table takes sub's layout, so under torch.vmap it carries the batch
+    # and every member sweeps its own; cells with i == 0 or j == 0 are final.
+    table = torch.empty_like(sub).copy_(
+        torch.where((j >= 0) & (j <= n), torch.where(i == 0, j * GAP, i * GAP), NEG))
     for k in range(2, 2 * n + 1):
         lo, hi = max(1, k - n), min(n, k - 1)  # interior cells: i in [lo, hi]
         nw = table[k - 2, lo - 1 : hi] + sub[k, lo : hi + 1]
         up_left = torch.maximum(table[k - 1, lo - 1 : hi], table[k - 1, lo : hi + 1]) + GAP
-        torch.maximum(nw, up_left, out=table[k, lo : hi + 1])
+        table[k, lo : hi + 1] = torch.maximum(nw, up_left)
     return table[2 * n, n]
 
 

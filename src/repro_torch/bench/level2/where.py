@@ -32,8 +32,9 @@ def where_select(records: torch.Tensor, lo: float, hi: float):
     count = offsets[-1].to(torch.int32)
     # Exclusive position of each match; non-matches go to scratch row n.
     dest = torch.where(flags > 0, offsets.long() - 1, n)
-    out = torch.zeros((n + 1, records.shape[1]), dtype=records.dtype, device=records.device)
-    out.index_copy_(0, dest, records)
+    # Out of place, so that under torch.vmap each member scatters into its
+    # own rows (an in-place copy into one unbatched zeros cannot).
+    out = torch.index_copy(records.new_zeros((n + 1, records.shape[1])), 0, dest, records)
     # Matches fill rows [0, count) and nothing else is written below row n,
     # so the rows after the count are already the reference's zeros.
     return out[:n], count

@@ -5,10 +5,11 @@ keeps its own copies (it imports nothing of the JAX package).
 ``get_config(name)`` returns the published configuration and
 ``get_smoke_config(name)`` a reduced same-family variant for CPU tests.
 
-``ARCHS`` lists the four dense architectures whose blocks are all
-attention + MLP, the only block kind the port runs so far. The reference's
-other architectures (MoE, SSM, hybrid, audio, VLM) wait for their layers:
-asking for one raises a ``KeyError`` that says so.
+``ARCHS`` lists the architectures whose blocks are all attention + MLP
+(the four dense ones) or all attention + MoE (mixtral-8x22b, dbrx-132b),
+the block kinds the port runs so far. The reference's other architectures
+(SSM, hybrid, audio, VLM) wait for their layers: asking for one raises a
+``KeyError`` that says so.
 """
 
 from __future__ import annotations
@@ -19,12 +20,10 @@ from repro_torch.models.config import ArchConfig
 
 __all__ = ["ARCHS", "get_config", "get_smoke_config"]
 
-ARCHS = ("granite-3-8b", "qwen1.5-0.5b", "granite-8b", "deepseek-7b")
+ARCHS = ("granite-3-8b", "qwen1.5-0.5b", "granite-8b", "deepseek-7b", "mixtral-8x22b",
+         "dbrx-132b")
 # The reference's architectures that the port does not run yet.
-NOT_PORTED = (
-    "xlstm-350m", "mixtral-8x22b", "dbrx-132b", "hubert-xlarge",
-    "jamba-1.5-large-398b", "qwen2-vl-2b",
-)
+NOT_PORTED = ("xlstm-350m", "hubert-xlarge", "jamba-1.5-large-398b", "qwen2-vl-2b")
 
 _MODULES = {
     name: "repro_torch.configs." + name.replace("-", "_").replace(".", "_") for name in ARCHS
@@ -34,7 +33,7 @@ _MODULES = {
 def _module(name: str):
     if name in NOT_PORTED:
         raise KeyError(
-            f"arch {name!r} is not ported yet: its MoE, SSM, encoder or M-RoPE layers "
+            f"arch {name!r} is not ported yet: its SSM, encoder or M-RoPE layers "
             "are ROADMAP.md queue 1, item 16; ported: " + ", ".join(ARCHS)
         )
     if name not in _MODULES:

@@ -55,9 +55,11 @@ def model_state_from_reference(cfg: ArchConfig, params: dict) -> dict[str, torch
 
     The reference stacks every block leaf over the periods of its layer scan
     (``params["blocks"]`` is a tuple over period positions, each leaf with a
-    leading ``n_periods`` axis); the port holds one block per layer. A dense
-    config's period is one block, so layer i is index i of each leaf. The
-    weights keep their (d_in, d_out) layout on both sides.
+    leading ``n_periods`` axis); the port holds one block per layer. A config
+    whose period is one block (``attn_mlp`` or ``attn_moe``) has layer i at
+    index i of each leaf; an MoE block's ``ffn`` leaves are (E, d, ff) and
+    the like after that axis, and its router f32. The weights keep their
+    (d_in, d_out) layout on both sides.
 
     This is the name map between the two trees: the reference's leaf
     ``blocks[0][group][name]`` row i is the port's ``blocks.<i>.<group>.<name>``,
@@ -68,7 +70,8 @@ def model_state_from_reference(cfg: ArchConfig, params: dict) -> dict[str, torch
     period = cfg.block_period()
     if len(period) != 1 or cfg.n_periods != cfg.n_layers:
         raise ValueError(
-            f"{cfg.name}: period {period} is not one block; only dense configs convert"
+            f"{cfg.name}: period {period} is not one block; only configs of one block "
+            "kind (attn_mlp or attn_moe) convert"
         )
     (blocks,) = params["blocks"]
     state = {}

@@ -16,9 +16,10 @@ co-located partner, or a mix of request shapes served by the continuous
 batcher; realized by the engine's serve stage through ``repro_torch.serve``).
 
 The port runs on one device so far: a plan's placement must be one device,
-``replicate`` (the engine refuses anything else with :class:`PlanError`).
-Device sweeps and distributed load generation (``ServeSpec.client_procs``,
-ROADMAP queue 1 item 15) are not ported yet and are refused.
+``replicate``. The engine refuses more than one device, and shard placement
+(device sweeps included), with :class:`PlanError` (ROADMAP queue 1, item 12).
+Distributed load generation (``ServeSpec.client_procs``: N client processes
+on that one device) runs.
 
 Plans carry no execution state: the engine (``core/engine.py``) consumes a
 plan, owns the callable cache and the stage sequence, and emits records.

@@ -1,13 +1,14 @@
-"""The LM: an ArchConfig of dense attention + MLP blocks -> init / forward /
-prefill / decode.
+"""The LM: an ArchConfig of attention blocks with a dense MLP or an MoE FFN
+-> init / forward / prefill / decode.
 
-Counterpart of ``repro/models/model.py`` for the block kind ``attn_mlp``
-(the dense configs). Where the reference scans one stacked parameter pytree
+Counterpart of ``repro/models/model.py`` for the block kinds ``attn_mlp``
+(the dense configs) and ``attn_moe`` (mixtral-8x22b, dbrx-132b; the FFN is
+``models/moe.py``). Where the reference scans one stacked parameter pytree
 over periods, the port holds an ``nn.ModuleList`` with one block per layer
 and loops over it in Python: PyTorch runs eagerly, and one block per layer
-is what the state dict names (``blocks.<i>.mixer.wq``, ...). The other block
-kinds (MoE, Mamba, xLSTM) raise ``NotImplementedError``: they are ROADMAP.md
-queue 1, item 16.
+is what the state dict names (``blocks.<i>.mixer.wq``,
+``blocks.<i>.ffn.router``, ...). The other block kinds (Mamba, xLSTM) raise
+``NotImplementedError``: they are ROADMAP.md queue 1, item 16.
 
 Training: ``loss_fn`` is the reference's next-token cross entropy over f32
 logits. With ``remat`` on (the default, as the reference's), ``forward``
@@ -21,7 +22,8 @@ layer's K/V into the decode cache (a linear buffer, or a ring of ``window``
 slots for sliding-window configs); ``decode_step`` runs one token for the
 whole batch. The reference donates its cache to the compiled step; here the
 step writes the new token's K/V into its slot in place and attends over the
-cache's valid slots through views, so a step allocates no cache.
+cache's valid slots through views, so a step allocates no cache. An MoE
+block routes a decode step's B tokens as one group, as the reference does.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from repro_torch.models.layers import (
     project_qkv,
     rms_norm,
 )
+from repro_torch.models.moe import MoE
 
 __all__ = ["Model"]
 
@@ -59,23 +62,36 @@ def _params(tensors: dict, device) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One ``attn_mlp`` layer: norm, attention, norm, SwiGLU MLP."""
+    """One layer: norm, attention, norm, and a SwiGLU MLP (``attn_mlp``) or
+    an MoE FFN (``attn_moe``)."""
 
-    def __init__(self, cfg: ArchConfig, device) -> None:
+    def __init__(self, cfg: ArchConfig, device, kind: str = "attn_mlp") -> None:
         super().__init__()
         dt = dtype_of(cfg)
+        self.kind = kind
         self.ln1 = nn.Parameter(torch.ones(cfg.d_model, dtype=dt, device=device))
         self.mixer = _params(init_attention(None, cfg), device)
         self.ln2 = nn.Parameter(torch.ones(cfg.d_model, dtype=dt, device=device))
-        self.ffn = _params(init_mlp(None, cfg), device)
+        self.ffn = MoE(cfg, device) if kind == "attn_moe" else _params(init_mlp(None, cfg), device)
 
     @torch.no_grad()
     def init_weights(self, cfg: ArchConfig, generator: torch.Generator) -> None:
         self.ln1.fill_(1.0)
         self.ln2.fill_(1.0)
-        for group, init in ((self.mixer, init_attention), (self.ffn, init_mlp)):
-            for name, value in init(generator, cfg).items():
-                group[name].copy_(value)
+        for name, value in init_attention(generator, cfg).items():
+            self.mixer[name].copy_(value)
+        if self.kind == "attn_moe":
+            self.ffn.init_weights(generator)
+        else:
+            for name, value in init_mlp(generator, cfg).items():
+                self.ffn[name].copy_(value)
+
+    def apply_ffn(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, T, d) or (B, d) -> the FFN's output, the same shape. A (B, d)
+        step goes to the MoE as (B, 1, d): one group of B tokens."""
+        if self.kind != "attn_moe":
+            return apply_mlp(self.ffn, x)
+        return self.ffn(x) if x.dim() == 3 else self.ffn(x[:, None, :])[:, 0]
 
 
 def _route_contexts():
@@ -110,20 +126,22 @@ def _kv_to_cache(cfg: ArchConfig, k: torch.Tensor, v: torch.Tensor, max_len: int
 
 
 class Model(nn.Module):
-    """A dense LM. Parameters are created uninitialised on ``device`` (CUDA
-    unless the caller asks for the CPU); ``init_weights`` fills them from a
-    generator, or ``load_state_dict`` from ``convert.model_state_from_reference``.
+    """An attention LM, its FFNs dense or MoE. Parameters are created
+    uninitialised on ``device`` (CUDA unless the caller asks for the CPU);
+    ``init_weights`` fills them from a generator, or ``load_state_dict`` from
+    ``convert.model_state_from_reference``.
     """
 
     def __init__(self, cfg: ArchConfig, *, device: str | torch.device = "cuda",
                  remat: bool = True) -> None:
         super().__init__()
         cfg.validate()
-        other = sorted(set(cfg.block_kinds()) - {"attn_mlp"})
+        kinds = cfg.block_kinds()
+        other = sorted(set(kinds) - {"attn_mlp", "attn_moe"})
         if other:
             raise NotImplementedError(
-                f"{cfg.name}: block kinds {other} are not ported yet (MoE, Mamba and "
-                "xLSTM layers are ROADMAP.md queue 1, item 16); the port runs attn_mlp"
+                f"{cfg.name}: block kinds {other} are not ported yet (Mamba and xLSTM "
+                "layers are ROADMAP.md queue 1, item 16); the port runs attn_mlp and attn_moe"
             )
         if cfg.input_mode != "tokens":
             raise NotImplementedError(
@@ -134,7 +152,7 @@ class Model(nn.Module):
         self.cfg = cfg
         self.remat = remat
         dt = dtype_of(cfg)
-        self.blocks = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(Block(cfg, device, kind) for kind in kinds)
         self.ln_f = nn.Parameter(torch.ones(cfg.d_model, dtype=dt, device=device))
         self.embed = nn.Parameter(torch.empty((cfg.vocab, cfg.d_model), dtype=dt, device=device))
         if not cfg.tie_embeddings:
@@ -175,7 +193,7 @@ class Model(nn.Module):
         h, kv = apply_attention(block.mixer, cfg, rms_norm(x, block.ln1, cfg.norm_eps),
                                 positions)
         x = x + h
-        x = x + apply_mlp(block.ffn, rms_norm(x, block.ln2, cfg.norm_eps))
+        x = x + block.apply_ffn(rms_norm(x, block.ln2, cfg.norm_eps))
         return x, kv
 
     # ---- forward ------------------------------------------------------------
@@ -233,34 +251,40 @@ class Model(nn.Module):
             cache.append(_kv_to_cache(self.cfg, k, v, max_len))
         return cache, self._unembed(rms_norm(x, self.ln_f, self.cfg.norm_eps))
 
+    def _decode_block(self, block: Block, entry: dict, x_t: torch.Tensor,
+                      positions_t: torch.Tensor, pos: int):
+        """One layer of a decode step at ``pos`` (``positions_t`` (B, 1) holds
+        it on the device): writes the step's K/V into slot ``pos % S`` of the
+        layer's cache ``entry`` in place. x_t (B, d) -> (B, d)."""
+        cfg = self.cfg
+        b = x_t.shape[0]
+        xn = rms_norm(x_t, block.ln1, cfg.norm_eps)[:, None, :]  # (B, 1, d)
+        q, k, v = project_qkv(block.mixer, cfg, xn, positions_t)
+        s = entry["k"].shape[1]
+        slot = pos % s
+        entry["k"][:, slot] = k[:, 0]
+        entry["v"][:, slot] = v[:, 0]
+        # Slots [0, kv_len) hold exactly the valid past tokens, in the linear
+        # and the ring layout alike (RoPE was applied at absolute positions,
+        # and attention does not depend on the keys' order).
+        kv_len = min(pos + 1, s)
+        out = ops.attention(
+            q.transpose(1, 2),
+            entry["k"][:, :kv_len].transpose(1, 2),
+            entry["v"][:, :kv_len].transpose(1, 2),
+            causal=False,
+        )
+        x_t = x_t + out.reshape(b, cfg.n_heads * cfg.head_dim) @ block.mixer["wo"]
+        return x_t + block.apply_ffn(rms_norm(x_t, block.ln2, cfg.norm_eps))
+
     @torch.inference_mode()
     def decode_step(self, cache: list[dict], tokens: torch.Tensor, pos: int):
         """One token step for the batch: tokens (B,), ``pos`` the absolute
         position (a host int). Writes the step's K/V into slot ``pos % S`` of
         ``cache`` in place and returns (logits (B, V), cache)."""
-        cfg = self.cfg
         x_t = self.embed[tokens]  # (B, d)
-        b = x_t.shape[0]
-        positions_t = torch.full((b, 1), pos, dtype=torch.long, device=x_t.device)
-        hd = cfg.head_dim
+        positions_t = torch.full((x_t.shape[0], 1), pos, dtype=torch.long, device=x_t.device)
         for block, entry in zip(self.blocks, cache, strict=True):
-            xn = rms_norm(x_t, block.ln1, cfg.norm_eps)[:, None, :]  # (B, 1, d)
-            q, k, v = project_qkv(block.mixer, cfg, xn, positions_t)
-            s = entry["k"].shape[1]
-            slot = pos % s
-            entry["k"][:, slot] = k[:, 0]
-            entry["v"][:, slot] = v[:, 0]
-            # Slots [0, kv_len) hold exactly the valid past tokens, in the
-            # linear and the ring layout alike (RoPE was applied at absolute
-            # positions, and attention does not depend on the keys' order).
-            kv_len = min(pos + 1, s)
-            out = ops.attention(
-                q.transpose(1, 2),
-                entry["k"][:, :kv_len].transpose(1, 2),
-                entry["v"][:, :kv_len].transpose(1, 2),
-                causal=False,
-            )
-            x_t = x_t + out.reshape(b, cfg.n_heads * hd) @ block.mixer["wo"]
-            x_t = x_t + apply_mlp(block.ffn, rms_norm(x_t, block.ln2, cfg.norm_eps))
-        logits = self._unembed(rms_norm(x_t, self.ln_f, cfg.norm_eps))
+            x_t = self._decode_block(block, entry, x_t, positions_t, pos)
+        logits = self._unembed(rms_norm(x_t, self.ln_f, self.cfg.norm_eps))
         return logits, cache

@@ -1570,3 +1570,67 @@ def test_prefetch_copies_each_batch_on_a_side_stream_in_order(card):
     finally:
         pf.close()
     assert not pf._thread.is_alive()
+
+
+# The MoE path's attention: 48 query heads over 8 KV heads (group 6), D 128.
+GROUP6_CASES = [
+    ((1, 48, 8, 300, 300, 128), True, 100, "flash_attention_bf16_simt"),
+    ((2, 48, 8, 1, 4096, 128), False, None, "flash_decode_bf16"),
+]
+
+
+@pytest.mark.parametrize("shape,causal,window,entry", GROUP6_CASES)
+def test_group_six_attention_routes_and_matches_plain(card, shape, causal, window, entry):
+    b, hq, hkv, t, s, d = shape
+    gen = torch.Generator(device=card).manual_seed(6)
+    q = torch.randn(b, hq, t, d, generator=gen, device=card).to(torch.bfloat16)
+    k, v = (torch.randn(b, hkv, s, d, generator=gen, device=card).to(torch.bfloat16)
+            for _ in range(2))
+    assert flash_attention._route(q, k, v, window) == entry
+    before = dict(flash_attention.launches)
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    assert flash_attention.launches[entry] == before[entry] + 1
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "dbrx-132b"])
+def test_moe_smoke_model_on_the_card_matches_the_plain_route(card, arch):
+    """The f32 smoke config: the kernel route's logits (flash_attention_f32,
+    one launch a layer) within attention's 2e-4 of the plain route's."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    model = Model(cfg, device=card)
+    model.init_weights(torch.Generator(device=card).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 32), device=card)
+    before = dict(flash_attention.launches)
+    with torch.inference_mode():
+        got = model(tokens)
+        with ops.force_impl("ref"):
+            want = model(tokens)
+    delta = {n: c - before[n] for n, c in flash_attention.launches.items() if c != before[n]}
+    assert delta == {"flash_attention_f32": cfg.n_layers}
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("name", ["bfs", "where", "nw", "mandelbrot_flat", "mandelbrot_ms"])
+def test_repaired_rows_at_width_two_equal_their_width_one_calls(card, name):
+    from repro_torch.core.engine import _stack_members, bind_impl
+    from repro_torch.core.registry import get_benchmark
+
+    wl = get_benchmark(name).build_preset(0)
+    members = [wl.make_inputs(0), wl.make_inputs(1)]
+    args, in_dims = _stack_members(members, "cuda")
+    batched = bind_impl(torch.vmap(wl.fn, in_dims=in_dims, randomness="different"), wl,
+                        "kernel")
+    got = batched(*args)
+    one = bind_impl(wl.fn, wl, "kernel")
+    for j, inputs in enumerate(members):
+        want = one(*(x.to(card) if isinstance(x, torch.Tensor) else x for x in inputs))
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,), strict=True):
+            assert torch.equal(g[j], w), (name, j)

@@ -49,6 +49,8 @@ def test_port_imports_no_jax_and_no_reference_module():
         "repro_torch.models.layers", "repro_torch.models.model", "repro_torch.configs",
         "repro_torch.configs.granite_3_8b", "repro_torch.configs.qwen1_5_0_5b",
         "repro_torch.configs.granite_8b", "repro_torch.configs.deepseek_7b",
+        "repro_torch.models.moe", "repro_torch.configs.mixtral_8x22b",
+        "repro_torch.configs.dbrx_132b", "repro_torch.core.hostloop",
         "repro_torch.launch", "repro_torch.launch.serve",
         "repro_torch.bench.level0.hostbus", "repro_torch.bench.level0.devicemem",
         "repro_torch.bench.level1.bfs", "repro_torch.bench.level2.mandelbrot",

@@ -37,7 +37,7 @@ from repro.core.results import load_run as ref_load_run
 from repro_torch.bench.level1 import bfs, gups
 from repro_torch.bench.level2 import lavamd, mandelbrot, nw, particlefilter
 from repro_torch.core import graphs, harness, suite
-from repro_torch.core.engine import Engine
+from repro_torch.core.engine import Engine, _stack_members
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.core.registry import BenchmarkSpec, Workload, get_benchmark
 from repro_torch.core.results import load_run
@@ -194,6 +194,45 @@ def test_bfs_marks_a_node_reached_by_any_active_edge():
     assert got.tolist() == [0, 1, 1, bfs.UNREACHED, 2, bfs.UNREACHED]
     want = ref_bfs.bfs_host_reference(6, src.numpy(), dst.numpy(), 0)
     np.testing.assert_array_equal(bfs.bfs_host_reference(6, src.numpy(), dst.numpy(), 0), want)
+
+
+# The rows that write in place or read the host inside their loop; the serve
+# stage batches every row with torch.vmap (core/engine.py::_build_width).
+WIDTH_TWO = ("bfs", "where", "nw", "mandelbrot_flat", "mandelbrot_ms")
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("name", WIDTH_TWO)
+def test_width_two_under_vmap_equals_the_two_width_one_calls(name):
+    wl = get_benchmark(name).build_preset(0)
+    members = [wl.make_inputs(0), wl.make_inputs(1)]
+    args, in_dims = _stack_members(members, "cpu")
+    got = _as_tuple(torch.vmap(wl.fn, in_dims=in_dims, randomness="different")(*args))
+    for j, inputs in enumerate(members):
+        want = _as_tuple(wl.fn(*inputs))
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g[j].dtype == w.dtype and torch.equal(g[j], w), (name, j)
+
+
+def test_host_checked_loops_run_until_no_member_is_active():
+    # BFS: a chain of 4 levels beside a root with no edge out; Mandelbrot: the
+    # view beside pixels that all escape within a few steps.
+    src = torch.tensor([[0, 1, 2, 3], [5, 5, 4, 3]], dtype=torch.int32)
+    dst = torch.tensor([[1, 2, 3, 4], [1, 2, 3, 4]], dtype=torch.int32)
+    got = torch.vmap(lambda s, d: bfs.bfs_depths(6, s, d, 0))(src, dst)
+    for j in range(2):
+        assert torch.equal(got[j], bfs.bfs_depths(6, src[j], dst[j], 0))
+    assert got[0].tolist()[:5] == [0, 1, 2, 3, 4] and got[1].tolist()[1:] == [bfs.UNREACHED] * 5
+    (c,) = get_benchmark("mandelbrot_ms").build_preset(0).make_inputs(0)
+    images = torch.stack([c, c + 3.0])
+    for fn in (mandelbrot.escape_time, mandelbrot.mariani_silver):
+        got = torch.vmap(lambda x, fn=fn: fn(x, 64))(images)
+        for j in range(2):
+            assert torch.equal(got[j], fn(images[j], 64))
 
 
 @pytest.mark.parametrize("n,m,seed", [(1, 1, 0), (7, 7, 1), (5, 9, 2), (128, 128, 3),

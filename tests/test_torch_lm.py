@@ -309,7 +309,7 @@ def test_serve_builds_its_model_from_a_seed_and_the_cli_runs(capsys):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "xlstm-350m", "jamba-1.5-large-398b",
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "xlstm-350m", "jamba-1.5-large-398b",
                                   "qwen2-vl-2b"])
 def test_unported_archs_are_refused_naming_the_roadmap(arch):
     with pytest.raises(KeyError, match="queue 1, item 16"):
@@ -322,13 +322,13 @@ def test_unported_archs_are_refused_naming_the_roadmap(arch):
 
 
 def test_non_dense_block_kinds_are_refused():
-    moe = ArchConfig(name="moe-smoke", family="moe", n_layers=2, d_model=64, n_heads=4,
-                     n_kv_heads=2, head_dim=16, d_ff=128, vocab=128, n_experts=4, top_k=2,
-                     dtype="float32")
+    ssm = ArchConfig(name="ssm-smoke", family="ssm", n_layers=2, d_model=64, n_heads=4,
+                     n_kv_heads=2, head_dim=16, d_ff=128, vocab=128, dtype="float32")
     with pytest.raises(NotImplementedError, match="queue 1, item 16"):
-        Model(moe, device="cpu")
-    hybrid = dataclasses.replace(moe, family="hybrid", n_experts=0, top_k=0, attn_period=2)
-    with pytest.raises(ValueError, match="only dense configs convert"):
+        Model(ssm, device="cpu")
+    hybrid = dataclasses.replace(ssm, family="hybrid", attn_period=2)
+    with pytest.raises(ValueError, match=r"only configs of one block kind \(attn_mlp or "
+                       r"attn_moe\) convert"):
         model_state_from_reference(hybrid, {"blocks": ({}, {})})
 
 

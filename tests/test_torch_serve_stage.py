@@ -14,11 +14,13 @@ import dataclasses
 import threading
 
 import pytest
+import torch
 
 from repro.core.engine import Engine as JEngine
 from repro.core.plan import ExecutionPlan as JPlan
 from repro.core.plan import ServeSpec as JServe
 from repro.core.plan import ShapeBucket as JBucket
+from repro_torch.core import registry
 from repro_torch.core.engine import Engine
 from repro_torch.core.plan import ExecutionPlan, ServeSpec, ShapeBucket
 from repro_torch.core.results import BenchmarkRecord, load_run
@@ -163,9 +165,26 @@ def test_width_one_at_the_plans_preset_is_the_measure_stages_callable():
     assert eng.cache.misses == 1  # the measure stage's build, served as it is
 
 
-def test_a_width_w_call_that_cannot_be_batched_fails_the_row_naming_the_cause():
+def test_a_width_w_call_that_cannot_be_batched_fails_the_row_naming_the_cause(monkeypatch):
+    # Every registered row batches (the host-checked loops of BFS and
+    # Mandelbrot through core/hostloop.py), so the row here is Softmax behind
+    # a host check of its input, which torch.vmap refuses on a batched value.
+    softmax = registry.get_benchmark("softmax")
+
+    def build(**size):
+        wl = softmax.build(**size)
+
+        def fn(x):
+            if not bool(torch.isfinite(x).all()):
+                raise ValueError("non-finite logits")
+            return wl.fn(x)
+
+        return dataclasses.replace(wl, name="softmax_host_checked", fn=fn)
+
+    spec = dataclasses.replace(softmax, name="softmax_host_checked", build=build)
+    monkeypatch.setitem(registry._REGISTRY, spec.name, spec)
     serve = ServeSpec(mode="open", qps=200.0, duration_s=0.1, dispatch="batched", max_batch=2)
-    (rec,) = Engine().run(ExecutionPlan(names=("bfs",), serve=serve, impl="kernel",
+    (rec,) = Engine().run(ExecutionPlan(names=(spec.name,), serve=serve, impl="kernel",
                                         device="cpu", **FAST)).records
     assert rec.status == "error" and rec.derived == "stage=serve"
     assert "width-2 call under torch.vmap failed" in rec.error

@@ -35,7 +35,10 @@ exits nonzero without printing its result line:
    cases on both f32 entries); at the MoE path's group 6 (48 query heads
    over 8 KV heads, D 128) the SIMT bf16 prefill its route picks, at a
    window shorter than T and at one batch row of the timed serve's shape,
-   and the decode kernel over a full 4096-slot ring; all five SRAD entries
+   and the decode kernel over a full 4096-slot ring; at the hybrid path's
+   group 8 (64 query heads over 8 KV heads, D 128) the wgmma prefill at the
+   timed serve's shape and the decode kernel over its longest cache; all
+   five SRAD entries
    (the band kernel or the grid-stride one it replaced, the float4 walk or
    the one-pixel phase 1 it replaced, phase 2) bit for bit at every SRAD
    shape, aligned and off 16 bytes; both Mandelbrot kernels (flat, and
@@ -93,8 +96,8 @@ exits nonzero without printing its result line:
 4h. serving: ``benchmarks.fig_concurrency`` at preset 4 with ``--impl
    kernel`` (Pathfinder and the f32 GEMM at lanes 1-32 under the single and
    the threaded client, 0.3 s each, and the co-located pair), then mixed
-   serving of gemm_bf16_nn (p4 and p4 n=1024, max batch 4) and softmax (p3
-   and p3 classes=16384, max batch 8): every (bucket, width) call checked
+   serving of gemm_bf16_nn (p4 and p4 n=1024, max batch 4) and softmax (p2
+   and p2 classes=16384, max batch 8): every (bucket, width) call checked
    against the width-1 call on each member's inputs, a saturating loop run,
    then loop, lanes, batched and dynamic replaying one trace at 0.8x the
    loop's achieved QPS; then ``benchmarks.fig_batching`` at the reference's
@@ -158,7 +161,7 @@ exits nonzero without printing its result line:
    four teacher-forced decode steps against the plain route one layer at a
    time, each layer fed the plain route's input on both routes and its
    expert assignment recorded (rows whose experts agree within
-   MOE_LAYER_ULPS bf16 ulps of their largest value; the share of rows
+   LAYER_ULPS bf16 ulps of their largest value; the share of rows
    whose experts differ in some layer under its bound), then a timed serve of 8
    requests, batch 4, 6144-token prompts and 64 generated tokens, the ring
    of 4096 slots wrapping in prefill and decode, counters set to 0 just
@@ -168,6 +171,26 @@ exits nonzero without printing its result line:
    2 of 40 layers, the same teacher-forced check at 2048 tokens; the strict
    f32 training step on mixtral's smoke config (the router's gradient
    among the others);
+4l. recurrent and hybrid serving (``launch.serve.serve``, xlstm-350m and
+   jamba-1.5-large-398b): each smoke config in f32 through the kernel and
+   the plain route (logits within 2e-4, tokens equal; jamba's attention
+   layer on flash_attention_f32, xlstm launching nothing), then prefill and
+   decode against its own full forward (2e-3, 5e-3); xlstm-350m as
+   published (24 layers, bf16, random weights from a seed): a timed serve
+   of 8 requests, batch 4, 2048-token prompts and 64 generated tokens that
+   launches no kernel, a short prefill's and a decode step's device time
+   split into mLSTM, sLSTM and the rest, the decode state's bytes equal at
+   two cache lengths; one mLSTM layer in f32 at B1 x 2048, chunked against
+   sequential at the reference's tolerances; the whole model in f32,
+   prefill and decode against its full forward; jamba-1.5-large-398b at
+   full width, depth cut to 5 of 72 layers (every block kind it has): a
+   2048-token prompt's prefill and four decode steps one layer at a time,
+   each layer fed the plain route's input (the Mamba and MoE layers and
+   every cache entry bit-equal between the routes, the attention layer
+   within LAYER_ULPS bf16 ulps), then the timed serve, counters set
+   to 0 just before and read just after (2 launches of the wgmma prefill,
+   126 of the decode kernel, nothing else), one prefill's and one decode
+   step's device time split into Mamba mixers, MoE, attention and the rest;
 5. yardstick: each kernel of the paths, its plain version and the one
    PyTorch call that computes the same function (where there is one),
    timed with CUDA events at the paths' shapes (and the kernel's own device
@@ -182,7 +205,8 @@ exits nonzero without printing its result line:
    same shapes; the SIMT bf16 attention at the MoE serve's prefill (group
    6, window 4096; the plain version a batch row at a time, SDPA given the
    window as a mask), the decode kernel at its group-6 step and the wgmma
-   prefill at the training path's shape; the f32 GEMM at each compiled
+   prefill at the training path's shape, the wgmma prefill and the decode
+   kernel at the hybrid path's group 8; the f32 GEMM at each compiled
    tile; a device copy of the
    softmax's and the LRN's inputs (the bytes alone); the decode kernel at
    other cache lengths and batches; SRAD's five entries at preset 4, each
@@ -263,13 +287,16 @@ TUNE_PATH = ("gemm_f32_nn", "gemm_f32_tn", "gemm_bf16_nn")
 # reference's defaults) at preset 4; the mixed rows, each (plan preset,
 # --serve-mix, --max-batch, the op's tolerance); the kernel a served call of
 # each row reaches at width 1 and at width > 1; the calls of a measured row
-# besides its first (validation, warm-up 0, 1 timed, 4 windowed).
+# besides its first (validation, warm-up 0, 1 timed, 4 windowed). The
+# softmax mix runs at preset 2 (2048 x 4096 and 2048 x 16384) since PR 27,
+# which needed the time for phase 4l: at preset 3 its host-side inputs
+# (every request's 8192 x 8192 or 8192 x 16384 normal draws) took ~140 s.
 SERVE_CONCURRENCY = ("pathfinder", "gemm_f32_nn")
 SERVE_LANES = (1, 2, 4, 8, 16, 32)
 SERVE_DURATION = 0.3
 MIXED_SERVE = {
     "gemm_bf16_nn": (4, "4@1,4/n=1024@2", 4, 2e-2),
-    "softmax": (3, "3@2,3/classes=16384@1", 8, 1e-5),
+    "softmax": (2, "2@2,2/classes=16384@1", 8, 1e-5),
 }
 MIXED_DISPATCH = ("loop", "lanes", "batched", "dynamic")
 MIXED_DURATION = 0.5
@@ -460,14 +487,15 @@ MOE_SERVE = dict(n_requests=8, batch=4, prompt_len=6144, gen_len=64, max_len=621
 # fixed before its first run): within a layer the routes differ only in
 # attention, which the kernel computes to within one bf16 ulp of the plain
 # version. A row (a token) whose kept experts agree in the layer holds
-# MOE_LAYER_ULPS ulps of its largest |value| in the layer's output: one
+# LAYER_ULPS ulps of its largest |value| in the layer's output: one
 # ulp for each bf16 rounding that such a difference can flip there and that
 # reaches the row's scale (the residual after attention, the combine
 # weight, the FFN's output, the layer's output). The share of rows whose
 # kept experts differ in some layer (a top-k choice flipped by the layer's
 # own attention, or a slot moved over the capacity by such a flip) is at
-# most MOE_FLIP_SHARE.
-MOE_LAYER_ULPS = 4
+# most MOE_FLIP_SHARE. A layer without attention runs no kernel, so fed
+# the same input it is bit-equal between the routes.
+LAYER_ULPS = 4
 MOE_FLIP_SHARE = 0.02
 # Attention at group 6 (48 query heads over 8 KV heads, D 128): the timed
 # serve's prefill (causal, mixtral's window) and decode over the full ring;
@@ -477,6 +505,46 @@ MOE_WINDOW = 4096
 ATTN_G6_PREFILL = (4, 48, 8, 6144, 6144, 128)
 ATTN_G6_DECODE = (4, 48, 8, 1, 4096, 128)
 ATTN_G6_SMALL = (2, 48, 8, 1024, 1024, 128)
+# Recurrent and hybrid serving (phase 4l). xlstm-350m as published (24
+# layers alternating mLSTM and sLSTM, bf16, 0.8 GB); jamba-1.5-large-398b at
+# every published width with its depth cut to 5 of 72 layers: period
+# positions 0-4 (Mamba + MLP, Mamba + MoE, twice, then attention + MLP) hold
+# every block kind jamba has in 48.2 GB of bf16 weights, where one period
+# of 8 is 90.5 GB. Both serve 8 requests, batch 4, 2048-token prompts, 64
+# tokens each.
+SSM_ARCH = "xlstm-350m"
+HYBRID_ARCH = "jamba-1.5-large-398b"
+HYBRID_DEPTH = 5
+RECURRENT_SERVE = dict(n_requests=8, batch=4, prompt_len=2048, gen_len=64, max_len=2120)
+# Prefill and decode against the port's own full forward (teacher forcing)
+# at the reference's tolerances (tests/test_models.py:92-112): the smoke
+# configs in f32 at the reference's B 2, T 16, T0 8; xlstm-350m whole in f32
+# at 512 prompt tokens and 8 steps.
+SELF_TOL = {"prefill": 2e-3, "decode": 5e-3}
+SELF_SMOKE = dict(batch=2, prompt_len=8, steps=8)
+SELF_FULL = dict(batch=4, prompt_len=512, steps=8)
+# One mLSTM layer of xlstm-350m in f32 at B 1 x 2048: chunked (64) against
+# sequential, at tests/test_perf_knobs.py:104-124's tolerances.
+MLSTM_CHUNK = 64
+MLSTM_CHUNK_LEN = 2048
+MLSTM_CHUNK_TOL = {"out": (2e-4, 2e-4), "C": (2e-3, 2e-4), "m": (1e-4, 1e-5)}  # rtol, atol
+# The decode state's bytes at these two cache lengths must be equal.
+STATE_MAX_LENS = (2048, 524288)
+# jamba's per-layer check (4k's, the layers fed the plain route's input):
+# batch 1 x 2048 and 4 decode steps. The recurrent and MoE layers run no
+# kernel, so they and their states are bit-equal between the routes; the
+# attention layer holds LAYER_ULPS bf16 ulps of each row's largest |value|.
+# No layer of the cut holds attention and an MoE, so no routing can flip.
+HYBRID_TEACHER = dict(batch=1, prompt_len=2048, max_len=2056)
+# xlstm's profiled prefill: a shorter prompt, since the recurrences launch
+# ~20-40 operations a token and layer (24 layers x 2048 tokens would be a
+# trace of over a million operations); then a decode step after it (the
+# recurrent state's size, so a step's work, does not depend on the position).
+SSM_SPLIT_PROMPT = 64
+# Attention at group 8 (jamba: 64 query heads over 8 KV heads, D 128): the
+# timed serve's prefill and a decode step over its longest cache.
+ATTN_G8_PREFILL = (4, 64, 8, 2048, 2048, 128)
+ATTN_G8_DECODE = (4, 64, 8, 1, 2112, 128)
 KERNEL_SOURCES = {
     "matmul_f32": ("src/repro_torch/kernels/csrc/matmul_f32_tma.cu",
                    "src/repro/kernels/matmul.py:55"),
@@ -1311,6 +1379,14 @@ def phase_kernels(torch) -> dict:
         key, e = _attention_case(torch, fa, gen, bf16, *shape, causal, window)
         if key != want:
             _fail(f"group-6 attention {shape} routed to {key}, not {want}")
+        err[key] = max(err[key], e)
+    # Group 8 at 64 query heads (jamba's 64/8, D 128): the timed serve's
+    # prefill on the wgmma kernel, a decode step over its longest cache.
+    for shape, causal, want in ((ATTN_G8_PREFILL, True, "flash_attention_bf16_wgmma"),
+                                (ATTN_G8_DECODE, False, "flash_decode_bf16")):
+        key, e = _attention_case(torch, fa, gen, bf16, *shape, causal, None)
+        if key != want:
+            _fail(f"group-8 attention {shape} routed to {key}, not {want}")
         err[key] = max(err[key], e)
     for case in DECODE_SPLIT_CASES:
         _decode_split_case(torch, fa, gen, *case)
@@ -2472,21 +2548,26 @@ def _check_tokens(got, want, gaps, batch, threshold, what) -> None:
           f"but {excused} (each at a top-2 gap <= {threshold:g})")
 
 
+def _prompts(torch, model, batch: int, prompt_len: int):
+    """``batch`` prompts of ``prompt_len`` tokens as ``serve`` draws a
+    round's (seed 0), on the model's device."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return torch.from_numpy(np.stack([rng.integers(0, model.cfg.vocab, prompt_len)
+                                      for _ in range(batch)])).to(model.embed.device, torch.long)
+
+
 def _teacher_forced(torch, model, serve_kw, compare) -> None:
     """The first round's prompts (as ``serve`` draws them with seed 0)
     through ``prefill`` and LM_TEACHER_STEPS decode steps, on the kernel
     route and on the plain route (``force_impl("ref")``), both fed the plain
     route's greedy tokens; ``compare(what, kernel_logits, plain_logits)``
     checks each call."""
-    import numpy as np
-
     from repro_torch.kernels import ops
 
-    rng = np.random.default_rng(0)
-    batch, prompt_len = serve_kw["batch"], serve_kw["prompt_len"]
-    prompts = np.stack([rng.integers(0, model.cfg.vocab, prompt_len).astype(np.int32)
-                        for _ in range(batch)])
-    tokens = torch.from_numpy(prompts).to("cuda", torch.long)
+    prompt_len = serve_kw["prompt_len"]
+    tokens = _prompts(torch, model, serve_kw["batch"], prompt_len)
     cache_k, logits_k = model.prefill(tokens, serve_kw["max_len"])
     with ops.force_impl("ref"):
         cache_p, logits_p = model.prefill(tokens, serve_kw["max_len"])
@@ -2541,26 +2622,36 @@ def _depth_compare(torch, bound):
     return compare
 
 
-def _strict_serve(torch, arch: str) -> dict:
-    """``arch``'s smoke config in f32 served through the kernel route and
-    the plain route: launches on flash_attention_f32 alone, one a layer a
-    call; greedy tokens equal; prefill and decode logits within
-    LM_SMOKE_TOL, teacher-forced. -> the kernel route's launches."""
+def _smoke_model(torch, arch: str):
+    """``arch``'s smoke config in f32 on the card, weights from seed 0."""
     from repro_torch.configs import get_smoke_config
-    from repro_torch.kernels import ops
-    from repro_torch.launch.serve import serve
     from repro_torch.models import Model
 
-    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
-    model = Model(cfg, device="cuda")
+    model = Model(dataclasses.replace(get_smoke_config(arch), dtype="float32"), device="cuda")
     model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    return model
+
+
+def _strict_serve(torch, arch: str) -> dict:
+    """``arch``'s smoke config in f32 served through the kernel route and
+    the plain route: launches on flash_attention_f32 alone, one an attention
+    layer a call (none for a stack without one); greedy tokens equal;
+    prefill and decode logits within LM_SMOKE_TOL, teacher-forced. -> the
+    kernel route's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+
+    model = _smoke_model(torch, arch)
+    cfg = model.cfg
     kw = LM_SMOKE_SERVE
     _zero_launches()
     stats = serve(arch=arch, device="cuda", model=model, **kw)
     launches = _read_launches()
     rounds = -(-kw["n_requests"] // kw["batch"])
     want = {k: 0 for k in launches}
-    want["flash_attention_f32"] = cfg.n_layers * rounds * len(stats.outputs[0])
+    n_attention = sum(kind.startswith("attn") for kind in cfg.block_kinds())
+    if n_attention:
+        want["flash_attention_f32"] = n_attention * rounds * len(stats.outputs[0])
     print(f"  smoke serve ({cfg.name}, f32): {stats.requests} requests, {stats.prefill_tokens} "
           f"prefill + {stats.decoded_tokens} decoded tokens; launches {_nonzero(launches)}")
     if launches != want:
@@ -2575,14 +2666,10 @@ def _strict_serve(torch, arch: str) -> dict:
     return launches
 
 
-def phase_lm_serving(torch) -> tuple[dict, dict]:
+def phase_lm_serving(torch, smi: str) -> tuple[dict, dict]:
     """Serve granite-3-8b: the smoke config in f32 strictly against the plain
     route, then the full config in bf16. -> (launches on the path, numbers)."""
-    import numpy as np
-
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch.serve import serve
     from repro_torch.models import Model
 
     print("== phase 4d: LM serving (launch.serve.serve, granite-3-8b)")
@@ -2612,69 +2699,15 @@ def phase_lm_serving(torch) -> tuple[dict, dict]:
     # Set before the first run on the card, not fitted to what it showed.
     bound = cfg.n_layers * 2.0**-8
     _teacher_forced(torch, model, LM_SERVE, _depth_compare(torch, bound))
-    torch.cuda.reset_peak_memory_stats()
-    kw = LM_SERVE
-    _zero_launches()
-    with _Recorded(torch, model) as rec:
-        stats = serve(arch=LM_ARCH, smoke=False, device="cuda", model=model, **kw)
-    full = _read_launches()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    rounds = -(-kw["n_requests"] // kw["batch"])
-    calls = len(stats.outputs[0])
-    # Each round: one prefill call and calls - 1 decode steps, every layer
-    # one attention call and one launch: the prefill on the wgmma kernel,
-    # each step on the decode kernel (its merge in its epilogue), none on
-    # the SIMT kernel.
-    want = {k: 0 for k in full}
-    want["flash_attention_bf16_wgmma"] = cfg.n_layers * rounds
-    want["flash_decode_bf16"] = cfg.n_layers * rounds * (calls - 1)
-    if (full != want or want["flash_attention_bf16_wgmma"] != 80
-            or want["flash_decode_bf16"] != 5040):
-        _fail(f"full serve launches {_nonzero(full)}; expected flash_attention_bf16_wgmma "
-              f"{cfg.n_layers} layers x {rounds} rounds = 80, flash_decode_bf16 "
-              f"{cfg.n_layers} x {rounds} x {calls - 1} steps = 5040, nothing else")
-    counters = fa.scratch.counters(torch.device("cuda", 0), torch.cuda.current_stream().cuda_stream)
-    torch.cuda.synchronize()
-    if counters is None or bool(counters.any()):
-        _fail(f"the decode counters after the full serve: {counters}")
-    print(f"  decode arrival counters after the full serve: {counters.numel()} entries, all 0")
-    launches = {k: v + full[k] for k, v in launches.items()}
-    toks = np.array(stats.outputs)
-    if toks.shape != (kw["n_requests"], kw["gen_len"]) or toks.min() < 0 or \
-            toks.max() >= cfg.vocab:
-        _fail(f"serve's outputs: shape {toks.shape}, range [{toks.min()}, {toks.max()}]")
-    prefill_ms, decode_ms = rec.ms("prefill"), rec.ms("decode")
-    info = {
-        "tokens_per_s": stats.tokens_per_s, "wall_s": stats.wall_s,
-        "prefill_ms": sum(prefill_ms) / len(prefill_ms),
-        "decode_step_ms": sum(decode_ms) / len(decode_ms), "peak_gb": peak_gb,
-    }
-    # The device's own time in a prefill call and a decode step (the first
-    # round's prompts; decode at the first step's position, rewriting its
-    # slot), and the flash kernel's part of it: what the events above hold
-    # beyond that is the host's.
-    rng = np.random.default_rng(0)
-    tokens = torch.from_numpy(np.stack([rng.integers(0, cfg.vocab, kw["prompt_len"])
-                                        for _ in range(kw["batch"])])).to("cuda", torch.long)
-    cache, logits = model.prefill(tokens, kw["max_len"])
-    last = logits[:, -1].argmax(-1)
-    del logits
-    info["prefill_device_ms"], info["prefill_attention_ms"] = _device_split_ms(
-        torch, lambda: model.prefill(tokens, kw["max_len"]), 1, "flash_")
-    info["decode_device_ms"], info["decode_attention_ms"] = _device_split_ms(
-        torch, lambda: model.decode_step(cache, last, kw["prompt_len"]), 5, "flash_")
-    del cache
-    print(f"  full serve: {stats.requests} requests, batch {kw['batch']}, "
-          f"{stats.prefill_tokens} prefill + {stats.decoded_tokens} decoded tokens in "
-          f"{stats.wall_s:.3f} s = {stats.tokens_per_s:.1f} tokens/s; prefill "
-          f"{info['prefill_ms']:.3f} ms per call (runs {', '.join(f'{x:.3f}' for x in prefill_ms)}"
-          f"), decode step {info['decode_step_ms']:.4f} ms mean over {len(decode_ms)} (min "
-          f"{min(decode_ms):.4f}, max {max(decode_ms):.4f}); peak memory {peak_gb:.2f} GB; "
-          f"launches {_nonzero(full)}")
-    print(f"  device time (torch.profiler): prefill {info['prefill_device_ms']:.3f} ms per call, "
-          f"{info['prefill_attention_ms']:.3f} of it in flash_attention_bf16_wgmma; decode step "
-          f"{info['decode_device_ms']:.4f} ms, {info['decode_attention_ms']:.4f} of it in "
-          f"flash_decode_bf16")
+    # The prefill on the wgmma kernel, each step on the decode kernel (its
+    # merge in its epilogue), none on the SIMT kernel.
+    info = _timed_serve(torch, model, LM_SERVE,
+                        {"flash_attention_bf16_wgmma": 80, "flash_decode_bf16": 5040}, smi)
+    launches = {k: v + info["launches"][k] for k, v in launches.items()}
+    # The device's own time in a prefill call and a decode step, and the
+    # flash kernel's part of it: what the events above hold beyond that is
+    # the host's.
+    info.update(_serve_splits(torch, model, LM_SERVE, (), {"attention": "attention"}))
     return launches, info
 
 
@@ -2690,17 +2723,18 @@ def _assignment(moe, x):
 
 
 class _Routing:
-    """Forward hooks on every MoE of ``model`` inside a ``with``: each call's
-    expert assignment (:func:`_assignment`), per layer in call order."""
+    """Forward hooks on the MoE of each of ``model``'s blocks numbered in
+    ``layers`` inside a ``with``: each call's expert assignment
+    (:func:`_assignment`), in call order."""
 
-    def __init__(self, model) -> None:
-        self.model, self.calls, self._hooks = model, [], []
+    def __init__(self, model, layers) -> None:
+        self.model, self.layers, self.calls, self._hooks = model, layers, [], []
 
     def __enter__(self):
         def hook(moe, args, out):
             self.calls.append(_assignment(moe, args[0]))
 
-        self._hooks = [b.ffn.register_forward_hook(hook) for b in self.model.blocks]
+        self._hooks = [self.model.blocks[i].ffn.register_forward_hook(hook) for i in self.layers]
         return self
 
     def __exit__(self, *exc):
@@ -2756,63 +2790,81 @@ def _bf16_ulp(torch, x):
     return torch.exp2(torch.floor(torch.log2(x)) - 7)
 
 
-def _moe_teacher_forced(torch, model, kw) -> dict:
+def _layer_teacher_forced(torch, model, kw) -> dict:
     """The first round's prompts (``serve``'s draws with seed 0) through
     ``prefill`` and LM_TEACHER_STEPS decode steps (fed the plain route's
     greedy tokens), first on the plain route, then on the kernel route with
     every layer fed the plain route's input to that layer: the two routes
     then differ only inside the layer compared, in its attention, and the
-    caches they build stay bit-equal (checked). Per layer, a row whose kept
-    experts agree on both routes holds MOE_LAYER_ULPS ulps of its largest
-    |value|; the rows whose kept experts differ in some layer are counted
-    against MOE_FLIP_SHARE. -> {rows, flipped (kept experts differ),
-    selection_flips (top-k choice differs), worst_ulps, share}."""
-    import numpy as np
-
+    caches they build (K/V and recurrent states) stay bit-equal (checked).
+    A layer without attention runs no kernel and must be bit-equal between
+    the routes. In a layer with attention, a row whose kept experts agree on
+    both routes (every row, where the layer has no MoE) holds LAYER_ULPS
+    ulps of its largest |value|; the rows whose kept experts differ in some
+    layer are counted against MOE_FLIP_SHARE. -> {rows, flipped (kept
+    experts differ), selection_flips (top-k choice differs), worst_ulps,
+    share}."""
     from repro_torch.kernels import ops
 
     cfg = model.cfg
-    rng = np.random.default_rng(0)
-    batch, prompt_len, max_len = kw["batch"], kw["prompt_len"], kw["max_len"]
-    tokens = torch.from_numpy(np.stack([rng.integers(0, cfg.vocab, prompt_len)
-                                        for _ in range(batch)])).to(model.embed.device, torch.long)
+    kinds = cfg.block_kinds()
+    attention = [i for i, k in enumerate(kinds) if k.startswith("attn")]
+    routed = [i for i in attention if kinds[i].endswith("_moe")]
+    if not routed:
+        print(f"  {cfg.name}: no layer holds attention and an MoE ({'/'.join(kinds)}), so no "
+              "routing can flip between the routes; none is counted")
+    prompt_len, max_len = kw["prompt_len"], kw["max_len"]
+    tokens = _prompts(torch, model, kw["batch"], prompt_len)
     tally = {"rows": 0, "flipped": 0, "selection_flips": 0, "worst_ulps": 0.0}
 
     def compare(what, kernel, plain, kernel_routes, plain_routes, cache_k, cache_p):
-        if not (len(kernel.outputs) == len(plain.outputs) == len(kernel_routes)
-                == len(plain_routes) == cfg.n_layers):
-            _fail(f"MoE {cfg.name} {what}: {len(kernel.outputs)} and {len(plain.outputs)} layer "
+        if not (len(kernel.outputs) == len(plain.outputs) == cfg.n_layers
+                and len(kernel_routes) == len(plain_routes) == len(routed)):
+            _fail(f"{cfg.name} {what}: {len(kernel.outputs)} and {len(plain.outputs)} layer "
                   f"calls, {len(kernel_routes)} and {len(plain_routes)} routed")
-        if not all(_same_bytes(torch, a[n], b[n])
-                   for a, b in zip(cache_k, cache_p, strict=True) for n in ("k", "v")):
-            _fail(f"MoE {cfg.name} {what}: the routes' caches differ, though every layer was "
-                  "fed the same input")
-        flipped = chosen = None
-        for layer, (yk, yp, (sel_k, keep_k), (sel_p, keep_p)) in enumerate(zip(
-                kernel.outputs, plain.outputs, kernel_routes, plain_routes, strict=True)):
+        if not _caches_equal(torch, cache_k, cache_p):
+            _fail(f"{cfg.name} {what}: the routes' caches differ, though every layer was fed "
+                  "the same input")
+        routes = dict(zip(routed, zip(kernel_routes, plain_routes, strict=True), strict=True))
+        rows = kernel.outputs[0].reshape(-1, cfg.d_model).shape[0]
+        flipped = torch.zeros(rows, dtype=torch.bool, device=kernel.outputs[0].device)
+        chosen = flipped.clone()
+        for layer, (yk, yp) in enumerate(zip(kernel.outputs, plain.outputs, strict=True)):
+            if layer not in attention:
+                if not _same_bytes(torch, yk, yp):
+                    _fail(f"{cfg.name} {what}, layer {layer} ({kinds[layer]}, no kernel): the "
+                          "routes differ")
+                continue
             yk, yp = yk.reshape(-1, cfg.d_model).float(), yp.reshape(-1, cfg.d_model).float()
-            agree = (keep_k == keep_p).all(-1)
-            same_choice = (sel_k == sel_p).all(-1)
-            flipped = ~agree if flipped is None else flipped | ~agree
-            chosen = ~same_choice if chosen is None else chosen | ~same_choice
+            agree = torch.ones_like(flipped)
+            text = ""
+            if layer in routes:
+                (sel_k, keep_k), (sel_p, keep_p) = routes[layer]
+                agree = (keep_k == keep_p).all(-1)
+                same_choice = (sel_k == sel_p).all(-1)
+                flipped |= ~agree
+                chosen |= ~same_choice
+                text = (f"rows whose kept experts differ {int((~agree).sum())} (top-k choice "
+                        f"{int((~same_choice).sum())}) of {rows}; the others: ")
             ulps = (yk - yp).abs().amax(-1) / _bf16_ulp(torch, yp.abs().amax(-1))
             worst = ulps[agree].max().item() if bool(agree.any()) else 0.0
-            moved = int((ulps[agree] > 0).sum())
-            ok = bool(torch.isfinite(yk).all()) and worst <= MOE_LAYER_ULPS
+            ok = bool(torch.isfinite(yk).all()) and worst <= LAYER_ULPS
             tally["worst_ulps"] = max(tally["worst_ulps"], worst)
-            print(f"  full {what}, layer {layer}: rows whose kept experts differ "
-                  f"{int((~agree).sum())} (top-k choice {int((~same_choice).sum())}) of "
-                  f"{agree.numel()}; the others: {moved} moved, worst {worst:g} ulps of the "
-                  f"row's largest |value| [bound {MOE_LAYER_ULPS}] {'ok' if ok else 'FAIL'}")
+            print(f"  full {what}, layer {layer} ({kinds[layer]}): {text}"
+                  f"{int((ulps[agree] > 0).sum())} of {int(agree.sum())} rows moved, worst "
+                  f"{worst:g} ulps of the row's largest |value| [bound {LAYER_ULPS}] "
+                  f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                _fail(f"MoE full-width {cfg.name} {what}, layer {layer}: the kernel route is "
-                      f"{worst:g} ulps from the plain route on a row whose experts agree, over "
-                      f"{MOE_LAYER_ULPS}")
-        tally["rows"] += flipped.numel()
+                _fail(f"{cfg.name} {what}, layer {layer}: the kernel route is {worst:g} ulps "
+                      f"from the plain route on a row whose experts agree, over {LAYER_ULPS}")
+        if len(attention) < cfg.n_layers:
+            print(f"  full {what}: layers {[i for i in range(cfg.n_layers) if i not in attention]}"
+                  " bit-equal between the routes")
+        tally["rows"] += rows
         tally["flipped"] += int(flipped.sum())
         tally["selection_flips"] += int(chosen.sum())
 
-    with _Routing(model) as rec:
+    with _Routing(model, routed) as rec:
         with ops.force_impl("ref"), _LayerFeed(model) as plain:
             cache_p, logits_p = model.prefill(tokens, max_len)
         plain_routes = rec.take()
@@ -2830,81 +2882,72 @@ def _moe_teacher_forced(torch, model, kw) -> dict:
             compare(f"decode step {i + 1}", kernel, plain, rec.take(), plain_routes, cache_k,
                     cache_p)
             last = logits_p.argmax(-1)
+    print(f"  {cfg.name}: every cache entry ({'/'.join(sorted(set(cache_k[0]) | set(cache_k[-1])))}"
+          f") bit-equal between the routes after every call")
     share = tally["flipped"] / tally["rows"]
     ok = share <= MOE_FLIP_SHARE
     print(f"  rows whose kept experts differ between the routes in some layer: "
           f"{tally['flipped']} of {tally['rows']} = {share:.3e} (top-k choice "
           f"{tally['selection_flips']}) [bound {MOE_FLIP_SHARE:g}] {'ok' if ok else 'FAIL'}")
     if not ok:
-        _fail(f"MoE full width {cfg.name}: {share:.3e} of the rows flipped experts, over "
-              f"{MOE_FLIP_SHARE}")
+        _fail(f"{cfg.name}: {share:.3e} of the rows flipped experts, over {MOE_FLIP_SHARE}")
     tally["share"] = share
     return tally
 
 
-def _moe_model(torch, arch: str):
-    """``arch`` at full width, bf16, depth cut to MOE_DEPTH, weights from a
-    seeded CUDA generator. -> (model, its description)."""
+def _full_model(torch, arch: str, depth: int | None = None):
+    """``arch`` at full width, bf16, its depth cut to ``depth`` layers (all
+    of them without), weights from a seeded CUDA generator. -> (model, its
+    description)."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
 
     full = get_config(arch)
-    cfg = dataclasses.replace(full, n_layers=MOE_DEPTH[arch])
+    cfg = full if depth is None else dataclasses.replace(full, n_layers=depth)
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda")
     model.init_weights(torch.Generator(device="cuda").manual_seed(0))
     model.eval()
     torch.cuda.synchronize()
     n = sum(p.numel() for p in model.parameters())
-    text = (f"{cfg.name}: {cfg.n_layers} of {full.n_layers} layers, d_model {cfg.d_model}, heads "
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    experts = (f"{cfg.n_experts} experts top-{cfg.top_k}, capacity factor {cfg.capacity_factor}, "
+               f"group {cfg.moe_group_size}, " if cfg.n_experts else "")
+    text = (f"{cfg.name}: {cfg.n_layers} of {full.n_layers} layers ("
+            f"{'/'.join(sorted(set(cfg.block_kinds())))}), d_model {cfg.d_model}, heads "
             f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, "
-            f"{cfg.n_experts} experts top-{cfg.top_k}, capacity factor {cfg.capacity_factor}, "
-            f"group {cfg.moe_group_size}, vocab {cfg.vocab}, window {cfg.window}: {n} "
-            f"parameters, {n * 2 / 1e9:.2f} GB bf16 (the router f32), built and initialised in "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"{experts}vocab {cfg.vocab}, window {cfg.window}: {n} parameters, "
+            f"{nbytes / 1e9:.2f} GB (bf16, the f32 leaves at 4 bytes), built and initialised "
+            f"in {time.perf_counter() - t0:.1f} s")
     print(f"  {text}")
     return model, text
 
 
-def _moe_device_split(torch, model, call, attempts: int = 3) -> dict:
-    """One ``call`` (a prefill or a decode step) under ``torch.profiler``,
-    host and device, with every ``MoE`` forward and every ``route`` inside
-    it in a ``record_function`` range: from that one trace, the call's
-    device ms, the attention kernels' part (names with ``flash_``), the
-    part of the kernels launched inside the MoE ranges (router and slot
-    positions, dispatch, expert products, combine), of which inside the
-    ``route`` ranges; the rest is the projections, norms, embedding and
-    unembedding. A trace whose MoE ranges hold no device time is taken
-    again, up to ``attempts`` times in all; then the MoE parts are None."""
+def _device_split(torch, call, wraps, attempts: int = 3) -> dict:
+    """One ``call`` under ``torch.profiler``, host and device, with each
+    function named in ``wraps`` ((range name, module, attribute), a name
+    may repeat) inside a ``record_function`` range of that name while it
+    runs: from that one trace, the call's device ms (``device_ms``), the
+    attention kernels' part (names with ``flash_``; ``attention_ms``) and
+    each range's (the kernels launched inside it). A trace whose first
+    range (where there is one) holds no device time is taken again, up to ``attempts`` times in
+    all; then the ranges' parts are None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from repro_torch.models import moe as moe_mod
+    names = list(dict.fromkeys(name for name, _, _ in wraps))
+    originals = [(mod, attr, getattr(mod, attr)) for _, mod, attr in wraps]
 
-    names = ("chip_smoke.moe", "chip_smoke.moe.route")
-    ranges = []
+    def wrapped(name, fn):
+        def run(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return run
 
-    def enter(name):
-        ranges.append(record_function(name))
-        ranges[-1].__enter__()
-
-    def leave(*_):
-        ranges.pop().__exit__(None, None, None)
-
-    def route(*args, **kw):
-        enter(names[1])
-        try:
-            return plain_route(*args, **kw)
-        finally:
-            leave()
-
-    plain_route = moe_mod.route
     call()
     torch.cuda.synchronize()
-    hooks = [h for b in model.blocks for h in (
-        b.ffn.register_forward_pre_hook(lambda *_: enter(names[0])),
-        b.ffn.register_forward_hook(leave))]
-    moe_mod.route = route
+    for (name, mod, attr), (_, _, fn) in zip(wraps, originals, strict=True):
+        setattr(mod, attr, wrapped(name, fn))
     try:
         for attempt in range(1, attempts + 1):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2920,18 +2963,115 @@ def _moe_device_split(torch, model, call, attempts: int = 3) -> dict:
                     attention += e.device_time_total if "flash_" in e.name else 0.0
             if total <= 0:
                 _fail("torch.profiler saw no device activity")
-            if part[names[0]] > 0:
+            if not names or part[names[0]] > 0:
                 break
-            print(f"  (torch.profiler: no device time inside the MoE ranges, attempt {attempt} "
-                  f"of {attempts})")
+            print(f"  (torch.profiler: no device time inside the {names[0]} ranges, attempt "
+                  f"{attempt} of {attempts})")
     finally:
-        moe_mod.route = plain_route
-        for h in hooks:
-            h.remove()
-    moe = part[names[0]] / 1e3 if part[names[0]] > 0 else None
-    return {"device_ms": total / 1e3, "attention_ms": attention / 1e3, "moe_ms": moe,
-            "moe_router_ms": None if moe is None else part[names[1]] / 1e3,
-            "rest_ms": None if moe is None else (total - attention) / 1e3 - moe}
+        for mod, attr, fn in originals:
+            setattr(mod, attr, fn)
+    found = not names or part[names[0]] > 0
+    return {"device_ms": total / 1e3, "attention_ms": attention / 1e3,
+            **{name: part[name] / 1e3 if found else None for name in names}}
+
+
+def _timed_serve(torch, model, kw, want: dict, smi: str) -> dict:
+    """``serve`` of ``model`` with ``kw``, every call timed by CUDA events,
+    the counters set to 0 just before and read just after. They must equal
+    ``want`` (kernel -> launches, every other counter 0), which must hold
+    one prefill launch a round and one decode launch a step for each
+    attention layer. The decode kernel's arrival counters must read 0 after
+    it, and must exist wherever ``want`` holds decode launches. The tokens
+    must be ``n_requests`` x ``gen_len`` in the vocabulary. -> its numbers
+    and launches."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import serve
+
+    cfg = model.cfg
+    rounds = -(-kw["n_requests"] // kw["batch"])
+    n_attention = sum(kind.startswith("attn") for kind in cfg.block_kinds())
+    decode = want.get("flash_decode_bf16", 0)
+    if (sum(want.values()) != n_attention * rounds * kw["gen_len"]
+            or decode != n_attention * rounds * (kw["gen_len"] - 1)):
+        _fail(f"{cfg.name}: the expected launches {want} are not {n_attention} attention layers "
+              f"x {rounds} rounds x (one prefill + {kw['gen_len'] - 1} decode steps)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    with _Recorded(torch, model) as rec:
+        stats = serve(arch=cfg.name, smoke=False, device="cuda", model=model, **kw)
+    launches = _read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected = {k: want.get(k, 0) for k in launches}
+    if launches != expected:
+        _fail(f"{cfg.name} serve launches {_nonzero(launches)}; expected {_nonzero(expected)} "
+              "and nothing else")
+    counters = fa.scratch.counters(torch.device("cuda", 0), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if (counters is None and decode) or (counters is not None and bool(counters.any())):
+        _fail(f"the decode counters after the {cfg.name} serve: {counters}")
+    toks = np.array(stats.outputs)
+    if toks.shape != (kw["n_requests"], kw["gen_len"]) or toks.min() < 0 or \
+            toks.max() >= cfg.vocab:
+        _fail(f"{cfg.name} serve's outputs: shape {toks.shape}, range [{toks.min()}, "
+              f"{toks.max()}]")
+    prefill_ms, decode_ms = rec.ms("prefill"), rec.ms("decode")
+    num = {"tokens_per_s": stats.tokens_per_s, "wall_s": stats.wall_s,
+           "prefill_ms": sum(prefill_ms) / len(prefill_ms),
+           "decode_step_ms": sum(decode_ms) / len(decode_ms), "peak_gb": peak_gb,
+           "launches": launches}
+    counted = ("none" if counters is None
+               else f"{counters.numel()} entries, all 0")
+    print(f"  {cfg.name} serve: {stats.requests} requests, batch {kw['batch']}, "
+          f"{stats.prefill_tokens} prefill + {stats.decoded_tokens} decoded tokens in "
+          f"{stats.wall_s:.3f} s = {stats.tokens_per_s:.1f} tokens/s; prefill "
+          f"{num['prefill_ms']:.3f} ms per call (runs {', '.join(f'{x:.3f}' for x in prefill_ms)}"
+          f"), decode step {num['decode_step_ms']:.4f} ms mean over {len(decode_ms)} (min "
+          f"{min(decode_ms):.4f}, max {max(decode_ms):.4f}); peak memory {peak_gb:.2f} GB; "
+          f"launches {_nonzero(launches) or 'none'}; decode arrival counters {counted} ({smi})")
+    return num
+
+
+def _print_split(what: str, sp: dict, parts: dict, within: dict | None = None) -> None:
+    """One line of a ``_device_split`` result: its parts (label -> range
+    name, or "attention"), the rest, each with its share; then the ranges
+    ``within`` (label -> range name) that lie inside those parts."""
+    total = sp["device_ms"]
+    named = {label: sp["attention_ms"] if name == "attention" else sp[name]
+             for label, name in parts.items()}
+    if any(v is None for v in named.values()):
+        print(f"  device time (torch.profiler), {what}: {total:.3f} ms; its parts not "
+              "measured (the profiler dropped the ranges)")
+        return
+    rest = total - sum(named.values())
+    text = ", ".join(f"{label} {ms:.3f} ({100 * ms / total:.1f}%)"
+                     for label, ms in (*named.items(), ("the rest", rest)))
+    text += "".join(f"; within these, {label} {sp[name]:.3f}"
+                    for label, name in (within or {}).items())
+    print(f"  device time (torch.profiler), {what}: {total:.3f} ms; {text}")
+
+
+def _serve_splits(torch, model, kw, wraps, parts: dict, within: dict | None = None,
+                  prompt_len: int | None = None) -> dict:
+    """One prefill call of a round's prompts (``serve``'s draws, of
+    ``prompt_len`` tokens where given) and one decode step after it, each
+    split by ``_device_split`` (``wraps``) and printed by ``_print_split``
+    (``parts``, ``within``). -> {prefill_split, decode_split}."""
+    n = kw["prompt_len"] if prompt_len is None else prompt_len
+    tokens = _prompts(torch, model, kw["batch"], n)
+    cache, logits = model.prefill(tokens, kw["max_len"])
+    last = logits[:, -1].argmax(-1)
+    del logits
+    out = {"prefill_split": _device_split(torch, lambda: model.prefill(tokens, kw["max_len"]),
+                                          wraps),
+           "decode_split": _device_split(torch, lambda: model.decode_step(cache, last, n),
+                                         wraps)}
+    _print_split(f"one prefill of {kw['batch']} x {n} tokens", out["prefill_split"], parts,
+                 within)
+    _print_split("one decode step", out["decode_split"], parts, within)
+    return out
 
 
 def phase_moe(torch, smi: str) -> tuple[dict, dict]:
@@ -2939,10 +3079,7 @@ def phase_moe(torch, smi: str) -> tuple[dict, dict]:
     numbers)."""
     import gc
 
-    import numpy as np
-
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch.serve import serve
+    from repro_torch.models import moe as moe_mod
 
     print("== phase 4k: MoE serving (launch.serve.serve, mixtral-8x22b and dbrx-132b)")
     t_phase = time.perf_counter()
@@ -2955,75 +3092,28 @@ def phase_moe(torch, smi: str) -> tuple[dict, dict]:
     # (b) mixtral-8x22b at full width, depth cut.
     torch.cuda.empty_cache()
     arch = MOE_ARCHS[0]
-    model, info["mixtral"] = _moe_model(torch, arch)
-    cfg = model.cfg
-    info["mixtral_teacher"] = _moe_teacher_forced(torch, model, MOE_TEACHER[arch])
-    torch.cuda.empty_cache()
-    kw = MOE_SERVE
-    torch.cuda.reset_peak_memory_stats()
-    _zero_launches()
-    with _Recorded(torch, model) as rec:
-        stats = serve(arch=arch, smoke=False, device="cuda", model=model, **kw)
-    full = _read_launches()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    rounds = -(-kw["n_requests"] // kw["batch"])
-    calls = len(stats.outputs[0])
-    want = {k: 0 for k in full}
-    want["flash_attention_bf16_simt"] = cfg.n_layers * rounds
-    want["flash_decode_bf16"] = cfg.n_layers * rounds * (calls - 1)
-    if (full != want or want["flash_attention_bf16_simt"] != 8
-            or want["flash_decode_bf16"] != 504):
-        _fail(f"MoE serve launches {_nonzero(full)}; expected flash_attention_bf16_simt "
-              f"{cfg.n_layers} layers x {rounds} rounds = 8, flash_decode_bf16 {cfg.n_layers} x "
-              f"{rounds} x {calls - 1} steps = 504, nothing else")
-    counters = fa.scratch.counters(torch.device("cuda", 0), torch.cuda.current_stream().cuda_stream)
-    torch.cuda.synchronize()
-    if counters is None or bool(counters.any()):
-        _fail(f"the decode counters after the MoE serve: {counters}")
-    for k, n in full.items():
+    model, info["mixtral"] = _full_model(torch, arch, MOE_DEPTH[arch])
+    info["mixtral_teacher"] = _layer_teacher_forced(torch, model, MOE_TEACHER[arch])
+    num = _timed_serve(torch, model, MOE_SERVE,
+                       {"flash_attention_bf16_simt": 8, "flash_decode_bf16": 504}, smi)
+    for k, n in num["launches"].items():
         launches[k] += n
-    toks = np.array(stats.outputs)
-    if toks.shape != (kw["n_requests"], kw["gen_len"]) or toks.min() < 0 or \
-            toks.max() >= cfg.vocab:
-        _fail(f"MoE serve's outputs: shape {toks.shape}, range [{toks.min()}, {toks.max()}]")
-    prefill_ms, decode_ms = rec.ms("prefill"), rec.ms("decode")
-    num = {
-        "tokens_per_s": stats.tokens_per_s, "wall_s": stats.wall_s,
-        "prefill_ms": sum(prefill_ms) / len(prefill_ms),
-        "decode_step_ms": sum(decode_ms) / len(decode_ms), "peak_gb": peak_gb,
-    }
-    print(f"  mixtral serve: {stats.requests} requests, batch {kw['batch']}, "
-          f"{stats.prefill_tokens} prefill + {stats.decoded_tokens} decoded tokens in "
-          f"{stats.wall_s:.3f} s = {stats.tokens_per_s:.1f} tokens/s; prefill "
-          f"{num['prefill_ms']:.3f} ms per call (runs {', '.join(f'{x:.3f}' for x in prefill_ms)}"
-          f"), decode step {num['decode_step_ms']:.4f} ms mean over {len(decode_ms)} (min "
-          f"{min(decode_ms):.4f}, max {max(decode_ms):.4f}); peak memory {peak_gb:.2f} GB; "
-          f"launches {_nonzero(full)}; decode counters all 0 ({smi})")
-    rng = np.random.default_rng(0)
-    tokens = torch.from_numpy(np.stack([rng.integers(0, cfg.vocab, kw["prompt_len"])
-                                        for _ in range(kw["batch"])])).to("cuda", torch.long)
-    cache, logits = model.prefill(tokens, kw["max_len"])
-    last = logits[:, -1].argmax(-1)
-    del logits
-    num["prefill_split"] = _moe_device_split(
-        torch, model, lambda: model.prefill(tokens, kw["max_len"]))
-    num["decode_split"] = _moe_device_split(
-        torch, model, lambda: model.decode_step(cache, last, kw["prompt_len"]))
-    del cache
-    for what in ("prefill", "decode"):
-        sp = num[f"{what}_split"]
-        print(f"  device time (torch.profiler), one {what} call: {sp['device_ms']:.3f} ms; "
-              f"attention {sp['attention_ms']:.3f}, MoE {_ms_text(sp['moe_ms'], 3)} (router and "
-              f"slots {_ms_text(sp['moe_router_ms'], 3)}), the rest "
-              f"{_ms_text(sp['rest_ms'], 3)}")
+    # The MoE is every ``apply_moe``: router and slot positions, dispatch,
+    # expert products, combine; the rest is the projections, norms,
+    # embedding and unembedding.
+    num.update(_serve_splits(
+        torch, model, MOE_SERVE,
+        (("chip_smoke.moe", moe_mod, "apply_moe"), ("chip_smoke.moe.route", moe_mod, "route")),
+        {"attention": "attention", "MoE": "chip_smoke.moe"},
+        {"the MoE's router and slots": "chip_smoke.moe.route"}))
     info["mixtral_serve"] = num
-    del model, rec, tokens, last
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     # (c) dbrx-132b at full width, depth cut; the same check.
     arch = MOE_ARCHS[1]
-    model, info["dbrx"] = _moe_model(torch, arch)
-    info["dbrx_teacher"] = _moe_teacher_forced(torch, model, MOE_TEACHER[arch])
+    model, info["dbrx"] = _full_model(torch, arch, MOE_DEPTH[arch])
+    info["dbrx_teacher"] = _layer_teacher_forced(torch, model, MOE_TEACHER[arch])
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3031,6 +3121,166 @@ def phase_moe(torch, smi: str) -> tuple[dict, dict]:
     for k, n in _strict_train_step(torch, MOE_ARCHS[0]).items():
         launches[k] += n
     print(f"  phase 4k {time.perf_counter() - t_phase:.1f} s")
+    return launches, info
+
+
+def _self_teacher_forced(torch, model, batch: int, prompt_len: int, steps: int,
+                         what: str) -> dict:
+    """``prefill`` of ``prompt_len`` tokens and ``steps`` decode steps fed the
+    true next tokens, against the model's own full forward over the prompt
+    and those tokens (tests/test_models.py:92-112): the prefill logits within
+    SELF_TOL["prefill"], the last step's within SELF_TOL["decode"], abs and
+    rel, all finite. -> the two max abs differences."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    t = prompt_len + steps
+    tokens = torch.from_numpy(rng.integers(0, model.cfg.vocab, (batch, t))).to(
+        model.embed.device, torch.long)
+    with torch.no_grad():
+        full = model(tokens)
+    cache, logits = model.prefill(tokens[:, :prompt_len], t + 8)
+    out = {}
+    for part, got, want in (("prefill", logits, full[:, :prompt_len]), ("decode", None, None)):
+        if part == "decode":
+            for pos in range(prompt_len, t):
+                got, cache = model.decode_step(cache, tokens[:, pos], pos)
+            want = full[:, t - 1]
+        tol = SELF_TOL[part]
+        diff = (got - want).abs()
+        ok = bool(torch.isfinite(got).all()) and bool((diff <= tol + tol * want.abs()).all())
+        out[part] = diff.max().item()
+        print(f"  {what}: {part} {tuple(got.shape)} against the full forward, max_abs "
+              f"{out[part]:.3e} [{tol:g} abs and rel] {'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"{what}: {part} disagrees with the full forward beyond {tol:g}")
+    return out
+
+
+def _mlstm_chunk_check(torch) -> dict:
+    """One mLSTM layer of xlstm-350m in f32 on the card, chunked
+    (MLSTM_CHUNK) against sequential at B 1 x MLSTM_CHUNK_LEN: the output,
+    the state C and m within MLSTM_CHUNK_TOL. -> max abs differences."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+
+    cfg = dataclasses.replace(get_config(SSM_ARCH), dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = ssm.init_mlstm(gen, cfg)
+    x = torch.randn(1, MLSTM_CHUNK_LEN, cfg.d_model, generator=gen, device="cuda")
+    with torch.no_grad():
+        seq, st_seq = ssm.apply_mlstm(p, cfg, x)
+        chunk, st_ch = ssm.apply_mlstm(p, dataclasses.replace(cfg, xlstm_chunk=MLSTM_CHUNK), x)
+    out = {}
+    for name, got, want in (("out", chunk, seq), ("C", st_ch["C"], st_seq["C"]),
+                            ("m", st_ch["m"], st_seq["m"])):
+        rtol, atol = MLSTM_CHUNK_TOL[name]
+        diff = (got - want).abs()
+        ok = bool(torch.isfinite(got).all()) and bool((diff <= atol + rtol * want.abs()).all())
+        out[name] = diff.max().item()
+        print(f"  mLSTM layer f32 B1 x {MLSTM_CHUNK_LEN}, chunk {MLSTM_CHUNK} against "
+              f"sequential: {name} {tuple(got.shape)} max_abs {out[name]:.3e} [rtol {rtol:g}, "
+              f"atol {atol:g}] {'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"the chunked mLSTM's {name} disagrees with the sequential form")
+    return out
+
+
+def _cache_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for entry in cache for t in entry.values())
+
+
+def _caches_equal(torch, a, b) -> bool:
+    return all(sorted(x) == sorted(y) and all(_same_bytes(torch, x[n], y[n]) for n in x)
+               for x, y in zip(a, b, strict=True))
+
+
+def _part_timer(what: str, since: float | None = None) -> float:
+    """Prints the seconds since ``since`` (a part of a phase) and returns now."""
+    now = time.perf_counter()
+    if since is not None:
+        print(f"  ({what}: {now - since:.1f} s)")
+    return now
+
+
+def phase_recurrent(torch, smi: str) -> tuple[dict, dict]:
+    """Recurrent and hybrid serving: xlstm-350m and jamba-1.5-large-398b.
+    -> (launches on the path, numbers)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ssm
+
+    print(f"== phase 4l: recurrent and hybrid serving (launch.serve.serve, {SSM_ARCH} and "
+          f"{HYBRID_ARCH})")
+    t_phase = t_part = time.perf_counter()
+    info = {}
+    # (a) Strict, small: both smoke configs in f32, the kernel route against
+    # the plain route (jamba's one attention layer on flash_attention_f32,
+    # xlstm launching nothing), then against their own full forward.
+    launches = {k: 0 for k in _read_launches()}
+    for arch in (HYBRID_ARCH, SSM_ARCH):
+        for k, n in _strict_serve(torch, arch).items():
+            launches[k] += n
+        model = _smoke_model(torch, arch)
+        _self_teacher_forced(torch, model, what=f"{model.cfg.name} f32", **SELF_SMOKE)
+    del model
+    # (b) xlstm-350m as published, bf16.
+    t_part = _part_timer("(a) the smoke configs", t_part)
+    model, info["xlstm"] = _full_model(torch, SSM_ARCH)
+    kw = RECURRENT_SERVE
+    num = _timed_serve(torch, model, kw, {}, smi)
+    t_part = _part_timer(f"the {SSM_ARCH} serve", t_part)
+    num.update(_serve_splits(
+        torch, model, kw,
+        (("chip_smoke.mlstm", ssm, "apply_mlstm"), ("chip_smoke.mlstm", ssm, "step_mlstm"),
+         ("chip_smoke.slstm", ssm, "apply_slstm"), ("chip_smoke.slstm", ssm, "step_slstm")),
+        {"mLSTM": "chip_smoke.mlstm", "sLSTM": "chip_smoke.slstm"},
+        prompt_len=SSM_SPLIT_PROMPT))
+    sizes = [_cache_bytes(model.init_cache(kw["batch"], n)) for n in STATE_MAX_LENS]
+    print(f"  decode state of batch {kw['batch']}: {sizes[0]} bytes at max_len "
+          f"{STATE_MAX_LENS[0]}, {sizes[1]} at {STATE_MAX_LENS[1]}"
+          f" {'ok' if sizes[0] == sizes[1] else 'FAIL'}")
+    if sizes[0] != sizes[1]:
+        _fail(f"{SSM_ARCH}'s decode state grows with max_len: {sizes}")
+    info["xlstm_serve"] = num
+    for k, n in num["launches"].items():
+        launches[k] += n
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_part = _part_timer("the split and the state's bytes", t_part)
+    info["mlstm_chunk"] = _mlstm_chunk_check(torch)
+    model = Model(dataclasses.replace(get_config(SSM_ARCH), dtype="float32"), device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    info["xlstm_self"] = _self_teacher_forced(torch, model, what=f"{SSM_ARCH} f32",
+                                              **SELF_FULL)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_part = _part_timer("the chunked mLSTM and the f32 model", t_part)
+    # (c) jamba-1.5-large-398b at full width, depth cut.
+    model, info["jamba"] = _full_model(torch, HYBRID_ARCH, HYBRID_DEPTH)
+    info["jamba_teacher"] = _layer_teacher_forced(torch, model, HYBRID_TEACHER)
+    t_part = _part_timer(f"the {HYBRID_ARCH} per-layer check", t_part)
+    num = _timed_serve(torch, model, kw,
+                       {"flash_attention_bf16_wgmma": 2, "flash_decode_bf16": 126}, smi)
+    t_part = _part_timer(f"the {HYBRID_ARCH} serve", t_part)
+    num.update(_serve_splits(
+        torch, model, kw,
+        (("chip_smoke.mamba", ssm, "apply_mamba"), ("chip_smoke.mamba", ssm, "step_mamba"),
+         ("chip_smoke.moe", moe_mod, "apply_moe")),
+        {"Mamba mixers": "chip_smoke.mamba", "MoE": "chip_smoke.moe", "attention": "attention"}))
+    info["jamba_serve"] = num
+    for k, n in num["launches"].items():
+        launches[k] += n
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    _part_timer("the split", t_part)
+    print(f"  phase 4l {time.perf_counter() - t_phase:.1f} s")
     return launches, info
 
 
@@ -3704,6 +3954,8 @@ def _attention_yardstick(torch, gen, hw):
         ("flash_attention_bf16_wgmma", bf16, ATTN_TRAIN_FULL, True, None, " (training)"),
         ("flash_decode_bf16", bf16, ATTN_DECODE, False, None, " (one launch)"),
         ("flash_decode_bf16", bf16, ATTN_G6_DECODE, False, None, " (MoE ring, one launch)"),
+        ("flash_attention_bf16_wgmma", bf16, ATTN_G8_PREFILL, True, None, " (jamba)"),
+        ("flash_decode_bf16", bf16, ATTN_G8_DECODE, False, None, " (jamba, one launch)"),
         ("flash_attention_bf16_simt", bf16, ATTN_G6_PREFILL, True, MOE_WINDOW, " (MoE)"),
         ("flash_attention_bf16_simt", bf16, ATTN_PREFILL, True, None, ""),
         ("flash_attention_bf16_simt", bf16, ATTN_DECODE, False, None, ""),
@@ -3893,31 +4145,6 @@ def _ms_text(ms: float | None, digits: int = 4) -> str:
     return "not measured" if ms is None else f"{ms:.{digits}f} ms"
 
 
-def _device_split_ms(torch, fn, calls: int, match: str) -> tuple[float, float]:
-    """(device ms per call, of which in kernels whose name holds ``match``)
-    of ``fn``, from ``torch.profiler`` over ``calls`` calls after a warm-up
-    call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = matched = 0.0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-        total += us
-        matched += us if match in e.key else 0.0
-    if total <= 0:
-        _fail("torch.profiler saw no device activity")
-    return total / 1e3 / calls, matched / 1e3 / calls
-
-
 def phase_yardstick(torch, launches: dict, errors: dict) -> list:
     from repro_torch.core.metrics import peaks_for
 
@@ -3984,14 +4211,16 @@ def main() -> int:
     serve_launches = phase_serving(torch)
     dist_launches = phase_trace_dist(torch, smi)
     phase_small_agreement(torch)
-    lm_launches, lm = phase_lm_serving(torch)
+    lm_launches, lm = phase_lm_serving(torch, smi)
     train_launches, tr = phase_train(torch)
     moe_launches, moe = phase_moe(torch, smi)
+    recurrent_launches, rec = phase_recurrent(torch, smi)
     # Every count was checked per path; a kernel's launches are the sum over
     # the paths that run it (SRAD's three entries: phases 4c and 4f).
     launches = {k: main_launches[k] + dnn_launches[k] + level_launches[k] + lm_launches[k]
                 + feature_launches[k] + report_launches[k] + serve_launches[k]
-                + dist_launches[k] + train_launches[k] + moe_launches[k] for k in main_launches}
+                + dist_launches[k] + train_launches[k] + moe_launches[k] + recurrent_launches[k]
+                for k in main_launches}
     kernels = phase_yardstick(torch, launches, errors)
     # One row per kernel and shape (matmul_bf16 has three, nn and tn at
     # 4096^3 and nn at 1024^3; matmul_bf16_batched six), the kernels of no
@@ -4019,6 +4248,13 @@ def main() -> int:
           f"ms, peak memory {ms['peak_gb']:.2f} GB; rows with flipped experts: mixtral "
           f"{moe['mixtral_teacher']['share']:.3e}, dbrx {moe['dbrx_teacher']['share']:.3e} "
           f"({smi})")
+    for arch, key, what in ((SSM_ARCH, "xlstm_serve", "as published"),
+                            (HYBRID_ARCH, "jamba_serve", f"full width at depth {HYBRID_DEPTH}")):
+        r = rec[key]
+        print(f"recurrent serving, {arch} {what}, bf16, batch {RECURRENT_SERVE['batch']} x "
+              f"{RECURRENT_SERVE['prompt_len']}: {r['tokens_per_s']:.1f} tokens/s, prefill "
+              f"{r['prefill_ms']:.3f} ms, decode step {r['decode_step_ms']:.4f} ms, peak memory "
+              f"{r['peak_gb']:.2f} GB ({smi})")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -53,34 +53,33 @@ def model_state_from_reference(cfg: ArchConfig, params: dict) -> dict[str, torch
     """The port's ``Model`` state dict for the reference's ``Model.init``
     parameters, given as numpy arrays (``jax.tree.map(np.asarray, params)``).
 
-    The reference stacks every block leaf over the periods of its layer scan
-    (``params["blocks"]`` is a tuple over period positions, each leaf with a
-    leading ``n_periods`` axis); the port holds one block per layer. A config
-    whose period is one block (``attn_mlp`` or ``attn_moe``) has layer i at
-    index i of each leaf; an MoE block's ``ffn`` leaves are (E, d, ff) and
-    the like after that axis, and its router f32. The weights keep their
-    (d_in, d_out) layout on both sides.
+    The reference stacks every block leaf over the periods of its layer scan:
+    ``params["blocks"]`` is a tuple over the P positions of the period
+    (``cfg.block_period()``: 1 block for a dense or MoE stack, 2 for xLSTM,
+    8 for jamba), each leaf with a leading ``n_periods`` axis. The port holds
+    one block per layer, so the reference's leaf ``blocks[j][group][name]``
+    row n is the port's ``blocks.<n*P + j>.<group>.<name>`` (an xLSTM block's
+    leaves have no group), and a top-level leaf keeps its name. An MoE
+    block's ``ffn`` leaves are (E, d, ff) and the like after that axis. The
+    weights keep their (d_in, d_out) layout on both sides.
 
-    This is the name map between the two trees: the reference's leaf
-    ``blocks[0][group][name]`` row i is the port's ``blocks.<i>.<group>.<name>``,
-    and a top-level leaf keeps its name. Any tree shaped like the parameters
-    converts the same way (gradients, AdamW moments), so a test compares
-    them name for name.
+    Any tree shaped like the parameters converts the same way (gradients,
+    AdamW moments), so a test compares them name for name.
     """
     period = cfg.block_period()
-    if len(period) != 1 or cfg.n_periods != cfg.n_layers:
-        raise ValueError(
-            f"{cfg.name}: period {period} is not one block; only configs of one block "
-            "kind (attn_mlp or attn_moe) convert"
-        )
-    (blocks,) = params["blocks"]
+    blocks = params["blocks"]
+    if len(blocks) != len(period):
+        raise ValueError(f"{cfg.name}: {len(blocks)} blocks in the reference's period, the "
+                         f"config's period {period} has {len(period)}")
     state = {}
-    for name, leaf in _leaves(blocks):
-        arr = np.asarray(leaf)
-        if arr.shape[0] != cfg.n_layers:
-            raise ValueError(f"blocks leaf {name} has {arr.shape[0]} periods, not {cfg.n_layers}")
-        for i in range(cfg.n_layers):
-            state[f"blocks.{i}.{name}"] = _tensor(arr[i])
+    for j, tree in enumerate(blocks):
+        for name, leaf in _leaves(tree):
+            arr = np.asarray(leaf)
+            if arr.shape[0] != cfg.n_periods:
+                raise ValueError(f"blocks[{j}] leaf {name} has {arr.shape[0]} periods, not "
+                                 f"{cfg.n_periods}")
+            for n in range(cfg.n_periods):
+                state[f"blocks.{n * len(period) + j}.{name}"] = _tensor(arr[n])
     for name in ("ln_f", "embed", "unembed"):
         if name in params:
             state[name] = _tensor(params[name])

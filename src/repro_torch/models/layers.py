@@ -65,7 +65,7 @@ def check_supported(cfg: ArchConfig) -> None:
     if cfg.rope == "mrope":
         raise NotImplementedError(
             f"{cfg.name}: M-RoPE (the VLM's positions) is not ported yet "
-            "(ROADMAP.md queue 1, item 16)"
+            "(ROADMAP.md queue 1, item 16.4)"
         )
 
 
@@ -98,7 +98,7 @@ def rope_angles(cfg: ArchConfig, positions: torch.Tensor) -> tuple[torch.Tensor,
     positions (plain RoPE; M-RoPE's (B, T, 3) positions are not ported)."""
     if cfg.rope == "mrope" or positions.dim() != 2:
         raise NotImplementedError(
-            "M-RoPE is not ported yet (ROADMAP.md queue 1, item 16); positions must be (B, T)"
+            "M-RoPE is not ported yet (ROADMAP.md queue 1, item 16.4); positions must be (B, T)"
         )
     half = cfg.head_dim // 2
     freqs = cfg.rope_theta ** (

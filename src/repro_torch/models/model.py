@@ -1,28 +1,37 @@
-"""The LM: an ArchConfig of attention blocks with a dense MLP or an MoE FFN
--> init / forward / prefill / decode.
+"""The LM: an ArchConfig of attention, Mamba and xLSTM blocks, their FFNs
+dense or MoE -> init / forward / prefill / decode.
 
-Counterpart of ``repro/models/model.py`` for the block kinds ``attn_mlp``
-(the dense configs) and ``attn_moe`` (mixtral-8x22b, dbrx-132b; the FFN is
-``models/moe.py``). Where the reference scans one stacked parameter pytree
-over periods, the port holds an ``nn.ModuleList`` with one block per layer
-and loops over it in Python: PyTorch runs eagerly, and one block per layer
-is what the state dict names (``blocks.<i>.mixer.wq``,
-``blocks.<i>.ffn.router``, ...). The other block kinds (Mamba, xLSTM) raise
-``NotImplementedError``: they are ROADMAP.md queue 1, item 16.
+Counterpart of ``repro/models/model.py`` for every block kind the reference
+has: ``attn_mlp`` and ``attn_moe`` (attention, then a SwiGLU MLP or an MoE
+FFN, ``models/moe.py``), ``mamba_mlp``, ``mamba_moe`` and ``mamba`` (a Mamba
+mixer, ``models/ssm.py``, then the same FFNs or none; jamba's hybrid
+stack), and ``mlstm`` and ``slstm`` (xLSTM's self-contained blocks). Where
+the reference scans one stacked parameter pytree over periods, the port
+holds an ``nn.ModuleList`` with one block per layer and loops over it in
+Python: PyTorch runs eagerly, and one block per layer is what the state
+dict names (``blocks.<i>.mixer.wq``, ``blocks.<i>.mixer.A_log``,
+``blocks.<i>.ffn.router``; an xLSTM block's leaves at its top level,
+``blocks.<i>.w_up``, ``blocks.<i>.r_z``). ``input_mode="embeds"`` and M-RoPE
+raise ``NotImplementedError``: they are ROADMAP.md queue 1, item 16.4.
 
 Training: ``loss_fn`` is the reference's next-token cross entropy over f32
 logits. With ``remat`` on (the default, as the reference's), ``forward``
-under autograd wraps each block in ``torch.utils.checkpoint``, the
-counterpart of the reference's ``jax.checkpoint`` of a period: a block keeps
-only its input for the backward pass and runs again there. Attention inside
-it is differentiable through the flash kernel (``kernels/ops.py``).
+under autograd wraps each block, whatever its kind, in
+``torch.utils.checkpoint``, the counterpart of the reference's
+``jax.checkpoint`` of a period: a block keeps only its input for the
+backward pass and runs again there. Attention inside it is differentiable
+through the flash kernel (``kernels/ops.py``); the recurrences are torch
+operations, which autograd differentiates.
 
-Serving mirrors the reference: ``prefill`` runs the prompt and packs each
-layer's K/V into the decode cache (a linear buffer, or a ring of ``window``
-slots for sliding-window configs); ``decode_step`` runs one token for the
-whole batch. The reference donates its cache to the compiled step; here the
-step writes the new token's K/V into its slot in place and attends over the
-cache's valid slots through views, so a step allocates no cache. An MoE
+Serving mirrors the reference: ``prefill`` runs the prompt and returns each
+layer's cache entry: an attention layer's K/V packed into a linear buffer
+(or a ring of ``window`` slots for sliding-window configs), a recurrent
+layer's final state (Mamba ``{"h", "conv"}``, mLSTM ``{"C", "n", "m",
+"conv"}``, sLSTM ``{"c", "n", "m", "h"}``, whose size does not depend on
+``max_len``). ``decode_step`` runs one token for the whole batch. The
+reference donates its cache to the compiled step; here the step updates
+every entry in place (the new token's K/V into its slot, each state tensor
+copied over), so the cache keeps its tensors from step to step. An MoE
 block routes a decode step's B tokens as one group, as the reference does.
 """
 
@@ -47,9 +56,14 @@ from repro_torch.models.layers import (
     project_qkv,
     rms_norm,
 )
+from repro_torch.models import ssm
 from repro_torch.models.moe import MoE
 
 __all__ = ["Model"]
+
+# The xLSTM blocks, whose leaves sit at the block's top level, as the
+# reference's ``_init_block`` returns them.
+_XLSTM = ("mlstm", "slstm")
 
 
 def _params(tensors: dict, device) -> nn.ParameterDict:
@@ -61,26 +75,55 @@ def _params(tensors: dict, device) -> nn.ParameterDict:
     })
 
 
+def _leaf_init(kind: str):
+    """The init function of a block's own leaves: the xLSTM block's, else
+    its mixer's."""
+    if kind == "mlstm":
+        return ssm.init_mlstm
+    if kind == "slstm":
+        return ssm.init_slstm
+    return init_attention if kind.startswith("attn") else ssm.init_mamba
+
+
 class Block(nn.Module):
-    """One layer: norm, attention, norm, and a SwiGLU MLP (``attn_mlp``) or
-    an MoE FFN (``attn_moe``)."""
+    """One layer of ``kind``: norm, attention or a Mamba mixer (``mixer``),
+    then norm and a SwiGLU MLP or an MoE FFN (``ffn``), none for ``mamba``;
+    or an xLSTM block (``mlstm``, ``slstm``), its parameters at the top
+    level (``params()``)."""
 
     def __init__(self, cfg: ArchConfig, device, kind: str = "attn_mlp") -> None:
         super().__init__()
         dt = dtype_of(cfg)
         self.kind = kind
+        if kind in _XLSTM:
+            for name, t in _leaf_init(kind)(None, cfg).items():
+                self.register_parameter(
+                    name, nn.Parameter(torch.empty(t.shape, dtype=t.dtype, device=device)))
+            return
         self.ln1 = nn.Parameter(torch.ones(cfg.d_model, dtype=dt, device=device))
-        self.mixer = _params(init_attention(None, cfg), device)
-        self.ln2 = nn.Parameter(torch.ones(cfg.d_model, dtype=dt, device=device))
-        self.ffn = MoE(cfg, device) if kind == "attn_moe" else _params(init_mlp(None, cfg), device)
+        self.mixer = _params(_leaf_init(kind)(None, cfg), device)
+        if kind != "mamba":
+            self.ln2 = nn.Parameter(torch.ones(cfg.d_model, dtype=dt, device=device))
+            self.ffn = (MoE(cfg, device) if kind.endswith("_moe")
+                        else _params(init_mlp(None, cfg), device))
+
+    def params(self) -> dict:
+        """An xLSTM block's parameters by the reference's leaf names."""
+        return dict(self.named_parameters(recurse=False))
 
     @torch.no_grad()
     def init_weights(self, cfg: ArchConfig, generator: torch.Generator) -> None:
+        if self.kind in _XLSTM:
+            for name, value in _leaf_init(self.kind)(generator, cfg).items():
+                getattr(self, name).copy_(value)
+            return
         self.ln1.fill_(1.0)
-        self.ln2.fill_(1.0)
-        for name, value in init_attention(generator, cfg).items():
+        for name, value in _leaf_init(self.kind)(generator, cfg).items():
             self.mixer[name].copy_(value)
-        if self.kind == "attn_moe":
+        if self.kind == "mamba":
+            return
+        self.ln2.fill_(1.0)
+        if self.kind.endswith("_moe"):
             self.ffn.init_weights(generator)
         else:
             for name, value in init_mlp(generator, cfg).items():
@@ -89,7 +132,7 @@ class Block(nn.Module):
     def apply_ffn(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, T, d) or (B, d) -> the FFN's output, the same shape. A (B, d)
         step goes to the MoE as (B, 1, d): one group of B tokens."""
-        if self.kind != "attn_moe":
+        if not self.kind.endswith("_moe"):
             return apply_mlp(self.ffn, x)
         return self.ffn(x) if x.dim() == 3 else self.ffn(x[:, None, :])[:, 0]
 
@@ -125,8 +168,15 @@ def _kv_to_cache(cfg: ArchConfig, k: torch.Tensor, v: torch.Tensor, max_len: int
     return {"k": ck, "v": cv}
 
 
+def _copy_state(entry: dict, state: dict) -> None:
+    """A recurrent layer's new state copied into its cache entry's tensors."""
+    for name, value in state.items():
+        entry[name].copy_(value)
+
+
 class Model(nn.Module):
-    """An attention LM, its FFNs dense or MoE. Parameters are created
+    """An LM of the config's block kinds (attention, Mamba, xLSTM; FFNs dense
+    or MoE). Parameters are created
     uninitialised on ``device`` (CUDA unless the caller asks for the CPU);
     ``init_weights`` fills them from a generator, or ``load_state_dict`` from
     ``convert.model_state_from_reference``.
@@ -136,23 +186,16 @@ class Model(nn.Module):
                  remat: bool = True) -> None:
         super().__init__()
         cfg.validate()
-        kinds = cfg.block_kinds()
-        other = sorted(set(kinds) - {"attn_mlp", "attn_moe"})
-        if other:
-            raise NotImplementedError(
-                f"{cfg.name}: block kinds {other} are not ported yet (Mamba and xLSTM "
-                "layers are ROADMAP.md queue 1, item 16); the port runs attn_mlp and attn_moe"
-            )
         if cfg.input_mode != "tokens":
             raise NotImplementedError(
                 f"{cfg.name}: input_mode {cfg.input_mode!r} is not ported yet "
-                "(ROADMAP.md queue 1, item 16)"
+                "(ROADMAP.md queue 1, item 16.4)"
             )
         check_supported(cfg)
         self.cfg = cfg
         self.remat = remat
         dt = dtype_of(cfg)
-        self.blocks = nn.ModuleList(Block(cfg, device, kind) for kind in kinds)
+        self.blocks = nn.ModuleList(Block(cfg, device, kind) for kind in cfg.block_kinds())
         self.ln_f = nn.Parameter(torch.ones(cfg.d_model, dtype=dt, device=device))
         self.embed = nn.Parameter(torch.empty((cfg.vocab, cfg.d_model), dtype=dt, device=device))
         if not cfg.tie_embeddings:
@@ -189,12 +232,23 @@ class Model(nn.Module):
         return x.float() @ w.float()
 
     def _block(self, block: Block, x: torch.Tensor, positions: torch.Tensor):
+        """One layer over the sequence: x (B, T, d) -> (x, cache entry): an
+        attention layer's (k, v) (B, T, KV, hd), to be packed by
+        ``_kv_to_cache``; a recurrent layer's final state."""
         cfg = self.cfg
-        h, kv = apply_attention(block.mixer, cfg, rms_norm(x, block.ln1, cfg.norm_eps),
-                                positions)
+        if block.kind == "mlstm":
+            return ssm.apply_mlstm(block.params(), cfg, x)
+        if block.kind == "slstm":
+            return ssm.apply_slstm(block.params(), cfg, x)
+        xn = rms_norm(x, block.ln1, cfg.norm_eps)
+        if block.kind.startswith("attn"):
+            h, entry = apply_attention(block.mixer, cfg, xn, positions)
+        else:
+            h, entry = ssm.apply_mamba(block.mixer, cfg, xn)
         x = x + h
-        x = x + block.apply_ffn(rms_norm(x, block.ln2, cfg.norm_eps))
-        return x, kv
+        if block.kind != "mamba":
+            x = x + block.apply_ffn(rms_norm(x, block.ln2, cfg.norm_eps))
+        return x, entry
 
     # ---- forward ------------------------------------------------------------
     def _block_out(self, block: Block, x: torch.Tensor, positions: torch.Tensor):
@@ -233,13 +287,23 @@ class Model(nn.Module):
 
     # ---- serving --------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> list[dict]:
-        """One ``{"k", "v"}`` of zeros, (B, S, KV, hd), per layer."""
+        """Each layer's empty entry: ``{"k", "v"}`` of zeros, (B, S, KV, hd),
+        for attention; a recurrent layer's zero state, whose size does not
+        depend on ``max_len``."""
         cfg = self.cfg
+        device = self.embed.device
         shape = (batch, _cache_len(cfg, max_len), cfg.n_kv_heads, cfg.head_dim)
-        return [
-            {"k": self.embed.new_zeros(shape), "v": self.embed.new_zeros(shape)}
-            for _ in self.blocks
-        ]
+
+        def entry(kind: str) -> dict:
+            if kind.startswith("attn"):
+                return {"k": self.embed.new_zeros(shape), "v": self.embed.new_zeros(shape)}
+            if kind == "mlstm":
+                return ssm.init_state_mlstm(cfg, batch, device)
+            if kind == "slstm":
+                return ssm.init_state_slstm(cfg, batch, device)
+            return ssm.init_state_mamba(cfg, batch, device)
+
+        return [entry(block.kind) for block in self.blocks]
 
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor, max_len: int):
@@ -247,19 +311,42 @@ class Model(nn.Module):
         x, positions = self._embed_in(tokens)
         cache = []
         for block in self.blocks:
-            x, (k, v) = self._block(block, x, positions)
-            cache.append(_kv_to_cache(self.cfg, k, v, max_len))
+            x, entry = self._block(block, x, positions)
+            if block.kind.startswith("attn"):
+                entry = _kv_to_cache(self.cfg, *entry, max_len)
+            cache.append(entry)
         return cache, self._unembed(rms_norm(x, self.ln_f, self.cfg.norm_eps))
 
     def _decode_block(self, block: Block, entry: dict, x_t: torch.Tensor,
                       positions_t: torch.Tensor, pos: int):
         """One layer of a decode step at ``pos`` (``positions_t`` (B, 1) holds
-        it on the device): writes the step's K/V into slot ``pos % S`` of the
-        layer's cache ``entry`` in place. x_t (B, d) -> (B, d)."""
+        it on the device), updating the layer's cache ``entry`` in place: an
+        attention layer writes the step's K/V into slot ``pos % S``, a
+        recurrent layer copies its new state over the old. x_t (B, d) ->
+        (B, d)."""
         cfg = self.cfg
-        b = x_t.shape[0]
-        xn = rms_norm(x_t, block.ln1, cfg.norm_eps)[:, None, :]  # (B, 1, d)
-        q, k, v = project_qkv(block.mixer, cfg, xn, positions_t)
+        if block.kind in _XLSTM:
+            step = ssm.step_mlstm if block.kind == "mlstm" else ssm.step_slstm
+            x_t, state = step(block.params(), cfg, x_t, entry)
+            _copy_state(entry, state)
+            return x_t
+        xn = rms_norm(x_t, block.ln1, cfg.norm_eps)
+        if block.kind.startswith("attn"):
+            h = self._decode_attention(block, entry, xn, positions_t, pos)
+        else:
+            h, state = ssm.step_mamba(block.mixer, cfg, xn, entry)
+            _copy_state(entry, state)
+        x_t = x_t + h
+        if block.kind == "mamba":
+            return x_t
+        return x_t + block.apply_ffn(rms_norm(x_t, block.ln2, cfg.norm_eps))
+
+    def _decode_attention(self, block: Block, entry: dict, xn: torch.Tensor,
+                          positions_t: torch.Tensor, pos: int) -> torch.Tensor:
+        """The attention of a decode step: xn (B, d) normed -> (B, d)."""
+        cfg = self.cfg
+        b = xn.shape[0]
+        q, k, v = project_qkv(block.mixer, cfg, xn[:, None, :], positions_t)
         s = entry["k"].shape[1]
         slot = pos % s
         entry["k"][:, slot] = k[:, 0]
@@ -274,14 +361,14 @@ class Model(nn.Module):
             entry["v"][:, :kv_len].transpose(1, 2),
             causal=False,
         )
-        x_t = x_t + out.reshape(b, cfg.n_heads * cfg.head_dim) @ block.mixer["wo"]
-        return x_t + block.apply_ffn(rms_norm(x_t, block.ln2, cfg.norm_eps))
+        return out.reshape(b, cfg.n_heads * cfg.head_dim) @ block.mixer["wo"]
 
     @torch.inference_mode()
     def decode_step(self, cache: list[dict], tokens: torch.Tensor, pos: int):
         """One token step for the batch: tokens (B,), ``pos`` the absolute
-        position (a host int). Writes the step's K/V into slot ``pos % S`` of
-        ``cache`` in place and returns (logits (B, V), cache)."""
+        position (a host int). Updates every entry of ``cache`` in place (the
+        step's K/V into slot ``pos % S``, each recurrent state copied over)
+        and returns (logits (B, V), cache)."""
         x_t = self.embed[tokens]  # (B, d)
         positions_t = torch.full((x_t.shape[0], 1), pos, dtype=torch.long, device=x_t.device)
         for block, entry in zip(self.blocks, cache, strict=True):

@@ -42,25 +42,33 @@ __all__ = ["MoE", "init_moe", "split_moe_params", "route", "apply_moe", "moe_ora
 _NAMES = ("router", "w_gate", "w_up", "w_down")
 
 
-def init_moe(generator: torch.Generator | None, cfg: ArchConfig) -> dict:
-    """Expert weights; with ``moe_split`` > 1 they are stored pre-sliced as
-    (E·split, d, ff/split) virtual experts (see :func:`split_moe_params`).
-    Without a generator the tensors are on the meta device."""
+def _draws(generator: torch.Generator | None, cfg: ArchConfig):
+    """The MoE's weights in the order they are drawn: (name, expert index or
+    None for the router, tensor). With ``moe_split`` > 1 the experts are
+    (E·split) virtual experts of ff/split columns."""
     dt = dtype_of(cfg)
     n_experts, d, ff, sp = cfg.n_experts, cfg.d_model, cfg.d_ff, cfg.moe_split
     if ff % sp:
         raise ValueError(f"{cfg.name}: d_ff {ff} does not split into moe_split {sp} slices")
     ev, ffv = n_experts * sp, ff // sp
+    yield "router", None, init_dense(generator, d, n_experts, torch.float32)
+    for name, din, dout, scale in (("w_gate", d, ffv, None), ("w_up", d, ffv, None),
+                                   ("w_down", ffv, d, 0.02 / (2 * cfg.n_layers) ** 0.5)):
+        for e in range(ev):
+            yield name, e, init_dense(generator, din, dout, dt, scale)
 
-    def stack(din, dout, scale=None):
-        return torch.stack([init_dense(generator, din, dout, dt, scale) for _ in range(ev)])
 
-    return {
-        "router": init_dense(generator, d, n_experts, torch.float32),
-        "w_gate": stack(d, ffv),
-        "w_up": stack(d, ffv),
-        "w_down": stack(ffv, d, scale=0.02 / (2 * cfg.n_layers) ** 0.5),
-    }
+def init_moe(generator: torch.Generator | None, cfg: ArchConfig) -> dict:
+    """Expert weights; with ``moe_split`` > 1 they are stored pre-sliced as
+    (E·split, d, ff/split) virtual experts (see :func:`split_moe_params`).
+    Without a generator the tensors are on the meta device."""
+    p, experts = {}, {}
+    for name, e, w in _draws(generator, cfg):
+        if e is None:
+            p[name] = w
+        else:
+            experts.setdefault(name, []).append(w)
+    return {**p, **{name: torch.stack(ws) for name, ws in experts.items()}}
 
 
 def split_moe_params(p: dict, split: int) -> dict:
@@ -170,8 +178,11 @@ class MoE(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        for name, value in init_moe(generator, self.cfg).items():
-            getattr(self, name).copy_(value)
+        """``init_moe``'s draws, each expert's copied into its slot as it is
+        drawn: no stacked copy of the experts is made (at full width a
+        layer's are tens of GB)."""
+        for name, e, value in _draws(generator, self.cfg):
+            (getattr(self, name) if e is None else getattr(self, name)[e]).copy_(value)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return apply_moe(self.params(), self.cfg, x)

@@ -309,8 +309,7 @@ def test_serve_builds_its_model_from_a_seed_and_the_cli_runs(capsys):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["hubert-xlarge", "xlstm-350m", "jamba-1.5-large-398b",
-                                  "qwen2-vl-2b"])
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "qwen2-vl-2b"])
 def test_unported_archs_are_refused_naming_the_roadmap(arch):
     with pytest.raises(KeyError, match="queue 1, item 16"):
         get_config(arch)
@@ -321,22 +320,47 @@ def test_unported_archs_are_refused_naming_the_roadmap(arch):
     assert arch not in ARCHS
 
 
+def _base_config() -> ArchConfig:
+    return ArchConfig(name="enc-smoke", family="audio", n_layers=2, d_model=64, n_heads=4,
+                      n_kv_heads=2, head_dim=16, d_ff=128, vocab=128, dtype="float32")
+
+
 def test_non_dense_block_kinds_are_refused():
-    ssm = ArchConfig(name="ssm-smoke", family="ssm", n_layers=2, d_model=64, n_heads=4,
-                     n_kv_heads=2, head_dim=16, d_ff=128, vocab=128, dtype="float32")
-    with pytest.raises(NotImplementedError, match="queue 1, item 16"):
-        Model(ssm, device="cpu")
-    hybrid = dataclasses.replace(ssm, family="hybrid", attn_period=2)
-    with pytest.raises(ValueError, match=r"only configs of one block kind \(attn_mlp or "
-                       r"attn_moe\) convert"):
-        model_state_from_reference(hybrid, {"blocks": ({}, {})})
+    """Every block kind runs (item 16.3); what is refused is the rest of
+    item 16.4: the encoder's embeddings input here, M-RoPE in
+    ``test_mrope_is_refused``."""
+    with pytest.raises(NotImplementedError, match="input_mode 'embeds'.*item 16.4"):
+        Model(dataclasses.replace(_base_config(), input_mode="embeds"), device="cpu")
+
+
+def test_a_hybrid_stack_converts_period_position_j_of_period_n_to_layer_pn_plus_j():
+    hybrid = dataclasses.replace(_base_config(), family="hybrid", n_layers=4, attn_period=2)
+    assert hybrid.block_period() == ("attn_mlp", "mamba_mlp")
+    model = Model(hybrid, device="cpu")
+    model.init_weights(torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    ref = ({k[len("blocks.0."):]: np.stack([state[k].numpy(), state[k.replace("blocks.0.",
+                                                                                "blocks.2.")]])
+            for k in state if k.startswith("blocks.0.")},
+           {k[len("blocks.1."):]: np.stack([state[k].numpy(), state[k.replace("blocks.1.",
+                                                                                "blocks.3.")]])
+            for k in state if k.startswith("blocks.1.")})
+    nested = tuple({} for _ in ref)
+    for tree, flat in zip(nested, ref, strict=True):
+        for name, arr in flat.items():
+            group, _, leaf = name.rpartition(".")
+            (tree.setdefault(group, {}) if group else tree)[leaf] = arr
+    top = {k: state[k].numpy() for k in ("ln_f", "embed", "unembed")}
+    got = model_state_from_reference(hybrid, {"blocks": nested, **top})
+    assert sorted(got) == sorted(state)
+    assert all(torch.equal(got[k], state[k]) for k in state)
 
 
 def test_mrope_is_refused():
     _, cfg = _cfgs("granite-3-8b", rope="mrope")
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
+    with pytest.raises(NotImplementedError, match="M-RoPE.*item 16.4"):
         Model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
+    with pytest.raises(NotImplementedError, match="M-RoPE.*item 16.4"):
         tl.rope_angles(cfg, torch.zeros(1, 4, 3, dtype=torch.long))
 
 

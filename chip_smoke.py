@@ -32,13 +32,18 @@ exits nonzero without printing its result line:
    every split count, bit-equal at the path's shape to the plain merge of
    the kernel's own partials, on a second stream and in a replayed CUDA
    graph, its counters back at 0), TMA f32 kernel or SIMT kernels (the f32
-   cases on both f32 entries); at the MoE path's group 6 (48 query heads
+   cases on both f32 entries; every bf16 case also within ATTN_ROW_ULPS
+   bf16 ulps of each output row's largest |value|); at the MoE path's group 6 (48 query heads
    over 8 KV heads, D 128) the SIMT bf16 prefill its route picks, at a
    window shorter than T and at one batch row of the timed serve's shape,
-   and the decode kernel over a full 4096-slot ring; at the hybrid path's
+   and the decode kernel over a full 4096-slot ring, and a batch row of the
+   VLM's prefill (12 query heads over 2, D 128); at the hybrid path's
    group 8 (64 query heads over 8 KV heads, D 128) the wgmma prefill at the
-   timed serve's shape and the decode kernel over its longest cache; all
-   five SRAD entries
+   timed serve's shape and the decode kernel over its longest cache; head
+   dim 80 (the encoder's) on both SIMT kernels, the only entries that
+   compile it, bidirectional and causal, ragged, and at a batch row of the
+   encoder's layer (16 heads, 4096 frames); each f32 entry at every head
+   dim it compiles; all five SRAD entries
    (the band kernel or the grid-stride one it replaced, the float4 walk or
    the one-pixel phase 1 it replaced, phase 2) bit for bit at every SRAD
    shape, aligned and off 16 bytes; both Mandelbrot kernels (flat, and
@@ -191,6 +196,28 @@ exits nonzero without printing its result line:
    to 0 just before and read just after (2 launches of the wgmma prefill,
    126 of the decode kernel, nothing else), one prefill's and one decode
    step's device time split into Mamba mixers, MoE, attention and the rest;
+4m. the VLM and the encoder (qwen2-vl-2b and hubert-xlarge, fed
+   embeddings, through ``Model.prefill`` / ``decode_step`` / ``forward``:
+   ``launch.serve.serve`` feeds token prompts and refuses both, as the
+   reference's driver does): the VLM's smoke config in f32 served on
+   ``serve``'s schedule through the kernel and the plain route (logits
+   within 2e-4, tokens equal) and against its own full forward (2e-3,
+   5e-3; the decoded tokens' embeddings at (pos, pos, pos)), the encoder's
+   smoke forward through both routes (2e-4), the strict f32 training step
+   on each; qwen2-vl-2b as published (28 layers, M-RoPE, bf16, random
+   weights from a seed): 2048-position prompts of text, a 32 x 32 image
+   grid and text, a prefill and four decode steps one layer at a time, each
+   layer fed the plain route's input (within LAYER_ULPS bf16 ulps, caches
+   bit-equal), then a timed serve of 8 requests, batch 4, 64 tokens each,
+   counters set to 0 just before and read just after (56 launches of the
+   SIMT prefill at group 6, 3528 of the decode kernel, nothing else), one
+   prefill's and one decode step's device time split into attention and
+   the rest; hubert-xlarge as published (48 layers, head dim 80,
+   bidirectional, bf16): a forward of 4096 frames one layer at a time
+   against the plain route (LAYER_ULPS), then timed forwards at batch 8 x
+   4096, counters set to 0 just before and read just after each (48
+   launches of the SIMT kernel, nothing else), frames/s, peak memory and
+   one forward's device time split into attention and the rest;
 5. yardstick: each kernel of the paths, its plain version and the one
    PyTorch call that computes the same function (where there is one),
    timed with CUDA events at the paths' shapes (and the kernel's own device
@@ -204,7 +231,9 @@ exits nonzero without printing its result line:
    softmax; the shared-memory LRN) timed beside their successors at the
    same shapes; the SIMT bf16 attention at the MoE serve's prefill (group
    6, window 4096; the plain version a batch row at a time, SDPA given the
-   window as a mask), the decode kernel at its group-6 step and the wgmma
+   window as a mask), at the encoder's layer (B8, 16 heads, 4096 frames,
+   D 80, bidirectional) and the VLM's prefill (B4, 12 over 2 heads, 2048,
+   causal), the decode kernel at its group-6 step and the wgmma
    prefill at the training path's shape, the wgmma prefill and the decode
    kernel at the hybrid path's group 8; the f32 GEMM at each compiled
    tile; a device copy of the
@@ -399,6 +428,15 @@ ATTENTION_CASES = [
     (2, 32, 8, 1, 1088, 128, False, None),
 ]
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# bf16 attention also holds ATTN_ROW_ULPS bf16 ulps of each output row's
+# largest |value| (a row: one query head's D values; ``_attention_close``).
+# ATTN_TOL's 2e-2 is loose where rows are long: over S keys of N(0, 1)
+# scores a value has sigma ~ sqrt(e / S), 0.026 at S 4096, about the
+# tolerance itself. Each value on either side is one bf16 rounding of an
+# f32 sum, so the two differ by at most an ulp of the value; the tensor-core
+# kernels' bf16 P moves a value by ~2^-9 sigma more. A 64-key tile dropped
+# at S 4096 moves a row by ~20 ulps of its largest value.
+ATTN_ROW_ULPS = 2
 # The tensor-core entries: the reference's cases at D 64 and 128 (decode,
 # prefill or SIMT by their rows per KV head), groups of 1 and 8, ragged T,
 # windows, T < S. Decode at explicit split counts: S below one split's tile,
@@ -545,6 +583,33 @@ SSM_SPLIT_PROMPT = 64
 # timed serve's prefill and a decode step over its longest cache.
 ATTN_G8_PREFILL = (4, 64, 8, 2048, 2048, 128)
 ATTN_G8_DECODE = (4, 64, 8, 1, 2112, 128)
+# The VLM and the encoder (phase 4m), both as published, bf16, random weights
+# from a seed, every layer (neither needs a cut: 3.09 and 2.52 GB).
+# qwen2-vl-2b (28 layers, d_model 1536, 12/2 heads, head_dim 128, M-RoPE)
+# takes embeddings of 2048 positions laid out as Qwen2-VL lays out a prompt
+# (``_vlm_positions``: 64 of text, an image of 32 x 32 patches, text to the
+# end); its decode steps take token ids. hubert-xlarge (48 layers,
+# d_model 1280, 16/16 heads, head_dim 80, bidirectional, no RoPE) takes frame
+# embeddings: 4096 frames are 82 s of audio at 50 Hz.
+VLM_ARCH = "qwen2-vl-2b"
+ENCODER_ARCH = "hubert-xlarge"
+VLM_TEACHER = dict(batch=2, prompt_len=2048, max_len=2056)
+VLM_SERVE = dict(n_requests=8, batch=4, prompt_len=2048, gen_len=64, max_len=2120)
+ENCODER_TEACHER = dict(batch=1, prompt_len=4096)
+ENCODER_TIMED = dict(batch=8, frames=4096, forwards=3)
+# Attention at their shapes (B, Hq, Hkv, T, S, D): hubert's encoder layer at
+# the timed batch (bidirectional) and qwen2-vl's prefill (causal, group 6);
+# phase 3 holds a batch row of each, and hubert's head dim 80 at the cases
+# below on the entries that compile it (the SIMT kernels; D 80 routes to
+# them in both dtypes): bidirectional and causal, ragged T and S, groups 1
+# and 2, a window, T < S.
+ATTN_HUBERT = (8, 16, 16, 4096, 4096, 80)
+ATTN_VLM_PREFILL = (4, 12, 2, 2048, 2048, 128)
+ATTN_D80_CASES = [
+    (1, 4, 4, 33, 33, 80, False, None), (2, 4, 4, 17, 17, 80, True, None),
+    (1, 4, 2, 45, 77, 80, True, None), (2, 4, 2, 7, 30, 80, False, None),
+    (1, 2, 1, 1, 50, 80, True, 9), (2, 16, 16, 100, 130, 80, False, None),
+]
 KERNEL_SOURCES = {
     "matmul_f32": ("src/repro_torch/kernels/csrc/matmul_f32_tma.cu",
                    "src/repro/kernels/matmul.py:55"),
@@ -1116,12 +1181,30 @@ def _attention_case(torch, fa, gen, dt, b, hq, hkv, t, s, d, causal, window, vie
     got = {name: fa.launches[name] - before[name] for name in before}
     if got != want:
         _fail(f"attention {dt} {(b, hq, hkv, t, s, d)}: launches {got}, expected {want}")
-    tol = ATTN_TOL[_dtname(dt)]
     what = (f"{key:26s} B{b} Hq{hq} Hkv{hkv} T{t} S{s} D{d} "
             f"{'causal' if causal else 'full'} window {window}" + (" (views)" if views else ""))
-    return key, _close_case(
+    return key, _attention_close(
         torch, what, out.float(),
-        fa.flash_attention_plain(q, k, v, causal=causal, window=window).float(), tol, tol)
+        fa.flash_attention_plain(q, k, v, causal=causal, window=window).float(), dt)
+
+
+def _attention_close(torch, what, out, want, dt) -> float:
+    """Attention's output against its plain version (both f32 copies) at
+    ATTN_TOL; in bf16 also within ATTN_ROW_ULPS bf16 ulps of each row's
+    largest |value|. -> max abs."""
+    tol = ATTN_TOL[_dtname(dt)]
+    err = _close_case(torch, what, out, want, tol, tol)
+    if dt == torch.bfloat16:
+        diff = (out - want).abs().amax(-1)
+        ulps = torch.where(diff > 0, diff / _bf16_ulp(torch, want.abs().amax(-1)),
+                           torch.zeros_like(diff))
+        worst = ulps.max().item()
+        print(f"  {what} worst row {worst:g} ulps of its largest |value| "
+              f"[bound {ATTN_ROW_ULPS}] {'ok' if worst <= ATTN_ROW_ULPS else 'FAIL'}")
+        if not worst <= ATTN_ROW_ULPS:
+            _fail(f"{what}: a row {worst:g} bf16 ulps of its largest |value| from the plain "
+                  f"version, over {ATTN_ROW_ULPS}")
+    return err
 
 
 def _decode_split_case(torch, fa, gen, b, hq, hkv, t, s, d, causal, window) -> float:
@@ -1147,7 +1230,8 @@ def _decode_split_case(torch, fa, gen, b, hq, hkv, t, s, d, causal, window) -> f
         plain = fa.flash_decode_plain(q, k, v, causal=causal, window=window,
                                       splits=splits).float()
         worst = max(worst, _close_case(torch, what + " vs split plain", out, plain, tol, tol),
-                    _close_case(torch, what + " vs plain attention", out, want, tol, tol))
+                    _attention_close(torch, what + " vs plain attention", out, want,
+                                     torch.bfloat16))
     return worst
 
 
@@ -1203,12 +1287,11 @@ def _fused_decode_case(torch, fa, gen) -> float:
     zeroed(main, "the eager call")
     part_o, part_ml = fa.flash_decode_partials_cuda(q, k, v, splits=splits)
     merged = fa.flash_decode_combine_plain(part_o, part_ml, hq=hq, t=t, dtype=torch.bfloat16)
-    tol = ATTN_TOL["bfloat16"]
     what = f"flash_decode_bf16 B{b} Hq{hq} Hkv{hkv} T{t} S{s} D{d}, {splits} splits"
     _close_case(torch, what + ", fused vs the plain merge of its partials (bit-equal)", out.float(),
                 merged.float(), 0.0, 0.0)
-    worst = _close_case(torch, what + ", fused vs plain attention", out.float(),
-                        fa.flash_attention_plain(q, k, v).float(), tol, tol)
+    worst = _attention_close(torch, what + ", fused vs plain attention", out.float(),
+                             fa.flash_attention_plain(q, k, v).float(), torch.bfloat16)
     side = torch.cuda.Stream()
     side.wait_stream(main)
     with torch.cuda.stream(side):
@@ -1367,13 +1450,15 @@ def phase_kernels(torch) -> dict:
         key, e = _attention_case(torch, fa, gen, bf16, *shape, causal, None,
                                  entry="flash_attention_bf16_simt")
         err[key] = max(err[key], e)
-    # Group 6 (the MoE path's 48/8 heads): the prefill on the SIMT kernel it
-    # routes to, at a window shorter than T and at one batch row of the timed
-    # serve's shape; decode over a full 4096-slot ring on the decode kernel.
+    # Group 6 (the MoE path's 48/8 heads, the VLM's 12/2): the prefill on the
+    # SIMT kernel it routes to, at a window shorter than T and at one batch
+    # row of each timed serve's shape; decode over a full 4096-slot ring on
+    # the decode kernel.
     b, hq, hkv, t, s, d = ATTN_G6_PREFILL
     for shape, causal, window, want in (
         (ATTN_G6_SMALL, True, ATTN_G6_SMALL[3] // 2, "flash_attention_bf16_simt"),
         ((1, hq, hkv, t, s, d), True, MOE_WINDOW, "flash_attention_bf16_simt"),
+        ((1, *ATTN_VLM_PREFILL[1:]), True, None, "flash_attention_bf16_simt"),
         (ATTN_G6_DECODE, False, None, "flash_decode_bf16"),
     ):
         key, e = _attention_case(torch, fa, gen, bf16, *shape, causal, window)
@@ -1388,17 +1473,25 @@ def phase_kernels(torch) -> dict:
         if key != want:
             _fail(f"group-8 attention {shape} routed to {key}, not {want}")
         err[key] = max(err[key], e)
+    # Head dim 80 (hubert's) on the SIMT kernels it routes to, in both dtypes,
+    # and a batch row of hubert's encoder layer.
+    for dt in (torch.float32, bf16):
+        for case in ATTN_D80_CASES + [(1, *ATTN_HUBERT[1:], False, None)]:
+            key, e = _attention_case(torch, fa, gen, dt, *case)
+            if key != fa._SIMT[dt]:
+                _fail(f"head dim 80 {_dtname(dt)} {case} routed to {key}")
+            err[key] = max(err[key], e)
     for case in DECODE_SPLIT_CASES:
         _decode_split_case(torch, fa, gen, *case)
     err["flash_decode_bf16"] = max(err["flash_decode_bf16"], _fused_decode_case(torch, fa, gen))
-    # The f32 entries: every case above on the SIMT kernel too, every
-    # compiled head dim on both, the smoke LM's shapes and the full width
-    # (phase 5 times both there), and views the TMA kernel cannot read.
+    # The f32 entries: every case above on the SIMT kernel too, every head
+    # dim each compiles, the smoke LM's shapes and the full width (phase 5
+    # times both there), and views the TMA kernel cannot read.
     f32 = torch.float32
     for entry in ("flash_attention_f32", "flash_attention_f32_simt"):
         for case in ATTENTION_CASES + F32_ATTENTION_MORE:
             _attention_case(torch, fa, gen, f32, *case, entry=entry)
-        for d in fa.HEAD_DIMS:
+        for d in fa.ENTRY_HEAD_DIMS[entry]:
             for t, s in ((1, 200), (77, 130)):
                 _attention_case(torch, fa, gen, f32, 2, 8, 2, t, s, d, True, None, entry=entry)
         for shape, causal in ((ATTN_SMOKE_PREFILL, True), (ATTN_SMOKE_DECODE, False),
@@ -2548,14 +2641,67 @@ def _check_tokens(got, want, gaps, batch, threshold, what) -> None:
           f"but {excused} (each at a top-2 gap <= {threshold:g})")
 
 
+def _vlm_positions(torch, batch: int, prompt_len: int, device):
+    """(batch, prompt_len, 3) M-RoPE ids of a prompt laid out as Qwen2-VL
+    lays one out: text, its first prompt_len / 32 positions, at (i, i, i);
+    an image of one frame of g x g patches, g = isqrt(prompt_len / 2) (32 x
+    32 at 2048), patch (h, w) at text + (0, h, w); then text to the end,
+    continuing from the largest id + 1."""
+    text, g = prompt_len // 32, math.isqrt(prompt_len // 2)
+    h, w = torch.meshgrid(torch.arange(g), torch.arange(g), indexing="ij")
+    image = text + torch.stack([torch.zeros(g * g, dtype=torch.long), h.reshape(-1),
+                                w.reshape(-1)], dim=-1)
+    tail = text + g + torch.arange(prompt_len - text - g * g)
+    ids = torch.cat([torch.arange(text)[:, None].expand(text, 3), image,
+                     tail[:, None].expand(len(tail), 3)])
+    return ids.expand(batch, prompt_len, 3).to(device)
+
+
 def _prompts(torch, model, batch: int, prompt_len: int):
-    """``batch`` prompts of ``prompt_len`` tokens as ``serve`` draws a
-    round's (seed 0), on the model's device."""
+    """``batch`` prompts of ``prompt_len`` positions on the model's device:
+    tokens as ``serve`` draws a round's (seed 0); for a model fed embeddings,
+    a batch of standard-normal f32 embeddings from a seeded generator and,
+    under M-RoPE, the VLM's positions (``_vlm_positions``)."""
     import numpy as np
 
+    cfg, device = model.cfg, model.embed.device
+    if cfg.input_mode == "embeds":
+        gen = torch.Generator(device=device).manual_seed(0)
+        prompt = {"embeds": torch.randn(batch, prompt_len, cfg.d_model, generator=gen,
+                                        device=device)}
+        if cfg.rope == "mrope":
+            prompt["positions"] = _vlm_positions(torch, batch, prompt_len, device)
+        return prompt
     rng = np.random.default_rng(0)
-    return torch.from_numpy(np.stack([rng.integers(0, model.cfg.vocab, prompt_len)
-                                      for _ in range(batch)])).to(model.embed.device, torch.long)
+    return torch.from_numpy(np.stack([rng.integers(0, cfg.vocab, prompt_len)
+                                      for _ in range(batch)])).to(device, torch.long)
+
+
+def _embeds_serve(*, model, n_requests, batch, prompt_len, gen_len, max_len, **_):
+    """``launch.serve.serve``'s schedule (``_serve_rounds``) for a model fed
+    embeddings, which that driver refuses (it feeds token prompts, as the
+    reference's does): each round's prefill takes its rows of ``_prompts``'
+    draws for all requests. -> ``ServeStats``."""
+    import torch
+
+    from repro_torch.launch.serve import _serve_rounds
+
+    prompts = _prompts(torch, model, n_requests, prompt_len)
+
+    def prompt_batch(idx):
+        rows = torch.tensor(idx, device=model.embed.device)
+        return {k: v[rows] for k, v in prompts.items()}
+
+    return _serve_rounds(model, prompt_batch, n_requests=n_requests, batch=batch,
+                         prompt_len=prompt_len, gen_len=gen_len, max_len=max_len)
+
+
+def _serve_fn(model):
+    """The serving schedule of ``model``: ``launch.serve.serve``, or
+    ``_embeds_serve`` for a model fed embeddings."""
+    from repro_torch.launch.serve import serve
+
+    return _embeds_serve if model.cfg.input_mode == "embeds" else serve
 
 
 def _teacher_forced(torch, model, serve_kw, compare) -> None:
@@ -2639,10 +2785,10 @@ def _strict_serve(torch, arch: str) -> dict:
     prefill and decode logits within LM_SMOKE_TOL, teacher-forced. -> the
     kernel route's launches."""
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import serve
 
     model = _smoke_model(torch, arch)
     cfg = model.cfg
+    serve = _serve_fn(model)
     kw = LM_SMOKE_SERVE
     _zero_launches()
     stats = serve(arch=arch, device="cuda", model=model, **kw)
@@ -2663,6 +2809,30 @@ def _strict_serve(torch, arch: str) -> dict:
     _check_tokens(stats.outputs, plain.outputs, rec.gaps, kw["batch"], LM_SMOKE_TOL,
                   "smoke serve")
     _teacher_forced(torch, model, kw, _strict_compare(torch, LM_SMOKE_TOL))
+    return launches
+
+
+def _strict_forward(torch, arch: str) -> dict:
+    """An encoder's smoke config in f32: ``Model.forward`` of a round of
+    LM_SMOKE_SERVE's prompts through the kernel route (flash_attention_f32,
+    one launch a layer, nothing else) and the plain route, logits within
+    LM_SMOKE_TOL. -> the kernel route's launches."""
+    from repro_torch.kernels import ops
+
+    model = _smoke_model(torch, arch)
+    cfg = model.cfg
+    frames = _prompts(torch, model, LM_SMOKE_SERVE["batch"], LM_SMOKE_SERVE["prompt_len"])
+    _zero_launches()
+    with torch.inference_mode():
+        got = model(frames)
+        launches = _read_launches()
+        with ops.force_impl("ref"):
+            want = model(frames)
+    want_launches = {k: cfg.n_layers * (k == "flash_attention_f32") for k in launches}
+    if launches != want_launches or _read_launches() != launches:
+        _fail(f"{cfg.name} forward launches {_nonzero(launches)}, then {_nonzero(_read_launches())}"
+              f" after the plain route; expected {_nonzero(want_launches)}")
+    _strict_compare(torch, LM_SMOKE_TOL)(f"forward ({cfg.name}, f32)", got, want)
     return launches
 
 
@@ -2791,9 +2961,10 @@ def _bf16_ulp(torch, x):
 
 
 def _layer_teacher_forced(torch, model, kw) -> dict:
-    """The first round's prompts (``serve``'s draws with seed 0) through
-    ``prefill`` and LM_TEACHER_STEPS decode steps (fed the plain route's
-    greedy tokens), first on the plain route, then on the kernel route with
+    """The first round's prompts (``_prompts``: ``serve``'s draws with seed
+    0, or embeddings) through ``prefill`` and LM_TEACHER_STEPS decode steps
+    (fed the plain route's greedy tokens), or an encoder's through
+    ``forward`` alone, first on the plain route, then on the kernel route with
     every layer fed the plain route's input to that layer: the two routes
     then differ only inside the layer compared, in its attention, and the
     caches they build (K/V and recurrent states) stay bit-equal (checked).
@@ -2811,24 +2982,32 @@ def _layer_teacher_forced(torch, model, kw) -> dict:
     attention = [i for i, k in enumerate(kinds) if k.startswith("attn")]
     routed = [i for i in attention if kinds[i].endswith("_moe")]
     if not routed:
-        print(f"  {cfg.name}: no layer holds attention and an MoE ({'/'.join(kinds)}), so no "
-              "routing can flip between the routes; none is counted")
-    prompt_len, max_len = kw["prompt_len"], kw["max_len"]
-    tokens = _prompts(torch, model, kw["batch"], prompt_len)
+        print(f"  {cfg.name}: no layer holds attention and an MoE ({'/'.join(sorted(set(kinds)))})"
+              ", so no routing can flip between the routes; none is counted")
+    prompt_len, max_len = kw["prompt_len"], kw.get("max_len")
+    prompt = _prompts(torch, model, kw["batch"], prompt_len)
     tally = {"rows": 0, "flipped": 0, "selection_flips": 0, "worst_ulps": 0.0}
+
+    def first(p):
+        """The prompt's pass: (cache, logits); an encoder's has no cache."""
+        if cfg.encoder_only:
+            with torch.inference_mode():
+                return None, model(p)
+        return model.prefill(p, max_len)
 
     def compare(what, kernel, plain, kernel_routes, plain_routes, cache_k, cache_p):
         if not (len(kernel.outputs) == len(plain.outputs) == cfg.n_layers
                 and len(kernel_routes) == len(plain_routes) == len(routed)):
             _fail(f"{cfg.name} {what}: {len(kernel.outputs)} and {len(plain.outputs)} layer "
                   f"calls, {len(kernel_routes)} and {len(plain_routes)} routed")
-        if not _caches_equal(torch, cache_k, cache_p):
+        if cache_k is not None and not _caches_equal(torch, cache_k, cache_p):
             _fail(f"{cfg.name} {what}: the routes' caches differ, though every layer was fed "
                   "the same input")
         routes = dict(zip(routed, zip(kernel_routes, plain_routes, strict=True), strict=True))
         rows = kernel.outputs[0].reshape(-1, cfg.d_model).shape[0]
         flipped = torch.zeros(rows, dtype=torch.bool, device=kernel.outputs[0].device)
         chosen = flipped.clone()
+        worst_by_layer, moved = [], 0
         for layer, (yk, yp) in enumerate(zip(kernel.outputs, plain.outputs, strict=True)):
             if layer not in attention:
                 if not _same_bytes(torch, yk, yp):
@@ -2844,19 +3023,21 @@ def _layer_teacher_forced(torch, model, kw) -> dict:
                 same_choice = (sel_k == sel_p).all(-1)
                 flipped |= ~agree
                 chosen |= ~same_choice
-                text = (f"rows whose kept experts differ {int((~agree).sum())} (top-k choice "
-                        f"{int((~same_choice).sum())}) of {rows}; the others: ")
+                text = f" (experts differ {int((~agree).sum())}, top-k {int((~same_choice).sum())})"
             ulps = (yk - yp).abs().amax(-1) / _bf16_ulp(torch, yp.abs().amax(-1))
             worst = ulps[agree].max().item() if bool(agree.any()) else 0.0
             ok = bool(torch.isfinite(yk).all()) and worst <= LAYER_ULPS
             tally["worst_ulps"] = max(tally["worst_ulps"], worst)
-            print(f"  full {what}, layer {layer} ({kinds[layer]}): {text}"
-                  f"{int((ulps[agree] > 0).sum())} of {int(agree.sum())} rows moved, worst "
-                  f"{worst:g} ulps of the row's largest |value| [bound {LAYER_ULPS}] "
-                  f"{'ok' if ok else 'FAIL'}")
+            worst_by_layer.append(f"{layer}:{worst:g}{text}")
+            moved += int((ulps[agree] > 0).sum())
             if not ok:
                 _fail(f"{cfg.name} {what}, layer {layer}: the kernel route is {worst:g} ulps "
                       f"from the plain route on a row whose experts agree, over {LAYER_ULPS}")
+        # One line a call: each attention layer's worst row (layer:ulps), on
+        # the rows whose experts agree; the layers without attention.
+        print(f"  full {what}: worst ulps of a row's largest |value| by attention layer "
+              f"[bound {LAYER_ULPS}] {' '.join(worst_by_layer)}; {moved} of "
+              f"{rows * len(attention)} layer rows moved, {rows} rows a layer ok")
         if len(attention) < cfg.n_layers:
             print(f"  full {what}: layers {[i for i in range(cfg.n_layers) if i not in attention]}"
                   " bit-equal between the routes")
@@ -2866,14 +3047,15 @@ def _layer_teacher_forced(torch, model, kw) -> dict:
 
     with _Routing(model, routed) as rec:
         with ops.force_impl("ref"), _LayerFeed(model) as plain:
-            cache_p, logits_p = model.prefill(tokens, max_len)
+            cache_p, logits_p = first(prompt)
         plain_routes = rec.take()
         with _LayerFeed(model, plain.inputs) as kernel:
-            cache_k, _ = model.prefill(tokens, max_len)
-        compare("prefill", kernel, plain, rec.take(), plain_routes, cache_k, cache_p)
+            cache_k, _ = first(prompt)
+        compare("forward" if cfg.encoder_only else "prefill", kernel, plain, rec.take(),
+                plain_routes, cache_k, cache_p)
         last = logits_p[:, -1].argmax(-1)
         del plain, kernel, logits_p
-        for i in range(LM_TEACHER_STEPS):
+        for i in range(0 if cfg.encoder_only else LM_TEACHER_STEPS):
             with ops.force_impl("ref"), _LayerFeed(model) as plain:
                 logits_p, cache_p = model.decode_step(cache_p, last, prompt_len + i)
             plain_routes = rec.take()
@@ -2882,8 +3064,10 @@ def _layer_teacher_forced(torch, model, kw) -> dict:
             compare(f"decode step {i + 1}", kernel, plain, rec.take(), plain_routes, cache_k,
                     cache_p)
             last = logits_p.argmax(-1)
-    print(f"  {cfg.name}: every cache entry ({'/'.join(sorted(set(cache_k[0]) | set(cache_k[-1])))}"
-          f") bit-equal between the routes after every call")
+    if cache_k is not None:
+        print(f"  {cfg.name}: every cache entry ("
+              f"{'/'.join(sorted(set(cache_k[0]) | set(cache_k[-1])))}) bit-equal between the "
+              "routes after every call")
     share = tally["flipped"] / tally["rows"]
     ok = share <= MOE_FLIP_SHARE
     print(f"  rows whose kept experts differ between the routes in some layer: "
@@ -2976,7 +3160,8 @@ def _device_split(torch, call, wraps, attempts: int = 3) -> dict:
 
 
 def _timed_serve(torch, model, kw, want: dict, smi: str) -> dict:
-    """``serve`` of ``model`` with ``kw``, every call timed by CUDA events,
+    """``serve`` of ``model`` with ``kw`` (``_serve_fn``'s schedule), every
+    call timed by CUDA events,
     the counters set to 0 just before and read just after. They must equal
     ``want`` (kernel -> launches, every other counter 0), which must hold
     one prefill launch a round and one decode launch a step for each
@@ -2987,9 +3172,9 @@ def _timed_serve(torch, model, kw, want: dict, smi: str) -> dict:
     import numpy as np
 
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch.serve import serve
 
     cfg = model.cfg
+    serve = _serve_fn(model)
     rounds = -(-kw["n_requests"] // kw["batch"])
     n_attention = sum(kind.startswith("attn") for kind in cfg.block_kinds())
     decode = want.get("flash_decode_bf16", 0)
@@ -3130,16 +3315,28 @@ def _self_teacher_forced(torch, model, batch: int, prompt_len: int, steps: int,
     true next tokens, against the model's own full forward over the prompt
     and those tokens (tests/test_models.py:92-112): the prefill logits within
     SELF_TOL["prefill"], the last step's within SELF_TOL["decode"], abs and
-    rel, all finite. -> the two max abs differences."""
+    rel, all finite. A model fed embeddings prefills ``_prompts``'
+    embeddings; its full forward takes them, then the tokens' rows of the
+    token table, each at the decode step's positions (``(pos, pos, pos)``
+    under M-RoPE, after the prompt's ids). -> the two max abs differences."""
     import numpy as np
 
     rng = np.random.default_rng(1)
     t = prompt_len + steps
     tokens = torch.from_numpy(rng.integers(0, model.cfg.vocab, (batch, t))).to(
         model.embed.device, torch.long)
+    prompt, full_in = tokens[:, :prompt_len], tokens
+    if model.cfg.input_mode == "embeds":
+        prompt = _prompts(torch, model, batch, prompt_len)
+        full_in = {"embeds": torch.cat([prompt["embeds"].to(model.embed.dtype),
+                                        model.embed[tokens[:, prompt_len:]]], dim=1)}
+        if "positions" in prompt:
+            steps_at = torch.arange(prompt_len, t, device=tokens.device)
+            full_in["positions"] = torch.cat(
+                [prompt["positions"], steps_at[None, :, None].expand(batch, steps, 3)], dim=1)
     with torch.no_grad():
-        full = model(tokens)
-    cache, logits = model.prefill(tokens[:, :prompt_len], t + 8)
+        full = model(full_in)
+    cache, logits = model.prefill(prompt, t + 8)
     out = {}
     for part, got, want in (("prefill", logits, full[:, :prompt_len]), ("decode", None, None)):
         if part == "decode":
@@ -3284,6 +3481,115 @@ def phase_recurrent(torch, smi: str) -> tuple[dict, dict]:
     return launches, info
 
 
+def _timed_forwards(torch, model, kw, smi: str) -> dict:
+    """The encoder's whole pass, ``Model.forward`` of kw["batch"] x
+    kw["frames"] embeddings (``_prompts``), kw["forwards"] times after a
+    warm-up, each timed by a CUDA event pair with the counters set to 0 just
+    before and read just after: each must launch flash_attention_bf16_simt
+    once a layer and nothing else, and return finite (B, T, vocab) logits.
+    -> frames/s, forward ms, peak memory, the launches of the timed
+    forwards."""
+    cfg = model.cfg
+    b, t = kw["batch"], kw["frames"]
+    frames = _prompts(torch, model, b, t)
+    want = {k: cfg.n_layers * (k == "flash_attention_bf16_simt") for k in _read_launches()}
+    launches = dict.fromkeys(want, 0)
+    events = []
+    with torch.inference_mode():
+        model(frames)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(kw["forwards"]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            _zero_launches()
+            start.record()
+            logits = model(frames)
+            end.record()
+            got = _read_launches()
+            if got != want:
+                _fail(f"{cfg.name} forward launches {_nonzero(got)}; expected {_nonzero(want)} "
+                      "and nothing else")
+            launches = {k: launches[k] + n for k, n in got.items()}
+            events.append((start, end))
+            if tuple(logits.shape) != (b, t, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+                _fail(f"{cfg.name} forward: logits {tuple(logits.shape)}, finite "
+                      f"{bool(torch.isfinite(logits).all())}")
+            del logits
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e in events]
+    num = {"forward_ms": sum(ms) / len(ms), "frames_per_s": b * t / (sum(ms) / len(ms) / 1e3),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches}
+    print(f"  {cfg.name} forward, batch {b} x {t} frames: {num['forward_ms']:.3f} ms by events "
+          f"(runs {', '.join(f'{x:.3f}' for x in ms)}) = {num['frames_per_s']:.1f} frames/s; "
+          f"peak memory {num['peak_gb']:.2f} GB; launches {_nonzero(launches)} over "
+          f"{kw['forwards']} forwards ({smi})")
+    split = _device_split(torch, lambda: model(frames), ())
+    _print_split(f"one forward of {b} x {t} frames", split, {"attention": "attention"})
+    num["forward_split"] = split
+    return num
+
+
+def phase_vlm_encoder(torch, smi: str) -> tuple[dict, dict]:
+    """The VLM and the audio encoder: qwen2-vl-2b and hubert-xlarge, both as
+    published. -> (launches on the path, numbers)."""
+    import gc
+
+    print(f"== phase 4m: VLM and encoder ({VLM_ARCH} prefill and decode_step on embeddings "
+          f"and M-RoPE; {ENCODER_ARCH} forward on frames, head dim 80)")
+    t_phase = t_part = time.perf_counter()
+    info = {}
+    # (a) Strict, small: both smoke configs in f32, the kernel route against
+    # the plain route; the VLM also against its own full forward; one strict
+    # training step each.
+    launches = {k: 0 for k in _read_launches()}
+    for k, n in _strict_serve(torch, VLM_ARCH).items():
+        launches[k] += n
+    _self_teacher_forced(torch, _smoke_model(torch, VLM_ARCH), what=f"{VLM_ARCH} smoke f32",
+                         **SELF_SMOKE)
+    for k, n in _strict_forward(torch, ENCODER_ARCH).items():
+        launches[k] += n
+    for arch in (VLM_ARCH, ENCODER_ARCH):
+        for k, n in _strict_train_step(torch, arch).items():
+            launches[k] += n
+    t_part = _part_timer("(a) the smoke configs", t_part)
+    # (b) qwen2-vl-2b as published: each layer of a prefill and 4 decode
+    # steps fed the plain route's input, then the timed serve (prefill on the
+    # SIMT kernel at group 6, decode on the decode kernel), its split.
+    model, info["vlm"] = _full_model(torch, VLM_ARCH)
+    info["vlm_teacher"] = _layer_teacher_forced(torch, model, VLM_TEACHER)
+    t_part = _part_timer(f"the {VLM_ARCH} per-layer check", t_part)
+    kw = VLM_SERVE
+    rounds = -(-kw["n_requests"] // kw["batch"])
+    num = _timed_serve(torch, model, kw, {
+        "flash_attention_bf16_simt": model.cfg.n_layers * rounds,
+        "flash_decode_bf16": model.cfg.n_layers * rounds * (kw["gen_len"] - 1)}, smi)
+    num.update(_serve_splits(torch, model, kw, (), {"attention": "attention"}))
+    info["vlm_serve"] = num
+    for k, n in num["launches"].items():
+        launches[k] += n
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_part = _part_timer(f"the {VLM_ARCH} serve and its split", t_part)
+    # (c) hubert-xlarge as published: each layer of a forward fed the plain
+    # route's input, then timed forwards and one forward's split.
+    model, info["encoder"] = _full_model(torch, ENCODER_ARCH)
+    info["encoder_teacher"] = _layer_teacher_forced(torch, model, ENCODER_TEACHER)
+    t_part = _part_timer(f"the {ENCODER_ARCH} per-layer check", t_part)
+    num = _timed_forwards(torch, model, ENCODER_TIMED, smi)
+    info["encoder_forward"] = num
+    for k, n in num["launches"].items():
+        launches[k] += n
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    _part_timer(f"the {ENCODER_ARCH} forwards and their split", t_part)
+    print(f"  phase 4m {time.perf_counter() - t_phase:.1f} s")
+    return launches, info
+
+
 def _same_bytes(torch, a, b) -> bool:
     return (a.dtype == b.dtype and a.shape == b.shape
             and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
@@ -3377,24 +3683,26 @@ def _strict_train_step(torch, arch: str = TRAIN_ARCH) -> dict:
     """``arch``'s smoke config in f32: one loss and gradient on the kernel
     route against the plain route, on the card. -> launches."""
     from repro_torch.configs import get_smoke_config
-    from repro_torch.data import SyntheticLM
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.launch.train import _make_data
     from repro_torch.models import Model
 
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     model = Model(cfg, device="cuda", remat=False)  # a smoke run trains without remat
     model.init_weights(torch.Generator(device="cuda").manual_seed(0))
     batch = {k: torch.from_numpy(v).to("cuda") for k, v in
-             SyntheticLM(vocab=cfg.vocab, seed=0, **TRAIN_SMOKE).batch_at(0).items()}
+             _make_data(cfg, seed=0, **TRAIN_SMOKE).batch_at(0).items()}
     names = [n for n, _ in model.named_parameters()]
+    # An encoder's token table takes no part in its forward: its gradient is 0.
+    unused = {"embed"} if cfg.input_mode == "embeds" and not cfg.tie_embeddings else set()
     out = {}
     for route in ("kernel", "ref"):
         _zero_launches()
         calls0 = fa.backward_calls["attention_bwd_torch"]
         with ops.force_impl("ref") if route == "ref" else contextlib.nullcontext():
             loss, _ = model.loss_fn(batch)
-            grads = torch.autograd.grad(loss, list(model.parameters()))
+            grads = torch.autograd.grad(loss, list(model.parameters()), materialize_grads=True)
         torch.cuda.synchronize()
         out[route] = (loss.item(), grads, _read_launches(),
                       fa.backward_calls["attention_bwd_torch"] - calls0)
@@ -3414,8 +3722,9 @@ def _strict_train_step(torch, arch: str = TRAIN_ARCH) -> dict:
         diff = (g - w).abs()
         worst = max(worst, (diff.max().item(), n))
         for x in (g, w):
-            smallest = min(smallest, (x.abs().max().item(), n))
-            ok = ok and bool(torch.isfinite(x).all())
+            if n not in unused:
+                smallest = min(smallest, (x.abs().max().item(), n))
+            ok = ok and bool(torch.isfinite(x).all()) and (n not in unused or not x.any())
         ok = ok and bool((diff <= tol + tol * w.abs()).all())
     ok = ok and smallest[0] > 0
     shape = f"{TRAIN_SMOKE['batch']} x {TRAIN_SMOKE['seq']}"
@@ -3934,8 +4243,8 @@ def _attention_yardstick(torch, gen, hw):
     (bf16 decode step: one launch, the merge in its epilogue, as the path
     launches it; also at the MoE serve's group 6 over its full ring), the
     SIMT kernel (the MoE serve's prefill, group 6 with mixtral's window;
-    and at the dense serving path's two shapes, where the others replaced
-    it), and the f32 TMA kernel and the SIMT f32 kernel it replaced: at the
+    the encoder's layer at head dim 80; the VLM's prefill at group 6; and
+    at the dense serving path's two shapes, where the others replaced it), and the f32 TMA kernel and the SIMT f32 kernel it replaced: at the
     f32 smoke run's own prefill and decode shapes, where its launches are,
     and at the serving path's prefill shape (full width). The bound counts
     4*D operations per visible pair (two products) at the dtype's peak, and
@@ -3957,6 +4266,8 @@ def _attention_yardstick(torch, gen, hw):
         ("flash_attention_bf16_wgmma", bf16, ATTN_G8_PREFILL, True, None, " (jamba)"),
         ("flash_decode_bf16", bf16, ATTN_G8_DECODE, False, None, " (jamba, one launch)"),
         ("flash_attention_bf16_simt", bf16, ATTN_G6_PREFILL, True, MOE_WINDOW, " (MoE)"),
+        ("flash_attention_bf16_simt", bf16, ATTN_HUBERT, False, None, " (hubert)"),
+        ("flash_attention_bf16_simt", bf16, ATTN_VLM_PREFILL, True, None, " (qwen2-vl)"),
         ("flash_attention_bf16_simt", bf16, ATTN_PREFILL, True, None, ""),
         ("flash_attention_bf16_simt", bf16, ATTN_DECODE, False, None, ""),
         ("flash_attention_f32", f32, ATTN_SMOKE_PREFILL, True, None, " (smoke prefill)"),
@@ -4215,12 +4526,13 @@ def main() -> int:
     train_launches, tr = phase_train(torch)
     moe_launches, moe = phase_moe(torch, smi)
     recurrent_launches, rec = phase_recurrent(torch, smi)
+    vlm_launches, vlm = phase_vlm_encoder(torch, smi)
     # Every count was checked per path; a kernel's launches are the sum over
     # the paths that run it (SRAD's three entries: phases 4c and 4f).
     launches = {k: main_launches[k] + dnn_launches[k] + level_launches[k] + lm_launches[k]
                 + feature_launches[k] + report_launches[k] + serve_launches[k]
                 + dist_launches[k] + train_launches[k] + moe_launches[k] + recurrent_launches[k]
-                for k in main_launches}
+                + vlm_launches[k] for k in main_launches}
     kernels = phase_yardstick(torch, launches, errors)
     # One row per kernel and shape (matmul_bf16 has three, nn and tn at
     # 4096^3 and nn at 1024^3; matmul_bf16_batched six), the kernels of no
@@ -4255,6 +4567,14 @@ def main() -> int:
               f"{RECURRENT_SERVE['prompt_len']}: {r['tokens_per_s']:.1f} tokens/s, prefill "
               f"{r['prefill_ms']:.3f} ms, decode step {r['decode_step_ms']:.4f} ms, peak memory "
               f"{r['peak_gb']:.2f} GB ({smi})")
+    r, f = vlm["vlm_serve"], vlm["encoder_forward"]
+    print(f"VLM serving, {VLM_ARCH} as published, bf16, batch {VLM_SERVE['batch']} x "
+          f"{VLM_SERVE['prompt_len']} embeddings: {r['tokens_per_s']:.1f} tokens/s, prefill "
+          f"{r['prefill_ms']:.3f} ms, decode step {r['decode_step_ms']:.4f} ms, peak memory "
+          f"{r['peak_gb']:.2f} GB ({smi})")
+    print(f"encoder, {ENCODER_ARCH} as published, bf16, batch {ENCODER_TIMED['batch']} x "
+          f"{ENCODER_TIMED['frames']} frames: {f['frames_per_s']:.1f} frames/s, forward "
+          f"{f['forward_ms']:.3f} ms, peak memory {f['peak_gb']:.2f} GB ({smi})")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -5,12 +5,12 @@ Counterpart of ``repro/configs/__init__.py``: the port keeps its own copies
 published configuration and ``get_smoke_config(name)`` a reduced
 same-family variant for CPU tests.
 
-``ARCHS`` lists the architectures whose block kinds the port runs: the four
-dense ones (attention + MLP), the two MoE ones (attention + MoE), the xLSTM
-one (mLSTM and sLSTM blocks) and the hybrid (Mamba and attention blocks,
-MLP and MoE FFNs). The reference's other two (the audio encoder, the VLM)
-wait for their input mode and M-RoPE: asking for one raises a ``KeyError``
-that says so.
+``ARCHS`` lists the reference's ten architectures: the four dense ones
+(attention + MLP), the two MoE ones (attention + MoE), the xLSTM one (mLSTM
+and sLSTM blocks), the hybrid (Mamba and attention blocks, MLP and MoE
+FFNs), the audio encoder (bidirectional, fed frame embeddings) and the VLM
+(fed patch and text embeddings, M-RoPE). An unknown name raises
+``KeyError``.
 """
 
 from __future__ import annotations
@@ -22,9 +22,7 @@ from repro_torch.models.config import ArchConfig
 __all__ = ["ARCHS", "get_config", "get_smoke_config"]
 
 ARCHS = ("granite-3-8b", "qwen1.5-0.5b", "granite-8b", "deepseek-7b", "xlstm-350m",
-         "mixtral-8x22b", "dbrx-132b", "jamba-1.5-large-398b")
-# The reference's architectures that the port does not run yet.
-NOT_PORTED = ("hubert-xlarge", "qwen2-vl-2b")
+         "mixtral-8x22b", "dbrx-132b", "hubert-xlarge", "jamba-1.5-large-398b", "qwen2-vl-2b")
 
 _MODULES = {
     name: "repro_torch.configs." + name.replace("-", "_").replace(".", "_") for name in ARCHS
@@ -32,16 +30,8 @@ _MODULES = {
 
 
 def _module(name: str):
-    if name in NOT_PORTED:
-        raise KeyError(
-            f"arch {name!r} is not ported yet: its embeddings input or M-RoPE "
-            "are ROADMAP.md queue 1, item 16.4; ported: " + ", ".join(ARCHS)
-        )
     if name not in _MODULES:
-        raise KeyError(
-            f"unknown arch {name!r}; ported: {', '.join(ARCHS)}; the reference's "
-            f"others ({', '.join(NOT_PORTED)}) are ROADMAP.md queue 1, item 16.4"
-        )
+        raise KeyError(f"unknown arch {name!r}; known: {', '.join(ARCHS)}")
     return importlib.import_module(_MODULES[name])
 
 

@@ -25,9 +25,12 @@
 // warp's rows (q held in shared memory as f32, pre-scaled as the reference
 // does), FMA on the CUDA cores; the row max and sum are warp shuffles; the
 // probabilities go to the warp's slice of shared memory, and each lane then
-// accumulates D / 32 output columns of p v. bf16 inputs are widened with
-// __bfloat162float, exactly as the reference's astype(float32), so kernel
-// and plain version differ only in the order of their sums. The tile loop
+// accumulates ceil(D / 32) output columns of p v: lane j owns columns
+// j * ceil(D / 32) + c below D, so every column is written exactly once (at
+// D = 80 lanes 0-25 own 3, lane 26 owns 2, lanes 27-31 none). bf16 inputs
+// are widened with __bfloat162float, exactly as the reference's
+// astype(float32), so kernel and plain version differ only in the order of
+// their sums. The tile loop
 // runs from lo to hi as in the reference: causal stops after the block
 // holding the CTA's last position, a window starts at the block holding its
 // first visible key (clamped at 0 before dividing), so a windowed decode
@@ -46,13 +49,26 @@
 // last stride (the model hands in transposed activations and a cache sliced
 // to its valid length).
 //
+// Head dims: 8, 16, 32, 64, 80 and 128 (the switch at the end). D = 80 is
+// hubert-xlarge's (1280 / 16 heads), which no other entry takes. Every
+// trip count divides there too: a tile row is D / kVec = 10 (bf16) or 20
+// (f32) 16-byte chunks, so a tile's 640 or 1280 chunks are 5 or 10 per
+// thread; the q load is kBlockQ * D / kThreads = 20 per thread; the score
+// loop's 16-byte slices and the padded rows (88 bf16, 84 f32) stay 16-byte
+// multiples. Bound at hubert's encoder shape, B8 H16/16 T=S=4096 D80
+// bidirectional: 4*D operations per pair over 2.15e9 pairs, 6.87e11 in all,
+// 0.695 ms at the bf16 rate, against 335.5 MB of q, k, v and o (0.100 ms at
+// 3.35 TB/s): bound by operations, which this kernel issues on the CUDA
+// cores in f32, far from that rate.
+//
 // Since the redesigns this kernel serves only the layouts its successors do
-// not take: bf16 (flash_attention_bf16_simt) with D in {8, 16, 32}, between
+// not take: bf16 (flash_attention_bf16_simt) with D in {8, 16, 32, 80}, between
 // 17 and 63 rows per KV head, a group that does not divide 128, or views
 // whose base or strides are not 16-byte multiples; f32
 // (flash_attention_f32_simt) views whose base or strides are not 16-byte
-// multiples. bf16 prefill goes to flash_attention_wgmma.cu, bf16 decode to
-// flash_decode.cu, and aligned f32 to flash_attention_f32_tma.cu.
+// multiples, or D = 80, which only this kernel compiles. bf16 prefill goes
+// to flash_attention_wgmma.cu, bf16 decode to flash_decode.cu, and aligned
+// f32 to flash_attention_f32_tma.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -177,7 +193,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_kernel(const Args a) {
   constexpr int kVec = Elem<T>::kVec;
   constexpr int LD = D + kVec;                 // padded tile row (elements)
-  constexpr int kCols = D >= 32 ? D / 32 : 1;  // output columns per lane
+  constexpr int kCols = (D + 31) / 32;         // output columns per lane, the last below D
   extern __shared__ __align__(16) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem);                          // [kBlockQ][D]
   T* sK = reinterpret_cast<T*>(sQ + kBlockQ * D);                      // [kBlockK][LD]
@@ -243,7 +259,11 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Args a) {
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
   }
-  const bool owns_cols = lane * kCols < D;
+  // Lane j owns columns j * kCols + c below D; a lane past them owns none.
+  bool owns[kCols];
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) owns[c] = lane * kCols + c < D;
+  const bool owns_cols = owns[0];
 
   for (int kb = lo; kb < hi; ++kb) {
     const int j0 = kb * kBlockK;
@@ -325,7 +345,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Args a) {
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
-          for (int c = 0; c < kCols; ++c) vf[jj][c] = to_f32(sV[(j + jj) * LD + lane * kCols + c]);
+          for (int c = 0; c < kCols; ++c)
+            vf[jj][c] = owns[c] ? to_f32(sV[(j + jj) * LD + lane * kCols + c]) : 0.f;
 #pragma unroll
         for (int r = 0; r < kRowsPerWarp; ++r) {
           if (r < nv) {
@@ -353,7 +374,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Args a) {
       T* orow = o + b * a.so[0] + h * a.so[1] + (long long)(p / a.group) * a.so[2];
       const float denom = fmaxf(l[r], 1e-30f);
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) store(acc[r][c] / denom, orow + lane * kCols + c);
+      for (int c = 0; c < kCols; ++c)
+        if (owns[c]) store(acc[r][c] / denom, orow + lane * kCols + c);
     }
   }
 }
@@ -406,6 +428,7 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int Hq, int
     case 16: return launch<E, 16>(a, B, s);
     case 32: return launch<E, 32>(a, B, s);
     case 64: return launch<E, 64>(a, B, s);
+    case 80: return launch<E, 80>(a, B, s);
     case 128: return launch<E, 128>(a, B, s);
     default: return cudaErrorInvalidValue;
   }

@@ -23,7 +23,7 @@ note at the top of each source for its bound and design:
   cores, for the layouts the other three do not take.
 
 - :func:`flash_attention_cuda` launches the routed entry on q (B, Hq, T, D)
-  and k, v (B, Hkv, S, D), float32 or bfloat16, D in {8, 16, 32, 64, 128}.
+  and k, v (B, Hkv, S, D), float32 or bfloat16, D in :data:`HEAD_DIMS`.
   It reads every operand through its strides and needs only a unit stride
   on the last axis, so transposed activations and a cache sliced to its
   valid length go in as views, never copied. The result is (B, Hq, T, D)
@@ -40,6 +40,17 @@ note at the top of each source for its bound and design:
   kernel's tile range and the wrapper's choice of splits.
 - ``launches`` (per C entry point) and ``plain_calls`` count as in
   ``kernels/matmul.py``.
+
+**Head dims.** Each entry compiles its own set (:data:`ENTRY_HEAD_DIMS`,
+each the ``switch (D)`` of its source): the SIMT kernels 8, 16, 32, 64, 80
+and 128, the f32 TMA kernel the same but 80, the wgmma and decode kernels 64
+and 128. D = 80 (hubert-xlarge's 1280 / 16) is on the SIMT kernels alone:
+:func:`_route` sends an f32 call at D = 80 to ``flash_attention_f32_simt``
+(the TMA kernel's 32-float boxes and float4 reads of V would need a box of
+16 floats there; it is not instantiated), and a bf16 one to
+``flash_attention_bf16_simt`` (a tensor-core prefill at D = 80 is
+performance work, held for a cell). A D that no entry compiles raises
+``ValueError`` before any launch.
 
 **Training.** :class:`FlashAttentionFunction` makes the kernel route
 differentiable: its forward is :func:`flash_attention_kernel` (the routed C
@@ -76,6 +87,7 @@ __all__ = [
     "plain_calls",
     "backward_calls",
     "HEAD_DIMS",
+    "ENTRY_HEAD_DIMS",
 ]
 
 launches = {
@@ -89,8 +101,15 @@ backward_calls = {"attention_bwd_torch": 0}
 BWD_BLOCK_BYTES = 1 << 26
 
 _DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (8, 16, 32, 64, 128)  # the head dims csrc instantiates
-TC_HEAD_DIMS = (64, 128)  # ... of which the wgmma and decode kernels take
+# Each entry's head dims: the cases of the ``switch (D)`` in its source.
+ENTRY_HEAD_DIMS = {
+    "flash_attention_f32": (8, 16, 32, 64, 128),
+    "flash_attention_f32_simt": (8, 16, 32, 64, 80, 128),
+    "flash_attention_bf16_simt": (8, 16, 32, 64, 80, 128),
+    "flash_attention_bf16_wgmma": (64, 128),
+    "flash_decode_bf16": (64, 128),
+}
+HEAD_DIMS = tuple(sorted(set().union(*ENTRY_HEAD_DIMS.values())))  # some entry compiles
 DECODE_ROWS = 16  # packed rows per KV head (group * T) the decode kernel holds
 DECODE_BLOCK_K = 64  # keys per decode tile
 MIN_WGMMA_ROWS = 64  # one consumer warpgroup's rows
@@ -147,7 +166,8 @@ def _check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> 
     if hkv == 0 or hq % hkv:
         raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
     if d not in HEAD_DIMS:
-        raise ValueError(f"attention kernel takes head dim D in {HEAD_DIMS}, got {d}")
+        raise ValueError(f"attention kernel takes head dim D in {HEAD_DIMS} (each entry its "
+                         f"own: {ENTRY_HEAD_DIMS}), got {d}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
             f"attention kernel takes float32 or bfloat16 q, k, v of one dtype, got "
@@ -183,29 +203,35 @@ def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window=None) -> st
     """The C entry point attention of these operands goes to, by dtype, head
     dim, packed rows per KV head (group * T), and alignment:
 
-    - ``flash_attention_f32`` for float32 with q, k and v 16-byte aligned
-      in base and strides (TMA, float4 loads), ``flash_attention_f32_simt``
-      for every other float32 call;
+    - ``flash_attention_f32`` for float32 with D in its head dims (all but
+      80) and q, k and v 16-byte aligned in base and strides (TMA, float4
+      loads), ``flash_attention_f32_simt`` for every other float32 call;
     - ``flash_decode_bf16`` for bf16 with D in {64, 128}, at most 16 packed
       rows, and k and v 16-byte aligned;
     - ``flash_attention_bf16_wgmma`` for bf16 with D in {64, 128}, at least
       64 packed rows, a group that divides 128, and q, k and v 16-byte
       aligned (TMA);
-    - ``flash_attention_bf16_simt`` for every other bf16 call.
+    - ``flash_attention_bf16_simt`` for every other bf16 call (D = 80
+      among them).
 
-    Raises ``ValueError`` on what no entry takes. Looks only at shapes,
-    strides and addresses, so it answers for CPU tensors too."""
+    Every D in :data:`HEAD_DIMS` reaches an entry that compiles it
+    (:data:`ENTRY_HEAD_DIMS`). Raises ``ValueError`` on what no entry
+    takes. Looks only at shapes, strides and addresses, so it answers for
+    CPU tensors too."""
     _check_layout(q, k, v, window)
+    d = q.shape[3]
+    dims = ENTRY_HEAD_DIMS
     if q.dtype == torch.float32:
-        tma = _tma_f32(q) and _tma_f32(k) and _tma_f32(v)
+        tma = d in dims["flash_attention_f32"] and _tma_f32(q) and _tma_f32(k) and _tma_f32(v)
         return "flash_attention_f32" if tma else "flash_attention_f32_simt"
-    _, hq, t, d = q.shape
+    _, hq, t, _ = q.shape
     group = hq // k.shape[1]
     rows = group * t
-    if d in TC_HEAD_DIMS and _aligned(k) and _aligned(v):
-        if rows <= DECODE_ROWS:
+    if _aligned(k) and _aligned(v):
+        if rows <= DECODE_ROWS and d in dims["flash_decode_bf16"]:
             return "flash_decode_bf16"
-        if rows >= MIN_WGMMA_ROWS and 128 % group == 0 and _aligned(q):
+        if (rows >= MIN_WGMMA_ROWS and d in dims["flash_attention_bf16_wgmma"]
+                and 128 % group == 0 and _aligned(q)):
             return "flash_attention_bf16_wgmma"
     return "flash_attention_bf16_simt"
 

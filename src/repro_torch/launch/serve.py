@@ -15,6 +15,12 @@ own dtype (bf16). ``model=`` serves a prebuilt model instead of one built
 from ``arch``, ``smoke`` and ``seed`` (the tests hand in the reference's
 weights that way).
 
+The prompts are tokens, as the reference's driver draws them, so it refuses
+what has none to serve: an encoder-only model (no decode path) and a model
+fed embeddings (``input_mode="embeds"``), which the reference's driver
+cannot serve either (its prefill finds no "embeds" in the batch). Those
+models run through ``Model.forward`` / ``prefill`` / ``decode_step``.
+
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch granite-3-8b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b --full \\
         --batch 8 --prompt-len 1024 --gen-len 64
@@ -58,6 +64,16 @@ def resolve_device(name: str) -> torch.device:
     return torch.device(name)
 
 
+def _check_servable(cfg) -> None:
+    if cfg.encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode path")
+    if cfg.input_mode != "tokens":
+        raise ValueError(
+            f"{cfg.name} takes input_mode {cfg.input_mode!r}: the serve driver feeds token "
+            "prompts; run its prefill and decode_step on an embeddings batch instead"
+        )
+
+
 def serve(
     *,
     arch: str,
@@ -72,23 +88,36 @@ def serve(
     model: Model | None = None,
 ) -> ServeStats:
     dev = resolve_device(device)
+    if model is not None and model.embed.device.type != dev.type:
+        raise ValueError(f"the model lies on {model.embed.device}, serve runs on {dev}")
+    cfg = model.cfg if model is not None else (
+        get_smoke_config(arch) if smoke else get_config(arch))
+    _check_servable(cfg)  # before any model is built
     if model is None:
-        cfg = get_smoke_config(arch) if smoke else get_config(arch)
-        if cfg.encoder_only:
-            raise ValueError(f"{arch} is encoder-only: no decode path")
         if smoke:
             cfg = dataclasses.replace(cfg, dtype="float32")
         model = Model(cfg, device=dev)
         model.init_weights(torch.Generator(device=dev).manual_seed(seed))
-    elif model.embed.device.type != dev.type:
-        raise ValueError(f"the model lies on {model.embed.device}, serve runs on {dev}")
-    cfg = model.cfg
 
     rng = np.random.default_rng(seed)
     prompts = [
         rng.integers(0, cfg.vocab, prompt_len).astype(np.int32)
         for _ in range(n_requests)
     ]
+
+    def prompt_batch(idx: list[int]) -> torch.Tensor:
+        return torch.from_numpy(np.stack([prompts[i] for i in idx])).to(dev, torch.long)
+
+    return _serve_rounds(model, prompt_batch, n_requests=n_requests, batch=batch,
+                         prompt_len=prompt_len, gen_len=gen_len, max_len=max_len)
+
+
+def _serve_rounds(model: Model, prompt_batch, *, n_requests: int, batch: int, prompt_len: int,
+                  gen_len: int, max_len: int) -> ServeStats:
+    """The schedule of :func:`serve`, timed from its first round.
+    ``prompt_batch(idx)`` is ``model.prefill``'s input for the requests
+    ``idx`` (one round, padded to ``batch``): a token tensor, or a batch
+    that a model fed embeddings takes."""
     pending = list(range(n_requests))
     outputs: list[list[int]] = [[] for _ in range(n_requests)]
 
@@ -100,8 +129,7 @@ def serve(
         pending = pending[len(active):]
         # Pad the pool to full batch (idle slots decode into a scratch row).
         idx = active + [active[-1]] * (batch - len(active))
-        toks = torch.from_numpy(np.stack([prompts[i] for i in idx])).to(dev, torch.long)
-        cache, logits = model.prefill(toks, max_len)
+        cache, logits = model.prefill(prompt_batch(idx), max_len)
         prefilled += prompt_len * len(active)
         last = torch.argmax(logits[:, -1], dim=-1)
         host = last.tolist()  # one transfer for the whole pool
@@ -143,11 +171,15 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         print(f"serve: {e}", file=sys.stderr)
         return 2
-    stats = serve(
-        arch=args.arch, smoke=not args.full, n_requests=args.requests,
-        batch=args.batch, prompt_len=args.prompt_len, gen_len=args.gen_len,
-        max_len=args.prompt_len + args.gen_len + 8, device=args.device,
-    )
+    try:
+        stats = serve(
+            arch=args.arch, smoke=not args.full, n_requests=args.requests,
+            batch=args.batch, prompt_len=args.prompt_len, gen_len=args.gen_len,
+            max_len=args.prompt_len + args.gen_len + 8, device=args.device,
+        )
+    except ValueError as e:  # a model it cannot serve, refused before one is built
+        print(f"serve: {e}", file=sys.stderr)
+        return 2
     print(
         f"[serve] {stats.requests} requests, {stats.prefill_tokens} prefill + "
         f"{stats.decoded_tokens} decoded tokens in {stats.wall_s:.2f}s "

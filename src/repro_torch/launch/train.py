@@ -39,7 +39,7 @@ import torch
 
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
-from repro_torch.data import Prefetch, SyntheticLM
+from repro_torch.data import Prefetch, SyntheticEmbeds, SyntheticLM
 from repro_torch.launch.serve import resolve_device
 from repro_torch.models import Model
 from repro_torch.optim import AdamW, warmup_cosine
@@ -47,6 +47,15 @@ from repro_torch.runtime.steps import make_train_step
 from repro_torch.runtime.straggler import StragglerMonitor
 
 __all__ = ["main", "train"]
+
+
+def _make_data(cfg, batch: int, seq: int, seed: int):
+    """The synthetic stream ``cfg`` trains on: embeddings (and M-RoPE
+    positions) for ``input_mode="embeds"``, tokens otherwise."""
+    if cfg.input_mode == "embeds":
+        return SyntheticEmbeds(d_model=cfg.d_model, vocab=cfg.vocab, batch=batch, seq=seq,
+                               mrope=cfg.rope == "mrope", seed=seed)
+    return SyntheticLM(vocab=cfg.vocab, batch=batch, seq=seq, seed=seed)
 
 
 class _StepTimer:
@@ -138,7 +147,7 @@ def train(
         print(f"[train] resumed from step {restored_step} (cursor {start_step}) in "
               f"{restore_s:.2f} s")
 
-    data = SyntheticLM(vocab=cfg.vocab, batch=batch, seq=seq, seed=seed)
+    data = _make_data(cfg, batch, seq, seed)
     prefetch = Prefetch(data.batch_at, start_step=start_step, device=dev)
     monitor = StragglerMonitor()
     losses: list[float] = []

@@ -4,10 +4,9 @@ Counterpart of ``repro/models/config.py``, kept as the port's own copy (the
 port imports nothing of the JAX package): one ``ArchConfig`` describes any
 of the reference's architectures and their reduced smoke variants, field for
 field, so a config means the same in both packages. The port runs every
-block kind (``models/model.py``); what it refuses so far is the audio
-encoder's ``input_mode="embeds"`` and the VLM's M-RoPE (ROADMAP.md queue 1,
-item 16.4), whose fields are kept so the configs stay copies of the
-reference's.
+block kind, both input modes and M-RoPE (``models/model.py``,
+``models/layers.py``); it refuses only the reference's XLA attention knobs
+away from their defaults (``layers.check_supported``).
 
 The layer stack is a repeating *period* of block kinds (``block_period``):
 dense models have a period of one fused attention + MLP block; jamba has a

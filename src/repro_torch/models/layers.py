@@ -1,4 +1,4 @@
-"""Core transformer layers: RMSNorm, RoPE, GQA attention, SwiGLU.
+"""Core transformer layers: RMSNorm, RoPE and M-RoPE, GQA attention, SwiGLU.
 
 Counterpart of ``repro/models/layers.py``, function for function, in its
 functional style: ``init_*(generator, cfg)`` builds a dict of tensors and an
@@ -15,8 +15,8 @@ Attention goes through ``kernels.ops.attention``: the hand-written flash
 kernel for CUDA tensors, its plain version on the CPU. The reference's
 XLA-only attention knobs (``attn_chunk``, ``score_dtype``, ``unroll_inner``)
 have no counterpart here: a config that sets one away from its default is
-refused, never quietly run another way. M-RoPE (the VLM's multimodal
-positions) is not ported yet.
+refused, never quietly run another way. M-RoPE (Qwen2-VL's multimodal
+positions) follows the reference's section rule (:func:`rope_angles`).
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ __all__ = [
     "apply_attention",
     "init_mlp",
     "apply_mlp",
+    "mrope_sections",
     "rope_angles",
     "apply_rope",
 ]
@@ -53,7 +54,7 @@ def dtype_of(cfg: ArchConfig) -> torch.dtype:
 
 def check_supported(cfg: ArchConfig) -> None:
     """Refuse what the port's attention does not run: the reference's XLA
-    knobs away from their defaults, and M-RoPE."""
+    knobs away from their defaults."""
     knobs = {"attn_chunk": (cfg.attn_chunk, 0), "score_dtype": (cfg.score_dtype, "float32"),
              "unroll_inner": (cfg.unroll_inner, False)}
     set_knobs = {k: v for k, (v, default) in knobs.items() if v != default}
@@ -61,11 +62,6 @@ def check_supported(cfg: ArchConfig) -> None:
         raise ValueError(
             f"{cfg.name}: {set_knobs} tune the reference's XLA attention; the port's "
             "attention is the flash kernel and has no such knob"
-        )
-    if cfg.rope == "mrope":
-        raise NotImplementedError(
-            f"{cfg.name}: M-RoPE (the VLM's positions) is not ported yet "
-            "(ROADMAP.md queue 1, item 16.4)"
         )
 
 
@@ -93,18 +89,44 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def rope_angles(cfg: ArchConfig, positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables of shape (B, T, head_dim/2), f32, for (B, T) integer
-    positions (plain RoPE; M-RoPE's (B, T, 3) positions are not ported)."""
-    if cfg.rope == "mrope" or positions.dim() != 2:
-        raise NotImplementedError(
-            "M-RoPE is not ported yet (ROADMAP.md queue 1, item 16.4); positions must be (B, T)"
-        )
+def mrope_sections(cfg: ArchConfig) -> tuple[int, int, int]:
+    """How many of the head_dim/2 frequency pairs the (t, h, w) position ids
+    drive, in that order: the config's sections rescaled to head_dim/2 as
+    the reference rescales them (t and h rounded down, w the rest)."""
     half = cfg.head_dim // 2
-    freqs = cfg.rope_theta ** (
-        -torch.arange(half, dtype=torch.float32, device=positions.device) / half
-    )
-    angles = positions.float()[..., None] * freqs  # (B, T, half)
+    s0, s1, s2 = cfg.mrope_sections
+    tot = s0 + s1 + s2
+    n0, n1 = (s0 * half) // tot, (s1 * half) // tot
+    return n0, n1, half - n0 - n1
+
+
+def rope_angles(cfg: ArchConfig, positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables of shape (B, T, head_dim/2), f32.
+
+    ``positions``: (B, T) integers for plain RoPE, or (B, T, 3) for M-RoPE,
+    the trailing axis the (temporal, height, width) ids. M-RoPE gives each
+    frequency pair one of the three components (Qwen2-VL §3.1): the first
+    pairs take t, the next h, the last w (:func:`mrope_sections`), each
+    angle that component's id times the pair's frequency. With the three ids
+    equal (text) it is plain RoPE."""
+    half = cfg.head_dim // 2
+    # The exponents in f32 as the reference's; the power in f64, rounded
+    # once to f32: the correctly rounded table XLA's f32 power gives, where
+    # torch's f32 power is an ulp off on some frequencies.
+    exponent = -torch.arange(half, dtype=torch.float32, device=positions.device) / half
+    freqs = (cfg.rope_theta ** exponent.double()).float()
+    if positions.dim() == 2:
+        pos = positions.float()[..., None]  # (B, T, 1)
+    elif positions.dim() == 3 and positions.shape[-1] == 3:
+        # The reference's take_along_axis of a section id per pair, built on
+        # the device without a copy from the host or a wait for it.
+        n0, n1, _ = mrope_sections(cfg)
+        pair = torch.arange(half, device=positions.device)
+        sec_id = (pair >= n0).long() + (pair >= n0 + n1).long()
+        pos = positions.float()[..., sec_id]  # (B, T, half)
+    else:
+        raise ValueError(f"positions must be (B, T) or (B, T, 3), got {tuple(positions.shape)}")
+    angles = pos * freqs  # (B, T, half)
     return torch.cos(angles), torch.sin(angles)
 
 

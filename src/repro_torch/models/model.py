@@ -1,5 +1,6 @@
-"""The LM: an ArchConfig of attention, Mamba and xLSTM blocks, their FFNs
-dense or MoE -> init / forward / prefill / decode.
+"""The model: an ArchConfig of attention, Mamba and xLSTM blocks, their FFNs
+dense or MoE, over tokens or precomputed embeddings -> init / forward /
+prefill / decode.
 
 Counterpart of ``repro/models/model.py`` for every block kind the reference
 has: ``attn_mlp`` and ``attn_moe`` (attention, then a SwiGLU MLP or an MoE
@@ -11,8 +12,19 @@ holds an ``nn.ModuleList`` with one block per layer and loops over it in
 Python: PyTorch runs eagerly, and one block per layer is what the state
 dict names (``blocks.<i>.mixer.wq``, ``blocks.<i>.mixer.A_log``,
 ``blocks.<i>.ffn.router``; an xLSTM block's leaves at its top level,
-``blocks.<i>.w_up``, ``blocks.<i>.r_z``). ``input_mode="embeds"`` and M-RoPE
-raise ``NotImplementedError``: they are ROADMAP.md queue 1, item 16.4.
+``blocks.<i>.w_up``, ``blocks.<i>.r_z``).
+
+Inputs, as the reference's ``_embed_in``: ``forward``, ``prefill`` and
+``loss_fn`` take a batch dict, ``{"tokens"}`` (B, T) or, for
+``input_mode="embeds"`` (the audio encoder's frames, the VLM's patch and
+text embeddings, from a stubbed frontend), ``{"embeds"}`` (B, T, d_model),
+cast to the model's dtype; with optional ``"positions"``, (B, T) or, under
+M-RoPE, (B, T, 3) (t, h, w) ids, else ``arange(T)`` for every row (three
+times over under M-RoPE). ``forward`` and ``prefill`` also take a bare token
+tensor. The token table ``embed`` exists in either mode: an embeds model
+that ties its embeddings unembeds through it, and ``decode_step`` embeds its
+tokens through it. Under M-RoPE a decode step's positions are ``(pos, pos,
+pos)``, as the reference's (no offset after a compressed image grid).
 
 Training: ``loss_fn`` is the reference's next-token cross entropy over f32
 logits. With ``remat`` on (the default, as the reference's), ``forward``
@@ -186,11 +198,6 @@ class Model(nn.Module):
                  remat: bool = True) -> None:
         super().__init__()
         cfg.validate()
-        if cfg.input_mode != "tokens":
-            raise NotImplementedError(
-                f"{cfg.name}: input_mode {cfg.input_mode!r} is not ported yet "
-                "(ROADMAP.md queue 1, item 16.4)"
-            )
         check_supported(cfg)
         self.cfg = cfg
         self.remat = remat
@@ -221,10 +228,24 @@ class Model(nn.Module):
             self.unembed.copy_(init_dense(generator, cfg.d_model, cfg.vocab, dt))
 
     # ---- shared pieces ----------------------------------------------------
-    def _embed_in(self, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        x = self.embed[tokens]
-        b, t = tokens.shape
-        positions = torch.arange(t, device=tokens.device).expand(b, t)
+    def _embed_in(self, inputs) -> tuple[torch.Tensor, torch.Tensor]:
+        """(x (B, T, d), positions) from a token tensor or a batch dict (the
+        module docstring's inputs)."""
+        cfg = self.cfg
+        batch = inputs if isinstance(inputs, dict) else {"tokens": inputs}
+        if cfg.input_mode == "embeds":
+            if "embeds" not in batch:
+                raise ValueError(f"{cfg.name} takes input_mode 'embeds': a batch with "
+                                 "\"embeds\" (B, T, d_model), not tokens")
+            x = batch["embeds"].to(dtype_of(cfg))
+        else:
+            x = self.embed[batch["tokens"].long()]
+        b, t = x.shape[:2]
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(t, device=x.device).expand(b, t)
+            if cfg.rope == "mrope":
+                positions = positions[..., None].expand(b, t, 3)
         return x, positions
 
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
@@ -254,9 +275,9 @@ class Model(nn.Module):
     def _block_out(self, block: Block, x: torch.Tensor, positions: torch.Tensor):
         return self._block(block, x, positions)[0]
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, T) -> logits (B, T, V), f32."""
-        x, positions = self._embed_in(tokens)
+    def forward(self, inputs) -> torch.Tensor:
+        """tokens (B, T), or a batch dict -> logits (B, T, V), f32."""
+        x, positions = self._embed_in(inputs)
         remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
             if remat:
@@ -270,11 +291,12 @@ class Model(nn.Module):
         return self._unembed(rms_norm(x, self.ln_f, self.cfg.norm_eps))
 
     def loss_fn(self, batch: dict) -> tuple[torch.Tensor, dict]:
-        """Mean next-token cross entropy of ``batch`` ({"tokens", "labels"}
-        (B, T), optional "loss_mask"), from f32 logits: logsumexp less the
-        gold logit, masked, over the mask's sum clamped to at least 1.
-        -> (loss, {"loss", "tokens"}), 0-d f32 tensors on the device."""
-        logits = self.forward(batch["tokens"].long())  # (B, T, V) f32
+        """Mean cross entropy of ``batch`` ({"tokens"} or {"embeds"}, optional
+        "positions", "labels" (B, T), optional "loss_mask") from f32 logits:
+        logsumexp less the gold logit, masked, over the mask's sum clamped to
+        at least 1. -> (loss, {"loss", "tokens"}), 0-d f32 tensors on the
+        device."""
+        logits = self.forward(batch)  # (B, T, V) f32
         labels = batch["labels"].long()
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels[..., None])[..., 0]
@@ -306,9 +328,10 @@ class Model(nn.Module):
         return [entry(block.kind) for block in self.blocks]
 
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor, max_len: int):
-        """Run the prompt tokens (B, T); returns (cache, logits (B, T, V))."""
-        x, positions = self._embed_in(tokens)
+    def prefill(self, inputs, max_len: int):
+        """Run the prompt: tokens (B, T), or a batch dict; returns (cache,
+        logits (B, T, V))."""
+        x, positions = self._embed_in(inputs)
         cache = []
         for block in self.blocks:
             x, entry = self._block(block, x, positions)
@@ -319,8 +342,8 @@ class Model(nn.Module):
 
     def _decode_block(self, block: Block, entry: dict, x_t: torch.Tensor,
                       positions_t: torch.Tensor, pos: int):
-        """One layer of a decode step at ``pos`` (``positions_t`` (B, 1) holds
-        it on the device), updating the layer's cache ``entry`` in place: an
+        """One layer of a decode step at ``pos`` (``positions_t`` (B, 1), or
+        (B, 1, 3) under M-RoPE, holds it on the device), updating the layer's cache ``entry`` in place: an
         attention layer writes the step's K/V into slot ``pos % S``, a
         recurrent layer copies its new state over the old. x_t (B, d) ->
         (B, d)."""
@@ -366,11 +389,13 @@ class Model(nn.Module):
     @torch.inference_mode()
     def decode_step(self, cache: list[dict], tokens: torch.Tensor, pos: int):
         """One token step for the batch: tokens (B,), ``pos`` the absolute
-        position (a host int). Updates every entry of ``cache`` in place (the
-        step's K/V into slot ``pos % S``, each recurrent state copied over)
-        and returns (logits (B, V), cache)."""
+        position (a host int; under M-RoPE each of the three ids). Updates
+        every entry of ``cache`` in place (the step's K/V into slot ``pos %
+        S``, each recurrent state copied over) and returns (logits (B, V),
+        cache)."""
         x_t = self.embed[tokens]  # (B, d)
-        positions_t = torch.full((x_t.shape[0], 1), pos, dtype=torch.long, device=x_t.device)
+        shape = (x_t.shape[0], 1, 3) if self.cfg.rope == "mrope" else (x_t.shape[0], 1)
+        positions_t = torch.full(shape, pos, dtype=torch.long, device=x_t.device)
         for block, entry in zip(self.blocks, cache, strict=True):
             x_t = self._decode_block(block, entry, x_t, positions_t, pos)
         logits = self._unembed(rms_norm(x_t, self.ln_f, self.cfg.norm_eps))

@@ -8,6 +8,8 @@ of the microbatches' losses). The reference's step is a pure function whose
 buffers the caller donates; here the step updates the model's parameters
 and the optimizer state in place and returns the state, so no second copy
 of either exists. Its metrics stay device tensors: a step makes no host read.
+The batch is any dict the model's ``loss_fn`` takes: tokens, or embeddings
+with their positions; ``accum`` slices every leaf on its leading axis.
 """
 
 from __future__ import annotations
@@ -43,7 +45,10 @@ def make_train_step(
 
     def grads_of(batch):
         loss, metrics = model.loss_fn(batch)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        # A leaf the loss does not reach (an embeddings model's token table
+        # where the unembedding is its own) gets a zero gradient, as under
+        # the reference's jax.grad.
+        grads = torch.autograd.grad(loss, list(params.values()), materialize_grads=True)
         return loss.detach(), metrics, dict(zip(params, grads, strict=True))
 
     def train_step(opt_state: AdamWState, batch: dict) -> tuple[AdamWState, dict]:

@@ -11,6 +11,9 @@ kernel itself runs only on a card: ``chip_smoke.py`` and
 wrapper's checks, which run before any launch, are tested here.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -282,3 +285,51 @@ def test_route_refuses_layouts_no_entry_takes():
         tfa.flash_decode_partials_cuda(_bf16(1, 4, 64, 64), _bf16(1, 2, 64, 64),
                                        _bf16(1, 2, 64, 64), splits=2)
     assert tfa.launches == launches
+
+
+# Each attention entry's source under kernels/csrc/.
+SOURCES = {
+    "flash_attention_f32": "flash_attention_f32_tma.cu",
+    "flash_attention_f32_simt": "flash_attention.cu",
+    "flash_attention_bf16_simt": "flash_attention.cu",
+    "flash_attention_bf16_wgmma": "flash_attention_wgmma.cu",
+    "flash_decode_bf16": "flash_decode.cu",
+}
+
+
+def _switch_cases(source: str) -> list[set[int]]:
+    """The head dims of every ``switch (D)`` in a kernel source: one set of
+    ``case N:`` labels per switch."""
+    text = (Path(tfa.__file__).parent / "csrc" / source).read_text()
+    out = []
+    for m in re.finditer(r"switch \(D\) \{(.*?)\n  \}", text, re.S):
+        out.append({int(n) for n in re.findall(r"case (\d+):", m.group(1))})
+    return out
+
+
+def test_every_head_dim_a_route_reaches_is_a_case_of_its_entrys_source():
+    """Each entry's head dims are the cases of every ``switch (D)`` in its
+    source, and a sweep of layouts (dtypes, D 1-256, T, groups, aligned and
+    not) routes each D only to an entry whose source compiles it: a D that no
+    kernel compiles cannot reach a launch, it raises before one."""
+    for entry, source in SOURCES.items():
+        cases = _switch_cases(source)
+        assert cases and all(c == set(tfa.ENTRY_HEAD_DIMS[entry]) for c in cases), entry
+    assert set(tfa.HEAD_DIMS) == set().union(*map(set, tfa.ENTRY_HEAD_DIMS.values()))
+    reached = {entry: set() for entry in SOURCES}
+    for dt in (torch.float32, torch.bfloat16):
+        for d in range(1, 257):
+            for hq, hkv, t, s in ((4, 4, 1, 70), (8, 1, 1, 40), (12, 2, 40, 40),
+                                  (16, 16, 64, 64), (8, 2, 100, 130), (48, 8, 9, 9)):
+                q = torch.empty(1, hq, t, d, dtype=dt)
+                for k in (torch.empty(1, hkv, s, d, dtype=dt),
+                          torch.empty(1 + hkv * s * d, dtype=dt)[1:].view(1, hkv, s, d)):
+                    if d not in tfa.HEAD_DIMS:
+                        with pytest.raises(ValueError, match="head dim"):
+                            tfa._route(q, k, k)
+                        continue
+                    entry = tfa._route(q, k, k)
+                    assert d in set.intersection(*_switch_cases(SOURCES[entry])), (entry, d)
+                    reached[entry].add(d)
+    assert 80 in reached["flash_attention_bf16_simt"] & reached["flash_attention_f32_simt"]
+    assert 80 not in reached["flash_attention_f32"]

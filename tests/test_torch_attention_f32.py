@@ -52,10 +52,14 @@ def test_route_sends_aligned_f32_to_the_tma_kernel():
     step = _f32(4, 1, 4, 16).transpose(1, 2)
     assert tfa._route(step, cache[:, :32].transpose(1, 2),
                       cache[:, :32].transpose(1, 2)) == "flash_attention_f32"
+    tma_dims = tfa.ENTRY_HEAD_DIMS["flash_attention_f32"]
     for d in tfa.HEAD_DIMS:  # every compiled head dim, prefill and decode rows
+        want = "flash_attention_f32" if d in tma_dims else "flash_attention_f32_simt"
         for t in (1, 40):
-            assert tfa._route(_f32(1, 4, t, d), _f32(1, 2, 70, d),
-                              _f32(1, 2, 70, d)) == "flash_attention_f32"
+            assert tfa._route(_f32(1, 4, t, d), _f32(1, 2, 70, d), _f32(1, 2, 70, d)) == want
+    # D = 80 (hubert-xlarge's) is compiled by the SIMT kernels alone.
+    assert 80 not in tfa.ENTRY_HEAD_DIMS["flash_attention_f32"]
+    assert 80 in tfa.ENTRY_HEAD_DIMS["flash_attention_f32_simt"]
 
 
 def test_route_keeps_the_simt_kernel_for_f32_views_tma_cannot_read():

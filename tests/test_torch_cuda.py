@@ -1572,10 +1572,41 @@ def test_prefetch_copies_each_batch_on_a_side_stream_in_order(card):
     assert not pf._thread.is_alive()
 
 
-# The MoE path's attention: 48 query heads over 8 KV heads (group 6), D 128.
+# Head dim 80 (hubert-xlarge's) on the entries that compile it, the SIMT
+# kernels: bidirectional and causal, ragged T and S, hubert's group 1 and a
+# group of 2, a window, and a batch row of hubert's encoder layer.
+D80_CASES = [
+    (1, 4, 4, 33, 33, False, None), (2, 4, 4, 17, 17, True, None),
+    (1, 4, 2, 45, 77, True, None), (2, 4, 2, 7, 30, False, None), (1, 2, 1, 1, 50, True, 9),
+    (2, 16, 16, 100, 100, False, None), (1, 16, 16, 4096, 4096, False, None),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,s,causal,window", D80_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_80_on_the_simt_entries_matches_plain(card, b, hq, hkv, t, s, causal, window,
+                                                       dtype):
+    q, k, v = _attention_inputs(card, b, hq, hkv, t, s, 80, dtype)
+    entry = flash_attention._route(q, k, v, window)
+    assert entry == ("flash_attention_f32_simt" if dtype == torch.float32
+                     else "flash_attention_bf16_simt")
+    before = dict(flash_attention.launches)
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert {n: flash_attention.launches[n] - before[n] for n in before} == {
+        n: int(n == entry) for n in before}
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal, window=window)
+    tol = _attention_tol(dtype)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# The MoE path's attention: 48 query heads over 8 KV heads (group 6), D 128;
+# then the VLM's (qwen2-vl-2b: 12 over 2) prefill and decode.
 GROUP6_CASES = [
     ((1, 48, 8, 300, 300, 128), True, 100, "flash_attention_bf16_simt"),
     ((2, 48, 8, 1, 4096, 128), False, None, "flash_decode_bf16"),
+    ((1, 12, 2, 2048, 2048, 128), True, None, "flash_attention_bf16_simt"),
+    ((4, 12, 2, 1, 2112, 128), False, None, "flash_decode_bf16"),
 ]
 
 

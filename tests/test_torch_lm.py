@@ -25,6 +25,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as ref_archs
+from repro.configs import get_config as ref_config
 from repro.configs import get_smoke_config as ref_smoke_config
 from repro.launch.serve import serve as ref_serve
 from repro.models import Model as RefModel
@@ -96,6 +98,20 @@ def test_rope_matches_reference(rng, arch):
     x = rng.normal(size=(2, 7, cfg.n_heads, cfg.head_dim)).astype(np.float32)
     _close(tl.apply_rope(_t(x), cos_t, sin_t), rl.apply_rope(jnp.asarray(x), cos_r, sin_r),
            LAYER_TOL)
+
+
+@pytest.mark.parametrize("arch", SMOKE_ARCHS)
+def test_rope_at_the_published_head_dim_and_long_positions_matches_reference(rng, arch):
+    """head_dim 128 and 64, theta 1e4 and 1e6, positions to 32768: the
+    frequency table must round as the reference's (XLA's f32 power is
+    correctly rounded), or an ulp's difference grows with the position."""
+    ref_cfg = dataclasses.replace(ref_config(arch), dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    positions = rng.integers(0, 32768, size=(2, 9)).astype(np.int32)
+    cos_r, sin_r = rl.rope_angles(ref_cfg, jnp.asarray(positions))
+    cos_t, sin_t = tl.rope_angles(cfg, _t(positions).long())
+    _close(cos_t, cos_r, LAYER_TOL)
+    _close(sin_t, sin_r, LAYER_TOL)
 
 
 @pytest.mark.parametrize("arch", SMOKE_ARCHS)
@@ -305,19 +321,17 @@ def test_serve_builds_its_model_from_a_seed_and_the_cli_runs(capsys):
 
 
 # ---------------------------------------------------------------------------
-# (e) what the port refuses
+# (e) the configs and input modes, and what the port refuses
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("arch", ["hubert-xlarge", "qwen2-vl-2b"])
-def test_unported_archs_are_refused_naming_the_roadmap(arch):
-    with pytest.raises(KeyError, match="queue 1, item 16"):
-        get_config(arch)
-    with pytest.raises(KeyError, match="queue 1, item 16"):
-        tserve.serve(arch=arch, device="cpu")
+def test_encoder_and_vlm_configs_equal_the_references_field_for_field(arch):
+    assert arch in ARCHS and ARCHS == ref_archs
+    for port, ref in ((get_config, ref_config), (get_smoke_config, ref_smoke_config)):
+        assert dataclasses.asdict(port(arch)) == dataclasses.asdict(ref(arch))
     with pytest.raises(KeyError, match="unknown arch"):
         get_smoke_config("llama-9000")
-    assert arch not in ARCHS
 
 
 def _base_config() -> ArchConfig:
@@ -325,12 +339,22 @@ def _base_config() -> ArchConfig:
                       n_kv_heads=2, head_dim=16, d_ff=128, vocab=128, dtype="float32")
 
 
-def test_non_dense_block_kinds_are_refused():
-    """Every block kind runs (item 16.3); what is refused is the rest of
-    item 16.4: the encoder's embeddings input here, M-RoPE in
-    ``test_mrope_is_refused``."""
-    with pytest.raises(NotImplementedError, match="input_mode 'embeds'.*item 16.4"):
-        Model(dataclasses.replace(_base_config(), input_mode="embeds"), device="cpu")
+def test_an_embeds_model_builds_and_runs_on_embeddings_only(rng):
+    """``input_mode="embeds"``: forward, prefill and the loss on a batch of
+    embeddings (cast to the model's dtype); a token batch is refused."""
+    cfg = dataclasses.replace(_base_config(), input_mode="embeds")
+    model = Model(cfg, device="cpu")
+    model.init_weights(torch.Generator().manual_seed(0))
+    embeds = _t(rng.normal(size=(2, 6, cfg.d_model)).astype(np.float64))
+    logits = model({"embeds": embeds})
+    assert logits.dtype == torch.float32 and tuple(logits.shape) == (2, 6, cfg.vocab)
+    assert torch.equal(logits, model({"embeds": embeds.float()}))
+    cache, prefill = model.prefill({"embeds": embeds}, 8)
+    torch.testing.assert_close(prefill, logits, rtol=LOGIT_TOL, atol=LOGIT_TOL)
+    loss, _ = model.loss_fn({"embeds": embeds, "labels": _t(_tokens(rng, cfg, 2, 6))})
+    assert bool(torch.isfinite(loss))
+    with pytest.raises(ValueError, match="embeds"):
+        model(_t(_tokens(rng, cfg, 2, 6)).long())
 
 
 def test_a_hybrid_stack_converts_period_position_j_of_period_n_to_layer_pn_plus_j():
@@ -356,12 +380,26 @@ def test_a_hybrid_stack_converts_period_position_j_of_period_n_to_layer_pn_plus_
     assert all(torch.equal(got[k], state[k]) for k in state)
 
 
-def test_mrope_is_refused():
+def test_mrope_runs_and_with_equal_ids_equals_plain_rope_bit_for_bit(rng):
+    """A token model under M-RoPE: its default positions are arange(T) in
+    each of the three components, which is plain RoPE; explicit (B, T, 3)
+    ids that differ move the logits; decode takes (pos, pos, pos)."""
     _, cfg = _cfgs("granite-3-8b", rope="mrope")
-    with pytest.raises(NotImplementedError, match="M-RoPE.*item 16.4"):
-        Model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="M-RoPE.*item 16.4"):
-        tl.rope_angles(cfg, torch.zeros(1, 4, 3, dtype=torch.long))
+    model = Model(cfg, device="cpu")
+    model.init_weights(torch.Generator().manual_seed(0))
+    plain = Model(dataclasses.replace(cfg, rope="rope"), device="cpu")
+    plain.load_state_dict(model.state_dict())
+    tokens = _t(_tokens(rng, cfg, 2, 7)).long()
+    got = model(tokens)
+    assert torch.equal(got, plain(tokens))
+    ids = np.repeat(np.arange(7)[None, :, None], 3, axis=-1).repeat(2, axis=0)
+    ids[:, 3:, 1:] += 5
+    moved = model({"tokens": tokens, "positions": _t(ids)})
+    assert (moved - got).abs().max().item() > 1e-6
+    cache, _ = model.prefill(tokens, 12)
+    step, _ = model.decode_step(cache, tokens[:, 0], 7)
+    _, want = plain.prefill(torch.cat([tokens, tokens[:, :1]], dim=1), 12)
+    torch.testing.assert_close(step, want[:, -1], rtol=LOGIT_TOL, atol=LOGIT_TOL)
 
 
 @pytest.mark.parametrize("knob", [{"attn_chunk": 4}, {"score_dtype": "bfloat16"},

@@ -47,6 +47,7 @@ import pytest
 import torch
 
 from repro.configs import get_smoke_config as ref_smoke_config
+from repro.data import SyntheticEmbeds as RefSyntheticEmbeds
 from repro.data import SyntheticLM as RefSyntheticLM
 from repro.models import Model as RefModel
 from repro.optim import AdamW as RefAdamW
@@ -331,9 +332,26 @@ def test_synthetic_lm_is_the_reference_stream_from_numpy():
     assert small["tokens"].max() < 100
 
 
-def test_synthetic_embeds_is_not_ported():
-    with pytest.raises(NotImplementedError, match="16.4"):
-        SyntheticEmbeds(d_model=8, vocab=16, batch=2, seq=4)
+@pytest.mark.parametrize("mrope", [False, True])
+def test_synthetic_embeds_batches_as_the_reference_lays_them_out(mrope):
+    """The reference's fields, shapes and laws (standard-normal f32
+    embeddings, uniform labels, arange positions in each component under
+    M-RoPE), drawn from numpy: a pure function of (seed, step)."""
+    data = SyntheticEmbeds(d_model=8, vocab=16, batch=3, seq=500, mrope=mrope, seed=2)
+    ref = RefSyntheticEmbeds(d_model=8, vocab=16, batch=3, seq=500, mrope=mrope, seed=2)
+    a, r = data.batch_at(4), ref.batch_at(4)
+    assert sorted(a) == sorted(r) == sorted(["embeds", "labels"] + ["positions"] * mrope)
+    for name in a:
+        assert a[name].shape == tuple(r[name].shape), name
+    assert a["embeds"].dtype == np.float32 and a["labels"].dtype == np.int32
+    assert abs(a["embeds"].mean()) < 0.05 and 0.95 < a["embeds"].std() < 1.05
+    assert a["labels"].min() == 0 and a["labels"].max() == 15
+    if mrope:
+        assert a["positions"].dtype == np.int32
+        np.testing.assert_array_equal(a["positions"], np.asarray(r["positions"]))
+    again = data.batch_at(4)
+    assert all(np.array_equal(a[k], again[k]) for k in a)
+    assert not np.array_equal(a["embeds"], data.batch_at(5)["embeds"])
 
 
 def test_prefetch_order_backpressure_and_close():

@@ -66,7 +66,7 @@ exits nonzero without printing its result line:
    then SRAD again with ``fused=False``, counters set to 0 just before and
    read just after each run (SRAD's step loop runs as one CUDA graph
    replay a call; the counters still count every launch that ran);
-4e. levels 0-2 without a kernel: the same at preset 4 over the 17
+4e. levels 0-2 without a kernel: the same at preset 3 over the 17
    benchmarks that have none (DeviceMemory, BusSpeed both ways, BFS, GUPS,
    Pathfinder, CFD, DWT2D both modes, KMeans, LavaMD, Mandelbrot both
    algorithms, NW, ParticleFilter), forward: each row validated, timed
@@ -93,7 +93,7 @@ exits nonzero without printing its result line:
    counter read around each trial, rising in the 128x256 ones), then a
    second engine on the same directory (0 trials, the same winners, 3 tune
    hits), the roofline rows of its report; then ``python -m
-   repro_torch.benchmarks.run --preset 4 --sections table1 table2 fig3
+   repro_torch.benchmarks.run --preset 2 --sections table1 table2 fig3
    fig4 fig5 fig12 fig_impl roofline`` in this process, each section's
    rows and seconds printed, any error row failing the run, and the
    counters of matmul_f32, softmax_f32, lrn_f32, avgpool_f32 and
@@ -106,7 +106,7 @@ exits nonzero without printing its result line:
    against the width-1 call on each member's inputs, a saturating loop run,
    then loop, lanes, batched and dynamic replaying one trace at 0.8x the
    loop's achieved QPS; then ``benchmarks.fig_batching`` at the reference's
-   defaults. Every suite run's launch counters equal the calls its rows
+   defaults but 0.25 s of load a dispatch. Every suite run's launch counters equal the calls its rows
    made (counted through the engine's serve seam, warm-ups and first calls
    included); the WMMA kernel never launches; then BFS, Where, NW and
    Mandelbrot (flat and adaptive) at preset 4, each the engine's width-2
@@ -125,7 +125,8 @@ exits nonzero without printing its result line:
    warm-up included; no other kernel), the clients' requests adding up to
    the merged stream, every client on the launcher's cached library at zero
    tune trials; then ``benchmarks.fig_dist`` at its defaults (Pathfinder,
-   1, 2 and 4 processes at 2k, 8k and 20k offered QPS), each point printed
+   1, 2 and 4 processes at 2k, 8k and 20k offered QPS) but 0.25 s of load
+   a point, each point printed
    beside the card's name and power limit;
 4b. the kernel rows of all paths at preset 0, kernel against torch on the
    same inputs, f32 products against an f64 evaluation; the Softmax and
@@ -194,8 +195,9 @@ exits nonzero without printing its result line:
    every cache entry bit-equal between the routes, the attention layer
    within LAYER_ULPS bf16 ulps), then the timed serve, counters set
    to 0 just before and read just after (2 launches of the wgmma prefill,
-   126 of the decode kernel, nothing else), one prefill's and one decode
-   step's device time split into Mamba mixers, MoE, attention and the rest;
+   126 of the decode kernel, nothing else), one 256-token prefill's and one
+   decode step's device time split into Mamba mixers, MoE, attention and the
+   rest;
 4m. the VLM and the encoder (qwen2-vl-2b and hubert-xlarge, fed
    embeddings, through ``Model.prefill`` / ``decode_step`` / ``forward``:
    ``launch.serve.serve`` feeds token prompts and refuses both, as the
@@ -218,6 +220,25 @@ exits nonzero without printing its result line:
    4096, counters set to 0 just before and read just after each (48
    launches of the SIMT kernel, nothing else), frames/s, peak memory and
    one forward's device time split into attention and the rest;
+4n. placement over a world of one (the card's machine has one H100): a
+   process group of one rank over NCCL (file rendezvous under the ignored
+   ``build/``); (a) the batchable rows that reach a kernel (gemm_f32_nn,
+   gemm_bf16_nn, connected, softmax, lrn, pooling, convolution_im2col)
+   and kmeans and devicemem_stream, each at its largest preset through
+   ``runtime.sharding.place_args(..., "shard")`` on a 1-rank
+   ``DeviceMesh`` under ``force_impl("kernel")``: the DTensor sharding
+   rules launch the kernels, each output bit-equal to the direct call's
+   and each entry's counter moving as the direct call's did; (b) the suite
+   at preset 0 with ``--placement shard --scale-devices 1`` records devices 1,
+   placement replicate, and ``--scale-devices 1,2`` exits 2 naming 1
+   available device; (c) ``optim.ErrorFeedbackInt8`` over the group on
+   qwen1.5-0.5b's full gradient tree, two steps bit-equal to the same
+   formula without a group, the int8 ``all_gather`` timed; (d) ``train
+   --mesh`` on qwen1.5-0.5b at full width, batch 8 x 1024, 3 steps:
+   losses, gradient norms, parameters and moments bit-equal to the same
+   steps without a mesh, step time and peak memory beside; then six pairs
+   of steps on one model, the data-parallel step and the plain one in
+   turns, each timed by events;
 5. yardstick: each kernel of the paths, its plain version and the one
    PyTorch call that computes the same function (where there is one),
    timed with CUDA events at the paths' shapes (and the kernel's own device
@@ -259,6 +280,7 @@ import functools
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -345,6 +367,11 @@ WIDTH_TWO_ROWS = ("bfs", "where", "nw", "mandelbrot_flat", "mandelbrot_ms")
 SERVED_BF16 = [(4, 4096, False, "nn"), (4, 4096, False, "tn"), (4, 4096, True, "nn"),
                (4, 1024, False, "nn"), (4, 1024, False, "tn"), (4, 1024, True, "nn")]
 REPORT_SECTIONS = ("table1", "table2", "fig3", "fig4", "fig5", "fig12", "fig_impl", "roofline")
+# The report sections and the levels without a kernel (phase 4e) run below
+# PRESET: phases 4-4c already run every kernel row at preset 4, and at
+# preset 4 the sections took 255.7 s and 4e 88.0 s of a whole smoke that
+# ran past its 1200 s limit.
+REPORT_PRESET, NO_KERNEL_PRESET = 2, 3
 REPORT_KERNELS = ("matmul_f32", "softmax_f32", "lrn_f32", "avgpool_f32", "prefix_scan_f32")
 PRESET, ITERS, WARMUP, WINDOW = 4, 5, 2, 4
 # Tracing and distributed load generation (phase 4i): fig_trace's names
@@ -355,6 +382,10 @@ TRACE_PATH = ("gemm_f32_nn", "pathfinder", "softmax")
 TRACE_STAGES = ("build", "place", "compile", "measure", "characterize")
 DIST_ROW = "gemm_bf16_nn"
 DIST_PROCS, DIST_QPS, DIST_DURATION, DIST_CONCURRENCY, DIST_LANES = 2, 2000.0, 1.0, 8, 2
+# fig_dist and fig_batching offer each point's load for this long (their
+# defaults: 0.75 and 0.7 s); past saturation a point's backlog, so its time,
+# grows with it (fig_dist took 95.0 s and fig_batching 30.5 s at the defaults).
+FIGURE_DURATION = 0.25
 # Calls of each pass's function on the main path: the compile stage's first
 # call, the validation call, the sync-mode warm-up and timed calls, and the
 # windowed calls.
@@ -579,6 +610,9 @@ HYBRID_TEACHER = dict(batch=1, prompt_len=2048, max_len=2056)
 # trace of over a million operations); then a decode step after it (the
 # recurrent state's size, so a step's work, does not depend on the position).
 SSM_SPLIT_PROMPT = 64
+# jamba's profiled prefill: 256 tokens (its trace at the serve's 2048 took
+# 66 s); the decode step after it is a step's whole work at any position.
+HYBRID_SPLIT_PROMPT = 256
 # Attention at group 8 (jamba: 64 query heads over 8 KV heads, D 128): the
 # timed serve's prefill and a decode step over its longest cache.
 ATTN_G8_PREFILL = (4, 64, 8, 2048, 2048, 128)
@@ -597,6 +631,20 @@ VLM_TEACHER = dict(batch=2, prompt_len=2048, max_len=2056)
 VLM_SERVE = dict(n_requests=8, batch=4, prompt_len=2048, gen_len=64, max_len=2120)
 ENCODER_TEACHER = dict(batch=1, prompt_len=4096)
 ENCODER_TIMED = dict(batch=8, frames=4096, forwards=3)
+# Placement over a world of one (phase 4n): the batchable rows that reach a
+# kernel, and kmeans and devicemem_stream, at their largest presets; the
+# suite's sweep flags on two kernel rows at preset 0 (what is checked is
+# the placement columns and the exit code); int8 error-feedback compression on
+# qwen1.5-0.5b's gradients (batch 2 x 1024, 2 steps); train --mesh at
+# TRAIN_ARCH's full width, 3 steps, against the same steps without a mesh;
+# then DP_PAIRS pairs of steps on one model, the data-parallel step and the
+# plain one in turns (plain first in even pairs, meshed first in odd ones).
+PLACEMENT_ROWS = ("gemm_f32_nn", "gemm_bf16_nn", "connected", "softmax", "lrn", "pooling",
+                  "convolution_im2col", "kmeans", "devicemem_stream")
+PLACEMENT_SUITE = ("gemm_f32_nn", "softmax")
+COMPRESS_BATCH = dict(batch=2, seq=1024)
+DP_TRAIN = dict(steps=3, batch=8, seq=1024, lr=1e-3, seed=0)
+DP_PAIRS = 6
 # Attention at their shapes (B, Hq, Hkv, T, S, D): hubert's encoder layer at
 # the timed batch (bidirectional) and qwen2-vl's prefill (causal, group 6);
 # phase 3 holds a batch row of each, and hubert's head dim 80 at the cases
@@ -1547,8 +1595,8 @@ def _expected_launches() -> dict:
     return want
 
 
-def _run_suite(torch, names, label, backward, overrides=()):
-    """One suite run at preset 4 with ``--impl kernel`` (and ``--override``
+def _run_suite(torch, names, label, backward, overrides=(), preset=PRESET):
+    """One suite run at ``preset`` with ``--impl kernel`` (and ``--override``
     for each of ``overrides``), launch counters set to 0 just before and read
     just after. -> (launches, records, wall s)."""
     from repro_torch.core import suite
@@ -1559,7 +1607,7 @@ def _run_suite(torch, names, label, backward, overrides=()):
         jsonl = os.path.join(tmp, f"{label}.jsonl")
         t0 = time.perf_counter()
         rc = suite.main([
-            "--names", *names, "--preset", str(PRESET), "--impl", "kernel",
+            "--names", *names, "--preset", str(preset), "--impl", "kernel",
             *(() if backward else ("--no-backward",)), "--iters", str(ITERS),
             "--warmup", str(WARMUP), "--timing-window", str(WINDOW), "--jsonl", jsonl,
             *(arg for o in overrides for arg in ("--override", o)),
@@ -1710,14 +1758,15 @@ def phase_no_kernel(torch) -> dict:
     from repro_torch.core.metrics import peaks_for, roofline_terms
     from repro_torch.core.registry import get_benchmark
 
-    print("== phase 4e: levels 0-2 without a kernel (suite, preset 4, --impl kernel, forward)")
+    print(f"== phase 4e: levels 0-2 without a kernel (suite, preset {NO_KERNEL_PRESET}, --impl "
+          "kernel, forward)")
     launches, records, _ = _run_suite(torch, NO_KERNEL_PATH, "levels without a kernel",
-                                      backward=False)
+                                      backward=False, preset=NO_KERNEL_PRESET)
     if len(records) != len(NO_KERNEL_PATH):
         _fail(f"{len(records)} records, expected {len(NO_KERNEL_PATH)}")
     hw = peaks_for(torch.cuda.get_device_name(0))
     for name, rec in zip(sorted(NO_KERNEL_PATH, key=_order), records, strict=True):
-        wl = get_benchmark(name).build_preset(PRESET)
+        wl = get_benchmark(name).build_preset(NO_KERNEL_PRESET)
         no_jit = bool(wl.meta.get("no_jit"))
         want = ("torch", "no_jit" if no_jit else "no_kernel", None)
         got = (rec.impl, rec.impl_fallback, rec.impl_interpret)
@@ -1916,7 +1965,7 @@ def phase_tune_reports(torch) -> dict:
     from repro_torch.kernels.matmul import F32_TILES
 
     print("== phase 4g: the tune stage (preset 4, --impl kernel --tune, a --cache-dir cold "
-          "then warm), then the report sections at preset 4")
+          f"then warm), then the report sections at preset {REPORT_PRESET}")
     _zero_launches()
     with tempfile.TemporaryDirectory() as tmp:
         runs, trials, report = _tune_runs(torch, tmp)
@@ -1969,8 +2018,8 @@ def phase_tune_reports(torch) -> dict:
     out, err = io.StringIO(), io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        rc = report_run.main(["--preset", str(PRESET), "--sections", *REPORT_SECTIONS])
-    print(f"python -m repro_torch.benchmarks.run --preset {PRESET} --sections "
+        rc = report_run.main(["--preset", str(REPORT_PRESET), "--sections", *REPORT_SECTIONS])
+    print(f"python -m repro_torch.benchmarks.run --preset {REPORT_PRESET} --sections "
           f"{' '.join(REPORT_SECTIONS)}: exit {rc} in {time.perf_counter() - t0:.1f} s")
     lines = out.getvalue().splitlines()
     for line in lines:
@@ -2246,7 +2295,7 @@ def phase_serving(torch) -> dict:
         launches[k] = launches.get(k, 0) + n
     t1 = time.perf_counter()
     eng = _counting_engine()
-    rows = fig_batching.rows(engine=eng)
+    rows = fig_batching.rows(engine=eng, duration_s=FIGURE_DURATION)
     for name, us, derived in rows:
         print(f"  {name:40s} {derived}")
         if derived.startswith(ERROR_PREFIX):
@@ -2255,7 +2304,8 @@ def phase_serving(torch) -> dict:
         _fail(f"fig_batching rows {[r[0] for r in rows]}")
     if _check_served_launches(eng.runs):  # Pathfinder: no kernel
         _fail("fig_batching launched a kernel")
-    print(f"  fig_batching (pathfinder, preset 0, the reference's defaults) in "
+    print(f"  fig_batching (pathfinder, preset 0, the reference's defaults, "
+          f"{FIGURE_DURATION} s a dispatch) in "
           f"{time.perf_counter() - t1:.1f} s")
     if launches.get("matmul_bf16_wmma", 0) or launches.get("matmul_bf16_wmma_batched", 0):
         _fail(f"serving launched the WMMA kernel: {launches}")
@@ -2428,14 +2478,14 @@ def _dist_runs(torch, smi) -> dict:
 
 
 def _dist_figure(torch, smi) -> None:
-    """fig_dist at its defaults on the card: each point's achieved QPS and
-    p99 beside the card."""
+    """fig_dist at its defaults but FIGURE_DURATION on the card: each
+    point's achieved QPS and p99 beside the card."""
     from repro_torch.benchmarks import fig_dist
     from repro_torch.benchmarks.common import ERROR_PREFIX, parse_derived
 
     t0 = time.perf_counter()
     _zero_launches()
-    rows = fig_dist.rows()
+    rows = fig_dist.rows(duration_s=FIGURE_DURATION)
     if _nonzero(_read_launches()):  # Pathfinder: no kernel
         _fail(f"fig_dist launched a kernel: {_nonzero(_read_launches())}")
     if len(rows) != len(fig_dist.DEFAULT_PROCS) * len(fig_dist.DEFAULT_QPS):
@@ -2447,7 +2497,8 @@ def _dist_figure(torch, smi) -> None:
         print(f"  {name:40s} procs {f['procs']} offered {f['offered_qps']} achieved "
               f"{f['qps']} qps p50 {f['p50_us']} us p99 {f['p99_us']} us"
               + (f" proc_qps {f['proc_qps']}" if "proc_qps" in f else "") + f" ({smi})")
-    print(f"  fig_dist ({fig_dist.DEFAULT_NAME}, preset 0, the reference's defaults; "
+    print(f"  fig_dist ({fig_dist.DEFAULT_NAME}, preset 0, the reference's defaults, "
+          f"{FIGURE_DURATION} s a point; "
           f"cpu_count {os.cpu_count()}) in {time.perf_counter() - t0:.1f} s")
 
 
@@ -3469,7 +3520,8 @@ def phase_recurrent(torch, smi: str) -> tuple[dict, dict]:
         torch, model, kw,
         (("chip_smoke.mamba", ssm, "apply_mamba"), ("chip_smoke.mamba", ssm, "step_mamba"),
          ("chip_smoke.moe", moe_mod, "apply_moe")),
-        {"Mamba mixers": "chip_smoke.mamba", "MoE": "chip_smoke.moe", "attention": "attention"}))
+        {"Mamba mixers": "chip_smoke.mamba", "MoE": "chip_smoke.moe", "attention": "attention"},
+        prompt_len=HYBRID_SPLIT_PROMPT))
     info["jamba_serve"] = num
     for k, n in num["launches"].items():
         launches[k] += n
@@ -3587,6 +3639,240 @@ def phase_vlm_encoder(torch, smi: str) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     _part_timer(f"the {ENCODER_ARCH} forwards and their split", t_part)
     print(f"  phase 4m {time.perf_counter() - t_phase:.1f} s")
+    return launches, info
+
+
+def _join_world_of_one(torch) -> Path:
+    """A process group of this process alone over NCCL, through a file
+    rendezvous under the ignored ``build/``."""
+    import torch.distributed as dist
+
+    path = ROOT / "build" / "repro_torch" / f"rendezvous-{os.getpid()}"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=path.as_uri(), rank=0, world_size=1)
+    return path
+
+
+def _int8_plain(torch, grads: dict, error: dict) -> tuple[dict, dict]:
+    """``ErrorFeedbackInt8.reduce_mean`` over one rank, without a group:
+    each leaf's scale from its own maximum, its mean its own payload."""
+    out, new = {}, {}
+    for k, g in grads.items():
+        gf = g.float() + error[k]
+        scale = torch.clamp(gf.abs().max() / 1, min=1e-12) / 127.0
+        q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
+        new[k] = gf - q.float() * scale
+        out[k] = (q.to(torch.int32).float() * scale / 1).to(g.dtype)
+    return out, new
+
+
+def _alternating_steps(torch, model, opt_state, group, batch: dict) -> dict:
+    """ms of ``DP_PAIRS`` data-parallel steps and as many plain ones on one
+    model, in turns (plain first in even pairs, meshed first in odd ones),
+    each step by CUDA events, after one untimed step of each."""
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.runtime.steps import make_train_step
+
+    opt = AdamW()
+    sched = functools.partial(warmup_cosine, peak_lr=1e-5, warmup_steps=1,
+                              total_steps=2 * DP_PAIRS + 2)
+    steps = {False: make_train_step(model, opt, sched),
+             True: make_train_step(model, opt, sched, data_group=group)}
+    out = {False: [], True: []}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for i in range(DP_PAIRS + 1):
+        for meshed in ((False, True) if i % 2 == 0 else (True, False)):
+            start.record()
+            opt_state, _ = steps[meshed](opt_state, batch)
+            end.record()
+            end.synchronize()
+            if i:  # pair 0 is the untimed step of each
+                out[meshed].append(start.elapsed_time(end))
+    return out
+
+
+def phase_placement(torch, smi: str) -> tuple[dict, dict]:
+    """Placement, the sweep flags, int8 compression and data-parallel
+    training over a world of one rank. -> (launches on the path, numbers)."""
+    import io
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import suite
+    from repro_torch.core.harness import commit_args
+    from repro_torch.core.registry import get_benchmark
+    from repro_torch.core.results import load_run
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.models import Model
+    from repro_torch.optim import ErrorFeedbackInt8
+    from repro_torch.runtime import sharding
+
+    print("== phase 4n: placement over a world of one (sharding rules, sweep flags, int8 "
+          f"compression, train --mesh; NCCL)")
+    t_phase = t_part = time.perf_counter()
+    info = {}
+    launches = {k: 0 for k in _read_launches()}
+    rendezvous = _join_world_of_one(torch)
+    try:
+        # (a) Each row through place_args on a 1-rank mesh against its direct call.
+        mesh = sharding.data_mesh(1)
+        for name in PLACEMENT_ROWS:
+            spec = get_benchmark(name)
+            w = spec.build_preset(max(spec.presets))
+            args = commit_args(w.make_inputs(0), "cuda")
+            with ops.force_impl("kernel"):
+                _zero_launches()
+                want = w.fn(*args)
+                torch.cuda.synchronize()
+                direct = _read_launches()
+                placed, mode = sharding.place_args(args, w, mesh, "shard")
+                ops.dtensor_rules.clear()
+                _zero_launches()
+                got = w.fn(*placed)
+                torch.cuda.synchronize()
+                sharded = _read_launches()
+            want = want if isinstance(want, tuple) else (want,)
+            got = got if isinstance(got, tuple) else (got,)
+            same = len(got) == len(want) and all(
+                isinstance(a, DTensor) and _same_bytes(torch, a.full_tensor(), b)
+                for a, b in zip(got, want))
+            rules = {f"{op}/{rule}": n for (op, rule), n in ops.dtensor_rules.items()}
+            print(f"  {w.name}: place_args -> {mode}; rules {rules or 'none (torch ops)'}; "
+                  f"launches {_nonzero(sharded) or 'none'} (direct call "
+                  f"{_nonzero(direct) or 'none'}); bit-equal {'yes' if same else 'NO'}")
+            if mode != "shard" or not same or sharded != direct or (
+                    w.kernel is not None and not _nonzero(sharded)):
+                _fail(f"{w.name} placed over one rank: mode {mode}, bit-equal {same}, launches "
+                      f"{_nonzero(sharded)} against the direct call's {_nonzero(direct)}")
+            for k, n in sharded.items():
+                launches[k] += n
+            del args, placed, want, got
+        t_part = _part_timer("(a) the rows through place_args", t_part)
+
+        # (b) The suite's sweep flags: one device is all the world has.
+        with tempfile.TemporaryDirectory() as tmp:
+            jsonl = os.path.join(tmp, "sweep.jsonl")
+            base = ["--device", "cuda", "--names", *PLACEMENT_SUITE, "--impl", "kernel",
+                    "--preset", "0", "--no-backward",
+                    "--iters", "2", "--warmup", "1", "--placement", "shard"]
+            _zero_launches()
+            rc = suite.main(base + ["--scale-devices", "1", "--jsonl", jsonl])
+            run = _read_launches()
+            meta, recs = load_run(jsonl)
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                rc2 = suite.main(base + ["--scale-devices", "1,2"])
+        rows = [(r.name, r.status, r.devices, r.placement) for r in recs]
+        print(f"  suite --placement shard --scale-devices 1: exit {rc}, rows {rows}, metadata "
+              f"device_sweep {meta.device_sweep} placement {meta.placement}; launches "
+              f"{_nonzero(run)}")
+        print(f"  suite --scale-devices 1,2: exit {rc2}: {' | '.join(err.getvalue().split(chr(10)))}")
+        if (rc != 0 or len(recs) != len(PLACEMENT_SUITE) or meta.device_sweep != (1,)
+                or any(r[1:] != ("ok", 1, "replicate") for r in rows)
+                or not (run["matmul_f32"] and run["softmax_f32"])):
+            _fail("the one-device sweep did not record devices 1, placement replicate")
+        if rc2 != 2 or "available devices: 1" not in err.getvalue():
+            _fail("a sweep wider than the world did not exit 2 naming 1 available device")
+        for k, n in run.items():
+            launches[k] += n
+        t_part = _part_timer("(b) the suite's sweep flags", t_part)
+
+        # (c) Int8 error-feedback compression over the group, on the full
+        # gradient tree, against the formula without a group.
+        cfg = get_config(TRAIN_ARCH)
+        model = Model(cfg, device="cuda")
+        model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in SyntheticLM(
+            vocab=cfg.vocab, seed=0, **COMPRESS_BATCH).batch_at(0).items()}
+        names = [n for n, _ in model.named_parameters()]
+        loss, _ = model.loss_fn(batch)
+        grads = dict(zip(names, torch.autograd.grad(loss, list(model.parameters()))))
+        del model, loss
+        comp = ErrorFeedbackInt8()
+        error = want_error = comp.init(grads)
+        same = True
+        for _ in range(2):  # the second step feeds the first step's error back
+            out, error = comp.reduce_mean(grads, error)
+            want_out, want_error = _int8_plain(torch, grads, want_error)
+            same = same and all(_same_bytes(torch, out[k], want_out[k])
+                                and _same_bytes(torch, error[k], want_error[k]) for k in grads)
+        n_el = sum(g.numel() for g in grads.values())
+        payload = torch.zeros(n_el, dtype=torch.int8, device="cuda")
+        gathered = [torch.empty_like(payload)]
+        gather_ms = _time_ms(torch, lambda: dist.all_gather(gathered, payload), reps=10,
+                             warmup=1)
+        reduce_ms = _time_ms(torch, lambda: comp.reduce_mean(grads, error), reps=3, warmup=1)
+        info["compress"] = dict(leaves=len(grads), elements=n_el, all_gather_ms=gather_ms,
+                                reduce_mean_ms=reduce_ms)
+        print(f"  ErrorFeedbackInt8 on {TRAIN_ARCH}'s gradients ({len(grads)} leaves, {n_el} "
+              f"elements): 2 steps bit-equal to the formula without a group "
+              f"{'yes' if same else 'NO'}; int8 all_gather of {n_el} bytes {gather_ms:.4f} ms "
+              f"({n_el / gather_ms / 1e6:.1f} GB/s, one rank), reduce_mean {reduce_ms:.3f} ms "
+              f"({smi})")
+        if not same:
+            _fail("int8 compression over one rank differs from its formula without a group")
+        del grads, out, error, want_out, want_error, payload, gathered
+        t_part = _part_timer("(c) int8 compression", t_part)
+
+        # (d) train --mesh against the same steps without a mesh.
+        runs = {}
+        for use_mesh in (False, True):
+            # The run's own peak, above what the other run still holds.
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _zero_launches()
+            out = train(arch=TRAIN_ARCH, smoke=False, use_mesh=use_mesh, log_every=0,
+                        device="cuda", **DP_TRAIN)
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            runs[use_mesh] = (out, _read_launches(), peak)
+        (plain, plain_l, plain_gb), (meshed, mesh_l, mesh_gb) = runs[False], runs[True]
+        same = (meshed["losses"] == plain["losses"]
+                and meshed["grad_norms"] == plain["grad_norms"]
+                and _train_states_equal(torch, meshed, plain) and mesh_l == plain_l)
+        info["train"] = dict(step_ms=meshed["step_ms"], plain_step_ms=plain["step_ms"],
+                             peak_gb=mesh_gb, plain_peak_gb=plain_gb)
+        print(f"  train --mesh, {TRAIN_ARCH} full width, batch "
+              f"{DP_TRAIN['batch']} x {DP_TRAIN['seq']}, {DP_TRAIN['steps']} steps over one "
+              f"rank: losses {meshed['losses']}, gradient norms {meshed['grad_norms']}; "
+              f"losses, norms, parameters, moments and launches bit-equal to the run without "
+              f"a mesh {'yes' if same else 'NO'}; step ms "
+              f"{', '.join(f'{x:.2f}' for x in meshed['step_ms'])} (without a mesh "
+              f"{', '.join(f'{x:.2f}' for x in plain['step_ms'])}); peak memory "
+              f"{mesh_gb:.2f} GB (without {plain_gb:.2f} GB); launches {_nonzero(mesh_l)} "
+              f"({smi})")
+        if not same:
+            _fail("train --mesh over one rank differs from the run without a mesh")
+        for k, n in mesh_l.items():
+            launches[k] += n
+        model, opt_state = meshed["model"], meshed["opt_state"]
+        del plain, meshed, runs
+        # The data-parallel step against the plain one on one model, in turns.
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in SyntheticLM(
+            vocab=cfg.vocab, batch=DP_TRAIN["batch"], seq=DP_TRAIN["seq"],
+            seed=0).batch_at(0).items()}
+        turns = _alternating_steps(torch, model, opt_state, dist.group.WORLD, batch)
+        med = {k: statistics.median(v) for k, v in turns.items()}
+        info["train"].update(turn_step_ms=turns[True], turn_plain_step_ms=turns[False],
+                             turn_median_ms=med[True], turn_plain_median_ms=med[False])
+        print(f"  {DP_PAIRS} pairs of steps on one model in turns, by events: meshed "
+              f"{', '.join(f'{x:.2f}' for x in turns[True])} ms (median {med[True]:.2f}); "
+              f"without a mesh {', '.join(f'{x:.2f}' for x in turns[False])} ms (median "
+              f"{med[False]:.2f}); meshed / plain {med[True] / med[False]:.4f} ({smi})")
+        del model, opt_state, batch
+        _part_timer("(d) train --mesh", t_part)
+    finally:
+        dist.destroy_process_group()
+        rendezvous.unlink(missing_ok=True)
+    torch.cuda.empty_cache()
+    info["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 4n {info['phase_s']:.1f} s")
     return launches, info
 
 
@@ -4510,30 +4796,36 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails without the repository's src/)
 
     t0 = time.perf_counter()
-    smi = phase_card(torch)
-    phase_build()
-    errors = phase_kernels(torch)
-    main_launches = phase_main_path(torch)
-    dnn_launches = phase_dnn(torch)
-    level_launches = phase_levels(torch)
-    phase_no_kernel(torch)
-    feature_launches = phase_features(torch)
-    report_launches = phase_tune_reports(torch)
-    serve_launches = phase_serving(torch)
-    dist_launches = phase_trace_dist(torch, smi)
-    phase_small_agreement(torch)
-    lm_launches, lm = phase_lm_serving(torch, smi)
-    train_launches, tr = phase_train(torch)
-    moe_launches, moe = phase_moe(torch, smi)
-    recurrent_launches, rec = phase_recurrent(torch, smi)
-    vlm_launches, vlm = phase_vlm_encoder(torch, smi)
+
+    def clock(value):  # each phase's end on the run's clock, for PERF.md's budget
+        print(f"  (at {time.perf_counter() - t0:.1f} s)")
+        return value
+
+    smi = clock(phase_card(torch))
+    clock(phase_build())
+    errors = clock(phase_kernels(torch))
+    main_launches = clock(phase_main_path(torch))
+    dnn_launches = clock(phase_dnn(torch))
+    level_launches = clock(phase_levels(torch))
+    clock(phase_no_kernel(torch))
+    feature_launches = clock(phase_features(torch))
+    report_launches = clock(phase_tune_reports(torch))
+    serve_launches = clock(phase_serving(torch))
+    dist_launches = clock(phase_trace_dist(torch, smi))
+    clock(phase_small_agreement(torch))
+    lm_launches, lm = clock(phase_lm_serving(torch, smi))
+    train_launches, tr = clock(phase_train(torch))
+    moe_launches, moe = clock(phase_moe(torch, smi))
+    recurrent_launches, rec = clock(phase_recurrent(torch, smi))
+    vlm_launches, vlm = clock(phase_vlm_encoder(torch, smi))
+    placement_launches, placed = clock(phase_placement(torch, smi))
     # Every count was checked per path; a kernel's launches are the sum over
     # the paths that run it (SRAD's three entries: phases 4c and 4f).
     launches = {k: main_launches[k] + dnn_launches[k] + level_launches[k] + lm_launches[k]
                 + feature_launches[k] + report_launches[k] + serve_launches[k]
                 + dist_launches[k] + train_launches[k] + moe_launches[k] + recurrent_launches[k]
-                + vlm_launches[k] for k in main_launches}
-    kernels = phase_yardstick(torch, launches, errors)
+                + vlm_launches[k] + placement_launches[k] for k in main_launches}
+    kernels = clock(phase_yardstick(torch, launches, errors))
     # One row per kernel and shape (matmul_bf16 has three, nn and tn at
     # 4096^3 and nn at 1024^3; matmul_bf16_batched six), the kernels of no
     # path left out.
@@ -4575,6 +4867,13 @@ def main() -> int:
     print(f"encoder, {ENCODER_ARCH} as published, bf16, batch {ENCODER_TIMED['batch']} x "
           f"{ENCODER_TIMED['frames']} frames: {f['frames_per_s']:.1f} frames/s, forward "
           f"{f['forward_ms']:.3f} ms, peak memory {f['peak_gb']:.2f} GB ({smi})")
+    c, t = placed["compress"], placed["train"]
+    print(f"placement over one rank (NCCL): int8 all_gather of {c['elements']} bytes "
+          f"{c['all_gather_ms']:.4f} ms; train --mesh, {TRAIN_ARCH} full, batch "
+          f"{DP_TRAIN['batch']} x {DP_TRAIN['seq']}: last step {t['step_ms'][-1]:.2f} ms (without a "
+          f"mesh {t['plain_step_ms'][-1]:.2f} ms), median of {DP_PAIRS} in turns "
+          f"{t['turn_median_ms']:.2f} ms (without {t['turn_plain_median_ms']:.2f} ms), peak memory {t['peak_gb']:.2f} GB (without "
+          f"{t['plain_peak_gb']:.2f} GB); phase 4n {placed['phase_s']:.1f} s ({smi})")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -8,7 +8,10 @@ Every call seeds a ``torch.Generator`` on the input's device with it, so
 every call draws the same mask, as the reference's fixed key does. The
 mask keeps ``rand >= RATE`` and the kept values are scaled by
 ``1 / (1 - RATE)``. There is no kernel: ``--impl kernel`` rows time torch.
-Tests and ``validate`` hold it by its statistics, not bit for bit.
+Tests and ``validate`` hold it by its statistics, not bit for bit. The
+mask is one draw over the whole input, so a sharded input (a DTensor,
+``runtime/sharding.py``) is gathered first (``ops.sharded``): a rank's
+draw over its shard alone would be another mask.
 """
 
 from __future__ import annotations
@@ -19,10 +22,12 @@ import torch
 from repro_torch.bench.dnn.common import dnn_workload
 from repro_torch.core.presets import geometric_presets
 from repro_torch.core.registry import DNN_DOMAIN, BenchmarkSpec, register
+from repro_torch.kernels.ops import sharded
 
 RATE = 0.5
 
 
+@sharded("dropout", lambda x, mask_seed: None)
 def dropout(x, mask_seed: int):
     gen = torch.Generator(device=x.device)
     gen.manual_seed(mask_seed)

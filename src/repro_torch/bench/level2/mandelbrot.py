@@ -24,7 +24,10 @@ adaptive version reads one more thing on the host: which tiles are mixed
 (one ``nonzero``). Under ``torch.vmap`` (the serve stage's width-w call)
 both run over the members' images at once (``core/hostloop.py``): the
 check sees every member, and the mixed tiles of all of them iterate as
-one batch.
+one batch. On a sharded image (a DTensor, ``runtime/sharding.py``) the
+flat version runs each rank's rows through its own host-checked loop
+(``ops.sharded``: pixels are independent, and a frozen pixel's count does
+not depend on when its loop stops).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch
 from repro_torch.core.hostloop import rows_call
 from repro_torch.core.presets import geometric_presets
 from repro_torch.core.registry import BenchmarkSpec, Workload, register
+from repro_torch.kernels.ops import shard_dim, sharded
 
 CHECK_EVERY = 32
 TILE = 32
@@ -70,6 +74,7 @@ def _iterate(c: torch.Tensor, max_iter: int) -> torch.Tensor:
     return n
 
 
+@sharded("escape_time", lambda c, *_, **__: shard_dim(c))
 def escape_time(c: torch.Tensor, max_iter: int) -> torch.Tensor:
     return rows_call(functools.partial(_iterate, max_iter=max_iter), c)
 

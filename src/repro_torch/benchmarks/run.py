@@ -34,14 +34,18 @@ stderr, and exit 1 when any row failed. Sections:
   fig_dist                 — achieved QPS and p99 against offered load, one
                              threaded client against 2 and 4 client
                              processes
+  fig_scaling              — data-parallel time and scaling efficiency at
+                             1, 2, 4 and 8 devices (the counts this
+                             torch.distributed world has)
 
 The suite-backed sections (fig12, fig3, fig4, fig5, fig_impl,
-fig_concurrency, fig_batching, fig_trace, fig_dist) run through
+fig_concurrency, fig_batching, fig_trace, fig_dist, fig_scaling) run through
 ``run_suite`` at ``--preset`` with per-benchmark fault isolation, ``--impl``
 naming the implementation of the serving and tracing sections (torch, the
 reference's default, or kernel); the feature studies take their own sizes
-(the reference's). The reference's ``fig_scaling`` waits for device sweeps
-(ROADMAP queue 1, item 12), and its dry-run roofline cells for item 16.5.
+(the reference's). The reference's dry-run roofline cells wait for ROADMAP
+queue 1, item 16.5. Under ``torchrun`` every rank runs the sections (the
+engine's sweeps need them all) and rank 0 prints.
 
 ``--device`` is ``cuda`` unless the caller asks for the CPU, where the
 plain versions run; without a CUDA card a ``cuda`` run exits 2 before
@@ -74,6 +78,7 @@ SECTION_NAMES = (
     "fig_batching",
     "fig_trace",
     "fig_dist",
+    "fig_scaling",
 )
 
 
@@ -113,6 +118,7 @@ def main(argv=None) -> int:
         fig_batching,
         fig_concurrency,
         fig_dist,
+        fig_scaling,
         fig4_dnn_backward,
         fig5_suite_utilization,
         fig12_legacy_utilization,
@@ -123,6 +129,10 @@ def main(argv=None) -> int:
         table2_dnn_kernels,
     )
     from repro_torch.benchmarks.common import ERROR_PREFIX
+    from repro_torch.runtime import sharding
+
+    sharding.init_distributed(args.device)  # a torchrun world, else one process
+    quiet = sharding.rank() != 0
 
     preset, device, impl = args.preset, args.device, args.impl
     sections = {
@@ -142,12 +152,17 @@ def main(argv=None) -> int:
         "fig_batching": lambda: fig_batching.rows(preset=preset, impl=impl, device=device),
         "fig_trace": lambda: fig_trace.rows(preset=preset, impl=impl, device=device),
         "fig_dist": lambda: fig_dist.rows(preset=preset, impl=impl, device=device),
+        "fig_scaling": lambda: fig_scaling.rows(preset=preset, impl=impl, device=device),
     }
     # SECTION_NAMES exists so --sections validates before the imports above;
     # keep the two in sync.
     assert set(sections) == set(SECTION_NAMES), "update SECTION_NAMES"
 
-    print("name,us_per_call,derived")
+    def say(*a, **kw) -> None:
+        if not quiet:
+            print(*a, **kw, flush=True)
+
+    say("name,us_per_call,derived")
     failures = 0
     for name in selected:
         t0 = time.time()
@@ -155,13 +170,13 @@ def main(argv=None) -> int:
             for n, us, d in sections[name]():
                 if d.startswith(ERROR_PREFIX):
                     failures += 1
-                    print(f"# ERROR {n}: {d}", file=sys.stderr, flush=True)
-                print(f"{n},{us:.2f},{d}", flush=True)
+                    say(f"# ERROR {n}: {d}", file=sys.stderr)
+                say(f"{n},{us:.2f},{d}")
         except Exception:  # noqa: BLE001  (a failed section is a row, the others run)
             failures += 1
             traceback.print_exc()
-            print(f"{name}.FAILED,0.00,error", flush=True)
-        print(f"# section {name} done in {time.time() - t0:.1f}s", file=sys.stderr, flush=True)
+            say(f"{name}.FAILED,0.00,error")
+        say(f"# section {name} done in {time.time() - t0:.1f}s", file=sys.stderr)
     return 1 if failures else 0
 
 

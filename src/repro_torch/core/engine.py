@@ -6,13 +6,18 @@ benchmark the engine runs the stages:
 
 - **build**: instantiate the workload from the spec at the plan's preset
   (plus Rodinia-style overrides) and make its inputs from the plan's seed.
-- **place**: one device, ``replicate`` (the only placement ported so far;
-  ``run`` refuses others with :class:`PlanError`): ``harness.commit_args``
-  moves every input to the plan's device once, before any timed call.
-  Host-transfer workloads (``meta["no_jit"]``, the bus-speed rows) time
-  the transfer itself, so their inputs stay where ``make_inputs`` put them,
-  except the positions ``meta["device_args"]`` names (a destination buffer,
-  a tensor to read back).
+- **place**: the effective placement from shapes alone
+  (``_resolve_placement``: a ``shard`` request degrades to ``replicate``
+  for workloads that opt out of ``batch_dims`` or whose dims do not divide,
+  and host-transfer rows run on one device), then the inputs go where it
+  says. On one device ``harness.commit_args`` moves every input to the
+  plan's device once, before any timed call; host-transfer workloads
+  (``meta["no_jit"]``, the bus-speed rows) time the transfer itself, so
+  their inputs stay where ``make_inputs`` put them, except the positions
+  ``meta["device_args"]`` names (a destination buffer, a tensor to read
+  back). On n devices ``runtime/sharding.py::place_args`` makes each input
+  a DTensor on the first n ranks' mesh, sharded or replicated, and the
+  kernel ops take their sharding rules (``kernels/ops.py``).
 - **tune** (only for kernel passes of plans with ``tune=True``): sweep the
   kernel's ``tune_space()`` in order, compiling each candidate through the
   callable cache and timing it with the windowed timer; the winner's
@@ -88,10 +93,26 @@ clock: the measure stage's span closes after its CUDA events have been
 synchronised, and no span is a device time. The timer's loops
 (``core/harness.py``) consult no tracer.
 
+**Device sweeps.** ``plan.device_sweep`` runs the selection once a device
+count, ascending, into one record per (benchmark, pass, count); each
+multi-device row carries ``scaling_efficiency`` against the same run's
+1-device row (speedup over devices), and each count's callable-cache
+traffic is a :class:`SweepStat`. The devices are the ranks of a
+``torch.distributed`` world, every rank running this same plan: for a
+count n below the world size the first n ranks run on a sub-mesh (every
+rank makes its group) while the others wait at the count's barrier; a row
+whose effective placement is one device runs on rank 0 alone. Each
+participating rank times its own calls, and each measurement's maximum
+over the sub-group is the row's (tune trials alike, so every rank keeps
+the same winner). Rank 0 alone emits records, JSONL, CSV and reports.
+Outside a process group one device is available; a plan asking for more
+raises :class:`PlanError` naming both counts. Serving stays on one
+device: the serve stage's call counts follow the clock, and ranks whose
+calls gather operands must make equal counts.
+
 Failures are isolated per benchmark: an exception in any stage yields a
 ``status="error"`` record naming the stage, and the suite keeps going.
-Device sweeps are not ported yet, and the disk cache holds the tune
-winners alone.
+The disk cache holds the tune winners alone.
 
 Rows that replay a captured CUDA graph (``core/graphs.py``) key it by
 addresses and route, not by tile: every such row's kernel has a one-entry
@@ -130,8 +151,9 @@ from repro_torch.core.results import (
 )
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.obs import NULL_TRACER, NullTracer, Tracer, use_tracer
+from repro_torch.runtime import sharding
 
-__all__ = ["CompileCache", "Engine", "RunResult", "bind_impl"]
+__all__ = ["CompileCache", "Engine", "RunResult", "SweepStat", "bind_impl"]
 
 # (name, preset, frozen-overrides, backward, device, devices, placement,
 #  impl, frozen-tuned-params — () when the pass was not tuned). Mixed-shape
@@ -172,11 +194,21 @@ class CompileCache:
         return entry
 
 
+@dataclasses.dataclass(frozen=True)
+class SweepStat:
+    """Cache traffic of one device-sweep step (scaling-run diagnostics)."""
+
+    devices: int
+    misses: int
+    hits: int
+
+
 @dataclasses.dataclass
 class RunResult:
     records: list[BenchmarkRecord]
     metadata: RunMetadata
     cache: CompileCache
+    sweep_stats: list[SweepStat] = dataclasses.field(default_factory=list)
 
     @property
     def ok_records(self) -> list[BenchmarkRecord]:
@@ -225,6 +257,10 @@ class Engine:
         self.tracer = tracer if tracer is not None else NULL_TRACER
         # Width-w serve calls of graph-replay workloads, captured whole.
         self._graphs = GraphCache(capacity=64)
+        # Data meshes by device count; every rank makes each in one order.
+        self._meshes: dict[int, Any] = {}
+        # The process group of the multi-device row being run, else None.
+        self._group = None
 
     # -- stages ------------------------------------------------------------
 
@@ -279,11 +315,46 @@ class Engine:
         workload = spec.build_preset(preset, **plan.overrides_for(spec.name))
         return workload, workload.make_inputs(plan.seed)
 
-    def _stage_place(self, workload: Workload, args: tuple, plan: ExecutionPlan) -> tuple:
-        """Move the inputs to the plan's device once (one device,
-        replicate), so no timed call pays a host copy. A no_jit workload's
-        inputs stay on the host, but for the positions its
-        ``meta["device_args"]`` names."""
+    def _resolve_placement(self, workload: Workload, args: tuple,
+                           requested: Placement) -> Placement:
+        """The *effective* placement, from shapes alone (no transfers):
+        shard requests degrade to replicate for workloads that opt out of
+        ``batch_dims`` (or whose dims do not divide), and no_jit host-
+        transfer workloads always run, and are recorded, on one device."""
+        if workload.meta.get("no_jit") or requested.devices == 1:
+            return Placement(devices=1, mode="replicate")
+        if requested.mode == "shard" and sharding.shard_applies(args, workload,
+                                                                requested.devices):
+            return requested
+        return Placement(devices=requested.devices, mode="replicate")
+
+    def _mesh(self, devices: int):
+        """The data mesh over the first ``devices`` ranks (made once; a
+        collective, so every rank asks for it in the same order)."""
+        if devices not in self._meshes:
+            self._meshes[devices] = sharding.data_mesh(devices)
+        return self._meshes[devices]
+
+    def _stage_place(self, workload: Workload, args: tuple, plan: ExecutionPlan,
+                     placement: Placement | None = None) -> tuple:
+        """Put the inputs where the effective ``placement`` (one device by
+        default) says. On one device: move them to the plan's device once,
+        so no timed call pays a host copy; a no_jit workload's inputs stay
+        on the host, but for the positions its ``meta["device_args"]``
+        names. On several (``sharding.place_args``): ``shard`` makes
+        DTensors on the data mesh; ``replicate`` gives each rank its own
+        full copy of rank 0's inputs, so every rank runs the whole function
+        on plain tensors."""
+        if placement is not None and placement.devices > 1:
+            placed, mode = sharding.place_args(args, workload, self._mesh(placement.devices),
+                                               placement.mode)
+            if mode != placement.mode:
+                raise RuntimeError(f"{workload.name}: placed {mode!r}, resolved "
+                                   f"{placement.mode!r}")
+            if mode == "replicate":
+                placed = tuple(a.to_local() if isinstance(a, torch.Tensor) else a
+                               for a in placed)
+            return placed
         if not workload.meta.get("no_jit"):
             return commit_args(args, plan.device)
         on_device = workload.meta.get("device_args", ())
@@ -335,7 +406,9 @@ class Engine:
         winner; a refused first candidate, the kernel's defaults, raises, as
         does any other error. The winner persists in the disk cache under
         the *base* key (parameters left out: the lookup must not need the
-        answer), so a warm run restores it at zero trials.
+        answer), so a warm run restores it at zero trials. On several
+        devices a trial's time is the slowest rank's, so every rank picks
+        the same winner.
         """
         if impl != "kernel" or not plan.tune:
             return None, None, None, 0
@@ -367,6 +440,8 @@ class Engine:
                 refused += 1
                 continue
             mean_us = self._time_tune_trial(entry, args, plan)
+            if self._group is not None:
+                mean_us = sharding.reduce_max([mean_us], self._group)[0]
             c1 = time.perf_counter()
             trials_us += (c1 - c0) * 1e6
             trials += 1
@@ -403,7 +478,8 @@ class Engine:
         out = entry.executable(*args)
         _synchronize(plan.device)
         if not backward and workload.validate is not None:
-            workload.validate(out, args)
+            # A sharded row validates the whole output, on every rank.
+            workload.validate(_whole(out), _whole(args))
         del out
         mean, stdev = time_fn(
             entry.executable, args, iters=plan.iters, warmup=plan.warmup,
@@ -419,6 +495,10 @@ class Engine:
                 entry.executable, args, iters=plan.iters, warmup=0,
                 window=window, device=plan.device,
             )
+        if self._group is not None:  # the slowest rank's, measurement by measurement
+            mean, stdev, windowed = sharding.reduce_max(
+                [mean, stdev, -1.0 if windowed_us is None else windowed_us], self._group)
+            windowed_us = None if windowed_us is None else windowed
         return timing_from_stats(
             workload, mean_us=mean, stdev_us=stdev, iters=plan.iters,
             backward=backward, windowed_us=windowed_us, window=window,
@@ -862,15 +942,21 @@ class Engine:
         verbose: bool = False,
     ) -> RunResult:
         specs = plan.select()
+        want = max(plan.device_sweep)
         if plan.serve is not None and plan.serve.colocate is not None:
             try:
                 get_benchmark(plan.serve.colocate)
             except KeyError as e:
                 raise PlanError(str(e)) from None
-        if plan.serve is not None and plan.serve.is_mixed and plan.devices > 1:
+        if plan.serve is not None and plan.serve.is_mixed and want > 1:
             raise PlanError(
                 "mixed-shape serving (mix/trace/batcher dispatch) is "
-                f"single-device; the plan asks for {plan.devices} devices"
+                f"single-device; the plan sweeps up to {want} devices"
+            )
+        if plan.serve is not None and want > 1:
+            raise PlanError(
+                "serving runs on one device in the port (its call counts follow "
+                f"the clock, and ranks must make equal calls); the plan sweeps up to {want}"
             )
         _prepare_device(plan)
         metadata = RunMetadata.capture(
@@ -878,34 +964,63 @@ class Engine:
             preset=plan.preset,
             devices=plan.devices,
             placement=plan.placement.mode,
+            device_sweep=plan.device_sweep,
             timing_window=plan.timing_window,
             impl=plan.impl,
             tune=plan.tune,
             serve=plan.serve,
         )
+        rank = sharding.rank()
+        # Rank 0 emits; the other ranks run their share of each count.
+        emitting = rank == 0
         records: list[BenchmarkRecord] = []
-        if verbose:
+        sweep_stats: list[SweepStat] = []
+        # 1-device us_per_call per row name: the scaling baseline. The sweep
+        # is ascending, so baselines exist before multi-device rows stream.
+        baseline_us: dict[str, float] = {}
+        if verbose and emitting:
             print(BenchmarkRecord.csv_header(), flush=True)
-        writer = JsonlReportWriter(jsonl_path, metadata) if jsonl_path else None
+        writer = JsonlReportWriter(jsonl_path, metadata) if jsonl_path and emitting else None
+
+        def emit(rec: BenchmarkRecord) -> None:
+            if rec.status == "ok":
+                if rec.devices == 1:
+                    baseline_us[rec.name] = rec.us_per_call
+                elif rec.name in baseline_us and rec.us_per_call > 0:
+                    rec.scaling_efficiency = baseline_us[rec.name] / rec.us_per_call / rec.devices
+            records.append(rec)
+            if writer is not None:
+                writer.write(rec)
+            if verbose:
+                print(rec.csv(), flush=True)
+
         try:
             # The engine's tracer is the ambient one for the run, so the
             # serve layer (lane workers, the threaded client) reaches it.
             with use_tracer(self.tracer):
-                for spec in specs:
-                    for rec in self._run_benchmark(spec, plan):
-                        records.append(rec)
-                        if writer is not None:
-                            writer.write(rec)
-                        if verbose:
-                            print(rec.csv(), flush=True)
+                for devices in plan.device_sweep:
+                    if devices > 1:
+                        self._mesh(devices)  # every rank makes the sub-group
+                    misses0, hits0 = self.cache.misses, self.cache.hits
+                    if rank < devices:
+                        for spec in specs:
+                            for rec in self._run_benchmark(spec, plan, devices):
+                                if emitting:
+                                    emit(rec)
+                    sweep_stats.append(SweepStat(devices=devices,
+                                                 misses=self.cache.misses - misses0,
+                                                 hits=self.cache.hits - hits0))
+                    if sharding.available_devices() > 1:
+                        torch.distributed.barrier()
         finally:
             metadata = self._final_metadata(metadata)
             if writer is not None:
                 writer.write_meta(metadata)
                 writer.close()
-        if report_path:
+        if report_path and emitting:
             write_report(records, report_path)
-        return RunResult(records=records, metadata=metadata, cache=self.cache)
+        return RunResult(records=records, metadata=metadata, cache=self.cache,
+                         sweep_stats=sweep_stats)
 
     def characterize(
         self,
@@ -938,10 +1053,12 @@ class Engine:
         # under NULL_TRACER), so a traced report run accounts for its time.
         timings: dict[str, float] = {}
         with self._timed_stage("place", timings, bench=spec.name):
-            args = self._stage_place(workload, workload.make_inputs(plan.seed), plan)
+            args = workload.make_inputs(plan.seed)
+            placement = self._resolve_placement(workload, args, plan.placement)
+            args = self._stage_place(workload, args, plan, placement)
         with self._timed_stage("compile", timings, bench=spec.name):
             entry = self._stage_compile(
-                spec, workload, args, plan, preset, backward, plan.placement, impl
+                spec, workload, args, plan, preset, backward, placement, impl
             )
         with self._timed_stage("characterize", timings, bench=spec.name):
             return self._stage_characterize(workload, entry, args, plan, backward)
@@ -978,20 +1095,25 @@ class Engine:
                 self.tracer.event(name, t_start=t0, t_end=t1, track="engine", **attrs)
 
     def _run_benchmark(
-        self, spec: BenchmarkSpec, plan: ExecutionPlan
+        self, spec: BenchmarkSpec, plan: ExecutionPlan, devices: int
     ) -> list[BenchmarkRecord]:
+        """The passes of ``spec`` at ``devices`` devices, on each rank of
+        them ([] on a rank the effective placement leaves out)."""
         preset = plan.resolve_preset(spec)
-        placement = plan.placement
+        placement = plan.placement_at(devices)
         # Build/place run once per benchmark; their timings are copied into
         # every pass's stage_timings_us (the passes share the work).
         base_timings: dict[str, float] = {}
         stage = "build"
         try:
-            with self._timed_stage("build", base_timings, bench=spec.name):
+            with self._timed_stage("build", base_timings, bench=spec.name, devices=devices):
                 workload, args = self._stage_build(spec, plan, preset)
             stage = "place"
-            with self._timed_stage("place", base_timings, bench=spec.name):
-                args = self._stage_place(workload, args, plan)
+            placement = self._resolve_placement(workload, args, placement)
+            if sharding.rank() >= placement.devices:
+                return []  # a one-device row at a wider count: rank 0's alone
+            with self._timed_stage("place", base_timings, bench=spec.name, devices=devices):
+                args = self._stage_place(workload, args, plan, placement)
         except Exception as e:  # noqa: BLE001 — fault isolation is the contract
             rec = BenchmarkRecord.from_error(
                 spec, preset, stage=stage, error=_err_text(e),
@@ -1000,13 +1122,18 @@ class Engine:
             rec.stage_timings_us = dict(base_timings)
             return [rec]
         out: list[BenchmarkRecord] = []
-        for backward in plan.passes(workload):
-            out.extend(
-                self._run_pass(
-                    spec, workload, args, plan, preset, backward, placement,
-                    base_timings,
+        # The ranks of a multi-device row reduce their timings over its mesh.
+        self._group = self._mesh(placement.devices).get_group() if placement.devices > 1 else None
+        try:
+            for backward in plan.passes(workload):
+                out.extend(
+                    self._run_pass(
+                        spec, workload, args, plan, preset, backward, placement,
+                        base_timings,
+                    )
                 )
-            )
+        finally:
+            self._group = None
         return out
 
     def _run_pass(
@@ -1091,21 +1218,35 @@ class Engine:
 
 
 def _prepare_device(plan: ExecutionPlan) -> None:
-    """Refuse what the port cannot run (more than one device, a missing
-    card), and make f32 rows true f32: no TF32 in matmuls or cuDNN
-    convolutions."""
-    if plan.devices != 1 or plan.placement.mode != "replicate":
-        raise PlanError(
-            f"plan requests {plan.devices} devices with placement "
-            f"{plan.placement.mode!r}; the port runs on one device, replicate"
-        )
+    """Refuse what this world cannot run (more devices than ranks, a
+    missing card, more ranks than cards), and make f32 rows true f32: no
+    TF32 in matmuls or cuDNN convolutions."""
+    want = max(plan.device_sweep)
+    available = sharding.available_devices()
+    if want > available:
+        raise PlanError(f"plan requests {want} devices but only {available} available")
     if plan.device == "cuda" and not torch.cuda.is_available():
         raise PlanError(
             "plan runs on cuda but torch.cuda.is_available() is False; "
             "ask for device='cpu' to run on the CPU"
         )
+    if plan.device == "cuda" and available > torch.cuda.device_count():
+        raise PlanError(f"a world of {available} ranks needs {available} cards (NCCL "
+                        f"refuses two ranks on one); {torch.cuda.device_count()} available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def _whole(tree):
+    """A call's outputs or arguments with each DTensor gathered to the whole
+    tensor (a collective: every rank of its mesh calls it)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, DTensor):
+        return tree.full_tensor()
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_whole(t) for t in tree)
+    return tree
 
 
 def _synchronize(device: str) -> None:

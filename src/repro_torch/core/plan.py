@@ -15,11 +15,14 @@ single-threaded or thread-per-lane client, with an optional SLO, a
 co-located partner, or a mix of request shapes served by the continuous
 batcher; realized by the engine's serve stage through ``repro_torch.serve``).
 
-The port runs on one device so far: a plan's placement must be one device,
-``replicate``. The engine refuses more than one device, and shard placement
-(device sweeps included), with :class:`PlanError` (ROADMAP queue 1, item 12).
+A :class:`Placement` is a device count and a mode (``replicate`` or
+``shard``); ``device_sweep`` runs the selection at several device counts for
+scaling curves, each count's placement from :meth:`ExecutionPlan.placement_at`
+(one device is always ``replicate``). Several devices are the ranks of a
+``torch.distributed`` world, one process a device (``runtime/sharding.py``);
+the engine refuses a plan that asks for more devices than the world has.
 Distributed load generation (``ServeSpec.client_procs``: N client processes
-on that one device) runs.
+on one device) runs.
 
 Plans carry no execution state: the engine (``core/engine.py``) consumes a
 plan, owns the callable cache and the stage sequence, and emits records.
@@ -320,7 +323,8 @@ def _freeze_overrides(
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
-    """What to run, at what size, how many passes, on which device."""
+    """What to run, at what size, how many passes, on which device and how
+    many of them."""
 
     levels: tuple[int, ...] = (0, 1, 2)
     names: tuple[str, ...] | None = None
@@ -337,11 +341,15 @@ class ExecutionPlan:
     # Windowed timing: per measured pass, additionally time `iters` windows
     # of K back-to-back calls with one synchronization each (K=1 disables).
     timing_window: int = 4
-    # One device, replicate (the only placement the port runs so far).
-    # `devices=N` is accepted as sugar for Placement(devices=N); after
+    # Multi-device placement: a Placement(devices, mode). `devices=N` is
+    # accepted as sugar for Placement(devices=N, mode="replicate"); after
     # construction `plan.devices` mirrors `plan.placement.devices`.
     placement: Placement | None = None
     devices: int | None = None
+    # Scaling sweep: run the selection once per device count (sorted
+    # ascending, deduplicated) under placement.mode, sharing the callable
+    # cache across counts. None = just (placement.devices,).
+    device_sweep: tuple[int, ...] | None = None
     # Implementation axis: "torch" times the plain PyTorch path; "kernel"
     # times the hand-written kernel for workloads that declare one
     # (Workload.kernel), with a recorded fallback to torch otherwise.
@@ -407,6 +415,26 @@ class ExecutionPlan:
             )
         object.__setattr__(self, "placement", placement)
         object.__setattr__(self, "devices", placement.devices)
+        sweep = self.device_sweep
+        if sweep is None:
+            sweep = (placement.devices,)
+        else:
+            sweep = tuple(sweep)
+            if not sweep:
+                raise PlanError("device_sweep is empty")
+            for n in sweep:
+                if not isinstance(n, int) or n < 1:
+                    raise PlanError(f"device_sweep entries must be ints >= 1, got {sweep}")
+            # Ascending order puts the 1-device baseline first, so sweep
+            # records can carry scaling_efficiency as they stream out.
+            sweep = tuple(sorted(set(sweep)))
+        object.__setattr__(self, "device_sweep", sweep)
+
+    def placement_at(self, devices: int) -> Placement:
+        """The effective placement for one sweep step: the plan's mode at
+        ``devices`` (sharding over one device degenerates to replicate)."""
+        mode = self.placement.mode if devices > 1 else "replicate"
+        return Placement(devices=devices, mode=mode)
 
     # -- selection ---------------------------------------------------------
 

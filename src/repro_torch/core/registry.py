@@ -20,8 +20,8 @@ ported so far (``repro_torch/bench/__init__.py``).
 a tuple with one entry per ``make_inputs`` output: the input's
 data-parallel dimension index, or ``None`` for inputs that must be
 replicated (weights, scalars); ``batch_dims=None`` opts the whole workload
-out of sharding. The port runs on one device so far; the declarations are
-kept so multi-device placement can use them when it is ported.
+out of sharding: a ``shard`` placement then falls back to ``replicate``
+(``runtime/sharding.py::place_args``), and the record says so.
 
 **The ``impl`` contract (for benchmark authors).** Plans carry an
 ``impl ∈ {"torch", "kernel"}`` axis selecting which implementation the
@@ -97,6 +97,11 @@ class Workload:
     # contract); None = no kernel, kernel plans time torch for this row.
     kernel: str | None = None
     meta: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def batchable(self) -> bool:
+        """True when a sharded placement can partition at least one input."""
+        return self.batch_dims is not None and any(d is not None for d in self.batch_dims)
 
 
 @dataclasses.dataclass(frozen=True)

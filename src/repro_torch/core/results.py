@@ -332,6 +332,8 @@ class BenchmarkRecord:
                 f"{self.status}:{self.derived}"
             )
         extra = ""
+        if self.scaling_efficiency is not None:
+            extra += f";eff={self.scaling_efficiency:.3f}"
         if self.us_per_call_windowed is not None:
             extra += (
                 f";win_us={self.us_per_call_windowed:.2f}"
@@ -417,6 +419,7 @@ class RunMetadata:
     preset: int | None = None
     devices: int = 1
     placement: str = "replicate"
+    device_sweep: tuple[int, ...] = (1,)
     timing_window: int = 1
     impl: str = "torch"
     tune: bool = False  # whether the tune stage was enabled
@@ -436,7 +439,10 @@ class RunMetadata:
     counters: dict | None = None
 
     def __post_init__(self) -> None:
-        # JSON round-trips the ServeSpec as a dict (its mix as dicts too).
+        # JSON round-trips tuples as lists, the ServeSpec as a dict (its mix
+        # as dicts too).
+        if not isinstance(self.device_sweep, tuple):
+            object.__setattr__(self, "device_sweep", tuple(self.device_sweep))
         if isinstance(self.serve, dict):
             fields = {f.name for f in dataclasses.fields(ServeSpec)}
             object.__setattr__(
@@ -451,6 +457,7 @@ class RunMetadata:
         preset: int | None = None,
         devices: int = 1,
         placement: str = "replicate",
+        device_sweep: tuple[int, ...] | None = None,
         timing_window: int = 1,
         impl: str = "torch",
         tune: bool = False,
@@ -463,6 +470,7 @@ class RunMetadata:
             preset=preset,
             devices=devices,
             placement=placement,
+            device_sweep=device_sweep if device_sweep is not None else (devices,),
             timing_window=timing_window,
             impl=impl,
             tune=tune,

@@ -17,6 +17,18 @@ before compiling and times the winner (``tuned_params``, ``tune_trials``,
 so a warm tuned run performs zero trials, and the CLI prints the cache's
 counters on stderr.
 
+Placement flags, the reference's: ``--devices N`` runs on the first N
+devices, ``--placement {replicate,shard}`` picks what each device gets
+(full copies, or the inputs split along each workload's ``batch_dims``),
+and ``--scale-devices 1,2,4`` sweeps the selection across device counts,
+one record per (benchmark, pass, count) with ``scaling_efficiency`` on the
+multi-device rows. The devices are the ranks of a ``torch.distributed``
+world, one process a device, started by ``torchrun``
+(``python -m torch.distributed.run --nproc-per-node N -m
+repro_torch.core.suite ...``; NCCL on ``cuda``, gloo on ``cpu``); rank 0
+prints the table and writes the reports. Without ``torchrun`` one device is
+available, and a plan asking for more exits 2 naming the count.
+
 Serving flags, the reference's: ``--serve {open,closed}`` serves every
 selected workload under generated load after measuring it (``--qps``
 open-loop arrival rate, ``--concurrency`` in-flight cap, ``--lanes``
@@ -54,6 +66,9 @@ name, bad override, no such device, a serve flag without ``--serve``).
     PYTHONPATH=src python -m repro_torch.core.suite --names gemm_bf16_nn \\
         --preset 4 --impl kernel --no-backward --serve open --qps 2000 \\
         --client-procs 2 --cache-dir /tmp/cache --trace-out run.trace.json
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+        -m repro_torch.core.suite --device cpu --impl kernel --levels 1 \\
+        --placement shard --scale-devices 1,2,4 --no-backward
 """
 
 from __future__ import annotations
@@ -66,16 +81,19 @@ from repro_torch.core.engine import Engine
 from repro_torch.core.plan import (
     DEVICES,
     IMPLS,
+    PLACEMENT_MODES,
     SERVE_CLIENTS,
     SERVE_DISPATCH,
     SERVE_MODES,
     ExecutionPlan,
+    Placement,
     PlanError,
     ServeSpec,
     ShapeBucket,
 )
 from repro_torch.core.results import BenchmarkRecord, to_csv_lines
 from repro_torch.obs import Tracer
+from repro_torch.runtime import sharding
 
 __all__ = ["run_suite", "main"]
 
@@ -94,6 +112,9 @@ def run_suite(
     impl: str = "torch",
     tune: bool = False,
     device: str = "cuda",
+    devices: int = 1,
+    placement: str = "replicate",
+    scale_devices: Sequence[int] | None = None,
     serve: ServeSpec | None = None,
     report_path: str | None = None,
     jsonl_path: str | None = None,
@@ -118,6 +139,8 @@ def run_suite(
         impl=impl,
         tune=tune,
         device=device,
+        placement=Placement(devices=devices, mode=placement),
+        device_sweep=tuple(scale_devices) if scale_devices is not None else None,
         serve=serve,
     )
     result = (engine or Engine(cache_dir=cache_dir)).run(
@@ -149,6 +172,21 @@ def _parse_value(value: str) -> Any:
         except ValueError:
             pass
     return {"true": True, "false": False}.get(value.lower(), value)
+
+
+def _parse_scale_devices(text: str | None) -> tuple[int, ...] | None:
+    """``"1,2,4"`` -> (1, 2, 4)."""
+    if text is None:
+        return None
+    try:
+        counts = tuple(int(part) for part in text.split(",") if part.strip())
+    except ValueError:
+        raise SystemExit(
+            f"bad --scale-devices {text!r}; expected comma-separated ints, e.g. 1,2,4"
+        ) from None
+    if not counts:
+        raise SystemExit(f"bad --scale-devices {text!r}; no device counts given")
+    return counts
 
 
 def _parse_mix(text: str) -> tuple[ShapeBucket, ...]:
@@ -282,6 +320,14 @@ def main(argv: Sequence[str] | None = None) -> int:
     ap.add_argument("--device", choices=DEVICES, default="cuda",
                     help="where to run (default cuda; a missing CUDA device "
                          "is an error, never a silent CPU run)")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="run on the first N devices (ranks of the torchrun world)")
+    ap.add_argument("--placement", choices=PLACEMENT_MODES, default="replicate",
+                    help="what multi-device runs put on each device: full copies "
+                         "(replicate) or batch_dims-partitioned inputs (shard)")
+    ap.add_argument("--scale-devices", type=str, default=None, metavar="N1,N2,...",
+                    help="device-scaling sweep, e.g. 1,2,4: one record per "
+                         "(benchmark, pass, count)")
     ap.add_argument("--serve", choices=SERVE_MODES, default=None,
                     help="serve each selected workload under load after measuring "
                          "it: open-loop arrivals at --qps or closed-loop at "
@@ -338,6 +384,11 @@ def main(argv: Sequence[str] | None = None) -> int:
                          "track, a served request a lane, a batch a queue "
                          "(host clock)")
     args = ap.parse_args(argv)
+    try:
+        sharding.init_distributed(args.device)  # a torchrun world, else one process
+    except (RuntimeError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     tracer = Tracer() if args.trace_out else None
     engine = Engine(cache_dir=args.cache_dir, tracer=tracer)
     try:
@@ -353,6 +404,9 @@ def main(argv: Sequence[str] | None = None) -> int:
             impl=args.impl,
             tune=args.tune,
             device=args.device,
+            devices=args.devices,
+            placement=args.placement,
+            scale_devices=_parse_scale_devices(args.scale_devices),
             serve=_parse_serve(args),
             include_backward=not args.no_backward,
             report_path=args.report,
@@ -361,8 +415,13 @@ def main(argv: Sequence[str] | None = None) -> int:
             engine=engine,
         )
     except (PlanError, ValueError) as e:
+        # Bad selection, placement or device count: a configuration error.
         print(f"error: {e}", file=sys.stderr)
+        print(f"available devices: {sharding.available_devices()} (device={args.device})",
+              file=sys.stderr)
         return 2
+    if sharding.rank() != 0:
+        return 0  # rank 0 reports for the world
     for line in to_csv_lines(records):
         print(line)
     if engine.disk_cache is not None:

@@ -10,9 +10,14 @@ reference's asynchronous ``device_put`` does. A bounded queue of ``depth``
 batches is the backpressure that caps host memory; ``close`` stops the
 thread and drains the queue.
 
-On the CPU the batch becomes tensors with no copy beyond ``from_numpy``. A
-``sharding`` (the reference's batch placement over a mesh) is placement over
-several GPUs, ROADMAP.md queue 1, item 12: it raises.
+On the CPU the batch becomes tensors with no copy beyond ``from_numpy``.
+``sharding`` is the reference's batch placement over a mesh, here the data
+axis's 1-D ``DeviceMesh`` (``mesh["data"]`` of a ``(data, model)`` mesh):
+of n ranks, rank r gets rows ``[r·B/n, (r+1)·B/n)`` of every leaf of the
+global ``batch_at(step)``, on its device. So n ranks see exactly the global
+batch of one process. A leaf whose batch n does not divide raises
+``ValueError``: a loader that left it whole would have every rank train on
+it, n times the work.
 """
 
 from __future__ import annotations
@@ -37,11 +42,7 @@ class Prefetch:
         sharding=None,
         device: str | torch.device = "cuda",
     ):
-        if sharding is not None:
-            raise NotImplementedError(
-                "a batch sharding places batches over several GPUs: ROADMAP.md queue 1, "
-                "item 12; the port prefetches onto one device"
-            )
+        self._rows = None if sharding is None else (sharding.get_local_rank(), sharding.size())
         self._batch_at = batch_at
         self._device = torch.device(device)
         if self._device.type == "cuda" and self._device.index is None:
@@ -53,9 +54,24 @@ class Prefetch:
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 
+    def _shard(self, batch: dict) -> dict:
+        """This rank's rows of each leaf."""
+        if self._rows is None:
+            return batch
+        r, n = self._rows
+        out = {}
+        for k, v in batch.items():
+            b = np.shape(v)[0] if np.ndim(v) else 0
+            if not b or b % n:
+                raise ValueError(f"batch leaf {k!r} of shape {np.shape(v)} does not split "
+                                 f"over {n} ranks: its batch must be a multiple of {n}")
+            out[k] = v[r * (b // n):(r + 1) * (b // n)]
+        return out
+
     def _to_device(self, batch: dict):
         """-> (tensors on the device, the event their copies complete at, or
         None on the CPU)."""
+        batch = self._shard(batch)
         if self._device.type != "cuda":
             return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}, None
         stream = self._stream

@@ -52,16 +52,45 @@ batched call takes a rule (:func:`is_batched`), so an unbatched call keeps
 its direct path, with no dispatcher cost on the measured rows; on CPU
 tensors the rule runs over the plain versions, which is how the tests here
 reach it.
+
+**Sharding rules.** A DTensor operand (a placement over a ``DeviceMesh``,
+``runtime/sharding.py``) has no data pointer a C entry can take either.
+Each op has a sharding rule next to its batching rule (:func:`sharded`,
+with the op's :data:`_LOCAL` predicate), and takes it whenever an operand
+is a DTensor, under either route:
+
+- **local**: where the op is independent along every sharded dimension,
+  the op runs on each rank's local shard and its output keeps the shard
+  (``matmul`` with ``a`` sharded on its leading dim and ``b`` replicated,
+  the batched product with both on the batch axis; ``softmax`` on any dim
+  but the last; ``lrn`` on any dim but the channels; ``avgpool`` on batch
+  or channels; ``attention`` with q, k and v on the batch; any op whose
+  operands are all replicated);
+- **gathered**: otherwise every operand is redistributed to ``Replicate``
+  first (a ``Partial`` one reduced) and the whole op runs on every rank,
+  its output replicated, as XLA runs a custom call it cannot partition.
+  ``prefix_scan``, ``sort_kv`` and ``srad_step`` gather whatever is
+  sharded.
+
+Either way the op's own route runs on plain tensors: a CUDA DTensor
+launches the kernel (counted under its entry) or raises, a CPU one runs
+the plain versions. :data:`dtensor_rules` counts each (op, rule) taken.
+Workload functions that DTensor's own propagation cannot run (a tensor
+made inside from a shape, a host-checked loop) declare a rule through the
+same decorator (``bench/dnn/dropout.py``, ``bench/level2/mandelbrot.py``).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import contextvars
-from typing import Literal
+import functools
+from typing import Callable, Literal
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import avgpool as _avgpool_mod
 from repro_torch.kernels import bitonic_sort as _sort_mod
 from repro_torch.kernels import flash_attention as _attention_mod
@@ -77,6 +106,9 @@ __all__ = [
     "force_impl", "reenter_impl", "takes_kernel", "tune_space", "is_batched", "KERNEL_OPS",
     "MODES",
     "TileRefused",
+    "sharded",
+    "shard_dim",
+    "dtensor_rules",
 ]
 
 Mode = Literal["auto", "kernel", "ref"]
@@ -174,6 +206,130 @@ def tune_space(op: str) -> tuple[dict, ...]:
     return module.tune_space()
 
 
+# -- sharding rules -----------------------------------------------------------
+
+# (op, "local" or "gathered") -> calls that took that rule.
+dtensor_rules: collections.Counter = collections.Counter()
+_REPLICATED, _OTHER = "replicated", "other"
+
+
+def _dtensor_type():
+    from torch.distributed.tensor import DTensor
+
+    return DTensor
+
+
+def _has_dtensor(args) -> bool:
+    # A plain tensor (the measured rows' case) costs one type check.
+    return any(isinstance(a, torch.Tensor) and type(a) is not torch.Tensor
+               and isinstance(a, _dtensor_type()) for a in args)
+
+
+def _layout(t):
+    """``_REPLICATED`` (not a DTensor, or replicated on every mesh dim), the
+    tensor dim of an even ``Shard`` on a 1-D mesh, or ``_OTHER`` (a
+    ``Partial``, an uneven shard, a mesh of more dims)."""
+    if not isinstance(t, _dtensor_type()):
+        return _REPLICATED
+    pl = t.placements
+    if all(p.is_replicate() for p in pl):
+        return _REPLICATED
+    if len(pl) == 1 and pl[0].is_shard():
+        d = pl[0].dim % t.dim()
+        if t.shape[d] % t.device_mesh.size() == 0:
+            return d
+    return _OTHER
+
+
+def shard_dim(t) -> int | None:
+    """The dim ``t`` is evenly sharded on over a 1-D mesh, else None."""
+    d = _layout(t)
+    return d if isinstance(d, int) else None
+
+
+def sharded(name: str, local: Callable[..., int | None]):
+    """Decorate ``fn`` (its tensor operands positional) with a sharding
+    rule: a call with a DTensor operand runs ``fn`` on each rank's local
+    shards when ``local(*operands, **kwargs)`` names the output's sharded
+    dim (or every operand is replicated), else on the operands gathered to
+    ``Replicate``; plain calls go straight to ``fn``."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _has_dtensor(args):
+                return fn(*args, **kwargs)
+            from torch.distributed.tensor import Replicate, Shard
+
+            dtensor = _dtensor_type()
+            mesh = next(a.device_mesh for a in args if isinstance(a, dtensor))
+            replicated = (Replicate(),) * mesh.ndim
+            if all(_layout(a) == _REPLICATED for a in args):
+                rule, out_pl = "local", replicated
+            else:
+                dim = local(*args, **kwargs)
+                rule = "gathered" if dim is None else "local"
+                out_pl = replicated if dim is None else (Shard(dim),)
+            _build.count(dtensor_rules, (name, rule))
+            plain = tuple(
+                a if not isinstance(a, dtensor)
+                else a.to_local() if rule == "local" else a.full_tensor()
+                for a in args
+            )
+            out = fn(*plain, **kwargs)
+
+            def back(t):
+                return dtensor.from_local(t, mesh, out_pl, run_check=False)
+
+            return tuple(back(t) for t in out) if isinstance(out, tuple) else back(out)
+
+        return call
+
+    return wrap
+
+
+def _matmul_local(a, b, **_):
+    """Rows (any dim of ``a`` but the contracted one) against a replicated
+    2-D ``b``; a replicated 2-D ``a`` against ``b``'s columns; a batched
+    ``b`` on its batch axis against a replicated 2-D ``a`` (a weight
+    broadcast over images) or an ``a`` sharded alike."""
+    la, lb = _layout(a), _layout(b)
+    if b.dim() == 2 and lb == _REPLICATED and isinstance(la, int) and la < a.dim() - 1:
+        return la
+    if a.dim() == 2 == b.dim() and la == _REPLICATED and lb == 1:
+        return 1
+    if b.dim() == 3 and lb == 0 and (a.dim() == 2 and la == _REPLICATED
+                                     or a.dim() == 3 and la == 0):
+        return 0
+    return None
+
+
+def _attention_local(q, k, v, **_):
+    return 0 if _layout(q) == _layout(k) == _layout(v) == 0 else None
+
+
+def _softmax_local(x, **_):
+    d = shard_dim(x)
+    return d if d != x.dim() - 1 else None
+
+
+def _lrn_local(x, **_):
+    d = shard_dim(x)  # the window runs along the channels (dim 1)
+    return d if d != 1 else None
+
+
+def _avgpool_local(x, **_):
+    d = shard_dim(x)  # windows tile H and W
+    return d if d in (0, 1) else None
+
+
+def _gathered(*_, **__):
+    """A scan, a sort or a stencil step with a global reduction: no
+    sharded dim is independent."""
+    return None
+
+
+@sharded("matmul", _matmul_local)
 def matmul(a: torch.Tensor, b: torch.Tensor, *, mode: Mode = "auto", **blocks):
     """(M, K) or (B, M, K) @ (K, N) or (B, K, N), batches broadcast as in
     ``torch.matmul``."""
@@ -185,6 +341,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, mode: Mode = "auto", **blocks):
     return _ref.matmul_ref(a, b)
 
 
+@sharded("attention", _attention_local)
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -217,6 +374,7 @@ def attention(
     return _ref.attention_ref(q, k, v, causal=causal, window=window, scale=scale)
 
 
+@sharded("softmax", _softmax_local)
 def softmax(x: torch.Tensor, *, mode: Mode = "auto"):
     use, _ = _resolve("softmax", mode, x, {})  # no block parameters
     if use:
@@ -226,6 +384,7 @@ def softmax(x: torch.Tensor, *, mode: Mode = "auto"):
     return _ref.softmax_ref(x)
 
 
+@sharded("lrn", _lrn_local)
 def lrn(x: torch.Tensor, *, size=5, alpha=1e-4, beta=0.75, k=2.0, mode: Mode = "auto"):
     use, _ = _resolve("lrn", mode, x, {})  # no block parameters
     if use:
@@ -236,6 +395,7 @@ def lrn(x: torch.Tensor, *, size=5, alpha=1e-4, beta=0.75, k=2.0, mode: Mode = "
     return _ref.lrn_ref(x, size=size, alpha=alpha, beta=beta, k=k)
 
 
+@sharded("avgpool", _avgpool_local)
 def avgpool(x: torch.Tensor, *, ksize=2, mode: Mode = "auto"):
     use, _ = _resolve("avgpool", mode, x, {})  # no block parameters
     if use:
@@ -245,6 +405,7 @@ def avgpool(x: torch.Tensor, *, ksize=2, mode: Mode = "auto"):
     return _ref.avgpool_ref(x, ksize=ksize)
 
 
+@sharded("srad_step", _gathered)
 def srad_step(img: torch.Tensor, *, lam=0.5, q0sqr=0.05, fused: bool = True,
               mode: Mode = "auto"):
     """One SRAD step: the cooperative fused kernel, or its two phases."""
@@ -257,6 +418,7 @@ def srad_step(img: torch.Tensor, *, lam=0.5, q0sqr=0.05, fused: bool = True,
     return _ref.srad_step_ref(img, lam=lam, q0sqr=q0sqr)
 
 
+@sharded("prefix_scan", _gathered)
 def prefix_scan(x: torch.Tensor, *, mode: Mode = "auto", **blocks):
     use, blocks = _resolve("prefix_scan", mode, x, blocks)
     if use:
@@ -266,6 +428,7 @@ def prefix_scan(x: torch.Tensor, *, mode: Mode = "auto", **blocks):
     return _ref.prefix_scan_ref(x)
 
 
+@sharded("sort_kv", _gathered)
 def sort_kv(keys: torch.Tensor, values: torch.Tensor, *, mode: Mode = "auto"):
     """Ascending key sort carrying values. The kernel route needs no padding
     (the reference pads to a power of two for its bitonic network)."""

@@ -16,14 +16,27 @@ Fault-tolerance contract, as the reference's:
 - A straggler trigger checkpoints at once (``runtime/straggler.py``).
 
 It runs on ``cuda`` unless the caller asks for ``cpu``; ``cuda`` without a
-card raises (the CLI exits 2), never falls back. ``--mesh`` on one device
-runs without a mesh, as the reference does; over several GPUs it is
-ROADMAP.md queue 1, item 12, and raises. After each step the driver reads
-the loss to the host once, and times the step with a CUDA event pair (the
-host clock on the CPU).
+card raises (the CLI exits 2), never falls back. After each step the driver
+reads the loss to the host once, and times the step with a CUDA event pair
+(the host clock on the CPU).
+
+``--mesh`` trains data parallel over a ``torch.distributed`` world (one
+process a device under ``torchrun``; NCCL on ``cuda``, gloo on ``cpu``), as
+the reference's ``(data, 1)`` mesh binds it: ``choose_submesh`` sizes the
+data axis (a power of two, the whole world), ``build_mesh`` makes the mesh,
+the parameters are replicated (the same seed, then a broadcast from rank
+0), ``Prefetch`` gives each rank its rows of the global batch, and the
+step mean-all-reduces every gradient and the loss over the data group after
+backward, before clipping and AdamW (``runtime/steps.py``): the logged loss
+is the global batch's. Rank 0 writes the checkpoints; a checkpoint holds
+whole tensors and the data cursor, so it restores under any world size.
+Without a process group ``--mesh`` runs on one device without a mesh, as
+the reference does.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --full --steps 20 --batch 8 --seq 1024
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+        -m repro_torch.launch.train --device cpu --mesh --steps 10
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
@@ -43,6 +57,8 @@ from repro_torch.data import Prefetch, SyntheticEmbeds, SyntheticLM
 from repro_torch.launch.serve import resolve_device
 from repro_torch.models import Model
 from repro_torch.optim import AdamW, warmup_cosine
+from repro_torch.runtime import sharding
+from repro_torch.runtime.elastic import build_mesh, choose_submesh
 from repro_torch.runtime.steps import make_train_step
 from repro_torch.runtime.straggler import StragglerMonitor
 
@@ -114,11 +130,8 @@ def train(
     if smoke:
         # Keep smoke runs fast but honest: small width, real block structure.
         cfg = dataclasses.replace(cfg, dtype="float32")
-    if use_mesh and dev.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "--mesh over several GPUs is placement (ROADMAP.md queue 1, item 12); "
-            "on one device the run needs no mesh"
-        )
+    mesh = _data_mesh(batch) if use_mesh else None
+    writer = mesh is None or sharding.rank() == 0  # rank 0 writes checkpoints
 
     model = Model(cfg, device=dev, remat=not smoke)
     model.init_weights(torch.Generator(device=dev).manual_seed(seed))
@@ -126,7 +139,8 @@ def train(
     sched = functools.partial(
         warmup_cosine, peak_lr=lr, warmup_steps=max(1, steps // 20), total_steps=steps
     )
-    step_fn = make_train_step(model, opt, sched, accum=accum)
+    data_group = mesh["data"].get_group() if mesh is not None else None
+    step_fn = make_train_step(model, opt, sched, accum=accum, data_group=data_group)
     opt_state = opt.init(dict(model.named_parameters()))
     start_step = 0
 
@@ -146,9 +160,14 @@ def train(
         restore_s = time.perf_counter() - t0
         print(f"[train] resumed from step {restored_step} (cursor {start_step}) in "
               f"{restore_s:.2f} s")
+    if data_group is not None:
+        with torch.no_grad():  # every rank starts from rank 0's parameters
+            for p in model.parameters():
+                dist.broadcast(p, src=dist.get_global_rank(data_group, 0), group=data_group)
 
     data = _make_data(cfg, batch, seq, seed)
-    prefetch = Prefetch(data.batch_at, start_step=start_step, device=dev)
+    prefetch = Prefetch(data.batch_at, start_step=start_step, device=dev,
+                        sharding=mesh["data"] if mesh is not None else None)
     monitor = StragglerMonitor()
     losses: list[float] = []
     step_ms: list[float] = []
@@ -156,6 +175,8 @@ def train(
     save_s: list[float] = []
 
     def save(step: int, cursor: int, blocking: bool = False) -> None:
+        if not writer:
+            return
         t0 = time.perf_counter()
         ckpt.save(step, payload(cursor), blocking=blocking)
         save_s.append(time.perf_counter() - t0)
@@ -210,6 +231,23 @@ def train(
     }
 
 
+def _data_mesh(batch: int):
+    """The ``(data, 1)`` mesh over the whole process group, or None outside
+    one (a single process trains without a mesh). The global ``batch`` must
+    split evenly over the ranks."""
+    if not dist.is_initialized():
+        return None
+    world = sharding.available_devices()
+    data, model = choose_submesh(world, model=1)
+    if data != world:
+        raise ValueError(f"--mesh trains over a power-of-two world (choose_submesh's data "
+                         f"axis); got {world} ranks, of which {data} would train")
+    if batch % world:
+        raise ValueError(f"--mesh splits the batch over the ranks: batch {batch} does not "
+                         f"divide by the world size {world}")
+    return build_mesh(None, data, model)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -229,6 +267,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     try:
         resolve_device(args.device)
+        if args.mesh:
+            sharding.init_distributed(args.device)  # a torchrun world, else one process
     except RuntimeError as e:
         print(f"train: {e}", file=sys.stderr)
         return 2

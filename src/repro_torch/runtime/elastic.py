@@ -3,9 +3,9 @@
 Counterpart of ``repro/runtime/elastic.py``. ``choose_submesh`` and
 ``plan_remesh`` are copies (pure arithmetic): the largest valid
 (data, model) grid over the surviving devices, the model (TP) degree pinned,
-powers of two on the data axis. ``build_mesh`` over more than one device is
-placement over several GPUs, ROADMAP.md queue 1, item 12: it raises. One
-device needs no mesh, which is how ``launch/train.py`` runs.
+powers of two on the data axis. ``build_mesh`` makes the ``(data, model)``
+``DeviceMesh`` over the first ``data·model`` ranks of the process group
+(``runtime/sharding.py``); outside a group one device needs no mesh.
 """
 
 from __future__ import annotations
@@ -57,11 +57,22 @@ def plan_remesh(
     )
 
 
-def build_mesh(devices: Sequence | None, data: int, model: int) -> None:
-    """None for one device (no mesh); a grid of more raises."""
-    if data * model > 1:
-        raise NotImplementedError(
-            f"a {data}x{model} device mesh is placement over several GPUs: ROADMAP.md "
-            "queue 1, item 12; the port trains on one device, without a mesh"
-        )
-    return None
+def build_mesh(devices: Sequence[int] | None, data: int, model: int):
+    """A ``(data, model)`` ``DeviceMesh`` over ``devices`` (ranks; the first
+    ``data·model`` of the world by default), ``data`` the major axis. Every
+    rank of the world calls it. Outside a process group a 1x1 grid is None
+    (one device, no mesh), and a larger one raises."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    need = data * model
+    avail = dist.get_world_size() if dist.is_initialized() else 1
+    if need > avail:
+        raise ValueError(f"a {data}x{model} mesh needs {need} devices, {avail} available")
+    if not dist.is_initialized():
+        return None
+    ranks = list(devices if devices is not None else range(avail))[:need]
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(device_type, torch.tensor(ranks).reshape(data, model),
+                      mesh_dim_names=("data", "model"))

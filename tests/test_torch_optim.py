@@ -153,8 +153,13 @@ def test_adamw_bf16_moments_track_f32():
 def test_unknown_moment_dtype_and_compression_raise():
     with pytest.raises(ValueError, match="moment_dtype"):
         AdamW(moment_dtype="float16").init({"w": torch.ones(2)})
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ErrorFeedbackInt8()
+    # Compression reduces over a process group: outside one it raises, and
+    # its error state is one f32 zero tensor a leaf.
+    comp = ErrorFeedbackInt8()
+    err = comp.init({"w": torch.ones(2, 3, dtype=torch.bfloat16)})
+    assert err["w"].dtype == torch.float32 and not err["w"].any()
+    with pytest.raises(ValueError, match="process group"):
+        comp.reduce_mean({"w": torch.ones(2, 3)}, err)
 
 
 def test_reference_optimizer_still_traces():

@@ -509,9 +509,13 @@ def test_placement_validation_and_one_device_only():
     plan = ExecutionPlan(devices=2)
     assert plan.placement == Placement(devices=2, mode="replicate")
     assert plan.devices == 2
-    with pytest.raises(PlanError, match="one device"):
-        Engine().run(_plan(names=("gemm_f32_nn",),
-                           placement=Placement(devices=1, mode="shard")))
+    # Shard at one device degenerates to replicate and runs; more devices
+    # than this process's one raise, naming both counts.
+    res = Engine().run(_plan(names=("gemm_f32_nn",),
+                             placement=Placement(devices=1, mode="shard")))
+    assert [(r.status, r.devices, r.placement) for r in res.records] == [("ok", 1, "replicate")]
+    with pytest.raises(PlanError, match="requests 2 devices but only 1 available"):
+        Engine().run(_plan(names=("gemm_f32_nn",), device_sweep=(1, 2)))
 
 
 def test_overrides_are_frozen_and_checked():

@@ -374,8 +374,28 @@ def test_prefetch_order_backpressure_and_close():
         assert max(calls) <= 5 + 2 + 1
     pf.close()
     assert not pf._thread.is_alive()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Prefetch(batch_at, sharding="data", device="cpu")
+    # Over a data mesh (a stand-in for rank 1 of 2; real worlds are in
+    # tests/test_torch_dp.py), a rank gets its rows of each leaf, and a leaf
+    # whose batch the ranks do not divide raises.
+    class _RankOneOfTwo:
+        def get_local_rank(self):
+            return 1
+
+        def size(self):
+            return 2
+
+    pf = Prefetch(lambda step: {"x": np.arange(4) + 10 * step, "y": np.arange(6)},
+                  sharding=_RankOneOfTwo(), device="cpu")
+    step, b = next(iter(pf))
+    assert step == 0 and b["x"].tolist() == [2, 3] and b["y"].tolist() == [3, 4, 5]
+    pf.close()
+    pf = Prefetch(lambda step: {"x": np.arange(4), "odd": np.arange(3)},
+                  sharding=_RankOneOfTwo(), device="cpu")
+    with pytest.raises(RuntimeError, match="prefetch") as info:
+        next(iter(pf))
+    assert isinstance(info.value.__cause__, ValueError)
+    assert "'odd'" in str(info.value.__cause__) and "2 ranks" in str(info.value.__cause__)
+    pf.close()
 
 
 def test_prefetch_raises_what_its_thread_raised():
@@ -523,7 +543,7 @@ def test_submesh_and_remesh_match_reference():
             got, want = plan_remesh(old, surviving), ref_plan_remesh(old, surviving)
             assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert build_mesh(None, 1, 1) is None
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="needs 2 devices, 1 available"):
         build_mesh(None, 2, 1)
 
 

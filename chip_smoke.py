@@ -239,6 +239,23 @@ exits nonzero without printing its result line:
    steps without a mesh, step time and peak memory beside; then six pairs
    of steps on one model, the data-parallel step and the plain one in
    turns, each timed by events;
+4o. the dry run against a world of one (``launch/dryrun.py``, which traces
+   a cell on the meta device): (a) qwen1.5-0.5b's train step at batch 8 x
+   1024, f32 moments, on mesh {data: 1, model: 1}, predicted, then run on
+   the card: the argument bytes equal the nbytes of the parameters, AdamW
+   state and batch the card holds, exactly; predicted peak (argument +
+   temp) over the measured peak above ``memory_allocated()`` inside
+   DRYRUN_PEAK_BAND; the trace's kernel entries equal the step's launches;
+   the step's time by events at least the predicted roofline bound at the
+   card's peaks, the fraction printed; (b) the same model's decode step at
+   batch 8 against a cache of 1096: the cache bytes exact, the peak ratio in
+   the same band, entries equal to launches, the step at least its bound;
+   (c) ``python -m repro_torch.launch.dryrun`` at production shapes, ``--mesh
+   single``, into a temporary directory: granite-3-8b train_4k,
+   jamba-1.5-large-398b long_500k and hubert-xlarge decode_32k (a skip),
+   then ``benchmarks.roofline_table.rows`` over it: each cell's seconds,
+   memory and kernel entries (flash_attention_bf16_wgmma for granite's
+   group 4, flash_decode_bf16 for jamba's prefill-free decode);
 5. yardstick: each kernel of the paths, its plain version and the one
    PyTorch call that computes the same function (where there is one),
    timed with CUDA events at the paths' shapes (and the kernel's own device
@@ -639,6 +656,16 @@ ENCODER_TIMED = dict(batch=8, frames=4096, forwards=3)
 # TRAIN_ARCH's full width, 3 steps, against the same steps without a mesh;
 # then DP_PAIRS pairs of steps on one model, the data-parallel step and the
 # plain one in turns (plain first in even pairs, meshed first in odd ones).
+# The dry run against a world of one (phase 4o): phase 4j's training shape
+# and phase 4d's decode shape on TRAIN_ARCH; the band that the predicted
+# peak over the measured one must fall in, fixed in PERF.md before
+# the first run on the card; the CLI's three cells at production shapes.
+DRYRUN_TRAIN = dict(batch=8, seq=1024)
+DRYRUN_DECODE = dict(batch=8, cache=1096)
+DRYRUN_PEAK_BAND = (0.8, 1.25)
+DRYRUN_CELLS = (("granite-3-8b", "train_4k", {"flash_attention_bf16_wgmma": 80}),
+                ("jamba-1.5-large-398b", "long_500k", {"flash_decode_bf16": 9}),
+                ("hubert-xlarge", "decode_32k", None))
 PLACEMENT_ROWS = ("gemm_f32_nn", "gemm_bf16_nn", "connected", "softmax", "lrn", "pooling",
                   "convolution_im2col", "kmeans", "devicemem_stream")
 PLACEMENT_SUITE = ("gemm_f32_nn", "softmax")
@@ -3876,6 +3903,159 @@ def phase_placement(torch, smi: str) -> tuple[dict, dict]:
     return launches, info
 
 
+def _dryrun_on_card(torch, what: str, rec: dict, run, held: dict, base: int,
+                    smi: str) -> dict:
+    """One predicted step against the card: ``run()`` once untimed, then once
+    by events with the peak above ``base`` read; the argument bytes in
+    ``held`` against the record's, exactly; predicted peak / measured in
+    DRYRUN_PEAK_BAND; launches equal to the trace's kernel entries; the step
+    at least its roofline bound."""
+    arg = rec["argument_bytes"]
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    launched = _nonzero(_read_launches())
+    measured = torch.cuda.max_memory_allocated() - base
+    mem = rec["memory"]
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    ratio = predicted / measured
+    bound_ms = rec["roofline"]["bound_s"] * 1e3
+    lo, hi = DRYRUN_PEAK_BAND
+    exact = all(held[k] == arg[k] for k in held)
+    print(f"  ({what}) argument bytes: predicted {arg}, the card holds {held}: exact "
+          f"{'yes' if exact else 'NO'}; peak predicted {predicted / 1e9:.4f} GB (argument "
+          f"{mem['argument_size_in_bytes'] / 1e9:.4f} + temp {mem['temp_size_in_bytes'] / 1e9:.4f})"
+          f", measured {measured / 1e9:.4f} GB above the phase's start, ratio {ratio:.4f} "
+          f"[{lo}, {hi}]; kernel entries {rec['kernel_entries']} against launches {launched}; "
+          f"step {ms:.3f} ms by events, bound {bound_ms:.3f} ms ({rec['roofline']['dominant']}: "
+          f"compute {rec['roofline']['compute_s'] * 1e3:.3f}, memory "
+          f"{rec['roofline']['memory_s'] * 1e3:.3f} ms), bound / step {bound_ms / ms:.4f}; "
+          f"trace {rec['trace_s']:.2f} s ({smi})")
+    if not exact:
+        _fail(f"{what}: the dry run's argument bytes {arg} differ from what the card holds {held}")
+    if not lo <= ratio <= hi:
+        _fail(f"{what}: predicted / measured peak {ratio:.4f} outside [{lo}, {hi}]")
+    if launched != rec["kernel_entries"]:
+        _fail(f"{what}: the card launched {launched}, the trace named {rec['kernel_entries']}")
+    if ms < bound_ms:
+        _fail(f"{what}: the step took {ms:.3f} ms, under its bound {bound_ms:.3f} ms")
+    return dict(ms=ms, bound_ms=bound_ms, ratio=ratio, predicted_gb=predicted / 1e9,
+                measured_gb=measured / 1e9, trace_s=rec["trace_s"])
+
+
+def phase_dryrun(torch, smi: str) -> dict:
+    """The dry run's per-device prediction against a world of one: a train
+    step and a decode step predicted on the meta device and run on the card,
+    then the CLI at production shapes over three cells."""
+    from repro_torch.benchmarks import roofline_table
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.runtime import make_train_step
+
+    print(f"== phase 4o: the dry run against a world of one ({TRAIN_ARCH}), then its CLI")
+    t_phase = time.perf_counter()
+    info = {}
+    world = {"data": 1, "model": 1}
+    cfg = get_config(TRAIN_ARCH)
+    train_shape = specs.ShapeSpec("train_8x1024", DRYRUN_TRAIN["seq"], DRYRUN_TRAIN["batch"],
+                                  "train")
+    decode_shape = specs.ShapeSpec("decode_8x1096", DRYRUN_DECODE["cache"],
+                                   DRYRUN_DECODE["batch"], "decode")
+    train_rec = dryrun.cell_record(dryrun.build_cell(TRAIN_ARCH, train_shape, mesh=world),
+                                   device="cuda")
+    decode_rec = dryrun.cell_record(dryrun.build_cell(TRAIN_ARCH, decode_shape, mesh=world),
+                                    device="cuda")
+
+    # (a) The train step: the model, AdamW state and batch the cell names.
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = Model(cfg, device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    params = dict(model.named_parameters())
+    opt = AdamW(moment_dtype=train_rec["moment_dtype"])
+    opt_state = opt.init(params)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, tuple(t.shape), generator=gen, device="cuda",
+                              dtype=t.dtype)
+             for k, t in specs.input_specs(cfg, train_shape).items()}
+    # The dry run's schedule and clipping (its train step's).
+    sched = functools.partial(warmup_cosine, peak_lr=3e-4, warmup_steps=100, total_steps=10000)
+    step_fn = make_train_step(model, opt, sched)
+    params_b = sum(p.nbytes for p in params.values())
+    held = {"params": params_b,
+            "opt_state": sum(t.nbytes for t in (*opt_state.m.values(), *opt_state.v.values(),
+                                                 opt_state.step)),
+            "batch": sum(t.nbytes for t in batch.values())}
+    info["train"] = _dryrun_on_card(torch, "a: train step, batch 8 x 1024", train_rec,
+                                    lambda: step_fn(opt_state, batch), held, base, smi)
+    del opt_state, batch, step_fn
+
+    # (b) The decode step on the same model: the cache and tokens the cell names.
+    torch.cuda.synchronize()
+    cache = model.init_cache(DRYRUN_DECODE["batch"], DRYRUN_DECODE["cache"])
+    tokens = torch.randint(0, cfg.vocab, (DRYRUN_DECODE["batch"],), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    pos = DRYRUN_DECODE["cache"] - 1  # the dry run's step: the cache's last position
+    held = {"params": params_b,
+            "cache": sum(t.nbytes for entry in cache for t in entry.values()),
+            "batch": tokens.nbytes + torch.empty((), dtype=torch.int32).nbytes}
+    info["decode"] = _dryrun_on_card(torch, "b: decode step, batch 8, cache 1096", decode_rec,
+                                     lambda: model.decode_step(cache, tokens, pos), held, base,
+                                     smi)
+    del model, params, cache, tokens
+    torch.cuda.empty_cache()
+
+    # (c) The CLI at production shapes, one pod, into a temporary directory.
+    cells = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, shape, entries in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            rc = dryrun.main(["--arch", arch, "--shape", shape, "--mesh", "single", "--out", tmp])
+            seconds = time.perf_counter() - t0
+            with open(os.path.join(tmp, f"{arch}__{shape}__single__baseline.json")) as f:
+                rec = json.load(f)
+            cells[(arch, shape)] = (seconds, rec)
+            if rc != 0 or (entries is None) != ("skip" in rec) or (
+                    entries is not None and rec["kernel_entries"] != entries):
+                _fail(f"dry run of {arch} {shape}: exit {rc}, record "
+                      f"{rec.get('skip') or rec['kernel_entries']}; expected {entries or 'a skip'}")
+        saved_dir = roofline_table.DRYRUN_DIR
+        roofline_table.DRYRUN_DIR = tmp
+        try:
+            rows = roofline_table.rows("single")
+        finally:
+            roofline_table.DRYRUN_DIR = saved_dir
+    for (arch, shape), (seconds, rec) in cells.items():
+        if "skip" in rec:
+            print(f"  (c) {arch} {shape}: {seconds:.2f} s, skip: {rec['skip']}")
+            continue
+        mem = rec["memory"]
+        print(f"  (c) {arch} {shape}: {seconds:.2f} s (trace {rec['trace_s']:.2f}); per device "
+              f"{sum(mem.values()) / 2**30:.2f} GiB (argument "
+              f"{mem['argument_size_in_bytes'] / 2**30:.2f} + temp "
+              f"{mem['temp_size_in_bytes'] / 2**30:.2f}, an upper bound); kernel entries "
+              f"{rec['kernel_entries']}; {rec['roofline']['dominant']}-bound, fraction "
+              f"{rec['roofline']['roofline_fraction']:.3f}; peaks {rec['peaks']}")
+    for name, us, derived in rows:
+        print(f"  {name},{us:.2f},{derived}")
+    if [r[0] for r in rows] != sorted(f"roofline.{a}.{s}.single" for a, s, _ in DRYRUN_CELLS):
+        _fail(f"roofline_table.rows over the CLI's records: {[r[0] for r in rows]}")
+    info["cli_s"] = {f"{a} {s}": c[0] for (a, s), c in cells.items()}
+    info["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 4o {info['phase_s']:.1f} s")
+    return info
+
+
 def _same_bytes(torch, a, b) -> bool:
     return (a.dtype == b.dtype and a.shape == b.shape
             and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
@@ -3952,7 +4132,7 @@ def _attention_backward_case(torch, gen, shape, dt) -> dict:
                                                          retain_graph=True), reps=5, warmup=1)
     from repro_torch.core.metrics import peaks_for, roofline_terms
 
-    pairs = b * hq * _visible_pairs(t, s, True, None)
+    pairs = b * hq * fa.visible_pairs(t, s, True, None)
     # Five products of 2*D operations a visible pair (S again, dV, dP, dQ,
     # dK) at the inputs' dtype's peak; bytes: q, k, v, dO read, dq, dk, dv
     # written once.
@@ -4504,18 +4684,6 @@ def _mandelbrot_yardstick(torch, hw):
     return rows, status
 
 
-def _visible_pairs(t: int, s: int, causal: bool, window) -> int:
-    """(query, key) pairs the masks leave visible, queries at the last t of
-    s positions: the work this input needs."""
-    total = 0
-    for i in range(t):
-        q_pos = s - t + i
-        hi = min(q_pos + 1, s) if causal else s
-        lo = max(q_pos - window + 1, 0) if window is not None else 0
-        total += max(hi - lo, 0)
-    return total
-
-
 def _plain_by_row(torch, fa, q, k, v, causal, window):
     """The plain attention one batch row at a time, concatenated."""
     return torch.cat([fa.flash_attention_plain(q[i:i + 1], k[i:i + 1], v[i:i + 1],
@@ -4592,9 +4760,7 @@ def _attention_yardstick(torch, gen, hw):
         except TypeError as e:  # a torch without enable_gqa
             print(f"  library call: none ({e})")
             library = None
-        pairs = b * hq * _visible_pairs(t, s, causal, window)
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        roof = roofline_terms(4.0 * d * pairs, nbytes, dtype=dt, hw=hw)
+        roof = roofline_terms(*fa.kernel_cost(q, k, v, causal, window), dtype=dt, hw=hw)
         shape = (f"B{b} Hq{hq} Hkv{hkv} T{t} S{s} D{d} {'causal' if causal else 'full'}"
                  + (f" window {window}" if window is not None else "") + what)
         rows.append((key, shape, roof, (
@@ -4819,6 +4985,7 @@ def main() -> int:
     recurrent_launches, rec = clock(phase_recurrent(torch, smi))
     vlm_launches, vlm = clock(phase_vlm_encoder(torch, smi))
     placement_launches, placed = clock(phase_placement(torch, smi))
+    dry = clock(phase_dryrun(torch, smi))
     # Every count was checked per path; a kernel's launches are the sum over
     # the paths that run it (SRAD's three entries: phases 4c and 4f).
     launches = {k: main_launches[k] + dnn_launches[k] + level_launches[k] + lm_launches[k]
@@ -4874,6 +5041,12 @@ def main() -> int:
           f"mesh {t['plain_step_ms'][-1]:.2f} ms), median of {DP_PAIRS} in turns "
           f"{t['turn_median_ms']:.2f} ms (without {t['turn_plain_median_ms']:.2f} ms), peak memory {t['peak_gb']:.2f} GB (without "
           f"{t['plain_peak_gb']:.2f} GB); phase 4n {placed['phase_s']:.1f} s ({smi})")
+    a, b = dry["train"], dry["decode"]
+    print(f"dry run against one card, {TRAIN_ARCH}: train step {a['ms']:.2f} ms (bound "
+          f"{a['bound_ms']:.2f} ms), peak predicted / measured {a['ratio']:.4f}; decode step "
+          f"{b['ms']:.3f} ms (bound {b['bound_ms']:.3f} ms), peak ratio {b['ratio']:.4f}; CLI "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in dry["cli_s"].items())
+          + f"; phase 4o {dry['phase_s']:.1f} s ({smi})")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,9 @@
 
 The port's copy of ``benchmarks/common.py``, unchanged but for
 ``ARTIFACT_DIR``, which names the repository root's ``artifacts/`` from
-here.
+here, and ``DRYRUN_DIR``, the port's dry-run records
+(``artifacts/dryrun_torch/``, which ``launch/dryrun.py`` writes), never the
+reference's ``artifacts/dryrun/``.
 
 Every module exposes ``rows() -> list[(name, us_per_call, derived)]``;
 run.py concatenates them into the required ``name,us_per_call,derived`` CSV.
@@ -13,7 +15,7 @@ from __future__ import annotations
 import os
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "artifacts")
-DRYRUN_DIR = os.path.join(ARTIFACT_DIR, "dryrun")
+DRYRUN_DIR = os.path.join(ARTIFACT_DIR, "dryrun_torch")
 
 Row = tuple[str, float, str]
 

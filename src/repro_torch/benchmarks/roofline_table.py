@@ -1,25 +1,60 @@
-"""§Roofline table from suite reports.
+"""§Roofline table: per (arch × shape) roofline terms from the dry run's
+records, and rows from suite reports.
 
-Counterpart of ``benchmarks/roofline_table.py``, its suite-report mode
-(``rows_from_records``, ``rows_from_report``, ``rows_from_latest_report``):
-roofline-style rows from engine records, each with its analytic terms
-beside the measured time. The measured column prefers
-``us_per_call_windowed`` (K calls per event pair) over the sync number
-when present, because the bound models the device's throughput, not the
-host's launch latency: against sync-mode time a small kernel mostly grades
-the launch overhead.
+Counterpart of ``benchmarks/roofline_table.py``, both modes:
 
-The reference's other mode (``rows``/``load_cells`` over
-``artifacts/dryrun/*.json``) renders what ``launch/dryrun.py`` writes; the
-port has no dry run yet (ROADMAP queue 1, item 16.5), so that mode is not
-here.
+- ``load_cells`` / ``rows`` over ``artifacts/dryrun_torch/*.json``, the
+  records ``repro_torch.launch.dryrun`` writes (the reference's read
+  ``artifacts/dryrun/``): one row a cell, the compute term's microseconds
+  and the record's dominant term, fraction, terms, useful-compute ratio and
+  memory, or the cell's skip reason;
+- ``rows_from_records``, ``rows_from_report``, ``rows_from_latest_report``:
+  roofline-style rows from engine records, each with its analytic terms
+  beside the measured time. The measured column prefers
+  ``us_per_call_windowed`` (K calls per event pair) over the sync number
+  when present, because the bound models the device's throughput, not the
+  host's launch latency: against sync-mode time a small kernel mostly
+  grades the launch overhead.
 """
 
 from __future__ import annotations
 
+import glob
+import json
 import os
 
-from repro_torch.benchmarks.common import ARTIFACT_DIR, Row, parse_derived
+from repro_torch.benchmarks.common import ARTIFACT_DIR, DRYRUN_DIR, Row, parse_derived
+
+
+def load_cells(mesh: str = "single", variant: str = "baseline") -> list[dict]:
+    cells = []
+    for path in sorted(glob.glob(os.path.join(DRYRUN_DIR, f"*__{mesh}__{variant}.json"))):
+        with open(path) as f:
+            cells.append(json.load(f))
+    return cells
+
+
+def rows(mesh: str = "single", variant: str = "baseline") -> list[Row]:
+    out: list[Row] = []
+    for c in load_cells(mesh, variant):
+        name = f"roofline.{c['arch']}.{c['shape']}.{mesh}"
+        if "skip" in c:
+            out.append((name, 0.0, f"skip={c['skip']}"))
+            continue
+        r = c["roofline"]
+        mem_gib = sum(c.get("memory", {}).values()) / 2**30
+        out.append(
+            (
+                name,
+                r["compute_s"] * 1e6,  # the compute-term microseconds
+                f"dominant={r['dominant']};fraction={r['roofline_fraction']:.3f};"
+                f"compute_s={r['compute_s']:.4g};memory_s={r['memory_s']:.4g};"
+                f"collective_s={r['collective_s']:.4g};"
+                f"useful_ratio={c['useful_compute_ratio']:.3f};"
+                f"mem_gib={mem_gib:.2f}",
+            )
+        )
+    return out
 
 
 def rows_from_records(records) -> list[Row]:

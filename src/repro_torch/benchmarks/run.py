@@ -23,8 +23,10 @@ stderr, and exit 1 when any row failed. Sections:
                              step against its two split phases
   feat_dynamic_parallelism — Dynamic Parallelism: Mandelbrot flat against
                              Mariani-Silver with device-side launch
-  roofline                 — roofline rows of the suite report at
-                             ``artifacts/suite_report.json``, if there is one
+  roofline                 — the dry run's cells (``artifacts/dryrun_torch/``,
+                             single pod then multi-pod) and the suite
+                             report's rows (``artifacts/suite_report.json``),
+                             where they exist
   fig_concurrency          — dispatch lanes under the single and the
                              threaded client, and a co-located pair
   fig_batching             — loop, lanes and the dynamic batcher replaying
@@ -43,8 +45,7 @@ fig_concurrency, fig_batching, fig_trace, fig_dist, fig_scaling) run through
 ``run_suite`` at ``--preset`` with per-benchmark fault isolation, ``--impl``
 naming the implementation of the serving and tracing sections (torch, the
 reference's default, or kernel); the feature studies take their own sizes
-(the reference's). The reference's dry-run roofline cells wait for ROADMAP
-queue 1, item 16.5. Under ``torchrun`` every rank runs the sections (the
+(the reference's). Under ``torchrun`` every rank runs the sections (the
 engine's sweeps need them all) and rank 0 prints.
 
 ``--device`` is ``cuda`` unless the caller asks for the CPU, where the
@@ -147,7 +148,8 @@ def main(argv=None) -> int:
         "feat_unified_memory": lambda: feat_unified_memory.rows(device=device),
         "feat_coop_groups": lambda: feat_coop_groups.rows(device=device),
         "feat_dynamic_parallelism": lambda: feat_dynamic_parallelism.rows(device=device),
-        "roofline": roofline_table.rows_from_latest_report,
+        "roofline": lambda: (roofline_table.rows("single") + roofline_table.rows("multi")
+                             + roofline_table.rows_from_latest_report()),
         "fig_concurrency": lambda: fig_concurrency.rows(preset=preset, impl=impl, device=device),
         "fig_batching": lambda: fig_batching.rows(preset=preset, impl=impl, device=device),
         "fig_trace": lambda: fig_trace.rows(preset=preset, impl=impl, device=device),

@@ -41,6 +41,24 @@ note at the top of each source for its bound and design:
 - ``launches`` (per C entry point) and ``plain_calls`` count as in
   ``kernels/matmul.py``.
 
+**The meta route.** :func:`flash_attention_kernel` has a third device case
+beside CUDA (launch or raise) and the CPU (the plain version): q, k and v
+on the ``meta`` device, which is how the dry run (``launch/dryrun.py``)
+traces a model at full size without memory. Nothing is built and nothing
+launches. The call returns an output of the kernel's shape, dtype and
+layout, and adds the kernel's analytic cost to every counter that
+:func:`counting_meta` made active: the entry :func:`_route` would take,
+4·D operations per visible (query, key) pair (:func:`visible_pairs`) and
+the bytes of q, k and v read and the output written once (the bound's
+convention of ``PERF.md``). Under autograd :class:`FlashAttentionFunction`
+saves q, k and v as on the card, and its backward runs
+:func:`attention_bwd_torch` on the meta tensors, traced as the card runs it.
+The backward's block loop makes thousands of operations a layer, all of one
+shape in every layer of a model, so where the innermost counter has a
+``memo(key, fn)`` method the backward goes through it, keyed by the
+operands' shapes, strides, dtypes and masks: the counter traces the first
+call of a key and may replay its counts for the next.
+
 **Head dims.** Each entry compiles its own set (:data:`ENTRY_HEAD_DIMS`,
 each the ``switch (D)`` of its source): the SIMT kernels 8, 16, 32, 64, 80
 and 128, the f32 TMA kernel the same but 80, the wgmma and decode kernels 64
@@ -63,6 +81,7 @@ gradient of ``sdpa``), so none is written here.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -77,6 +96,9 @@ __all__ = [
     "flash_attention_kernel",
     "flash_attention_plain",
     "FlashAttentionFunction",
+    "counting_meta",
+    "visible_pairs",
+    "kernel_cost",
     "attention_bwd_torch",
     "flash_decode_cuda",
     "flash_decode_plain",
@@ -616,6 +638,58 @@ def _run(name: str, q, k, v, causal, window, scale) -> torch.Tensor:
     return out
 
 
+# The meta route's active counters, each with a ``kernel(entry, flops,
+# nbytes, dtype)`` method. A plain list, not a context variable: autograd
+# runs a backward on meta tensors on the calling thread, and the dry run
+# traces one cell at a time.
+_META_COUNTERS: list = []
+
+
+@contextlib.contextmanager
+def counting_meta(counter):
+    """Make ``counter`` receive the cost of every attention call on meta
+    tensors until the block exits."""
+    _META_COUNTERS.append(counter)
+    try:
+        yield counter
+    finally:
+        _META_COUNTERS.remove(counter)
+
+
+def visible_pairs(t: int, s: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs the masks leave visible, the T queries at the last
+    T of S key positions: the work one (batch, query head) needs."""
+    import numpy as np
+
+    q_pos = np.arange(s - t, s, dtype=np.int64)
+    hi = np.minimum(q_pos + 1, s) if causal else np.full_like(q_pos, s)
+    lo = np.maximum(q_pos - window + 1, 0) if window is not None else np.zeros_like(q_pos)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def kernel_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                window: int | None) -> tuple[float, float]:
+    """(operations, bytes) of one attention call: 4·D a visible pair (QKᵀ
+    and PV) over every batch row and query head; q, k and v read and the
+    output written once."""
+    b, hq, t, d = q.shape
+    pairs = b * hq * visible_pairs(t, k.shape[2], causal, window)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return 4.0 * d * pairs, float(nbytes)
+
+
+def _meta_route(q, k, v, causal, window) -> torch.Tensor:
+    """The kernel route on meta tensors: the routed entry's output shape and
+    layout, its cost to the active counters, nothing launched."""
+    if not (q.is_meta and k.is_meta and v.is_meta):
+        raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, {v.device}")
+    name = _route(q, k, v, window)
+    flops, nbytes = kernel_cost(q, k, v, causal, window)
+    for counter in _META_COUNTERS:
+        counter.kernel(name, flops, nbytes, q.dtype)
+    return _empty_out(q)
+
+
 def flash_attention_kernel(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -627,8 +701,11 @@ def flash_attention_kernel(
     **blocks,
 ) -> torch.Tensor:
     """The kernel route: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors (the only case it runs)."""
+    for CPU tensors (the only case it runs), the meta route for meta
+    tensors (shape and cost only)."""
     global plain_calls
+    if q.device.type == "meta":
+        return _meta_route(q, k, v, causal, window)
     if q.device.type == "cpu":
         plain_calls += 1
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
@@ -711,7 +788,8 @@ def attention_bwd_torch(
 class FlashAttentionFunction(torch.autograd.Function):
     """Attention through the kernel route, differentiable: the forward is
     :func:`flash_attention_kernel` (the routed C entry for CUDA tensors, the
-    plain version for CPU ones), the backward :func:`attention_bwd_torch`.
+    plain version for CPU ones, the meta route for meta ones), the backward
+    :func:`attention_bwd_torch`.
     ``ops.attention`` applies it only where a gradient is wanted."""
 
     @staticmethod
@@ -724,7 +802,18 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
+
+        def run():
+            return attention_bwd_torch(q, k, v, dout, **ctx.opts)
+
         with record_function("attention_bwd_torch"):
-            dq, dk, dv = attention_bwd_torch(q, k, v, dout, **ctx.opts)
+            memo = getattr(_META_COUNTERS[-1], "memo", None) if (
+                q.is_meta and _META_COUNTERS) else None
+            if memo is None:
+                dq, dk, dv = run()
+            else:
+                key = ("attention_bwd_torch", tuple(ctx.opts.items()),
+                       *((tuple(t.shape), t.stride(), t.dtype) for t in (q, k, v, dout)))
+                dq, dk, dv = memo(key, run)
         _build.count(backward_calls, "attention_bwd_torch")
         return dq, dk, dv, None, None, None, None

@@ -5,7 +5,10 @@ hand-written kernel and its plain PyTorch oracle (``kernels/ref.py``):
 
 - ``mode="kernel"`` takes the kernel route: CUDA tensors launch the CUDA
   kernel (or raise), CPU tensors run the plain version, which is how the
-  reference runs a Pallas kernel interpreted off-TPU;
+  reference runs a Pallas kernel interpreted off-TPU; meta tensors on
+  ``attention`` take its meta route, which launches nothing and returns
+  the kernel's output shape while it adds the kernel's analytic cost to the
+  dry run's counter (``flash_attention.counting_meta``);
 - ``mode="ref"`` runs the oracle;
 - ``mode="auto"`` picks by the tensor's device: the kernel for a CUDA
   tensor, the oracle for a CPU tensor.

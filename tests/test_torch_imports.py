@@ -51,7 +51,8 @@ def test_port_imports_no_jax_and_no_reference_module():
         "repro_torch.configs.granite_8b", "repro_torch.configs.deepseek_7b",
         "repro_torch.models.moe", "repro_torch.configs.mixtral_8x22b",
         "repro_torch.configs.dbrx_132b", "repro_torch.core.hostloop",
-        "repro_torch.launch", "repro_torch.launch.serve",
+        "repro_torch.launch", "repro_torch.launch.serve", "repro_torch.launch.dryrun",
+        "repro_torch.launch.mesh", "repro_torch.launch.specs",
         "repro_torch.bench.level0.hostbus", "repro_torch.bench.level0.devicemem",
         "repro_torch.bench.level1.bfs", "repro_torch.bench.level2.mandelbrot",
         "repro_torch.bench.level2.particlefilter",
@@ -132,6 +133,7 @@ def test_checker_and_wire_format_import_neither_torch_nor_numpy():
     ["-m", "repro_torch.benchmarks.fig_dist", "--procs", "2"],
     ["-m", "repro_torch.core.suite", "--names", "pathfinder", "--serve", "open",
      "--qps", "100", "--client-procs", "2"],
+    ["-m", "repro_torch.launch.dryrun", "--arch", "xlstm-350m", "--shape", "long_500k"],
 ])
 def test_trace_and_dist_entry_points_without_cuda_exit_2(argv):
     if torch.cuda.is_available():

@@ -263,8 +263,13 @@ def test_run_report_sections_on_the_cpu_match_the_section_drivers():
     rows = [line.split(",", 2) for line in lines[1:]]
     assert not [r for r in rows if r[2].startswith(common.ERROR_PREFIX)]
     prefixes = {n.split(".")[0] for n, _, _ in rows}
-    # No suite report at artifacts/suite_report.json in a checkout: no roofline rows.
-    assert prefixes == set(REPORT_SECTIONS) - {"roofline"}
+    # The roofline section renders the dry run's records (artifacts/dryrun_torch/,
+    # single pod then multi-pod) and the suite report, where they exist; a
+    # checkout has neither, so no roofline rows there.
+    want = (roofline_table.rows("single") + roofline_table.rows("multi")
+            + roofline_table.rows_from_latest_report())
+    assert [n for n, _, _ in rows if n.startswith("roofline.")] == [n for n, _, _ in want]
+    assert prefixes - {"roofline"} == set(REPORT_SECTIONS) - {"roofline"}
     assert [n for n, _, _ in rows if n.startswith("table2.")] == [
         n for n, _, _ in _table2()[0]]  # table2 at max(--preset, 1)
     for section in REPORT_SECTIONS:

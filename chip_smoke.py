@@ -34,16 +34,19 @@ exits nonzero without printing its result line:
    graph, its counters back at 0), TMA f32 kernel or SIMT kernels (the f32
    cases on both f32 entries; every bf16 case also within ATTN_ROW_ULPS
    bf16 ulps of each output row's largest |value|); at the MoE path's group 6 (48 query heads
-   over 8 KV heads, D 128) the SIMT bf16 prefill its route picks, at a
+   over 8 KV heads, D 128) the wgmma bf16 prefill its route picks, at a
    window shorter than T and at one batch row of the timed serve's shape,
    and the decode kernel over a full 4096-slot ring, and a batch row of the
-   VLM's prefill (12 query heads over 2, D 128); at the hybrid path's
+   VLM's prefill (12 query heads over 2, D 128); the wgmma prefill at
+   groups 3, 5, 12 and 48 (a CTA of group * floor(128 / group) packed
+   rows), ragged, windowed and T < S; at the hybrid path's
    group 8 (64 query heads over 8 KV heads, D 128) the wgmma prefill at the
    timed serve's shape and the decode kernel over its longest cache; head
-   dim 80 (the encoder's) on both SIMT kernels, the only entries that
-   compile it, bidirectional and causal, ragged, and at a batch row of the
-   encoder's layer (16 heads, 4096 frames); each f32 entry at every head
-   dim it compiles; all five SRAD entries
+   dim 80 (the encoder's): f32 on the SIMT kernel, bf16 on the wgmma kernel
+   from 64 packed rows and on the SIMT one below, bidirectional and causal,
+   ragged, and at a batch row of the encoder's layer (16 heads, 4096
+   frames); the SIMT bf16 prefill forced at each of those wgmma layouts;
+   each f32 entry at every head dim it compiles; all five SRAD entries
    (the band kernel or the grid-stride one it replaced, the float4 walk or
    the one-pixel phase 1 it replaced, phase 2) bit for bit at every SRAD
    shape, aligned and off 16 bytes; both Mandelbrot kernels (flat, and
@@ -171,7 +174,7 @@ exits nonzero without printing its result line:
    whose experts differ in some layer under its bound), then a timed serve of 8
    requests, batch 4, 6144-token prompts and 64 generated tokens, the ring
    of 4096 slots wrapping in prefill and decode, counters set to 0 just
-   before and read just after (8 launches of the SIMT prefill, 504 of the
+   before and read just after (8 launches of the wgmma prefill, 504 of the
    decode kernel, no other), one prefill's and one decode step's device
    time split into attention, MoE and the rest; dbrx-132b at full width,
    2 of 40 layers, the same teacher-forced check at 2048 tokens; the strict
@@ -212,13 +215,13 @@ exits nonzero without printing its result line:
    layer fed the plain route's input (within LAYER_ULPS bf16 ulps, caches
    bit-equal), then a timed serve of 8 requests, batch 4, 64 tokens each,
    counters set to 0 just before and read just after (56 launches of the
-   SIMT prefill at group 6, 3528 of the decode kernel, nothing else), one
+   wgmma prefill at group 6, 3528 of the decode kernel, nothing else), one
    prefill's and one decode step's device time split into attention and
    the rest; hubert-xlarge as published (48 layers, head dim 80,
    bidirectional, bf16): a forward of 4096 frames one layer at a time
    against the plain route (LAYER_ULPS), then timed forwards at batch 8 x
    4096, counters set to 0 just before and read just after each (48
-   launches of the SIMT kernel, nothing else), frames/s, peak memory and
+   launches of the wgmma kernel at D 80, nothing else), frames/s, peak memory and
    one forward's device time split into attention and the rest;
 4n. placement over a world of one (the card's machine has one H100): a
    process group of one rank over NCCL (file rendezvous under the ignored
@@ -267,11 +270,12 @@ exits nonzero without printing its result line:
    ``torch.matmul`` (and the 2-D kernel at 1024^3), the replaced kernels
    (the SIMT f32 GEMM, 2-D and batched; the WMMA bf16 GEMM; SIMT attention; the online
    softmax; the shared-memory LRN) timed beside their successors at the
-   same shapes; the SIMT bf16 attention at the MoE serve's prefill (group
-   6, window 4096; the plain version a batch row at a time, SDPA given the
-   window as a mask), at the encoder's layer (B8, 16 heads, 4096 frames,
-   D 80, bidirectional) and the VLM's prefill (B4, 12 over 2 heads, 2048,
-   causal), the decode kernel at its group-6 step and the wgmma
+   same shapes; the wgmma bf16 attention, and the SIMT one it replaced
+   there, at the MoE serve's prefill (group 6, window 4096; the plain
+   version a batch row at a time, SDPA given the window as a mask), at the
+   encoder's layer (B8, 16 heads, 4096 frames, D 80, bidirectional) and the
+   VLM's prefill (B4, 12 over 2 heads, 2048, causal), the decode kernel at
+   its group-6 step and the wgmma
    prefill at the training path's shape, the wgmma prefill and the decode
    kernel at the hybrid path's group 8; the f32 GEMM at each compiled
    tile; a device copy of the
@@ -337,15 +341,16 @@ NO_KERNEL_PATH = (
 )
 # Kernels no path launches: the f32-key sort (the Sort benchmark's keys are
 # int32), and the GEMMs' SIMT f32 and WMMA bf16 kernels, attention's SIMT
-# f32 kernel, the online softmax, the shared-memory LRN and SRAD's
+# f32 and bf16 kernels, the online softmax, the shared-memory LRN and SRAD's
 # grid-stride step and one-pixel phase 1, which keep the layouts their
 # successors do not take. Phase 3 checks them and phase 5
 # times them; the kernels line, which carries each kernel's launches on its
-# path, leaves them out. (Attention's SIMT bf16 kernel is on the MoE path:
-# the wgmma prefill takes groups that divide 128, and mixtral's is 6.)
+# path, leaves them out. (Attention's SIMT bf16 kernel left the MoE, VLM
+# and encoder paths when the wgmma prefill took every group up to 128 and
+# head dim 80.)
 OFF_PATH = ("sort_kv_f32", "matmul_f32_simt", "matmul_f32_simt_batched", "matmul_bf16_wmma",
-            "flash_attention_f32_simt", "softmax_f32_online", "lrn_f32_smem",
-            "srad_fused_f32_gridstride", "srad_phase1_f32_scalar")
+            "flash_attention_f32_simt", "flash_attention_bf16_simt", "softmax_f32_online",
+            "lrn_f32_smem", "srad_fused_f32_gridstride", "srad_phase1_f32_scalar")
 # The tune stage (phase 4g): the f32 GEMM's rows, which have two compiled
 # tiles, and a bf16 row, whose entry compiles 128x128 alone; then the
 # paper's report sections, and the kernels their kernel rows reach
@@ -675,15 +680,25 @@ DP_PAIRS = 6
 # Attention at their shapes (B, Hq, Hkv, T, S, D): hubert's encoder layer at
 # the timed batch (bidirectional) and qwen2-vl's prefill (causal, group 6);
 # phase 3 holds a batch row of each, and hubert's head dim 80 at the cases
-# below on the entries that compile it (the SIMT kernels; D 80 routes to
-# them in both dtypes): bidirectional and causal, ragged T and S, groups 1
-# and 2, a window, T < S.
+# below on the entries it routes to (f32: the SIMT kernel; bf16: the wgmma
+# kernel from 64 packed rows, the SIMT one below): bidirectional and
+# causal, ragged T and S, groups 1 and 2, a window, T < S.
 ATTN_HUBERT = (8, 16, 16, 4096, 4096, 80)
 ATTN_VLM_PREFILL = (4, 12, 2, 2048, 2048, 128)
 ATTN_D80_CASES = [
     (1, 4, 4, 33, 33, 80, False, None), (2, 4, 4, 17, 17, 80, True, None),
     (1, 4, 2, 45, 77, 80, True, None), (2, 4, 2, 7, 30, 80, False, None),
     (1, 2, 1, 1, 50, 80, True, 9), (2, 16, 16, 100, 130, 80, False, None),
+]
+# The wgmma prefill at groups that do not divide 128 (a CTA holds group *
+# floor(128 / group) packed rows, whole positions): groups 3, 5, 12 and 48,
+# a ragged T whose last CTA holds fewer positions, windows shorter than T,
+# T < S, D 64, 80 and 128.
+ATTN_GROUP_CASES = [
+    (1, 3, 1, 300, 300, 128, True, None), (2, 15, 3, 77, 77, 128, True, 20),
+    (1, 24, 2, 100, 160, 128, True, None), (1, 48, 1, 33, 33, 128, False, None),
+    (1, 96, 2, 70, 200, 64, True, 50), (2, 6, 1, 50, 50, 80, True, 17),
+    (1, 12, 4, 130, 130, 80, False, None),
 ]
 KERNEL_SOURCES = {
     "matmul_f32": ("src/repro_torch/kernels/csrc/matmul_f32_tma.cu",
@@ -812,7 +827,7 @@ def phase_build() -> None:
               for bn in F32_TILES),
             *((f"flash_attention_bf16_wgmma D{d}",
                _build.function("flash_attention_bf16_wgmma_smem_bytes", [ctypes.c_int])(d))
-              for d in (64, 128)),
+              for d in (64, 80, 128)),
             *((f"flash_decode_bf16 D{d} rows<={r}",
                _build.function("flash_decode_bf16_smem_bytes", [ctypes.c_int] * 2)(d, r))
               for d in (64, 128) for r in (4, 16)),
@@ -1526,36 +1541,55 @@ def phase_kernels(torch) -> dict:
                                  entry="flash_attention_bf16_simt")
         err[key] = max(err[key], e)
     # Group 6 (the MoE path's 48/8 heads, the VLM's 12/2): the prefill on the
-    # SIMT kernel it routes to, at a window shorter than T and at one batch
+    # wgmma kernel it routes to, at a window shorter than T and at one batch
     # row of each timed serve's shape; decode over a full 4096-slot ring on
-    # the decode kernel.
+    # the decode kernel. Each prefill also on the SIMT kernel it left.
+    wgmma, simt = "flash_attention_bf16_wgmma", "flash_attention_bf16_simt"
     b, hq, hkv, t, s, d = ATTN_G6_PREFILL
     for shape, causal, window, want in (
-        (ATTN_G6_SMALL, True, ATTN_G6_SMALL[3] // 2, "flash_attention_bf16_simt"),
-        ((1, hq, hkv, t, s, d), True, MOE_WINDOW, "flash_attention_bf16_simt"),
-        ((1, *ATTN_VLM_PREFILL[1:]), True, None, "flash_attention_bf16_simt"),
+        (ATTN_G6_SMALL, True, ATTN_G6_SMALL[3] // 2, wgmma),
+        ((1, hq, hkv, t, s, d), True, MOE_WINDOW, wgmma),
+        ((1, *ATTN_VLM_PREFILL[1:]), True, None, wgmma),
         (ATTN_G6_DECODE, False, None, "flash_decode_bf16"),
     ):
         key, e = _attention_case(torch, fa, gen, bf16, *shape, causal, window)
         if key != want:
             _fail(f"group-6 attention {shape} routed to {key}, not {want}")
         err[key] = max(err[key], e)
+        if key == wgmma:
+            key, e = _attention_case(torch, fa, gen, bf16, *shape, causal, window, entry=simt)
+            err[key] = max(err[key], e)
+    # Groups 3, 5, 12 and 48 on the wgmma kernel, and on the SIMT one.
+    for case in ATTN_GROUP_CASES:
+        key, e = _attention_case(torch, fa, gen, bf16, *case)
+        if key != wgmma:
+            _fail(f"attention {case} routed to {key}, not {wgmma}")
+        err[key] = max(err[key], e)
+        key, e = _attention_case(torch, fa, gen, bf16, *case, entry=simt)
+        err[key] = max(err[key], e)
     # Group 8 at 64 query heads (jamba's 64/8, D 128): the timed serve's
     # prefill on the wgmma kernel, a decode step over its longest cache.
-    for shape, causal, want in ((ATTN_G8_PREFILL, True, "flash_attention_bf16_wgmma"),
+    for shape, causal, want in ((ATTN_G8_PREFILL, True, wgmma),
                                 (ATTN_G8_DECODE, False, "flash_decode_bf16")):
         key, e = _attention_case(torch, fa, gen, bf16, *shape, causal, None)
         if key != want:
             _fail(f"group-8 attention {shape} routed to {key}, not {want}")
         err[key] = max(err[key], e)
-    # Head dim 80 (hubert's) on the SIMT kernels it routes to, in both dtypes,
-    # and a batch row of hubert's encoder layer.
+    # Head dim 80 (hubert's) on the entries it routes to in both dtypes (f32:
+    # the SIMT kernel; bf16: the wgmma kernel from 64 packed rows, the SIMT
+    # one below), and a batch row of hubert's encoder layer; every bf16 case
+    # on the SIMT kernel too.
     for dt in (torch.float32, bf16):
         for case in ATTN_D80_CASES + [(1, *ATTN_HUBERT[1:], False, None)]:
             key, e = _attention_case(torch, fa, gen, dt, *case)
-            if key != fa._SIMT[dt]:
-                _fail(f"head dim 80 {_dtname(dt)} {case} routed to {key}")
+            rows = case[1] // case[2] * case[3]
+            want = fa._SIMT[dt] if dt == torch.float32 or rows < fa.MIN_WGMMA_ROWS else wgmma
+            if key != want:
+                _fail(f"head dim 80 {_dtname(dt)} {case} routed to {key}, not {want}")
             err[key] = max(err[key], e)
+            if key == wgmma:
+                key, e = _attention_case(torch, fa, gen, dt, *case, entry=simt)
+                err[key] = max(err[key], e)
     for case in DECODE_SPLIT_CASES:
         _decode_split_case(torch, fa, gen, *case)
     err["flash_decode_bf16"] = max(err["flash_decode_bf16"], _fused_decode_case(torch, fa, gen))
@@ -3358,7 +3392,7 @@ def phase_moe(torch, smi: str) -> tuple[dict, dict]:
     model, info["mixtral"] = _full_model(torch, arch, MOE_DEPTH[arch])
     info["mixtral_teacher"] = _layer_teacher_forced(torch, model, MOE_TEACHER[arch])
     num = _timed_serve(torch, model, MOE_SERVE,
-                       {"flash_attention_bf16_simt": 8, "flash_decode_bf16": 504}, smi)
+                       {"flash_attention_bf16_wgmma": 8, "flash_decode_bf16": 504}, smi)
     for k, n in num["launches"].items():
         launches[k] += n
     # The MoE is every ``apply_moe``: router and slot positions, dispatch,
@@ -3564,14 +3598,14 @@ def _timed_forwards(torch, model, kw, smi: str) -> dict:
     """The encoder's whole pass, ``Model.forward`` of kw["batch"] x
     kw["frames"] embeddings (``_prompts``), kw["forwards"] times after a
     warm-up, each timed by a CUDA event pair with the counters set to 0 just
-    before and read just after: each must launch flash_attention_bf16_simt
+    before and read just after: each must launch flash_attention_bf16_wgmma
     once a layer and nothing else, and return finite (B, T, vocab) logits.
     -> frames/s, forward ms, peak memory, the launches of the timed
     forwards."""
     cfg = model.cfg
     b, t = kw["batch"], kw["frames"]
     frames = _prompts(torch, model, b, t)
-    want = {k: cfg.n_layers * (k == "flash_attention_bf16_simt") for k in _read_launches()}
+    want = {k: cfg.n_layers * (k == "flash_attention_bf16_wgmma") for k in _read_launches()}
     launches = dict.fromkeys(want, 0)
     events = []
     with torch.inference_mode():
@@ -3635,14 +3669,14 @@ def phase_vlm_encoder(torch, smi: str) -> tuple[dict, dict]:
     t_part = _part_timer("(a) the smoke configs", t_part)
     # (b) qwen2-vl-2b as published: each layer of a prefill and 4 decode
     # steps fed the plain route's input, then the timed serve (prefill on the
-    # SIMT kernel at group 6, decode on the decode kernel), its split.
+    # wgmma kernel at group 6, decode on the decode kernel), its split.
     model, info["vlm"] = _full_model(torch, VLM_ARCH)
     info["vlm_teacher"] = _layer_teacher_forced(torch, model, VLM_TEACHER)
     t_part = _part_timer(f"the {VLM_ARCH} per-layer check", t_part)
     kw = VLM_SERVE
     rounds = -(-kw["n_requests"] // kw["batch"])
     num = _timed_serve(torch, model, kw, {
-        "flash_attention_bf16_simt": model.cfg.n_layers * rounds,
+        "flash_attention_bf16_wgmma": model.cfg.n_layers * rounds,
         "flash_decode_bf16": model.cfg.n_layers * rounds * (kw["gen_len"] - 1)}, smi)
     num.update(_serve_splits(torch, model, kw, (), {"attention": "attention"}))
     info["vlm_serve"] = num
@@ -4693,12 +4727,13 @@ def _plain_by_row(torch, fa, q, k, v, causal, window):
 
 def _attention_yardstick(torch, gen, hw):
     """The attention entries at the paths' shapes: the wgmma prefill kernel
-    (bf16 prefill; also at the training path's shape), the decode kernel
-    (bf16 decode step: one launch, the merge in its epilogue, as the path
+    (bf16 prefill; also at the training path's shape, the MoE serve's
+    prefill at group 6 with mixtral's window, the encoder's layer at head
+    dim 80 and the VLM's prefill at group 6), the decode kernel (bf16
+    decode step: one launch, the merge in its epilogue, as the path
     launches it; also at the MoE serve's group 6 over its full ring), the
-    SIMT kernel (the MoE serve's prefill, group 6 with mixtral's window;
-    the encoder's layer at head dim 80; the VLM's prefill at group 6; and
-    at the dense serving path's two shapes, where the others replaced it), and the f32 TMA kernel and the SIMT f32 kernel it replaced: at the
+    SIMT kernel it replaced (at the MoE, encoder and VLM shapes, and at the
+    dense serving path's two shapes), and the f32 TMA kernel and the SIMT f32 kernel it replaced: at the
     f32 smoke run's own prefill and decode shapes, where its launches are,
     and at the serving path's prefill shape (full width). The bound counts
     4*D operations per visible pair (two products) at the dtype's peak, and
@@ -4719,6 +4754,9 @@ def _attention_yardstick(torch, gen, hw):
         ("flash_decode_bf16", bf16, ATTN_G6_DECODE, False, None, " (MoE ring, one launch)"),
         ("flash_attention_bf16_wgmma", bf16, ATTN_G8_PREFILL, True, None, " (jamba)"),
         ("flash_decode_bf16", bf16, ATTN_G8_DECODE, False, None, " (jamba, one launch)"),
+        ("flash_attention_bf16_wgmma", bf16, ATTN_G6_PREFILL, True, MOE_WINDOW, " (MoE)"),
+        ("flash_attention_bf16_wgmma", bf16, ATTN_HUBERT, False, None, " (hubert)"),
+        ("flash_attention_bf16_wgmma", bf16, ATTN_VLM_PREFILL, True, None, " (qwen2-vl)"),
         ("flash_attention_bf16_simt", bf16, ATTN_G6_PREFILL, True, MOE_WINDOW, " (MoE)"),
         ("flash_attention_bf16_simt", bf16, ATTN_HUBERT, False, None, " (hubert)"),
         ("flash_attention_bf16_simt", bf16, ATTN_VLM_PREFILL, True, None, " (qwen2-vl)"),

@@ -2,9 +2,11 @@
 
 Counterpart of ``repro/core/suite.py``, main path only. ``run_suite``
 assembles an :class:`~repro_torch.core.plan.ExecutionPlan` (selection by
-level / name, preset + overrides, passes, iters / warmup / seed, timing
+level / name / tag / domain, preset + overrides, passes, iters / warmup / seed, timing
 window, implementation, device) and hands it to an
-:class:`~repro_torch.core.engine.Engine`. Output is a CSV table on stdout
+:class:`~repro_torch.core.engine.Engine`: the module's shared
+:data:`DEFAULT_ENGINE` unless the caller gives one or a ``cache_dir``, so a
+workload built for one call is reused by every later call. Output is a CSV table on stdout
 plus optional JSON and streaming JSONL reports.
 
 ``--device`` defaults to ``cuda``. Without a CUDA device the run stops with
@@ -95,13 +97,20 @@ from repro_torch.core.results import BenchmarkRecord, to_csv_lines
 from repro_torch.obs import Tracer
 from repro_torch.runtime import sharding
 
-__all__ = ["run_suite", "main"]
+__all__ = ["run_suite", "main", "DEFAULT_ENGINE"]
+
+# Shared across run_suite callers (figure drivers, examples, tests), as the
+# reference's: a workload built for one section is reused by every later
+# one. Building an Engine touches no device.
+DEFAULT_ENGINE = Engine()
 
 
 def run_suite(
     *,
     levels: Sequence[int] = (0, 1, 2),
     names: Sequence[str] | None = None,
+    tags: Sequence[str] | None = None,
+    domains: Sequence[str] | None = None,
     preset: int = 0,
     overrides: Mapping[str, Mapping[str, Any]] | None = None,
     iters: int = 5,
@@ -122,13 +131,16 @@ def run_suite(
     engine: Engine | None = None,
     cache_dir: str | None = None,
 ) -> list[BenchmarkRecord]:
-    """Run a plan of these parameters on ``engine``, or on a new engine
-    with its tune winners under ``cache_dir`` (give one or the other)."""
+    """Run a plan of these parameters on ``engine``, on a new engine with
+    its tune winners under ``cache_dir`` (give one or the other), or else on
+    :data:`DEFAULT_ENGINE`."""
     if engine is not None and cache_dir is not None:
         raise ValueError("pass engine or cache_dir, not both: the engine owns its disk cache")
     plan = ExecutionPlan(
         levels=tuple(levels),
         names=tuple(names) if names is not None else None,
+        tags=tuple(tags) if tags is not None else None,
+        domains=tuple(domains) if domains is not None else None,
         preset=preset,
         overrides=overrides or {},
         include_backward=include_backward,
@@ -143,7 +155,9 @@ def run_suite(
         device_sweep=tuple(scale_devices) if scale_devices is not None else None,
         serve=serve,
     )
-    result = (engine or Engine(cache_dir=cache_dir)).run(
+    if engine is None:
+        engine = Engine(cache_dir=cache_dir) if cache_dir is not None else DEFAULT_ENGINE
+    result = engine.run(
         plan, report_path=report_path, jsonl_path=jsonl_path, verbose=verbose
     )
     return result.records
@@ -295,6 +309,8 @@ def main(argv: Sequence[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Run the Mirovia/Altis suite (PyTorch port)")
     ap.add_argument("--levels", type=int, nargs="*", default=[0, 1, 2])
     ap.add_argument("--names", type=str, nargs="*", default=None)
+    ap.add_argument("--tags", type=str, nargs="*", default=None)
+    ap.add_argument("--domains", type=str, nargs="*", default=None)
     ap.add_argument("--preset", type=int, default=0)
     ap.add_argument("--override", action="append", default=[],
                     metavar="NAME.PARAM=VALUE",
@@ -390,11 +406,15 @@ def main(argv: Sequence[str] | None = None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     tracer = Tracer() if args.trace_out else None
+    # One engine an invocation (not DEFAULT_ENGINE): the run's counters and
+    # its disk cache's summary are its own, as a process's would be.
     engine = Engine(cache_dir=args.cache_dir, tracer=tracer)
     try:
         records = run_suite(
             levels=args.levels,
             names=args.names,
+            tags=args.tags,
+            domains=args.domains,
             preset=args.preset,
             overrides=_parse_overrides(args.override),
             iters=args.iters,

@@ -5,10 +5,12 @@
 //
 // Replaces: src/repro/kernels/flash_attention.py:112 flash_attention_pallas
 // (pallas_call at :151, body _flash_kernel at :39), for bf16 calls with D in
-// {64, 128}, at least 64 packed rows per KV head, a group that divides 128,
-// and q, k, v whose base addresses and strides TMA can take (16-byte
-// multiples). The rest stays on the SIMT kernel in flash_attention.cu; the
-// decode steps (at most 16 rows per KV head) go to flash_decode.cu.
+// {64, 80, 128}, at least 64 packed rows per KV head, a group (Hq / Hkv) of
+// at most 128, and q, k, v whose base addresses and strides TMA can take
+// (16-byte multiples). The rest stays on the SIMT kernel in
+// flash_attention.cu (D 8, 16 and 32, fewer packed rows, views TMA cannot
+// read); the decode steps (at most 16 rows per KV head) go to
+// flash_decode.cu.
 //
 // Semantics as the reference: query head h reads KV head h / group; the T
 // queries sit at positions S - T .. S - 1; causal keeps keys p <= q_pos, a
@@ -18,33 +20,42 @@
 // Bound on an H100 SXM: the causal prefill at B8 Hq32 Hkv8 T=S=1024 D128
 // does 4*D operations per visible pair, 6.9e10 in all, against 168 MB of q,
 // k, v and o: 0.070 ms at 989 TFLOP/s against 0.050 ms at 3.35 TB/s, bound
-// by operations. The design feeds the tensor cores:
-// - A CTA owns 128 packed rows of ONE KV head, position-major over its
-//   `group` query heads (row i is position i / group of head i % group), so
-//   K and V are read once per KV head. The packing is a TMA box: q (B, Hq, T,
-//   D) is a 4-D tensor map over (D, Hq, T, B) with box [64][group][128 /
-//   group][1], which lands the packed rows in shared memory in order; the
-//   output leaves through the same box. D = 128 is two 64-column boxes (the
-//   128-byte swizzle's width).
+// by operations. At D 80 (B8 H16 T=S=4096, bidirectional) 6.9e11
+// operations, 0.695 ms; both products issue exactly D columns there, so the
+// work is the bound's. The design feeds the tensor cores:
+// - A CTA owns rows = group * floor(128 / group) packed rows of ONE KV head
+//   (128 for a group that divides 128, 126 at group 6), position-major over
+//   its `group` query heads (row i is position i / group of head i % group),
+//   so every CTA holds whole positions and K and V are read once per KV
+//   head. The packing is a TMA box: q (B, Hq, T, D) is a 4-D tensor map over
+//   (D, Hq, T, B) with box [64][group][128 / group][1], which lands the
+//   packed rows in shared memory in order; the output leaves through the
+//   same box. Rows `rows`..127 are never loaded or stored: they are zeroed
+//   once, so no uninitialised value enters a wgmma. D > 64 is two 64-column
+//   boxes (the 128-byte swizzle's width); at D 80 the tensor maps' inner
+//   extent is 80, so TMA fills columns 80..127 with zeros and the store of
+//   O drops them.
 // - One producer thread and two consumer warpgroups of 64 rows (setmaxnreg
 //   moves registers to them). Q loads once; K and V tiles of 128 keys go
 //   through a ring of 2 stages, each with its own full barriers for K and
 //   for V and one empty barrier, so the next tile streams in while this one
 //   is multiplied.
 // - S = Q K^T by wgmma m64n128k16 from shared memory (K rows are K-major,
-//   as wgmma's B wants). The scale multiplies the f32 accumulators (with
-//   log2 e, for exp2); q is never rounded pre-scaled. The masks apply only
-//   on tiles that some row cannot fully see; the online max and sum stay
-//   in registers (a row lives in a quad of threads).
+//   as wgmma's B wants), ceil(D / 16) k-steps: 5 at D 80, none over the
+//   zero columns. The scale multiplies the f32 accumulators (with log2 e,
+//   for exp2); q is never rounded pre-scaled. The masks apply only on tiles
+//   that some row cannot fully see; the online max and sum stay in
+//   registers (a row lives in a quad of threads).
 // - P goes to bf16 in registers, in the accumulator's own layout, which is
 //   wgmma's register-A layout; O += P V by wgmma m64n{D}k16 with V from
-//   shared memory, MN-major, through the transpose bit.
+//   shared memory, MN-major, through the transpose bit (n80 reads the
+//   second 64-column box's first 16 columns).
 // - The epilogue divides by max(l, 1e-30), writes bf16 into Q's buffer in
 //   the swizzled layout and stores it by TMA, which drops rows past T.
 // - Key tiles [lo, hi) from the causal and window masks as in the
-//   reference; ragged T and S: TMA fills zeros outside the tensors and the
-//   masks do the rest. CTAs run latest positions first, so the causal
-//   grid's longest rows start first.
+//   reference, from the CTA's first and last positions; ragged T and S: TMA
+//   fills zeros outside the tensors and the masks do the rest. CTAs run
+//   latest positions first, so the causal grid's longest rows start first.
 
 #include "hopper.cuh"
 
@@ -60,7 +71,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct Layout {
-  static constexpr int kChunks = D / 64;           // 64-column boxes per row
+  static constexpr int kWidth = D <= 64 ? 64 : 128;  // columns a row holds in shared memory
+  static constexpr int kChunks = kWidth / 64;        // 64-column boxes per row
+  static constexpr int kKSteps = (D + 15) / 16;      // k16 steps of S = Q K^T
   static constexpr int kQChunk = kBlockM * 128;     // bytes of one box of Q (and of O)
   static constexpr int kKVChunk = kBlockN * 128;    // bytes of one box of a K or V tile
   static constexpr int kQBytes = kChunks * kQChunk;
@@ -70,15 +83,23 @@ struct Layout {
 };
 
 struct FwdArgs {
-  int T, S, group, log2_group, causal, window;
+  int T, S, group, positions, causal, window;  // positions = floor(kBlockM / group) per CTA
+  // ceil(2^16 / group): a packed row r < 128 is position (r * row_div) >> 16
+  // of the CTA's, exactly (the error r * (row_div - 2^16 / group) / 2^16 <
+  // 1/512 never reaches the next multiple of 1 / group >= 1/128). An integer
+  // division there, once per thread, doubled the kernel's time: short of
+  // registers, ptxas recomputes the quotient inside the tile loop.
+  int row_div;
   float scale_log2;  // scale * log2(e)
 };
 
-// O (64 x D) += P (64 x 16, registers) V (16 x D, MN-major).
-template <int D>
-__device__ __forceinline__ void pv_mma(float (&o)[D / 2], const uint32_t (&p)[4], uint64_t dv) {
-  if constexpr (D == 64) {
+// O (64 x N) += P (64 x 16, registers) V (16 x N, MN-major).
+template <int N>
+__device__ __forceinline__ void pv_mma(float (&o)[N / 2], const uint32_t (&p)[4], uint64_t dv) {
+  if constexpr (N == 64) {
     wgmma_m64n64k16_rs<1>(o, p, dv, 1);
+  } else if constexpr (N == 80) {
+    wgmma_m64n80k16_rs<1>(o, p, dv, 1);
   } else {
     wgmma_m64n128k16_rs<1>(o, p, dv, 1);
   }
@@ -104,10 +125,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
   const int b = blockIdx.z;
   const int kvh = blockIdx.y;
-  const int n_rows = a.group * a.T;
-  const int row0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;  // latest positions first
-  const int t0 = row0 >> a.log2_group;
-  const int t_last = (min(row0 + kBlockM, n_rows) - 1) >> a.log2_group;
+  const int rows = a.group * a.positions;                      // packed rows this CTA owns
+  const int t0 = (gridDim.x - 1 - blockIdx.x) * a.positions;  // latest positions first
+  const int t_last = min(t0 + a.positions, a.T) - 1;
   const int offset = a.S - a.T;  // absolute position of query 0
   const int n_tiles = (a.S + kBlockN - 1) / kBlockN;
   int hi = n_tiles;
@@ -131,12 +151,21 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     fence_barrier_init();
   }
+  // Rows rows..127 (a group that does not divide 128) are never loaded:
+  // zeros, made visible to the async proxy (wgmma) before the barrier.
+#pragma unroll
+  for (int c = 0; c < L::kChunks; ++c) {
+    for (int i = rows * 8 + threadIdx.x; i < kBlockM * 8; i += kThreads) {  // 16 bytes each
+      *reinterpret_cast<uint4*>(sQ + c * L::kQChunk + i * 16) = make_uint4(0, 0, 0, 0);
+    }
+  }
+  fence_proxy_async();
   __syncthreads();
 
   if (wg == 2) {
     setmaxnreg_dec<24>();
     if (threadIdx.x == 256) {
-      mbar_arrive_expect_tx(q_full, L::kQBytes);
+      mbar_arrive_expect_tx(q_full, L::kChunks * rows * 128);
 #pragma unroll
       for (int c = 0; c < L::kChunks; ++c) {
         tma_load_4d(sQ + c * L::kQChunk, &map_q, q_full, 64 * c, kvh * a.group, t0, b);
@@ -168,8 +197,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const int t = threadIdx.x % 128;
     const int warp = t / 32, lane = t % 32;
     const int r_box = wg * 64 + warp * 16 + lane / 4;  // this thread's first row in the block
-    const int qpos0 = offset + ((row0 + r_box) >> a.log2_group);
-    const int qpos1 = offset + ((row0 + r_box + 8) >> a.log2_group);
+    // This thread's two rows' positions (row_div: no division in device code).
+    const int qpos0 = offset + t0 + ((r_box * a.row_div) >> 16);
+    const int qpos1 = offset + t0 + (((r_box + 8) * a.row_div) >> 16);
     const int pos_min = offset + t0, pos_max = offset + t_last;
 
     float o[D / 2];
@@ -188,7 +218,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       const uint32_t k_base = smem_u32(sK + stage * L::kKVBytes);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < L::kKSteps; ++kk) {
         const uint32_t off = (kk % 4) * 32;  // 16 columns right in the 128-byte row
         const uint64_t dq = wgmma_desc(q_base + (kk / 4) * L::kQChunk + off, 16, 1024);
         const uint64_t dk = wgmma_desc(k_base + (kk / 4) * L::kKVChunk + off, 16, 1024);
@@ -315,17 +345,19 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int T,
            int S, int causal, int window, float scale, const long long* st, cudaStream_t stream) {
   using L = Layout<D>;
+  if (Hkv < 1 || Hq % Hkv != 0) return cudaErrorInvalidValue;
   const int group = Hq / Hkv;
-  int log2_group = 0;
-  while ((1 << log2_group) < group) ++log2_group;
-  if ((1 << log2_group) != group || group > kBlockM) return cudaErrorInvalidValue;
+  if (group > kBlockM) return cudaErrorInvalidValue;
+  const int positions = kBlockM / group;
   CUtensorMap mq, mk, mv, mo;
+  // The inner extent is D itself: at D 80 the second 64-column box reads
+  // zeros past column 80 and the store drops them.
   const uint64_t q_dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(Hq),
                               static_cast<uint64_t>(T), static_cast<uint64_t>(B)};
   const uint64_t kv_dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S),
                                static_cast<uint64_t>(Hkv), static_cast<uint64_t>(B)};
-  const uint32_t q_box[4] = {64, static_cast<uint32_t>(group),
-                             static_cast<uint32_t>(kBlockM / group), 1};
+  const uint32_t q_box[4] = {64, static_cast<uint32_t>(group), static_cast<uint32_t>(positions),
+                             1};
   const uint32_t kv_box[4] = {64, kBlockN, 1, 1};
   // Byte strides of (head, position, batch) for q and o; (key, head, batch)
   // for k and v.
@@ -343,14 +375,15 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, 
   a.T = T;
   a.S = S;
   a.group = group;
-  a.log2_group = log2_group;
+  a.positions = positions;
+  a.row_div = (65536 + group - 1) / group;
   a.causal = causal;
   a.window = window;
   a.scale_log2 = scale * kLog2e;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmemBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((group * T + kBlockM - 1) / kBlockM, Hkv, B);
+  const dim3 grid((T + positions - 1) / positions, Hkv, B);
   flash_fwd_wgmma_kernel<D><<<grid, kThreads, L::kSmemBytes, stream>>>(mq, mk, mv, mo, a);
   return cudaGetLastError();
 }
@@ -360,7 +393,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, 
 // C entry point (bound with ctypes): q (B, Hq, T, D), k and v (B, Hkv, S,
 // D), o (B, Hq, T, D), bf16, unit last stride, 16-byte aligned bases;
 // `strides` holds 12 element strides (q's, k's, v's and o's over their
-// first three axes), multiples of 8. D in {64, 128}; Hq / Hkv a power of two
+// first three axes), multiples of 8. D in {64, 80, 128}; Hq / Hkv an integer
 // up to 128. window < 0 is no window. Returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for a call it does not take or a tensor
 // map the driver refuses.
@@ -371,6 +404,7 @@ extern "C" int flash_attention_bf16_wgmma(const void* q, const void* k, const vo
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return launch<64>(q, k, v, o, B, Hq, Hkv, T, S, causal, window, scale, strides, s);
+    case 80: return launch<80>(q, k, v, o, B, Hq, Hkv, T, S, causal, window, scale, strides, s);
     case 128: return launch<128>(q, k, v, o, B, Hq, Hkv, T, S, causal, window, scale, strides, s);
     default: return cudaErrorInvalidValue;
   }
@@ -378,5 +412,10 @@ extern "C" int flash_attention_bf16_wgmma(const void* q, const void* k, const vo
 
 // Dynamic shared memory of one CTA at head dim D (0 for a D it does not take).
 extern "C" int flash_attention_bf16_wgmma_smem_bytes(int D) {
-  return D == 64 ? Layout<64>::kSmemBytes : D == 128 ? Layout<128>::kSmemBytes : 0;
+  switch (D) {
+    case 64: return Layout<64>::kSmemBytes;
+    case 80: return Layout<80>::kSmemBytes;
+    case 128: return Layout<128>::kSmemBytes;
+    default: return 0;
+  }
 }

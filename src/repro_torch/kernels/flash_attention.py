@@ -7,9 +7,10 @@ entry points for Hopper, chosen per call by layout (:func:`_route`); see the
 note at the top of each source for its bound and design:
 
 - ``flash_attention_bf16_wgmma`` (``csrc/flash_attention_wgmma.cu``), bf16
-  prefill: 128 packed rows of one KV head per CTA, q, k and v brought in by
-  TMA (k and v through a 2-stage mbarrier ring), both products on the
-  tensor cores by wgmma;
+  prefill at any group up to 128: group * floor(128 / group) packed rows
+  (whole positions) of one KV head per CTA, q, k and v brought in by TMA (k
+  and v through a 2-stage mbarrier ring), both products on the tensor
+  cores by wgmma;
 - ``flash_decode_bf16`` (``csrc/flash_decode.cu``), bf16 decode (at most 16
   packed rows per KV head), one launch a call: the visible keys split over
   CTAs, each writing its partial (m, l, acc) in f32, and the last CTA of
@@ -20,7 +21,8 @@ note at the top of each source for its bound and design:
   products register-blocked outer products in true f32 on the CUDA cores;
 - ``flash_attention_bf16_simt`` and ``flash_attention_f32_simt``
   (``csrc/flash_attention.cu``): one CTA per 32 packed rows on the CUDA
-  cores, for the layouts the other three do not take.
+  cores, for the layouts the other three do not take (in bf16: D 8, 16 and
+  32, 17 to 63 packed rows, a group over 128, views TMA cannot read).
 
 - :func:`flash_attention_cuda` launches the routed entry on q (B, Hq, T, D)
   and k, v (B, Hkv, S, D), float32 or bfloat16, D in :data:`HEAD_DIMS`.
@@ -61,14 +63,15 @@ call of a key and may replay its counts for the next.
 
 **Head dims.** Each entry compiles its own set (:data:`ENTRY_HEAD_DIMS`,
 each the ``switch (D)`` of its source): the SIMT kernels 8, 16, 32, 64, 80
-and 128, the f32 TMA kernel the same but 80, the wgmma and decode kernels 64
-and 128. D = 80 (hubert-xlarge's 1280 / 16) is on the SIMT kernels alone:
-:func:`_route` sends an f32 call at D = 80 to ``flash_attention_f32_simt``
-(the TMA kernel's 32-float boxes and float4 reads of V would need a box of
-16 floats there; it is not instantiated), and a bf16 one to
-``flash_attention_bf16_simt`` (a tensor-core prefill at D = 80 is
-performance work, held for a cell). A D that no entry compiles raises
-``ValueError`` before any launch.
+and 128, the f32 TMA kernel the same but 80, the wgmma kernel 64, 80 and
+128, the decode kernel 64 and 128. D = 80 (hubert-xlarge's 1280 / 16):
+:func:`_route` sends an f32 call to ``flash_attention_f32_simt`` (the TMA
+kernel's 32-float boxes and float4 reads of V would need a box of 16 floats
+there; it is not instantiated), a bf16 prefill to
+``flash_attention_bf16_wgmma`` (the D = 128 layout, its tensor maps 80
+wide, so TMA fills the rest of the second box with zeros), and a bf16 call
+of fewer than 64 packed rows to ``flash_attention_bf16_simt``. A D that no
+entry compiles raises ``ValueError`` before any launch.
 
 **Training.** :class:`FlashAttentionFunction` makes the kernel route
 differentiable: its forward is :func:`flash_attention_kernel` (the routed C
@@ -128,13 +131,14 @@ ENTRY_HEAD_DIMS = {
     "flash_attention_f32": (8, 16, 32, 64, 128),
     "flash_attention_f32_simt": (8, 16, 32, 64, 80, 128),
     "flash_attention_bf16_simt": (8, 16, 32, 64, 80, 128),
-    "flash_attention_bf16_wgmma": (64, 128),
+    "flash_attention_bf16_wgmma": (64, 80, 128),
     "flash_decode_bf16": (64, 128),
 }
 HEAD_DIMS = tuple(sorted(set().union(*ENTRY_HEAD_DIMS.values())))  # some entry compiles
 DECODE_ROWS = 16  # packed rows per KV head (group * T) the decode kernel holds
 DECODE_BLOCK_K = 64  # keys per decode tile
 MIN_WGMMA_ROWS = 64  # one consumer warpgroup's rows
+MAX_WGMMA_GROUP = 128  # a CTA's 128 packed rows hold at least one position of the group
 WAVE_SMS = 132  # an H100 SXM's SMs; the card's own count is used where there is one
 _MAX_GRID_YZ = 65535
 _INT_MAX = 2**31 - 1
@@ -230,11 +234,10 @@ def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window=None) -> st
       loads), ``flash_attention_f32_simt`` for every other float32 call;
     - ``flash_decode_bf16`` for bf16 with D in {64, 128}, at most 16 packed
       rows, and k and v 16-byte aligned;
-    - ``flash_attention_bf16_wgmma`` for bf16 with D in {64, 128}, at least
-      64 packed rows, a group that divides 128, and q, k and v 16-byte
+    - ``flash_attention_bf16_wgmma`` for bf16 with D in {64, 80, 128}, at
+      least 64 packed rows, a group of at most 128, and q, k and v 16-byte
       aligned (TMA);
-    - ``flash_attention_bf16_simt`` for every other bf16 call (D = 80
-      among them).
+    - ``flash_attention_bf16_simt`` for every other bf16 call.
 
     Every D in :data:`HEAD_DIMS` reaches an entry that compiles it
     (:data:`ENTRY_HEAD_DIMS`). Raises ``ValueError`` on what no entry
@@ -253,7 +256,7 @@ def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window=None) -> st
         if rows <= DECODE_ROWS and d in dims["flash_decode_bf16"]:
             return "flash_decode_bf16"
         if (rows >= MIN_WGMMA_ROWS and d in dims["flash_attention_bf16_wgmma"]
-                and 128 % group == 0 and _aligned(q)):
+                and group <= MAX_WGMMA_GROUP and _aligned(q)):
             return "flash_attention_bf16_wgmma"
     return "flash_attention_bf16_simt"
 

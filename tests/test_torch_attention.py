@@ -264,9 +264,67 @@ def test_route_keeps_the_simt_kernel_for_what_the_new_entries_do_not_take():
                       _bf16(1, 2, 64, 16)) == "flash_attention_bf16_simt"  # D = 16
     one = _bf16(1, 1, 64, 128)
     assert tfa._route(_bf16(1, 4, 5, 128), one, one) == "flash_attention_bf16_simt"  # 20 rows
+    # Group 6 is the wgmma entry's since it takes any group up to 128; a
+    # group over 128 stays here.
     assert tfa._route(_bf16(1, 6, 32, 64), _bf16(1, 1, 64, 64),
-                      _bf16(1, 1, 64, 64)) == "flash_attention_bf16_simt"  # group 6
+                      _bf16(1, 1, 64, 64)) == "flash_attention_bf16_wgmma"  # group 6
+    assert tfa._route(_bf16(1, 129, 1, 64), _bf16(1, 1, 64, 64),
+                      _bf16(1, 1, 64, 64)) == "flash_attention_bf16_simt"  # group 129
     assert tfa._route(q, kv, kv) == "flash_decode_bf16"
+
+
+# (Hq, Hkv, T, S, D) of bf16 prefills the wgmma entry takes: groups that do
+# not divide 128 at D 128 (a CTA holds group * floor(128 / group) packed
+# rows), D 80 at groups 1 and 2, and the paths' shapes: qwen2-vl-2b's
+# prefill (group 6), mixtral-8x22b's (group 6, one batch row) and
+# hubert-xlarge's encoder layer (D 80).
+WGMMA_PREFILLS = {
+    "group3": (3, 1, 300, 300, 128), "group5": (15, 3, 77, 77, 128),
+    "group6": (48, 8, 100, 100, 128), "group12": (24, 2, 100, 160, 128),
+    "group48": (48, 1, 33, 33, 128), "group128": (128, 1, 1, 70, 128),
+    "d80-group1": (16, 16, 64, 64, 80), "d80-group2": (4, 2, 45, 77, 80),
+    "qwen2-vl-2b": (12, 2, 2048, 2048, 128), "mixtral-8x22b": (48, 8, 6144, 6144, 128),
+    "hubert-xlarge": (16, 16, 4096, 4096, 80),
+}
+
+
+@pytest.mark.parametrize("case", WGMMA_PREFILLS, ids=list(WGMMA_PREFILLS))
+def test_route_sends_any_group_up_to_128_and_head_dim_80_to_the_wgmma_entry(case):
+    hq, hkv, t, s, d = WGMMA_PREFILLS[case]
+    q, kv = _bf16(1, hq, t, d), _bf16(1, hkv, s, d)
+    assert tfa._route(q, kv, kv) == "flash_attention_bf16_wgmma"
+    assert d in tfa.ENTRY_HEAD_DIMS["flash_attention_bf16_wgmma"]
+    # The same operands as the model's views: transposed activations and a
+    # cache sliced to S.
+    qv = _bf16(1, t, hq, d).transpose(1, 2)
+    cache = _bf16(1, s + 8, hkv, d)[:, :s].transpose(1, 2)
+    assert tfa._route(qv, cache, cache, 4096) == "flash_attention_bf16_wgmma"
+
+
+# bf16 calls the SIMT entry keeps: D 16, 20 packed rows (17-63 are neither
+# decode's nor wgmma's), q one element into its storage, k and v likewise,
+# and D 80 below 64 packed rows.
+SIMT_PREFILLS = {
+    "d16": ((1, 4, 64, 16), (1, 2, 64, 16), 0),
+    "20-rows": ((1, 4, 5, 128), (1, 1, 64, 128), 0),
+    "20-rows-group5": ((1, 5, 4, 128), (1, 1, 64, 128), 0),
+    "unaligned-q": ((1, 6, 64, 128), (1, 1, 64, 128), 1),
+    "unaligned-kv": ((1, 6, 64, 128), (1, 1, 64, 128), 2),
+    "d80-33-rows": ((1, 4, 33, 80), (1, 4, 33, 80), 0),
+}
+
+
+@pytest.mark.parametrize("case", SIMT_PREFILLS, ids=list(SIMT_PREFILLS))
+def test_route_keeps_small_head_dims_few_rows_and_unaligned_views_on_simt(case):
+    q_shape, kv_shape, odd = SIMT_PREFILLS[case]
+
+    def make(shape, off):  # ``off`` elements into its storage
+        n = int(np.prod(shape))
+        return _bf16(n + off)[off:].view(*shape)
+
+    q = make(q_shape, odd == 1)
+    kv = make(kv_shape, odd == 2)
+    assert tfa._route(q, kv, kv) == "flash_attention_bf16_simt"
 
 
 def test_route_refuses_layouts_no_entry_takes():

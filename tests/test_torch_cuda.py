@@ -664,7 +664,8 @@ def _with_head_dim(case, d):
 # The reference's cases and the ones above at the tensor cores' head dims, so
 # that they reach the prefill and decode kernels (or the SIMT kernel, for 17
 # to 63 rows per KV head); then groups of 1 and 8, a group that does not
-# divide 128 (SIMT), ragged T and S, windows, and T < S.
+# divide 128 (wgmma, 126 packed rows a CTA), ragged T and S, windows, and
+# T < S.
 TC_ATTENTION_CASES = sorted({
     _with_head_dim(c, d) for c in ATTENTION_CASES + ATTENTION_MORE for d in (64, 128)
 } | {
@@ -682,7 +683,7 @@ def test_bf16_attention_entries_match_plain(card, b, hq, hkv, t, s, d, causal, w
     rows = hq // hkv * t
     if rows <= 16:
         assert key == "flash_decode_bf16"
-    elif rows >= 64 and 128 % (hq // hkv) == 0:
+    elif rows >= 64:
         assert key == "flash_attention_bf16_wgmma"
     before = dict(flash_attention.launches)
     got = flash_attention.flash_attention_cuda(q, k, v, causal=causal, window=window)
@@ -1572,8 +1573,9 @@ def test_prefetch_copies_each_batch_on_a_side_stream_in_order(card):
     assert not pf._thread.is_alive()
 
 
-# Head dim 80 (hubert-xlarge's) on the entries that compile it, the SIMT
-# kernels: bidirectional and causal, ragged T and S, hubert's group 1 and a
+# Head dim 80 (hubert-xlarge's) on the entries it routes to: f32 on the SIMT
+# kernel, bf16 on the wgmma kernel from 64 packed rows and on the SIMT one
+# below; bidirectional and causal, ragged T and S, hubert's group 1 and a
 # group of 2, a window, and a batch row of hubert's encoder layer.
 D80_CASES = [
     (1, 4, 4, 33, 33, False, None), (2, 4, 4, 17, 17, True, None),
@@ -1588,7 +1590,9 @@ def test_head_dim_80_on_the_simt_entries_matches_plain(card, b, hq, hkv, t, s, c
                                                        dtype):
     q, k, v = _attention_inputs(card, b, hq, hkv, t, s, 80, dtype)
     entry = flash_attention._route(q, k, v, window)
+    rows = hq // hkv * t
     assert entry == ("flash_attention_f32_simt" if dtype == torch.float32
+                     else "flash_attention_bf16_wgmma" if rows >= 64
                      else "flash_attention_bf16_simt")
     before = dict(flash_attention.launches)
     got = flash_attention.flash_attention_cuda(q, k, v, causal=causal, window=window)
@@ -1603,9 +1607,9 @@ def test_head_dim_80_on_the_simt_entries_matches_plain(card, b, hq, hkv, t, s, c
 # The MoE path's attention: 48 query heads over 8 KV heads (group 6), D 128;
 # then the VLM's (qwen2-vl-2b: 12 over 2) prefill and decode.
 GROUP6_CASES = [
-    ((1, 48, 8, 300, 300, 128), True, 100, "flash_attention_bf16_simt"),
+    ((1, 48, 8, 300, 300, 128), True, 100, "flash_attention_bf16_wgmma"),
     ((2, 48, 8, 1, 4096, 128), False, None, "flash_decode_bf16"),
-    ((1, 12, 2, 2048, 2048, 128), True, None, "flash_attention_bf16_simt"),
+    ((1, 12, 2, 2048, 2048, 128), True, None, "flash_attention_bf16_wgmma"),
     ((4, 12, 2, 1, 2112, 128), False, None, "flash_decode_bf16"),
 ]
 
@@ -1621,6 +1625,59 @@ def test_group_six_attention_routes_and_matches_plain(card, shape, causal, windo
     before = dict(flash_attention.launches)
     got = flash_attention.flash_attention_cuda(q, k, v, causal=causal, window=window)
     assert flash_attention.launches[entry] == before[entry] + 1
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+# Groups that do not divide 128 on the wgmma entry, which gives a CTA group *
+# floor(128 / group) packed rows (whole positions): groups 3 (126 rows), 5
+# (125), 12 (120) and 48 (96), a ragged T whose last CTA holds fewer
+# positions, windows shorter than T, T < S, and D 64 and 80.
+WGMMA_GROUP_CASES = [
+    ((1, 3, 1, 300, 300, 128), True, None),  # 8 CTAs a head, the last of 6 positions
+    ((2, 15, 3, 77, 77, 128), True, 20),  # group 5, window 20 < T
+    ((1, 24, 2, 100, 160, 128), True, None),  # group 12, T < S
+    ((1, 48, 1, 33, 33, 128), False, None),  # group 48, 17 CTAs, the last of one position
+    ((1, 96, 2, 70, 200, 64), True, 50),  # group 48 at D 64, window 50 < T
+    ((2, 6, 1, 50, 50, 80), True, 17),  # group 6 at D 80
+    ((1, 12, 4, 130, 130, 80), False, None),  # group 3 at D 80, bidirectional
+]
+
+
+@pytest.mark.parametrize("shape,causal,window", WGMMA_GROUP_CASES)
+def test_wgmma_prefill_at_groups_that_do_not_divide_128_matches_plain(card, shape, causal,
+                                                                    window):
+    b, hq, hkv, t, s, d = shape
+    q, k, v = _attention_inputs(card, b, hq, hkv, t, s, d, torch.bfloat16, seed=hq)
+    assert flash_attention._route(q, k, v, window) == "flash_attention_bf16_wgmma"
+    before = dict(flash_attention.launches)
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert {n: flash_attention.launches[n] - before[n] for n in before} == {
+        n: int(n == "flash_attention_bf16_wgmma") for n in before}
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+# The prefills above, hubert's at D 80 and the group-6 ones, forced onto the
+# SIMT entry they left: it stays held against the plain version.
+SIMT_HELD_CASES = [(*shape, causal, window) for shape, causal, window in WGMMA_GROUP_CASES] + [
+    (*shape, causal, window) for shape, causal, window, entry in GROUP6_CASES
+    if entry == "flash_attention_bf16_wgmma"] + [
+    (b, hq, hkv, t, s, 80, causal, window) for b, hq, hkv, t, s, causal, window in D80_CASES
+    if hq // hkv * t >= 64]
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,s,d,causal,window", SIMT_HELD_CASES)
+def test_the_simt_entry_forced_at_the_wgmma_layouts_matches_plain(card, b, hq, hkv, t, s, d,
+                                                                   causal, window):
+    q, k, v = _attention_inputs(card, b, hq, hkv, t, s, d, torch.bfloat16, seed=hq + 1)
+    before = dict(flash_attention.launches)
+    got = flash_attention._launch("flash_attention_bf16_simt", q, k, v, causal=causal,
+                                  window=window)
+    torch.cuda.synchronize()
+    assert {n: flash_attention.launches[n] - before[n] for n in before} == {
+        n: int(n == "flash_attention_bf16_simt") for n in before}
     want = flash_attention.flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 

@@ -365,9 +365,9 @@ def _meta(*shape, dtype=torch.bfloat16, grad=False):
 
 
 @pytest.mark.parametrize("hq,hkv,t,s,d,dtype,causal,entry", [
-    (48, 8, 256, 256, 128, torch.bfloat16, True, "flash_attention_bf16_simt"),  # group 6
+    (48, 8, 256, 256, 128, torch.bfloat16, True, "flash_attention_bf16_wgmma"),  # group 6
     (64, 8, 256, 256, 128, torch.bfloat16, True, "flash_attention_bf16_wgmma"),  # group 8
-    (16, 16, 512, 512, 80, torch.bfloat16, False, "flash_attention_bf16_simt"),  # D 80
+    (16, 16, 512, 512, 80, torch.bfloat16, False, "flash_attention_bf16_wgmma"),  # D 80
     (32, 8, 1, 1096, 128, torch.bfloat16, False, "flash_decode_bf16"),
     (4, 2, 16, 16, 16, torch.float32, True, "flash_attention_f32"),
 ])

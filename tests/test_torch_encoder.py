@@ -55,12 +55,12 @@ def _models(seed=0):
     return ref, params, model
 
 
-def test_the_published_encoder_has_head_dim_80_which_routes_to_the_simt_kernels():
+def test_the_published_encoder_has_head_dim_80_which_routes_bf16_to_the_wgmma_kernel():
     cfg = get_config(ARCH)
     assert (cfg.head_dim, cfg.n_heads, cfg.n_kv_heads) == (80, 16, 16)
     assert cfg.encoder_only and not cfg.causal and cfg.rope == "none"
     q = torch.empty(8, 16, 4096, 80, dtype=torch.bfloat16)
-    assert tfa._route(q, q, q) == "flash_attention_bf16_simt"
+    assert tfa._route(q, q, q) == "flash_attention_bf16_wgmma"
     assert tfa._route(q.float(), q.float(), q.float()) == "flash_attention_f32_simt"
 
 
@@ -172,7 +172,12 @@ def test_attention_at_head_dim_80_matches_reference_flash_kernel(rng, b, hq, hkv
     plain = tfa.plain_calls
     got = ops.attention(qt, kt, vt, causal=causal, window=window, mode="kernel")
     assert tfa.plain_calls == plain + 1
-    assert tfa._route(qt, kt, vt, window).endswith("_simt")
+    # On the card bf16 takes the wgmma entry from 64 packed rows (group 2 at
+    # T 45), the SIMT one below; f32 at D 80 the SIMT one.
+    wgmma = dtype == "bfloat16" and hq // hkv * t >= tfa.MIN_WGMMA_ROWS
+    assert tfa._route(qt, kt, vt, window) == (
+        "flash_attention_bf16_wgmma" if wgmma else
+        f"flash_attention_{'f32' if dtype == 'float32' else 'bf16'}_simt")
     tol = 2e-4 if dtype == "float32" else 2e-2
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=tol,
                                atol=tol)

@@ -259,6 +259,21 @@ exits nonzero without printing its result line:
    then ``benchmarks.roofline_table.rows`` over it: each cell's seconds,
    memory and kernel entries (flash_attention_bf16_wgmma for granite's
    group 4, flash_decode_bf16 for jamba's prefill-free decode);
+4p. the model axis over a world of one (NCCL): qwen1.5-0.5b at full width
+   in bf16 on a (pod 1, data 1, model 1) mesh (``runtime/elastic.py::
+   build_pod_mesh``), every parameter (``place_params``), batch and cache
+   entry (``device_put``) a DTensor placed by the spec functions and its
+   activations by the reference's hook sites: the first batch's loss and
+   every gradient, then 3 train steps at batch 8 x 1024, a prefill of 8 x
+   1080 and 16 decode steps on its 1096-slot cache, each against the same
+   step on plain tensors (a second model of the same weights, in turns):
+   bit-equal, or within MESH_BOUND; launches exact (48
+   flash_attention_bf16_wgmma a train step, 24 a prefill, 24
+   flash_decode_bf16 a decode step) and the DTensor rules (train and
+   prefill attention ``local``, decode ``gathered``: the head-dim cache);
+   the meshed and plain medians by events and the peak memory.
+   ``python3 chip_smoke.py --only 4p`` runs the build and this phase alone
+   (a development aid; with no arguments every phase runs);
 5. yardstick: each kernel of the paths, its plain version and the one
    PyTorch call that computes the same function (where there is one),
    timed with CUDA events at the paths' shapes (and the kernel's own device
@@ -671,6 +686,16 @@ DRYRUN_PEAK_BAND = (0.8, 1.25)
 DRYRUN_CELLS = (("granite-3-8b", "train_4k", {"flash_attention_bf16_wgmma": 80}),
                 ("jamba-1.5-large-398b", "long_500k", {"flash_decode_bf16": 9}),
                 ("hubert-xlarge", "decode_32k", None))
+# The model axis over a world of one (phase 4p): TRAIN_ARCH at full width in
+# bf16 on a (pod 1, data 1, model 1) mesh, every parameter, batch and cache
+# entry a DTensor placed by the spec functions: MESH_TRAIN steps at phase
+# 4j's batch, then a prefill and MESH_DECODE["steps"] decode steps at phase
+# 4o's decode shape, each against the same step on plain tensors (two
+# models of the same weights, in turns). MESH_BOUND (rtol and atol, the
+# training path's bound) holds wherever a step is not bit-equal.
+MESH_TRAIN = dict(steps=3, batch=8, seq=1024)
+MESH_DECODE = dict(batch=8, prompt=1080, cache=1096, steps=16)
+MESH_BOUND = 2e-4
 PLACEMENT_ROWS = ("gemm_f32_nn", "gemm_bf16_nn", "connected", "softmax", "lrn", "pooling",
                   "convolution_im2col", "kmeans", "devicemem_stream")
 PLACEMENT_SUITE = ("gemm_f32_nn", "softmax")
@@ -3225,9 +3250,12 @@ def _device_split(torch, call, wraps, attempts: int = 3) -> dict:
     may repeat) inside a ``record_function`` range of that name while it
     runs: from that one trace, the call's device ms (``device_ms``), the
     attention kernels' part (names with ``flash_``; ``attention_ms``) and
-    each range's (the kernels launched inside it). A trace whose first
-    range (where there is one) holds no device time is taken again, up to ``attempts`` times in
-    all; then the ranges' parts are None."""
+    each range's (the kernels launched inside it). On the card's machine
+    the profiler sometimes delivers no device records, or none inside the
+    ranges, so such a trace is taken again, up to ``attempts`` times in all.
+    Then the ranges' parts are None; and where no trace held device time at
+    all, every part is None and ``events_ms`` is the call's time by CUDA
+    events (host and device) instead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -3257,15 +3285,16 @@ def _device_split(torch, call, wraps, attempts: int = 3) -> dict:
                 elif e.device_type == DeviceType.CUDA and e.name not in part:
                     total += e.device_time_total
                     attention += e.device_time_total if "flash_" in e.name else 0.0
-            if total <= 0:
-                _fail("torch.profiler saw no device activity")
-            if not names or part[names[0]] > 0:
+            if total > 0 and (not names or part[names[0]] > 0):
                 break
-            print(f"  (torch.profiler: no device time inside the {names[0]} ranges, attempt "
-                  f"{attempt} of {attempts})")
+            where = "in the trace" if total <= 0 else f"inside the {names[0]} ranges"
+            print(f"  (torch.profiler: no device time {where}, attempt {attempt} of {attempts})")
     finally:
         for mod, attr, fn in originals:
             setattr(mod, attr, fn)
+    if total <= 0:
+        return {"device_ms": None, "attention_ms": None, "events_ms": _time_ms(torch, call, 1, 0),
+                **dict.fromkeys(names)}
     found = not names or part[names[0]] > 0
     return {"device_ms": total / 1e3, "attention_ms": attention / 1e3,
             **{name: part[name] / 1e3 if found else None for name in names}}
@@ -3336,6 +3365,10 @@ def _print_split(what: str, sp: dict, parts: dict, within: dict | None = None) -
     name, or "attention"), the rest, each with its share; then the ranges
     ``within`` (label -> range name) that lie inside those parts."""
     total = sp["device_ms"]
+    if total is None:
+        print(f"  device time, {what}: not measured (torch.profiler delivered no device "
+              f"records); the call took {sp['events_ms']:.3f} ms by CUDA events, host and device")
+        return
     named = {label: sp["attention_ms"] if name == "attention" else sp[name]
              for label, name in parts.items()}
     if any(v is None for v in named.values()):
@@ -3934,6 +3967,196 @@ def phase_placement(torch, smi: str) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     info["phase_s"] = time.perf_counter() - t_phase
     print(f"  phase 4n {info['phase_s']:.1f} s")
+    return launches, info
+
+
+def _mesh_held(torch, what: str, got: dict, want: dict, bitwise: dict) -> None:
+    """Each meshed tensor of ``got`` (DTensors read back whole) against the
+    plain one of ``want``: bit-equal, else within MESH_BOUND; ``bitwise``
+    counts (equal, within the bound) by ``what``."""
+    from torch.distributed.tensor import DTensor
+
+    counts = bitwise.setdefault(what, [0, 0])
+    for k, w in want.items():
+        g = got[k].full_tensor() if isinstance(got[k], DTensor) else got[k]
+        if _same_bytes(torch, g, w):
+            counts[0] += 1
+            continue
+        gf, wf = g.double(), w.double()
+        excess = ((gf - wf).abs() - MESH_BOUND * (1 + wf.abs())).max().item()
+        if not excess <= 0:
+            _fail(f"phase 4p, {what} {k}: the meshed value is {excess:.3e} past the bound "
+                  f"{MESH_BOUND} + {MESH_BOUND}|ref| of the plain one")
+        counts[1] += 1
+
+
+def _mesh_counted(torch, fn, want_launches: dict, want_rules: dict, what: str):
+    """``fn()`` timed by events with the launch counters and the DTensor
+    rules zeroed just before and read just after; each must equal its
+    ``want``. -> (fn's result, ms, launches)."""
+    from repro_torch.kernels import ops
+
+    ops.dtensor_rules.clear()
+    _zero_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    launched = _nonzero(_read_launches())
+    rules = {f"{op}/{rule}": n for (op, rule), n in ops.dtensor_rules.items()}
+    if launched != want_launches or rules != want_rules:
+        _fail(f"phase 4p, {what}: launches {launched} and rules {rules}; expected "
+              f"{want_launches} and {want_rules}")
+    return out, start.elapsed_time(end), launched
+
+
+def phase_model_axis(torch, smi: str) -> tuple[dict, dict]:
+    """The model axis's path over a world of one: TRAIN_ARCH's train steps,
+    prefill and decode steps with every parameter, batch and cache entry a
+    DTensor on a (pod, data, model) mesh, each against the same step on
+    plain tensors. -> (launches on the path, numbers)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.runtime import (ShardingRules, batch_pspec, build_pod_mesh, cache_pspecs,
+                                     device_put, make_activation_sharder, make_train_step,
+                                     named, place_params)
+
+    print(f"== phase 4p: the model axis over a world of one ({TRAIN_ARCH} full width, bf16, "
+          "a (pod 1, data 1, model 1) mesh; NCCL)")
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in _read_launches()}
+    info, bitwise = {}, {}
+    rendezvous = _join_world_of_one(torch)
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = build_pod_mesh(1, 1, 1)
+        rules = ShardingRules(mesh=mesh, data_axes=("pod", "data"), seq_shard=True)
+        cfg = get_config(TRAIN_ARCH)
+        plain = Model(cfg, device="cuda")
+        plain.init_weights(torch.Generator(device="cuda").manual_seed(0))
+        meshed = Model(cfg, device="cuda", shard_activation=make_activation_sharder(rules))
+        meshed.load_state_dict(plain.state_dict())
+        specs = place_params(meshed, mesh, rules)
+        models = {"plain": plain, "meshed": meshed}
+
+        def place(tree, spec_fn):
+            return device_put(tree, named(mesh, spec_fn(tree, rules)), mesh)
+
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        b, t = MESH_TRAIN["batch"], MESH_TRAIN["seq"]
+        batch = {k: torch.randint(0, cfg.vocab, (b, t), generator=gen, device="cuda")
+                 for k in ("tokens", "labels")}
+        batches = {"plain": batch, "meshed": place(batch, batch_pspec)}
+        wgmma = {"flash_attention_bf16_wgmma": 2 * cfg.n_layers}  # forward and remat
+        train_rules = {"meshed": {"attention/local": 2 * cfg.n_layers}, "plain": {}}
+
+        # (a) Every gradient of the first batch, then MESH_TRAIN steps in turns.
+        grads = {}
+        for name, model in models.items():
+            loss, _ = model.loss_fn(batches[name])
+            grads[name] = dict(zip((k for k, _ in model.named_parameters()),
+                                   torch.autograd.grad(loss, list(model.parameters())),
+                                   strict=True))
+            grads[name]["loss"] = loss.detach()
+        _mesh_held(torch, "gradients", grads["meshed"], grads["plain"], bitwise)
+        del grads
+        opt = AdamW()
+        sched = functools.partial(warmup_cosine, peak_lr=1e-5, warmup_steps=1,
+                                  total_steps=MESH_TRAIN["steps"] + 2)
+        states = {n: opt.init(dict(m.named_parameters())) for n, m in models.items()}
+        steps = {n: make_train_step(m, opt, sched) for n, m in models.items()}
+        train_ms = {"plain": [], "meshed": []}
+        for i in range(MESH_TRAIN["steps"]):
+            metrics = {}
+            for name in (("plain", "meshed") if i % 2 == 0 else ("meshed", "plain")):
+                (states[name], metrics[name]), ms, got = _mesh_counted(
+                    torch, lambda n=name: steps[n](states[n], batches[n]), wgmma,
+                    train_rules[name], f"train step {i} ({name})")
+                train_ms[name].append(ms)
+                for k, n in got.items():
+                    launches[k] += n
+            _mesh_held(torch, "train metrics", {k: metrics["meshed"][k] for k in
+                                                ("loss", "grad_norm")},
+                       {k: metrics["plain"][k] for k in ("loss", "grad_norm")}, bitwise)
+            _mesh_held(torch, "parameters", dict(meshed.named_parameters()),
+                       dict(plain.named_parameters()), bitwise)
+            _mesh_held(torch, "moments", {**{f"m.{k}": v for k, v in states["meshed"].m.items()},
+                                          **{f"v.{k}": v for k, v in states["meshed"].v.items()}},
+                       {**{f"m.{k}": v for k, v in states["plain"].m.items()},
+                        **{f"v.{k}": v for k, v in states["plain"].v.items()}}, bitwise)
+        del states, steps, batches
+        small = [k for k, p in meshed.named_parameters()
+                 if any(e is not None for e in specs[k]) and p.to_local().numel() != p.numel()]
+        if small:  # a world of one holds every leaf whole
+            _fail(f"phase 4p: leaves split over a world of one: {small}")
+
+        # (b) A prefill, then MESH_DECODE["steps"] decode steps in turns.
+        d = MESH_DECODE
+        prompt = {"tokens": torch.randint(0, cfg.vocab, (d["batch"], d["prompt"]),
+                                          generator=gen, device="cuda")}
+        prefill = {"flash_attention_bf16_wgmma": cfg.n_layers}
+        caches, logits = {}, {}
+        for name in ("plain", "meshed"):
+            arg = prompt if name == "plain" else place(prompt, batch_pspec)
+            (caches[name], logits[name]), _, got = _mesh_counted(
+                torch, lambda m=models[name], a=arg: m.prefill(a, d["cache"]), prefill,
+                {"attention/local": cfg.n_layers} if name == "meshed" else {},
+                f"prefill ({name})")
+            for k, n in got.items():
+                launches[k] += n
+        _mesh_held(torch, "prefill logits", {"logits": logits["meshed"]},
+                   {"logits": logits["plain"]}, bitwise)
+        caches["meshed"] = place(caches["meshed"], cache_pspecs)
+        tokens = logits["plain"][:, -1].argmax(-1)
+        decode_ms = {"plain": [], "meshed": []}
+        step_launches = {"flash_decode_bf16": cfg.n_layers}
+        for i in range(d["steps"]):
+            pos = d["prompt"] + i
+            args = {"plain": tokens, "meshed": place({"t": tokens}, batch_pspec)["t"]}
+            out = {}
+            for name in (("plain", "meshed") if i % 2 == 0 else ("meshed", "plain")):
+                (out[name], _), ms, got = _mesh_counted(
+                    torch, lambda n=name: models[n].decode_step(caches[n], args[n], pos),
+                    step_launches,
+                    {"attention/gathered": cfg.n_layers} if name == "meshed" else {},
+                    f"decode step {i} ({name})")
+                decode_ms[name].append(ms)
+                for k, n in got.items():
+                    launches[k] += n
+            _mesh_held(torch, "decode logits", {"logits": out["meshed"]},
+                       {"logits": out["plain"]}, bitwise)
+            tokens = out["plain"].argmax(-1)
+        torch.cuda.synchronize()
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        del caches, logits, models, plain, meshed
+    finally:
+        dist.destroy_process_group()
+        rendezvous.unlink(missing_ok=True)
+    torch.cuda.empty_cache()
+    med = {k: statistics.median(v) for k, v in train_ms.items()}
+    dmed = {k: statistics.median(v) for k, v in decode_ms.items()}
+    info.update(train_ms=train_ms, decode_ms=decode_ms, train_median_ms=med,
+                decode_median_ms=dmed, peak_gb=peak_gb, bitwise=bitwise)
+    print(f"  train steps ({MESH_TRAIN['batch']} x {MESH_TRAIN['seq']}) by events: meshed "
+          f"{', '.join(f'{x:.2f}' for x in train_ms['meshed'])} ms (median {med['meshed']:.2f}); "
+          f"plain {', '.join(f'{x:.2f}' for x in train_ms['plain'])} ms (median "
+          f"{med['plain']:.2f}); meshed / plain {med['meshed'] / med['plain']:.4f} ({smi})")
+    print(f"  decode steps (batch {d['batch']}, cache {d['cache']}) by events: median meshed "
+          f"{dmed['meshed']:.3f} ms, plain {dmed['plain']:.3f} ms, meshed / plain "
+          f"{dmed['meshed'] / dmed['plain']:.4f}; peak memory {peak_gb:.2f} GB above the "
+          f"phase's start (both models) ({smi})")
+    print("  meshed against plain, (bit-equal, within the bound) tensors: "
+          + "; ".join(f"{k} {v[0]}/{v[1]}" for k, v in bitwise.items())
+          + f"; launches {_nonzero(launches)}")
+    info["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 4p {info['phase_s']:.1f} s")
     return launches, info
 
 
@@ -5007,6 +5230,9 @@ def main() -> int:
 
     smi = clock(phase_card(torch))
     clock(phase_build())
+    if sys.argv[1:] == ["--only", "4p"]:  # a development aid: the build and phase 4p alone
+        clock(phase_model_axis(torch, smi))
+        return 0
     errors = clock(phase_kernels(torch))
     main_launches = clock(phase_main_path(torch))
     dnn_launches = clock(phase_dnn(torch))
@@ -5024,12 +5250,14 @@ def main() -> int:
     vlm_launches, vlm = clock(phase_vlm_encoder(torch, smi))
     placement_launches, placed = clock(phase_placement(torch, smi))
     dry = clock(phase_dryrun(torch, smi))
+    axis_launches, axis = clock(phase_model_axis(torch, smi))
     # Every count was checked per path; a kernel's launches are the sum over
     # the paths that run it (SRAD's three entries: phases 4c and 4f).
     launches = {k: main_launches[k] + dnn_launches[k] + level_launches[k] + lm_launches[k]
                 + feature_launches[k] + report_launches[k] + serve_launches[k]
                 + dist_launches[k] + train_launches[k] + moe_launches[k] + recurrent_launches[k]
-                + vlm_launches[k] + placement_launches[k] for k in main_launches}
+                + vlm_launches[k] + placement_launches[k] + axis_launches[k]
+                for k in main_launches}
     kernels = clock(phase_yardstick(torch, launches, errors))
     # One row per kernel and shape (matmul_bf16 has three, nn and tn at
     # 4096^3 and nn at 1024^3; matmul_bf16_batched six), the kernels of no
@@ -5085,6 +5313,11 @@ def main() -> int:
           f"{b['ms']:.3f} ms (bound {b['bound_ms']:.3f} ms), peak ratio {b['ratio']:.4f}; CLI "
           + ", ".join(f"{k} {v:.1f} s" for k, v in dry["cli_s"].items())
           + f"; phase 4o {dry['phase_s']:.1f} s ({smi})")
+    tm, dm = axis["train_median_ms"], axis["decode_median_ms"]
+    print(f"the model axis over one rank, {TRAIN_ARCH} full on a (1, 1, 1) mesh: train step median "
+          f"{tm['meshed']:.2f} ms (plain {tm['plain']:.2f} ms), decode step median "
+          f"{dm['meshed']:.3f} ms (plain {dm['plain']:.3f} ms), peak memory {axis['peak_gb']:.2f} "
+          f"GB; phase 4p {axis['phase_s']:.1f} s ({smi})")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

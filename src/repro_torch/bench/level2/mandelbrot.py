@@ -40,7 +40,7 @@ import torch
 from repro_torch.core.hostloop import rows_call
 from repro_torch.core.presets import geometric_presets
 from repro_torch.core.registry import BenchmarkSpec, Workload, register
-from repro_torch.kernels.ops import shard_dim, sharded
+from repro_torch.kernels.ops import shard_dims, sharded
 
 CHECK_EVERY = 32
 TILE = 32
@@ -74,7 +74,7 @@ def _iterate(c: torch.Tensor, max_iter: int) -> torch.Tensor:
     return n
 
 
-@sharded("escape_time", lambda c, *_, **__: shard_dim(c))
+@sharded("escape_time", lambda c, *_, **__: shard_dims(c))
 def escape_time(c: torch.Tensor, max_iter: int) -> torch.Tensor:
     return rows_call(functools.partial(_iterate, max_iter=max_iter), c)
 

@@ -64,11 +64,12 @@ is a DTensor, under either route:
 
 - **local**: where the op is independent along every sharded dimension,
   the op runs on each rank's local shard and its output keeps the shard
-  (``matmul`` with ``a`` sharded on its leading dim and ``b`` replicated,
-  the batched product with both on the batch axis; ``softmax`` on any dim
-  but the last; ``lrn`` on any dim but the channels; ``avgpool`` on batch
-  or channels; ``attention`` with q, k and v on the batch; any op whose
-  operands are all replicated);
+  (``matmul`` with ``a`` sharded on any dims but the contracted one and
+  ``b`` replicated, the batched product with both on the batch axis;
+  ``softmax`` on any dims but the last; ``lrn`` on any but the channels;
+  ``avgpool`` on batch or channels; ``attention`` with q, k and v sharded
+  alike on the batch and the heads, the head rule: each rank's query heads
+  over its own KV heads; any op whose operands are all replicated);
 - **gathered**: otherwise every operand is redistributed to ``Replicate``
   first (a ``Partial`` one reduced) and the whole op runs on every rank,
   its output replicated, as XLA runs a custom call it cannot partition.
@@ -78,6 +79,10 @@ is a DTensor, under either route:
 Either way the op's own route runs on plain tensors: a CUDA DTensor
 launches the kernel (counted under its entry) or raises, a CPU one runs
 the plain versions. :data:`dtensor_rules` counts each (op, rule) taken.
+A layout (:func:`shard_dims`) names, per tensor dim, the mesh dims that
+shard it, so a rule holds on a mesh of any rank (the model's ``(pod,
+data, model)`` mesh: the batch over ``pod`` and ``data``, the heads over
+``model``), and the output gets one placement a mesh dim.
 Workload functions that DTensor's own propagation cannot run (a tensor
 made inside from a shape, a host-checked loop) declare a rule through the
 same decorator (``bench/dnn/dropout.py``, ``bench/level2/mandelbrot.py``).
@@ -89,6 +94,7 @@ import collections
 import contextlib
 import contextvars
 import functools
+import math
 from typing import Callable, Literal
 
 import torch
@@ -110,7 +116,7 @@ __all__ = [
     "MODES",
     "TileRefused",
     "sharded",
-    "shard_dim",
+    "shard_dims",
     "dtensor_rules",
 ]
 
@@ -213,7 +219,8 @@ def tune_space(op: str) -> tuple[dict, ...]:
 
 # (op, "local" or "gathered") -> calls that took that rule.
 dtensor_rules: collections.Counter = collections.Counter()
-_REPLICATED, _OTHER = "replicated", "other"
+
+Layout = dict  # tensor dim -> the mesh dims that shard it, in mesh order
 
 
 def _dtensor_type():
@@ -228,34 +235,36 @@ def _has_dtensor(args) -> bool:
                and isinstance(a, _dtensor_type()) for a in args)
 
 
-def _layout(t):
-    """``_REPLICATED`` (not a DTensor, or replicated on every mesh dim), the
-    tensor dim of an even ``Shard`` on a 1-D mesh, or ``_OTHER`` (a
-    ``Partial``, an uneven shard, a mesh of more dims)."""
+def shard_dims(t) -> Layout | None:
+    """Per tensor dim of ``t``, the mesh dims that shard it (``{}``: not a
+    DTensor, or replicated on every mesh dim), on a mesh of any rank; None
+    for a layout no rule keeps local: a ``Partial``, a strided shard, a
+    dim the mesh dims naming it do not divide evenly."""
+    from torch.distributed.tensor import Shard
+
     if not isinstance(t, _dtensor_type()):
-        return _REPLICATED
-    pl = t.placements
-    if all(p.is_replicate() for p in pl):
-        return _REPLICATED
-    if len(pl) == 1 and pl[0].is_shard():
-        d = pl[0].dim % t.dim()
-        if t.shape[d] % t.device_mesh.size() == 0:
-            return d
-    return _OTHER
+        return {}
+    out: Layout = {}
+    for i, p in enumerate(t.placements):
+        if p.is_replicate():
+            continue
+        if type(p) is not Shard:  # Partial, _StridedShard
+            return None
+        out.setdefault(p.dim % t.dim(), []).append(i)
+    mesh = t.device_mesh
+    for d, dims in out.items():
+        if t.shape[d] % math.prod(mesh.size(i) for i in dims):
+            return None
+    return {d: tuple(dims) for d, dims in out.items()}
 
 
-def shard_dim(t) -> int | None:
-    """The dim ``t`` is evenly sharded on over a 1-D mesh, else None."""
-    d = _layout(t)
-    return d if isinstance(d, int) else None
-
-
-def sharded(name: str, local: Callable[..., int | None]):
+def sharded(name: str, local: Callable[..., Layout | None]):
     """Decorate ``fn`` (its tensor operands positional) with a sharding
     rule: a call with a DTensor operand runs ``fn`` on each rank's local
-    shards when ``local(*operands, **kwargs)`` names the output's sharded
-    dim (or every operand is replicated), else on the operands gathered to
-    ``Replicate``; plain calls go straight to ``fn``."""
+    shards when ``local(*operands, **kwargs)`` returns the output's layout
+    (a :func:`shard_dims` dict; every operand replicated needs no rule),
+    else on the operands gathered to ``Replicate``; plain calls go straight
+    to ``fn``. The output's placements have one entry a mesh dim."""
 
     def wrap(fn):
         @functools.wraps(fn)
@@ -266,13 +275,14 @@ def sharded(name: str, local: Callable[..., int | None]):
 
             dtensor = _dtensor_type()
             mesh = next(a.device_mesh for a in args if isinstance(a, dtensor))
-            replicated = (Replicate(),) * mesh.ndim
-            if all(_layout(a) == _REPLICATED for a in args):
-                rule, out_pl = "local", replicated
+            if all(shard_dims(a) == {} for a in args):
+                out_layout = {}
             else:
-                dim = local(*args, **kwargs)
-                rule = "gathered" if dim is None else "local"
-                out_pl = replicated if dim is None else (Shard(dim),)
+                out_layout = local(*args, **kwargs)
+            rule = "gathered" if out_layout is None else "local"
+            by_mesh_dim = {i: d for d, dims in (out_layout or {}).items() for i in dims}
+            out_pl = tuple(Shard(by_mesh_dim[i]) if i in by_mesh_dim else Replicate()
+                           for i in range(mesh.ndim))
             _build.count(dtensor_rules, (name, rule))
             plain = tuple(
                 a if not isinstance(a, dtensor)
@@ -291,39 +301,55 @@ def sharded(name: str, local: Callable[..., int | None]):
     return wrap
 
 
+def _free_of(layout: Layout | None, *dims: int) -> bool:
+    """A layout that shards none of ``dims``."""
+    return layout is not None and not any(d in layout for d in dims)
+
+
 def _matmul_local(a, b, **_):
-    """Rows (any dim of ``a`` but the contracted one) against a replicated
+    """Rows (any dims of ``a`` but the contracted one) against a replicated
     2-D ``b``; a replicated 2-D ``a`` against ``b``'s columns; a batched
     ``b`` on its batch axis against a replicated 2-D ``a`` (a weight
     broadcast over images) or an ``a`` sharded alike."""
-    la, lb = _layout(a), _layout(b)
-    if b.dim() == 2 and lb == _REPLICATED and isinstance(la, int) and la < a.dim() - 1:
+    la, lb = shard_dims(a), shard_dims(b)
+    if la is None or lb is None:
+        return None
+    if b.dim() == 2 and lb == {} and _free_of(la, a.dim() - 1):
         return la
-    if a.dim() == 2 == b.dim() and la == _REPLICATED and lb == 1:
-        return 1
-    if b.dim() == 3 and lb == 0 and (a.dim() == 2 and la == _REPLICATED
-                                     or a.dim() == 3 and la == 0):
-        return 0
+    if a.dim() == 2 == b.dim() and la == {} and set(lb) == {1}:
+        return lb
+    if b.dim() == 3 and set(lb) == {0} and (a.dim() == 2 and la == {}
+                                           or a.dim() == 3 and la == lb):
+        return lb
     return None
 
 
 def _attention_local(q, k, v, **_):
-    return 0 if _layout(q) == _layout(k) == _layout(v) == 0 else None
+    """q (B, Hq, T, D), k and v (B, Hkv, S, D), sharded alike on the batch
+    (dim 0) and on the heads (dim 1), nowhere else: each rank's query heads
+    then attend to its own KV heads (the group Hq / Hkv maps a rank's query
+    heads into its KV heads because the mesh dims divide Hkv evenly).
+    Heads sharded on q alone, a KV head split, or any shard of T, S or D
+    gathers."""
+    lq, lk, lv = shard_dims(q), shard_dims(k), shard_dims(v)
+    if not (lq == lk == lv and _free_of(lq, 2, 3)):
+        return None
+    return lq
 
 
 def _softmax_local(x, **_):
-    d = shard_dim(x)
-    return d if d != x.dim() - 1 else None
+    lx = shard_dims(x)
+    return lx if _free_of(lx, x.dim() - 1) else None
 
 
 def _lrn_local(x, **_):
-    d = shard_dim(x)  # the window runs along the channels (dim 1)
-    return d if d != 1 else None
+    lx = shard_dims(x)  # the window runs along the channels (dim 1)
+    return lx if _free_of(lx, 1) else None
 
 
 def _avgpool_local(x, **_):
-    d = shard_dim(x)  # windows tile H and W
-    return d if d in (0, 1) else None
+    lx = shard_dims(x)  # windows tile H and W
+    return lx if _free_of(lx, 2, 3) else None
 
 
 def _gathered(*_, **__):

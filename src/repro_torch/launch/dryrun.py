@@ -35,9 +35,10 @@ The record's fields:
 - ``memory.temp_size_in_bytes``: the peak of the bytes the trace allocated
   and still held (storages tracked from allocation to release; gradients
   included where they are live), at the per-device batch and full widths.
-  Dividing activations over the model axis is item 16.6's, so on a model
-  axis of more than 1 the value is an upper bound (``"temp_bound": "model
-  axis undivided"``).
+  The model axis runs (item 16.6 (i)), but the trace is one device's on
+  plain meta tensors, its activations undivided over that axis (a
+  per-rank trace is item 16.6 (i-b)), so on a model axis of more than 1
+  the value is an upper bound (``"temp_bound": "model axis undivided"``).
 - ``cost.flops`` and ``cost["bytes accessed"]``: the trace's counts split
   evenly over the model axis. FLOPs are ``torch.utils.flop_counter``'s
   formulas (products, convolutions) plus the kernel ops' analytic counts,
@@ -48,18 +49,29 @@ The record's fields:
   accessed" counts them; a gather (an embedding lookup) reads the rows it
   returns, not its whole table; an in-place write counts once.
 - ``collectives``: the reference's histogram keys, counted from the specs
-  (:func:`collectives`; item 16.6 must meet or correct these rules):
-  training reduces the gradients over the data axes as
-  ``runtime/steps.py::_mean_over`` does (one all-reduce a dtype of one flat
-  buffer, the loss in the f32 one), or reduce-scatters them and
-  all-gathers the parameters under ``--zero`` (once) or ``--zero3`` (once
-  a pass); on a model axis of more than 1, each block all-reduces its
-  mixer's output and its FFN's output once a pass (forward, the remat
-  recomputation, backward), and where the experts shard over the model axis
-  the FFN's all-reduce becomes two all-to-alls of the dispatched tokens.
-  Bytes follow the reference's convention (``repro/core/metrics.py::
-  collective_ops_from_hlo``): an all-reduce 2 × its result, an all-gather
-  or a reduce-scatter the gathered bytes, an all-to-all its result.
+  (:func:`collectives`). Without a model axis, training reduces the
+  gradients over the data axes as ``runtime/steps.py::_mean_over`` does
+  (one all-reduce a dtype of one flat buffer, the loss in the f32 one), or
+  reduce-scatters them and all-gathers the parameters under ``--zero``
+  (once) or ``--zero3`` (once a pass). On a model axis of more than 1 the
+  step runs on DTensors, and the rules are what that execution issues,
+  held to a measured world (``tests/test_torch_model_axis_decode.py``,
+  ``CommDebugMode`` on (pod 2, data 2, model 2)): each gradient reduced
+  leaf by leaf, one all-reduce a data mesh dim (a dense block's two norm
+  gains over the model axis too), clipping's sum of each sharded leaf one
+  all-reduce a mesh dim its spec names; a dense block (attention and MLP)
+  6 all-gathers, 3 all-reduces and 2 reduce-scatters a train step, 16
+  all-gathers and 2 reduce-scatters a decode step, with a fixed part
+  besides (``_DENSE_BLOCK``, ``_DENSE_FIXED``), on a mesh whose every axis
+  exceeds 1. Other blocks, shapes and meshes keep GSPMD's pattern,
+  unmeasured: each block all-reduces its mixer's output and its FFN's
+  output once a pass (forward, the remat recomputation, backward), and
+  where the experts shard over the model axis the FFN's all-reduce becomes
+  two all-to-alls of the dispatched tokens. Bytes follow the reference's
+  convention (``repro/core/metrics.py::collective_ops_from_hlo``): an
+  all-reduce 2 × its result, an all-gather or a reduce-scatter the
+  gathered bytes, an all-to-all its result; a measured block's are an
+  activation (B·T·d) an operation, an estimate.
 - ``roofline`` and ``useful_compute_ratio``: as the reference's, at the
   peaks of the card the run sees, each product at its dtype's peak (the
   f32 unembedding at the f32 peak); with ``--device cpu``, the H100 SXM's
@@ -585,6 +597,19 @@ def _names_model(spec, model_axis: str) -> bool:
     return any(model_axis in _axis_names(e) for e in spec)
 
 
+# Collectives a dense block (attention, then the SwiGLU MLP) issues on a mesh
+# whose data and model axes all exceed 1, as the port's DTensor execution
+# issues them (counted under CommDebugMode on a (pod 2, data 2, model 2)
+# world, tests/test_torch_model_axis_decode.py): a train step (forward,
+# remat recomputation, backward) and a decode step; the step's fixed part
+# besides the blocks and the gradient reduction.
+_DENSE_BLOCK = {"train": {"all-gather": 6, "all-reduce": 3, "reduce-scatter": 2},
+                "decode": {"all-gather": 16, "reduce-scatter": 2}}
+_DENSE_FIXED = {"train": {"all-gather": 4, "all-reduce": 2},
+                # the first block's input needs one all-gather fewer
+                "decode": {"all-gather": -1, "all-reduce": 2, "reduce-scatter": 1}}
+
+
 def collectives(cfg, kind: str, rules: ShardingRules, *, params: Mapping[str, Any],
                 p_specs: Mapping[str, Any], batch: int, seq: int, zero: bool = False,
                 zero3: bool = False, remat: bool = True, accum: int = 1) -> dict:
@@ -595,16 +620,35 @@ def collectives(cfg, kind: str, rules: ShardingRules, *, params: Mapping[str, An
     hist: dict[str, dict] = {}
 
     def add(op: str, count: float, nbytes: float) -> None:
-        h = hist.setdefault(op, {"count": 0.0, "bytes": 0.0})
-        h["count"] += count
-        h["bytes"] += nbytes
+        if count:
+            h = hist.setdefault(op, {"count": 0.0, "bytes": 0.0})
+            h["count"] += count
+            h["bytes"] += nbytes
+
+    def local_bytes(k: str, t) -> int:
+        return math.prod(_local_shape(tuple(t.shape), p_specs[k], sizes)) * t.element_size()
 
     passes = (3 if remat else 2) if kind == "train" else 1
-    if kind == "train" and rules.data_size > 1:
+    model_axis = rules.model_axis
+    on_mesh = rules.model_size > 1 and model_axis not in rules.data_axes
+    act = batch * seq * cfg.d_model * dtype_of(cfg).itemsize
+    if kind == "train" and on_mesh and not (zero or zero3):
+        # The DTensor step (runtime/steps.py): each gradient laid out as its
+        # parameter, one all-reduce a data mesh dim it is a partial sum
+        # over (the norm gains ahead of a block's column-parallel products
+        # also over the model axis), and clipping's whole sum of a sharded
+        # leaf, one all-reduce a mesh dim its spec names.
+        n_data = sum(sizes[a] > 1 for a in rules.data_axes)
+        for k, t in params.items():
+            gains = k.rsplit(".", 1)[-1] in ("ln1", "ln2") and ".mixer." not in k
+            n = n_data + (gains and _block_kind(cfg, k) == "attn_mlp")
+            add("all-reduce", n, n * 2.0 * local_bytes(k, t))
+            named = sum(sizes[a] > 1 for e in p_specs[k] for a in _axis_names(e))
+            add("all-reduce", named, named * 2.0 * 4)
+    elif kind == "train" and rules.data_size > 1:
         by_dtype: dict[torch.dtype, int] = collections.Counter()
         for k, t in params.items():
-            by_dtype[t.dtype] += math.prod(_local_shape(tuple(t.shape), p_specs[k], sizes)) \
-                * t.element_size()
+            by_dtype[t.dtype] += local_bytes(k, t)
         if zero or zero3:
             gathers = passes if zero3 else 1
             for n in by_dtype.values():
@@ -614,24 +658,42 @@ def collectives(cfg, kind: str, rules: ShardingRules, *, params: Mapping[str, An
             by_dtype[torch.float32] += 4  # the loss joins the f32 buffer
             for n in by_dtype.values():
                 add("all-reduce", 1, 2.0 * n)
-    model_axis = rules.model_axis
-    if rules.model_size > 1 and model_axis not in rules.data_axes:
-        act = batch * seq * cfg.d_model * dtype_of(cfg).itemsize
-        calls = passes * accum
-        tokens = batch * seq
-        for i, block in enumerate(cfg.block_kinds()):
-            add("all-reduce", calls, calls * 2.0 * act)  # the mixer's output
-            if block in ("mamba", "mlstm", "slstm"):
-                continue
-            if block.endswith("_moe") and _names_model(p_specs[f"blocks.{i}.ffn.w_gate"][:1],
-                                                        model_axis):
-                g = min(cfg.moe_group_size, tokens)
-                dispatched = (tokens // g) * cfg.n_experts * cfg.moe_split * capacity(cfg, g) \
-                    * cfg.d_model * dtype_of(cfg).itemsize
-                add("all-to-all", 2 * calls, 2 * calls * dispatched)
-            else:
-                add("all-reduce", calls, calls * 2.0 * act)  # the FFN's output
+    if not on_mesh:
+        return hist
+    calls = passes * accum
+    tokens = batch * seq
+    kinds = cfg.block_kinds()
+    measured = kind in _DENSE_BLOCK and all(sizes[a] > 1 for a in sizes)
+    if measured and "attn_mlp" in kinds:
+        steps = accum if kind == "train" else 1
+        for op, n in _DENSE_FIXED[kind].items():
+            add(op, n * steps, n * steps * act)
+    for i, block in enumerate(kinds):
+        if measured and block == "attn_mlp":
+            steps = accum if kind == "train" else 1
+            for op, n in _DENSE_BLOCK[kind].items():
+                add(op, n * steps, n * steps * (2.0 if op == "all-reduce" else 1.0) * act)
+            continue
+        # Not measured on a world: GSPMD's pattern, one all-reduce of the
+        # mixer's output and one of the FFN's a block and pass.
+        add("all-reduce", calls, calls * 2.0 * act)  # the mixer's output
+        if block in ("mamba", "mlstm", "slstm"):
+            continue
+        if block.endswith("_moe") and _names_model(p_specs[f"blocks.{i}.ffn.w_gate"][:1],
+                                                    model_axis):
+            g = min(cfg.moe_group_size, tokens)
+            dispatched = (tokens // g) * cfg.n_experts * cfg.moe_split * capacity(cfg, g) \
+                * cfg.d_model * dtype_of(cfg).itemsize
+            add("all-to-all", 2 * calls, 2 * calls * dispatched)
+        else:
+            add("all-reduce", calls, calls * 2.0 * act)  # the FFN's output
     return hist
+
+
+def _block_kind(cfg, leaf: str) -> str | None:
+    """The kind of the block a ``blocks.<i>.`` leaf belongs to."""
+    parts = leaf.split(".")
+    return cfg.block_kinds()[int(parts[1])] if parts[0] == "blocks" else None
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,10 @@ __all__ = [
     "mrope_sections",
     "rope_angles",
     "apply_rope",
+    "is_dtensor",
+    "replicated_like",
+    "whole_sequence",
+    "on_rows",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -75,6 +79,87 @@ def init_dense(generator: torch.Generator | None, d_in: int, d_out: int, dtype,
     w = torch.empty((d_in, d_out), dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, a=-2.0, b=2.0, generator=generator)
     return w.mul_(scale).to(dtype)
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor (one type check for a plain tensor)."""
+    if type(t) is torch.Tensor or not isinstance(t, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def replicated_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t``, a tensor made inside the model from shapes (positions, a
+    frequency table, a zero state, a mask), replicated on ``ref``'s mesh
+    where ``ref`` is a DTensor, so that it meets ``ref``'s DTensors as one;
+    else ``t`` itself. Every rank makes the same ``t``."""
+    if not is_dtensor(ref) or is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+
+
+def whole_sequence(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor activation with every dim but the batch (dim 0) gathered
+    (a ``Partial`` one reduced): the sequence a mixer's or an FFN's
+    projections read, as Megatron's sequence parallelism gathers it before
+    its column-parallel products (and GSPMD against the reference's weight
+    specs), and the mixer's or the FFN's output before it joins the
+    residual stream. The products then see rows sharded on the batch alone,
+    forward and backward (a redistribution's gradient takes its input's
+    layout), and weights sharded on their own dims. A plain tensor as it
+    is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    pl = tuple(p if p.is_shard() and p.dim % x.dim() == 0 else Replicate()
+               for p in x.placements)
+    return x if pl == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
+def on_rows(fn, acts: tuple, params: dict | None = None):
+    """``fn(params, *acts)`` for a computation independent from batch row to
+    batch row (a recurrence, an embedding lookup, the loss's rows). With
+    DTensor operands it runs on plain tensors, each rank on its own batch
+    rows: every act laid out with dim 0 over the mesh dims that shard any
+    act's batch and the rest gathered, each parameter gathered (its
+    gradient a partial sum over those mesh dims); so a recurrence's Python
+    loop pays no DTensor dispatch a step, and no op in ``fn`` needs a
+    DTensor rule. Its outputs (a tensor, a tuple, or a dict of (B, ...)
+    tensors) come back as DTensors on those rows. Plain operands go
+    straight to ``fn``."""
+    ref = next((a for a in acts if is_dtensor(a)), None)
+    if ref is None:
+        return fn(params, *acts)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = ref.device_mesh
+    by_rows = [any(is_dtensor(a) and a.placements[i].is_shard()
+                   and a.placements[i].dim % a.dim() == 0 for a in acts)
+               for i in range(mesh.ndim)]
+    rows = tuple(Shard(0) if r else Replicate() for r in by_rows)
+    partial = tuple(Partial() if r else Replicate() for r in by_rows)
+    whole = (Replicate(),) * mesh.ndim
+    local_acts = [replicated_like(a, ref).redistribute(mesh, rows).to_local() for a in acts]
+    local_params = params and {
+        k: v.redistribute(mesh, whole).to_local(grad_placements=partial) if is_dtensor(v) else v
+        for k, v in params.items()}
+    out = fn(local_params, *local_acts)
+
+    def back(t):
+        return DTensor.from_local(t, mesh, rows, run_check=False)
+
+    if isinstance(out, dict):
+        return {k: back(t) for k, t in out.items()}
+    if isinstance(out, tuple):
+        return tuple(back(t) if isinstance(t, torch.Tensor) else
+                     {k: back(u) for k, u in t.items()} for t in out)
+    return back(out)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
@@ -114,7 +199,7 @@ def rope_angles(cfg: ArchConfig, positions: torch.Tensor) -> tuple[torch.Tensor,
     # once to f32: the correctly rounded table XLA's f32 power gives, where
     # torch's f32 power is an ulp off on some frequencies.
     exponent = -torch.arange(half, dtype=torch.float32, device=positions.device) / half
-    freqs = (cfg.rope_theta ** exponent.double()).float()
+    freqs = replicated_like((cfg.rope_theta ** exponent.double()).float(), positions)
     if positions.dim() == 2:
         pos = positions.float()[..., None]  # (B, T, 1)
     elif positions.dim() == 3 and positions.shape[-1] == 3:
@@ -122,7 +207,7 @@ def rope_angles(cfg: ArchConfig, positions: torch.Tensor) -> tuple[torch.Tensor,
         # the device without a copy from the host or a wait for it.
         n0, n1, _ = mrope_sections(cfg)
         pair = torch.arange(half, device=positions.device)
-        sec_id = (pair >= n0).long() + (pair >= n0 + n1).long()
+        sec_id = replicated_like((pair >= n0).long() + (pair >= n0 + n1).long(), positions)
         pos = positions.float()[..., sec_id]  # (B, T, half)
     else:
         raise ValueError(f"positions must be (B, T) or (B, T, 3), got {tuple(positions.shape)}")

@@ -45,13 +45,26 @@ reference donates its cache to the compiled step; here the step updates
 every entry in place (the new token's K/V into its slot, each state tensor
 copied over), so the cache keeps its tensors from step to step. An MoE
 block routes a decode step's B tokens as one group, as the reference does.
+
+On a mesh (item 16.6 (i)) the parameters, batch and caches are DTensors
+(``runtime/sharding.py::place_params``, ``device_put``) and
+``shard_activation`` is the reference's hook (``make_activation_sharder``),
+called at its sites: ``embed``, each block's ``residual`` (after the mixer,
+after the FFN, an xLSTM block's output), ``moe_in`` and ``logits``; a
+decode step only at ``logits``, as the reference's. Each mixer and FFN
+reads the whole sequence of its rows (``layers.whole_sequence``); the
+embedding, the loss and the recurrences run on each rank's batch rows
+(``layers.on_rows``); a decode step writes its cache entries in their own
+placements; serving runs under ``no_grad`` instead of ``inference_mode``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -65,8 +78,12 @@ from repro_torch.models.layers import (
     init_attention,
     init_dense,
     init_mlp,
+    is_dtensor,
+    on_rows,
     project_qkv,
+    replicated_like,
     rms_norm,
+    whole_sequence,
 )
 from repro_torch.models import ssm
 from repro_torch.models.moe import MoE
@@ -141,12 +158,16 @@ class Block(nn.Module):
             for name, value in init_mlp(generator, cfg).items():
                 self.ffn[name].copy_(value)
 
-    def apply_ffn(self, x: torch.Tensor) -> torch.Tensor:
+    def apply_ffn(self, x: torch.Tensor, shard=None) -> torch.Tensor:
         """x (B, T, d) or (B, d) -> the FFN's output, the same shape. A (B, d)
-        step goes to the MoE as (B, 1, d): one group of B tokens."""
+        step goes to the MoE as (B, 1, d): one group of B tokens. ``shard``
+        (the model's hook, over the sequence only) places the MoE's input
+        as ``"moe_in"``."""
         if not self.kind.endswith("_moe"):
             return apply_mlp(self.ffn, x)
-        return self.ffn(x) if x.dim() == 3 else self.ffn(x[:, None, :])[:, 0]
+        if x.dim() == 2:
+            return self.ffn(x[:, None, :])[:, 0]
+        return self.ffn(x if shard is None else shard(x, "moe_in"))
 
 
 def _route_contexts():
@@ -164,26 +185,63 @@ def _kv_to_cache(cfg: ArchConfig, k: torch.Tensor, v: torch.Tensor, max_len: int
 
     The token at absolute position p lives at slot p (linear cache) or
     p % W (sliding-window ring buffer); decode continues the same convention.
+    The ring is the last W tokens rolled by (T - W) % W, the linear cache
+    the first tokens padded with zeros (copies either way, of DTensors too).
     """
-    b, t, kv, hd = k.shape
+    t = k.shape[1]
     s = _cache_len(cfg, max_len)
-    ck = k.new_zeros((b, s, kv, hd))
-    cv = v.new_zeros((b, s, kv, hd))
     if cfg.window and t >= s:
-        pos = torch.arange(t - s, t, device=k.device) % s
-        ck[:, pos] = k[:, -s:]
-        cv[:, pos] = v[:, -s:]
-    else:
-        n = min(t, s)
-        ck[:, :n] = k[:, :n]
-        cv[:, :n] = v[:, :n]
-    return {"k": ck, "v": cv}
+        return {name: x[:, -s:].roll((t - s) % s, dims=1) for name, x in (("k", k), ("v", v))}
+    n = min(t, s)
+    return {name: F.pad(x[:, :n], (0, 0, 0, 0, 0, s - n)) for name, x in (("k", k), ("v", v))}
 
 
 def _copy_state(entry: dict, state: dict) -> None:
-    """A recurrent layer's new state copied into its cache entry's tensors."""
+    """A recurrent layer's new state copied into its cache entry's tensors
+    (a DTensor state first redistributed to its entry's placements)."""
     for name, value in state.items():
-        entry[name].copy_(value)
+        entry[name].copy_(_like_entry(value, entry[name]))
+
+
+def _like_entry(value: torch.Tensor, entry: torch.Tensor) -> torch.Tensor:
+    """``value`` laid out as the cache tensor ``entry`` it is written into:
+    itself for plain tensors, else redistributed to the entry's placements
+    (an in-place write keeps its target's placements)."""
+    if not is_dtensor(entry):
+        return value
+    return value.redistribute(entry.device_mesh, entry.placements)
+
+
+def _serving(fn):
+    """Run a serving method under ``torch.inference_mode``; a model placed on
+    a mesh under ``torch.no_grad`` instead, since a DTensor view of a cache
+    made outside inference mode cannot be taken inside it (its version
+    counter). Neither records a graph: the numbers are the same."""
+
+    @functools.wraps(fn)
+    def call(self, *args, **kwargs):
+        mode = torch.no_grad() if is_dtensor(self.embed) else torch.inference_mode()
+        with mode:
+            return fn(self, *args, **kwargs)
+
+    return call
+
+
+def _identity_shard(x: torch.Tensor, name: str) -> torch.Tensor:
+    return x
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The table's rows for ``tokens``; on a mesh each rank's tokens against
+    the whole table."""
+    return on_rows(lambda p, tok: p["table"][tok.long()], (tokens,), {"table": table})
+
+
+def _nll(_, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logsumexp less the gold logit, (B, T) from f32 logits (B, T, V)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return logz - gold
 
 
 class Model(nn.Module):
@@ -195,12 +253,15 @@ class Model(nn.Module):
     """
 
     def __init__(self, cfg: ArchConfig, *, device: str | torch.device = "cuda",
-                 remat: bool = True) -> None:
+                 remat: bool = True, shard_activation=None) -> None:
         super().__init__()
         cfg.validate()
         check_supported(cfg)
         self.cfg = cfg
         self.remat = remat
+        # ``shard(x, name)``: the reference's hook (runtime/sharding.py::
+        # make_activation_sharder), the identity by default.
+        self.shard = shard_activation or _identity_shard
         dt = dtype_of(cfg)
         self.blocks = nn.ModuleList(Block(cfg, device, kind) for kind in cfg.block_kinds())
         self.ln_f = nn.Parameter(torch.ones(cfg.d_model, dtype=dt, device=device))
@@ -239,36 +300,41 @@ class Model(nn.Module):
                                  "\"embeds\" (B, T, d_model), not tokens")
             x = batch["embeds"].to(dtype_of(cfg))
         else:
-            x = self.embed[batch["tokens"].long()]
+            x = _lookup(self.embed, batch["tokens"])
         b, t = x.shape[:2]
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(t, device=x.device).expand(b, t)
             if cfg.rope == "mrope":
                 positions = positions[..., None].expand(b, t, 3)
-        return x, positions
+            positions = replicated_like(positions, x)
+        return self.shard(x, "embed"), positions
 
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
         w = self.embed.T if self.cfg.tie_embeddings else self.unembed
-        return x.float() @ w.float()
+        return self.shard(x.float() @ w.float(), "logits")
 
     def _block(self, block: Block, x: torch.Tensor, positions: torch.Tensor):
         """One layer over the sequence: x (B, T, d) -> (x, cache entry): an
         attention layer's (k, v) (B, T, KV, hd), to be packed by
         ``_kv_to_cache``; a recurrent layer's final state."""
-        cfg = self.cfg
-        if block.kind == "mlstm":
-            return ssm.apply_mlstm(block.params(), cfg, x)
-        if block.kind == "slstm":
-            return ssm.apply_slstm(block.params(), cfg, x)
-        xn = rms_norm(x, block.ln1, cfg.norm_eps)
+        cfg, shard = self.cfg, self.shard
+        # On a mesh each mixer and FFN reads the whole sequence
+        # (``whole_sequence``; the identity on plain tensors), and its output
+        # joins the residual stream in the stream's layout.
+        if block.kind in _XLSTM:
+            apply = ssm.apply_mlstm if block.kind == "mlstm" else ssm.apply_slstm
+            x, entry = apply(block.params(), cfg, whole_sequence(x))
+            return shard(x, "residual"), entry
+        xn = rms_norm(whole_sequence(x), block.ln1, cfg.norm_eps)
         if block.kind.startswith("attn"):
-            h, entry = apply_attention(block.mixer, cfg, xn, positions)
+            h, entry = apply_attention(block.mixer, cfg, xn, whole_sequence(positions))
         else:
             h, entry = ssm.apply_mamba(block.mixer, cfg, xn)
-        x = x + h
+        x = shard(x + whole_sequence(h), "residual")
         if block.kind != "mamba":
-            x = x + block.apply_ffn(rms_norm(x, block.ln2, cfg.norm_eps))
+            xn = rms_norm(whole_sequence(x), block.ln2, cfg.norm_eps)
+            x = shard(x + whole_sequence(block.apply_ffn(xn, shard)), "residual")
         return x, entry
 
     # ---- forward ------------------------------------------------------------
@@ -288,7 +354,7 @@ class Model(nn.Module):
                                preserve_rng_state=False, context_fn=_route_contexts)
             else:
                 x = self._block_out(block, x, positions)
-        return self._unembed(rms_norm(x, self.ln_f, self.cfg.norm_eps))
+        return self._unembed(rms_norm(whole_sequence(x), self.ln_f, self.cfg.norm_eps))
 
     def loss_fn(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """Mean cross entropy of ``batch`` ({"tokens"} or {"embeds"}, optional
@@ -297,10 +363,9 @@ class Model(nn.Module):
         at least 1. -> (loss, {"loss", "tokens"}), 0-d f32 tensors on the
         device."""
         logits = self.forward(batch)  # (B, T, V) f32
-        labels = batch["labels"].long()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-        nll = logz - gold
+        # Row by row; on a mesh each rank's rows whole (the vocab gathered:
+        # a vocab shard is uneven where the axis does not divide V).
+        nll = on_rows(_nll, (logits, batch["labels"]))
         mask = batch.get("loss_mask")
         mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
         tokens = torch.sum(mask)
@@ -327,7 +392,7 @@ class Model(nn.Module):
 
         return [entry(block.kind) for block in self.blocks]
 
-    @torch.inference_mode()
+    @_serving
     def prefill(self, inputs, max_len: int):
         """Run the prompt: tokens (B, T), or a batch dict; returns (cache,
         logits (B, T, V))."""
@@ -338,7 +403,7 @@ class Model(nn.Module):
             if block.kind.startswith("attn"):
                 entry = _kv_to_cache(self.cfg, *entry, max_len)
             cache.append(entry)
-        return cache, self._unembed(rms_norm(x, self.ln_f, self.cfg.norm_eps))
+        return cache, self._unembed(rms_norm(whole_sequence(x), self.ln_f, self.cfg.norm_eps))
 
     def _decode_block(self, block: Block, entry: dict, x_t: torch.Tensor,
                       positions_t: torch.Tensor, pos: int):
@@ -372,8 +437,8 @@ class Model(nn.Module):
         q, k, v = project_qkv(block.mixer, cfg, xn[:, None, :], positions_t)
         s = entry["k"].shape[1]
         slot = pos % s
-        entry["k"][:, slot] = k[:, 0]
-        entry["v"][:, slot] = v[:, 0]
+        entry["k"][:, slot] = _like_entry(k[:, 0], entry["k"][:, slot])
+        entry["v"][:, slot] = _like_entry(v[:, 0], entry["v"][:, slot])
         # Slots [0, kv_len) hold exactly the valid past tokens, in the linear
         # and the ring layout alike (RoPE was applied at absolute positions,
         # and attention does not depend on the keys' order).
@@ -386,16 +451,17 @@ class Model(nn.Module):
         )
         return out.reshape(b, cfg.n_heads * cfg.head_dim) @ block.mixer["wo"]
 
-    @torch.inference_mode()
+    @_serving
     def decode_step(self, cache: list[dict], tokens: torch.Tensor, pos: int):
         """One token step for the batch: tokens (B,), ``pos`` the absolute
         position (a host int; under M-RoPE each of the three ids). Updates
         every entry of ``cache`` in place (the step's K/V into slot ``pos %
         S``, each recurrent state copied over) and returns (logits (B, V),
         cache)."""
-        x_t = self.embed[tokens]  # (B, d)
+        x_t = _lookup(self.embed, tokens)  # (B, d)
         shape = (x_t.shape[0], 1, 3) if self.cfg.rope == "mrope" else (x_t.shape[0], 1)
-        positions_t = torch.full(shape, pos, dtype=torch.long, device=x_t.device)
+        positions_t = replicated_like(
+            torch.full(shape, pos, dtype=torch.long, device=x_t.device), x_t)
         for block, entry in zip(self.blocks, cache, strict=True):
             x_t = self._decode_block(block, entry, x_t, positions_t, pos)
         logits = self._unembed(rms_norm(x_t, self.ln_f, self.cfg.norm_eps))

@@ -21,6 +21,10 @@ The reference's arithmetic, kept exactly:
 - the dispatch and combine tensors are cast to the activations' dtype;
 - ``N % g != 0`` raises.
 
+On a mesh (x a DTensor) the MoE runs expert parallel by hand
+(``_apply_moe_mesh``): every rank routes all tokens as one process does,
+runs the experts it holds and adds its partial output into x's layout.
+
 The products stay ``torch.einsum``, as the reference's are ``jnp.einsum``
 outside any Pallas kernel (the dense MLP's are plain products too,
 ``models/layers.py::apply_mlp``). ``MoE`` is the ``nn.Module`` a block
@@ -35,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import dtype_of, init_dense
+from repro_torch.models.layers import dtype_of, init_dense, is_dtensor
 
 __all__ = ["MoE", "init_moe", "split_moe_params", "route", "apply_moe", "moe_oracle", "capacity"]
 
@@ -131,10 +135,11 @@ def route(p, cfg: ArchConfig, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
     return combine_w, keep, pos
 
 
-def apply_moe(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    """x (B, T, d) -> (B, T, d)."""
+def _experts(p, cfg: ArchConfig, x: torch.Tensor, combine_w, keep, pos) -> torch.Tensor:
+    """Dispatch, the expert products and the combine of x (B, T, d) over the
+    experts (or d_ff slices) that ``p`` holds, given their columns of
+    ``route``'s outputs."""
     b, t, d = x.shape
-    combine_w, keep, pos = route(p, cfg, x)
     n_groups, g, _ = keep.shape
     cap = capacity(cfg, g)
     # dispatch (G, g, E, cap): one-hot over the capacity slot.
@@ -147,6 +152,53 @@ def apply_moe(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     out = torch.einsum("gecf,efd->gecd", h, p["w_down"])
     y = torch.einsum("gsec,gecd->gsd", comb_f, out)
     return y.reshape(b, t, d)
+
+
+def apply_moe(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """x (B, T, d) -> (B, T, d)."""
+    if is_dtensor(x):
+        return _apply_moe_mesh(p, cfg, x)
+    return _experts(p, cfg, x, *route(p, cfg, x))
+
+
+def _apply_moe_mesh(p, cfg: ArchConfig, x) -> torch.Tensor:
+    """``apply_moe`` of a DTensor x, expert parallel: x is gathered whole on
+    every rank and routed there as one process routes it (every group of
+    the B·T tokens, its slot positions and its capacity cut, whatever ranks
+    the group's tokens came from); each rank runs the experts, or the d_ff
+    slices, it holds (``param_pspecs``: experts over the model axis where
+    they divide it) on their tokens; the outputs, and the gradients of x
+    and the router, are partial sums over the mesh dims that split the
+    experts, reduced into x's layout."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = x.device_mesh
+    w = p["w_gate"]
+    pl = w.placements if is_dtensor(w) else (Replicate(),) * mesh.ndim
+    partial = tuple(Replicate() if q.is_replicate() else Partial() for q in pl)
+    whole = (Replicate(),) * mesh.ndim
+
+    def gathered(t):
+        return t.redistribute(mesh, whole).to_local(grad_placements=partial)
+
+    def local(t):
+        return t.to_local() if is_dtensor(t) else t
+
+    xf = gathered(x)
+    router = p["router"]
+    combine_w, keep, pos = route({"router": gathered(router) if is_dtensor(router) else router},
+                                 cfg, xf)
+    held = {name: local(p[name]) for name in ("w_gate", "w_up", "w_down")}
+    n_held = held["w_gate"].shape[0]
+    if n_held < combine_w.shape[-1]:  # experts split over the mesh: this rank's run
+        index = 0
+        for i, q in enumerate(pl):
+            if q.is_shard() and q.dim == 0:
+                index = index * mesh.size(i) + mesh.get_local_rank(i)
+        cols = slice(index * n_held, (index + 1) * n_held)
+        combine_w, keep, pos = combine_w[..., cols], keep[..., cols], pos[..., cols]
+    y = _experts(held, cfg, xf, combine_w, keep, pos)
+    return DTensor.from_local(y, mesh, partial, run_check=False).redistribute(mesh, x.placements)
 
 
 def moe_oracle(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,11 @@ The reference's arithmetic, kept exactly:
 Each mixer exposes ``init_*``, ``apply_*`` (full sequence -> (y,
 final_state)), ``step_*`` (one decode step -> (y_t, state)) and
 ``init_state_*`` (zero state for decode, on the device the caller names).
+
+On a mesh (DTensor activations and parameters) the projections run on
+DTensors and each recurrence on each rank's batch rows as plain tensors
+(``layers.on_rows``: the loop pays no DTensor dispatch a step, and its
+parameters' gradients come back as partial sums over the data axes).
 """
 
 from __future__ import annotations
@@ -45,7 +50,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import dtype_of, init_dense, rms_norm
+from repro_torch.models.layers import (
+    dtype_of,
+    init_dense,
+    is_dtensor,
+    on_rows,
+    rms_norm,
+)
 
 __all__ = [
     "init_mamba", "apply_mamba", "step_mamba", "init_state_mamba",
@@ -83,6 +94,19 @@ def _conv_step(p, window: torch.Tensor, dtype) -> torch.Tensor:
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: log(1 + e^x) as ``logaddexp(x, 0)``."""
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _logsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``, elementwise on each rank's shard for a DTensor
+    (DTensor has no rule for its backward)."""
+    if not is_dtensor(x):
+        return F.logsigmoid(x)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = x.device_mesh
+    x = x.redistribute(mesh, tuple(Replicate() if q.is_partial() else q for q in x.placements))
+    return DTensor.from_local(F.logsigmoid(x.to_local()), mesh, x.placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
 
 
 # ---------------------------------------------------------------------------
@@ -154,12 +178,18 @@ def apply_mamba(p, cfg: ArchConfig, x: torch.Tensor):
     x1, z = (x @ p["in_proj"]).chunk(2, dim=-1)  # (B, T, di)
     xc = F.silu(_mamba_conv_full(p, x1))
     delta, bt, ct = _mamba_scan_inputs(p, cfg, xc)
-    h = torch.zeros((b, cfg.d_inner, cfg.ssm_state), dtype=torch.float32, device=x.device)
-    ys = []
-    for i in range(t):
-        h, y = _mamba_step(p, h, (xc[:, i], delta[:, i], bt[:, i], ct[:, i]))
-        ys.append(y)
-    y = torch.stack(ys, dim=1).to(x.dtype)  # (B, T, di)
+
+    def scan(q, xc, delta, bt, ct):
+        h = torch.zeros((xc.shape[0], cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
+                        device=xc.device)
+        ys = []
+        for i in range(t):
+            h, y = _mamba_step(q, h, (xc[:, i], delta[:, i], bt[:, i], ct[:, i]))
+            ys.append(y)
+        return torch.stack(ys, dim=1), h
+
+    y, h = on_rows(scan, (xc, delta, bt, ct), {"A_log": p["A_log"], "D": p["D"]})
+    y = y.to(x.dtype)  # (B, T, di)
     out = (y * F.silu(z)) @ p["out_proj"]
     return out, {"h": h, "conv": _conv_tail(x1, cfg.ssm_conv)}
 
@@ -173,7 +203,9 @@ def step_mamba(p, cfg: ArchConfig, x_t: torch.Tensor, state: dict):
     dtr, ds = cfg.dt_rank, cfg.ssm_state
     d_raw, b_t, c_t = torch.split(proj, [dtr, ds, ds], dim=-1)
     delta = _softplus((d_raw @ p["dt_w"]).float() + p["dt_b"])
-    h, y = _mamba_step(p, state["h"], (xc, delta, b_t.float(), c_t.float()))
+    h, y = on_rows(lambda q, h, *inputs: _mamba_step(q, h, inputs),
+                    (state["h"], xc, delta, b_t.float(), c_t.float()),
+                    {"A_log": p["A_log"], "D": p["D"]})
     out = (y.to(x_t.dtype) * F.silu(z)) @ p["out_proj"]
     return out, {"h": h, "conv": window[:, 1:]}
 
@@ -246,7 +278,7 @@ def _mlstm_parallel_inputs(p, cfg: ArchConfig, xm: torch.Tensor):
     v = (xm @ p["wv"]).reshape(b, t, heads, dh).float()
     gates = xc.float() @ p["w_gates"] + p["b_gates"]
     i_raw, f_raw = gates.chunk(2, dim=-1)  # (B, T, H)
-    f_raw = F.logsigmoid(f_raw)  # f = sigmoid in log space
+    f_raw = _logsigmoid(f_raw)  # f = sigmoid in log space
     return q, k, v, i_raw, f_raw, xc
 
 
@@ -321,23 +353,26 @@ def apply_mlstm(p, cfg: ArchConfig, x: torch.Tensor):
     xm, z = (xn @ p["w_up"]).chunk(2, dim=-1)  # (B, T, du)
     q, k, v, i_raw, f_raw, _ = _mlstm_parallel_inputs(p, cfg, xm)
     du = xm.shape[-1]
-    state = init_state_mlstm(cfg, b, device=x.device)
-    C, n, m = state["C"], state["n"], state["m"]
     L = cfg.xlstm_chunk
-    hs = []
-    if L and t % L == 0 and t > L:
-        for c in range(t // L):
-            sl = slice(c * L, (c + 1) * L)
-            (C, n, m), h = _mlstm_chunk_body(
-                (C, n, m), (q[:, sl], k[:, sl], v[:, sl], i_raw[:, sl], f_raw[:, sl]))
-            hs.append(h)
-        h = torch.cat(hs, dim=1)
-    else:
+
+    def scan(_, q, k, v, i_raw, f_raw):
+        state = init_state_mlstm(cfg, q.shape[0], device=q.device)
+        C, n, m = state["C"], state["n"], state["m"]
+        hs = []
+        if L and t % L == 0 and t > L:
+            for c in range(t // L):
+                sl = slice(c * L, (c + 1) * L)
+                (C, n, m), h = _mlstm_chunk_body(
+                    (C, n, m), (q[:, sl], k[:, sl], v[:, sl], i_raw[:, sl], f_raw[:, sl]))
+                hs.append(h)
+            return torch.cat(hs, dim=1), C, n, m
         for i in range(t):
             C, n, m, h = _mlstm_step(
                 C, n, m, q[:, i], k[:, i], v[:, i], i_raw[:, i], f_raw[:, i])
             hs.append(h)
-        h = torch.stack(hs, dim=1)
+        return torch.stack(hs, dim=1), C, n, m
+
+    h, C, n, m = on_rows(scan, (q, k, v, i_raw, f_raw))
     h = _group_norm_heads(h.reshape(b, t, du).to(x.dtype), p["gn"], heads)
     out = (h * F.silu(z)) @ p["w_down"]
     return x + out, {"C": C, "n": n, "m": m, "conv": _conv_tail(xm, cfg.ssm_conv)}
@@ -357,8 +392,9 @@ def step_mlstm(p, cfg: ArchConfig, x_t: torch.Tensor, state: dict):
     v = (xm @ p["wv"]).reshape(b, heads, dh).float()
     gates = xc.float() @ p["w_gates"] + p["b_gates"]
     i_raw, f_raw = gates.chunk(2, dim=-1)
-    f_raw = F.logsigmoid(f_raw)
-    C, n, m, h = _mlstm_step(state["C"], state["n"], state["m"], q, k, v, i_raw, f_raw)
+    f_raw = _logsigmoid(f_raw)
+    C, n, m, h = on_rows(lambda _, *args: _mlstm_step(*args),
+                          (state["C"], state["n"], state["m"], q, k, v, i_raw, f_raw))
     h = _group_norm_heads(h.reshape(b, du).to(x_t.dtype), p["gn"], heads)
     out = (h * F.silu(z)) @ p["w_down"]
     return x_t + out, {"C": C, "n": n, "m": m, "conv": window[:, 1:]}
@@ -446,13 +482,17 @@ def apply_slstm(p, cfg: ArchConfig, x: torch.Tensor):
     b, t, _ = x.shape
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
     xp = xn @ p["w_x"] + p["b"].to(xn.dtype)  # (B, T, 4d)
-    state = init_state_slstm(cfg, b, device=x.device)
-    r = _slstm_r(p)
-    hs = []
-    for i in range(t):
-        state, h = _slstm_cell(r, cfg, state, xp[:, i])
-        hs.append(h)
-    h = torch.stack(hs, dim=1).to(x.dtype)  # (B, T, d)
+
+    def scan(q, xp):
+        state = init_state_slstm(cfg, xp.shape[0], device=xp.device)
+        hs = []
+        for i in range(t):
+            state, h = _slstm_cell(q["r"], cfg, state, xp[:, i])
+            hs.append(h)
+        return state, torch.stack(hs, dim=1)
+
+    state, h = on_rows(scan, (xp,), {"r": _slstm_r(p)})
+    h = h.to(x.dtype)  # (B, T, d)
     h = x + _group_norm_heads(h, p["gn"], cfg.xlstm_heads)
     return h + _slstm_ffn(p, h), state
 
@@ -460,6 +500,9 @@ def apply_slstm(p, cfg: ArchConfig, x: torch.Tensor):
 def step_slstm(p, cfg: ArchConfig, x_t: torch.Tensor, state: dict):
     xn = rms_norm(x_t, p["ln"], cfg.norm_eps)
     xp = xn @ p["w_x"] + p["b"].to(xn.dtype)
-    state, h = _slstm_cell(_slstm_r(p), cfg, state, xp)
+    names = ("c", "n", "m", "h")
+    state, h = on_rows(
+        lambda q, xp, *st: _slstm_cell(q["r"], cfg, dict(zip(names, st, strict=True)), xp),
+        (xp, *(state[k] for k in names)), {"r": _slstm_r(p)})
     h = x_t + _group_norm_heads(h.to(x_t.dtype), p["gn"], cfg.xlstm_heads)
     return h + _slstm_ffn(p, h), state

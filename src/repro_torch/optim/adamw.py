@@ -51,8 +51,12 @@ class AdamW:
         device = next(iter(params.values())).device
         return AdamWState(
             step=torch.zeros((), dtype=torch.int32, device=device),
-            m={k: torch.zeros(p.shape, dtype=dt, device=p.device) for k, p in params.items()},
-            v={k: torch.zeros(p.shape, dtype=dt, device=p.device) for k, p in params.items()},
+            # zeros_like: a DTensor parameter's moments are DTensors placed
+            # as it is, each rank holding its shard's.
+            m={k: torch.zeros_like(p, dtype=dt, memory_format=torch.contiguous_format)
+               for k, p in params.items()},
+            v={k: torch.zeros_like(p, dtype=dt, memory_format=torch.contiguous_format)
+               for k, p in params.items()},
         )
 
     @torch.no_grad()

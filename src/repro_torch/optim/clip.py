@@ -11,12 +11,22 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models.layers import is_dtensor
+
 __all__ = ["global_norm", "clip_by_global_norm"]
 
 
+def _sum_of_squares(g: torch.Tensor) -> torch.Tensor:
+    s = torch.sum(torch.square(g.float()))
+    # A DTensor leaf's sum is over the whole tensor (its shards' partial
+    # sums reduced over the mesh), read back as a plain 0-d tensor.
+    return s.full_tensor() if is_dtensor(s) else s
+
+
 def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree.values()))
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares (whole
+    tensors, for DTensor leaves too)."""
+    return torch.sqrt(sum(_sum_of_squares(g) for g in tree.values()))
 
 
 def clip_by_global_norm(

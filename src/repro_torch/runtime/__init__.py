@@ -2,19 +2,28 @@
 # rules and placement over a DeviceMesh (runtime/sharding.py), elastic
 # re-mesh arithmetic and meshes (runtime/elastic.py) and straggler
 # monitoring (runtime/straggler.py); counterparts of repro/runtime/. The
-# pod-axis pipeline is ROADMAP.md queue 1, item 16.6.
+# model axis runs (tensor, sequence and expert parallel, item 16.6 (i)); the
+# pod-axis pipeline is ROADMAP.md queue 1, item 16.6 (ii).
 
-from repro_torch.runtime.elastic import build_mesh, choose_submesh, plan_remesh  # noqa: F401
+from repro_torch.runtime.elastic import (  # noqa: F401
+    build_mesh,
+    build_pod_mesh,
+    choose_submesh,
+    plan_remesh,
+)
 from repro_torch.runtime.sharding import (  # noqa: F401
     ShardingRules,
     batch_pspec,
     cache_pspecs,
     data_mesh,
+    device_put,
     host_data_mesh,
     init_distributed,
     make_activation_sharder,
+    named,
     param_pspecs,
     place_args,
+    place_params,
     placements,
     replicate,
     shard_applies,

@@ -6,6 +6,8 @@ Counterpart of ``repro/runtime/elastic.py``. ``choose_submesh`` and
 powers of two on the data axis. ``build_mesh`` makes the ``(data, model)``
 ``DeviceMesh`` over the first ``data·model`` ranks of the process group
 (``runtime/sharding.py``); outside a group one device needs no mesh.
+``build_pod_mesh`` makes the ``(pod, data, model)`` one the model axis
+runs on.
 """
 
 from __future__ import annotations
@@ -76,3 +78,24 @@ def build_mesh(devices: Sequence[int] | None, data: int, model: int):
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return DeviceMesh(device_type, torch.tensor(ranks).reshape(data, model),
                       mesh_dim_names=("data", "model"))
+
+
+def build_pod_mesh(pod: int, data: int, model: int, devices: Sequence[int] | None = None):
+    """A ``(pod, data, model)`` ``DeviceMesh`` over ``devices`` (ranks; the
+    first ``pod·data·model`` of the world by default), ``pod`` the major
+    axis and ``model`` the minor, as the reference's production mesh
+    (``launch/mesh.py``): a model-axis collective stays inside a host.
+    Every rank of the world calls it; it needs a process group."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not dist.is_initialized():
+        raise ValueError("a (pod, data, model) mesh needs a process group")
+    need, avail = pod * data * model, dist.get_world_size()
+    if need > avail:
+        raise ValueError(f"a {pod}x{data}x{model} mesh needs {need} devices, {avail} available")
+    ranks = list(devices if devices is not None else range(avail))[:need]
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(device_type, torch.tensor(ranks).reshape(pod, data, model),
+                      mesh_dim_names=("pod", "data", "model"))

@@ -28,9 +28,24 @@ DTensor placements on a mesh.
 
 **Activations.** :func:`make_activation_sharder` makes the reference's
 spec decision (``spec``), the dp-only binding (the model axis folded into
-the data axes) never naming an axis twice. At run time it is the identity
-while the model axis has size 1; a model axis of more raises, since tensor
-and sequence parallel execution are ROADMAP queue 1, item 16.6.
+the data axes) never naming an axis twice. The ``Model`` calls it at the
+reference's sites (``embed``, ``residual``, ``moe_in``, ``logits``): a
+DTensor activation is redistributed to its spec's placements (left as it
+is where the spec is None, as the reference leaves it unconstrained); a
+plain tensor passes through while the model axis has size 1 and raises
+above, having no mesh to be placed on.
+
+**Model-axis execution.** :func:`named` and :func:`device_put` are the
+reference's ``named(mesh, spec_tree)`` and ``jax.device_put``: a state
+dict, a cache list or a batch dict becomes DTensors by its spec function;
+:func:`place_params` puts a ``Model``'s parameters on the mesh by
+``param_pspecs``. ``runtime/elastic.py::build_pod_mesh`` makes the
+``(pod, data, model)`` mesh. A train step then runs on DTensors
+(``runtime/steps.py``: the data axes reduce through autograd over a
+batch sharded on them), and so do the model's prefill and decode step;
+each op keeps the reference's global semantics (DTensor's propagation,
+the kernel ops' rules of ``kernels/ops.py::sharded``, the MoE's explicit
+expert-parallel path).
 
 **Placement.** ``data_mesh(n)`` is a 1-D mesh over ranks ``0..n-1``,
 ``host_data_mesh`` the ``(host, data)`` grid. ``place_args`` keeps the
@@ -60,6 +75,9 @@ __all__ = [
     "zero_pspecs",
     "placements",
     "make_activation_sharder",
+    "named",
+    "device_put",
+    "place_params",
     "data_mesh",
     "init_distributed",
     "host_data_mesh",
@@ -225,8 +243,8 @@ def placements(spec: Spec, mesh) -> tuple:
 
 class _ActivationSharder:
     """The ``shard_activation`` hook: ``spec(shape, name)`` is the
-    reference's decision; a call is the identity while the model axis has
-    size 1."""
+    reference's decision; a call redistributes a DTensor to it (the module
+    docstring's "Activations")."""
 
     def __init__(self, rules: ShardingRules) -> None:
         self.rules = rules
@@ -256,16 +274,64 @@ class _ActivationSharder:
         return None
 
     def __call__(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(x, DTensor):
+            spec = self.spec(tuple(x.shape), name)
+            if spec is None:
+                return x
+            return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
         if self._mdl is not None and self.rules.axis_sizes.get(self._mdl, 1) > 1:
-            raise NotImplementedError(
-                f"a model axis of {self.rules.model_size} shards activations for tensor or "
-                "sequence parallel execution: ROADMAP.md queue 1, item 16.6"
+            raise ValueError(
+                f"a plain tensor at {name!r} with a model axis of {self.rules.model_size}: "
+                "there is no mesh to place it on (place the model and its inputs, "
+                "place_params and device_put)"
             )
         return x
 
 
 def make_activation_sharder(rules: ShardingRules) -> _ActivationSharder:
     return _ActivationSharder(rules)
+
+
+def named(mesh, spec_tree):
+    """Placements on ``mesh`` for each spec of ``spec_tree`` (a dict of
+    specs, or a list of them: a cache's), the reference's ``named``."""
+    if isinstance(spec_tree, Mapping):
+        return {k: placements(v, mesh) for k, v in spec_tree.items()}
+    return [named(mesh, entry) for entry in spec_tree]
+
+
+def device_put(tree, placement_tree, mesh):
+    """``tree`` (a dict of tensors, or a list of them) as DTensors with the
+    placements of ``placement_tree`` (:func:`named`): a plain tensor is
+    distributed (every rank holds the same values, as the seeded inputs
+    do), a DTensor redistributed."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if not isinstance(tree, Mapping):
+        return [device_put(t, p, mesh) for t, p in zip(tree, placement_tree, strict=True)]
+    out = {}
+    for k, t in tree.items():
+        pl = placement_tree[k]
+        if isinstance(t, DTensor):
+            out[k] = t.redistribute(mesh, pl)
+        else:
+            out[k] = distribute_tensor(t.to(mesh.device_type), mesh, pl)
+    return out
+
+
+def place_params(model: torch.nn.Module, mesh, rules: ShardingRules) -> dict[str, Spec]:
+    """Every parameter of ``model`` replaced, under its name, by a DTensor
+    parameter placed by ``param_pspecs``; -> the specs."""
+    params = dict(model.named_parameters())
+    specs = param_pspecs(params, rules)
+    placed = device_put({k: p.detach() for k, p in params.items()}, named(mesh, specs), mesh)
+    for name, value in placed.items():
+        owner_name, _, leaf = name.rpartition(".")
+        owner = model.get_submodule(owner_name) if owner_name else model
+        owner.register_parameter(leaf, torch.nn.Parameter(value))
+    return specs
 
 
 # -- process groups and meshes ------------------------------------------------

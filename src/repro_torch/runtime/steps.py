@@ -17,6 +17,15 @@ the group and divided by its size, before clipping and AdamW, so every rank
 takes the global batch's step. They travel as one flat buffer a dtype: one
 explicit all-reduce and one division each, not one a leaf; each element is
 still summed over the same ranks, in a dtype of its own.
+
+On a mesh (the model's parameters DTensors, ``runtime/sharding.py::
+place_params``, and the batch sharded over the data axes by
+``batch_pspec``) the step takes no ``data_group``: autograd over the
+sharded batch gives each gradient as a DTensor, partial over the data
+axes (and over the model axis where an op's shards add up), and the step
+lays it out as its parameter (``redistribute``: the data-axis
+all-reduce) before clipping, whose norm sums whole tensors, and AdamW,
+which updates each rank's shard in place.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from typing import Any, Callable
 import torch
 import torch.distributed as dist
 
+from repro_torch.models.layers import is_dtensor
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamW, AdamWState
 from repro_torch.optim.clip import clip_by_global_norm
@@ -68,6 +78,10 @@ def make_train_step(
     optimizer step on ``batch`` (a dict of (B, ...) tensors on the model's
     device), ``metrics`` {"loss", "tokens", "grad_norm", "lr"}."""
     params = dict(model.named_parameters())
+    on_mesh = is_dtensor(next(iter(params.values())))
+    if on_mesh and data_group is not None:
+        raise ValueError("a model placed on a mesh reduces its gradients over the mesh's data "
+                         "axes; data_group would reduce them twice")
 
     def grads_of(batch):
         loss, metrics = model.loss_fn(batch)
@@ -75,6 +89,9 @@ def make_train_step(
         # where the unembedding is its own) gets a zero gradient, as under
         # the reference's jax.grad.
         grads = torch.autograd.grad(loss, list(params.values()), materialize_grads=True)
+        if on_mesh:
+            grads = [g.redistribute(p.device_mesh, p.placements)
+                     for g, p in zip(grads, params.values(), strict=True)]
         return loss.detach(), metrics, dict(zip(params, grads, strict=True))
 
     def train_step(opt_state: AdamWState, batch: dict) -> tuple[AdamWState, dict]:

@@ -326,21 +326,28 @@ def test_a_recurrent_cells_stand_ins_carry_the_planned_cost(monkeypatch):
 def test_collectives_follow_the_stated_rules():
     arch = "granite-3-8b"
     cfg = get_config(arch)
+    layers = cfg.n_layers
+    act = 16 * 4096 * cfg.d_model * 2
     for zero in (False, True):
         meta = dryrun.build_cell(arch, "train_4k", False, zero=zero).meta
         hist = meta["collectives"]
         params = meta["argument_bytes"]["params"]
-        act = 16 * 4096 * cfg.d_model * 2
-        # Two all-reduces a block and pass (3 passes with remat) over the model axis.
-        model_axis = {"count": 2 * 3 * cfg.n_layers, "bytes": 2 * 3 * cfg.n_layers * 2 * act}
+        # The dense block's measured pattern on a mesh whose every axis
+        # exceeds 1 (16 x 16): 6 all-gathers, 3 all-reduces, 2
+        # reduce-scatters a block and step, 4 and 2 besides.
+        assert hist["all-gather"]["count"] == 6 * layers + 4 + zero
+        assert hist["reduce-scatter"]["count"] == 2 * layers + zero
         if zero:
-            assert hist["reduce-scatter"] == {"count": 1, "bytes": params}
-            assert hist["all-gather"] == {"count": 1, "bytes": params}
-            assert hist["all-reduce"] == model_axis
+            assert hist["reduce-scatter"]["bytes"] == params + 2 * layers * act
+            assert hist["all-reduce"]["count"] == 3 * layers + 2
         else:
-            # One flat bf16 buffer of the gradients, one f32 of the loss.
-            assert hist["all-reduce"] == {"count": model_axis["count"] + 2,
-                                          "bytes": model_axis["bytes"] + 2 * params + 2 * 4}
+            # Each gradient over the data axis (a block's two gains over the
+            # model axis too) and clipping's sum of each sharded leaf: 9
+            # leaves a block (7 sharded), ln_f and the vocab's two (49155
+            # divides no axis: replicated).
+            leaves, sharded = 9 * layers + 3, 7 * layers
+            assert hist["all-reduce"]["count"] == (3 * layers + 2 + leaves + 2 * layers
+                                                   + sharded)
     meta = dryrun.build_cell("dbrx-132b", "prefill_32k", False).meta
     assert meta["collectives"]["all-to-all"]["count"] == 2 * 40  # experts shard: EP
     meta = dryrun.build_cell("mixtral-8x22b", "prefill_32k", False).meta

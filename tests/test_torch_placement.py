@@ -206,7 +206,9 @@ def test_sharded_matches_replicated_outputs(tmp_path, world):
 def test_op_sharding_rules_match_the_whole_call(tmp_path):
     """Each kernel op with DTensor operands: the local rule where the op is
     independent along the sharded dim, else gathered (a Partial operand
-    reduced first), against the op on the whole tensors, each rule counted."""
+    reduced first), against the op on the whole tensors, each rule counted.
+    Attention's head rule: q, k and v on their heads run locally; heads on q
+    alone, or a KV head split across the ranks, gather."""
     out = run_world("""
         import numpy as np
         from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
@@ -224,6 +226,7 @@ def test_op_sharding_rules_match_the_whole_call(tmp_path):
 
         img = rnd(4, 8, 8, 8)
         q, k, v = rnd(4, 4, 8, 16), rnd(4, 2, 8, 16), rnd(4, 2, 8, 16)
+        k1, v1 = rnd(4, 1, 8, 16), rnd(4, 1, 8, 16)  # one KV head: split, it would misalign
         a, b, a3, b3 = rnd(8, 6), rnd(6, 4), rnd(4, 8, 6), rnd(4, 6, 4)
         flat = rnd(64)
         keys = torch.randperm(64, generator=g).to(torch.int32)
@@ -241,7 +244,11 @@ def test_op_sharding_rules_match_the_whole_call(tmp_path):
             ("attention", lambda: ops.attention(q, k, v, causal=True),
              lambda: ops.attention(d(q, 0), d(k, 0), d(v, 0), causal=True), "local"),
             ("attention", lambda: ops.attention(q, k, v),
-             lambda: ops.attention(d(q, 1), d(k, 1), d(v, 1)), "gathered"),
+             lambda: ops.attention(d(q, 1), d(k, 1), d(v, 1)), "local"),
+            ("attention", lambda: ops.attention(q, k, v),
+             lambda: ops.attention(d(q, 1), d(k, None), d(v, None)), "gathered"),
+            ("attention", lambda: ops.attention(q, k1, v1),
+             lambda: ops.attention(d(q, 1), d(k1, 1), d(v1, 1)), "gathered"),
             ("softmax", lambda: ops.softmax(a), lambda: ops.softmax(d(a, 0)), "local"),
             ("softmax", lambda: ops.softmax(a), lambda: ops.softmax(d(a, 1)), "gathered"),
             ("softmax", lambda: ops.softmax(a * WORLD),
@@ -277,7 +284,7 @@ def test_op_sharding_rules_match_the_whole_call(tmp_path):
                                                err_msg=f"{op} {rule} {impl}")
         print("rules", len(cases))
     """, 2, tmp_path)
-    assert "rules 21" in out[0]
+    assert "rules 23" in out[0]
 
 
 def test_device_sweeps_in_one_four_rank_world(tmp_path):

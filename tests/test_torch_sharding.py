@@ -16,7 +16,8 @@ The mini mesh of ``tests/test_distributed.py:79`` (also failing in the
 reference) is held to its docstring where the port runs it: specs valid at
 (2, 2, 2), the smoke models' parameters and caches placed on a real
 (data 2, model 2) mesh of 4 gloo ranks and read back whole, and the
-activation sharder refusing tensor parallelism (item 16.6).
+activation sharder placing DTensor activations by its spec there (the
+model axis runs: ``tests/test_torch_model_axis_*.py``).
 ``ErrorFeedbackInt8`` at 2 gloo ranks against the reference's
 ``shard_map`` over 2 forced host devices on the same numpy gradients.
 """
@@ -256,14 +257,46 @@ def test_activation_sharder_spec_equals_the_reference(monkeypatch, sizes, axes, 
 
 
 def test_activation_sharder_is_the_identity_unless_tensor_parallel():
+    """A plain tensor passes through while the model axis has size 1 (or is
+    folded into the data axes); at a model axis of more it has no mesh to be
+    placed on, and the hook says so."""
     x = torch.ones(2, 4, 8)
     for sizes, axes in ((dict(data=4, model=1), ("data",)),
                         (dict(data=2, model=2), ("data", "model"))):
         shard = make_activation_sharder(ShardingRules(mesh=sizes, data_axes=axes))
         assert shard(x, "residual") is x
     tp = make_activation_sharder(ShardingRules(mesh=dict(data=2, model=2)))
-    with pytest.raises(NotImplementedError, match="16.6"):
+    with pytest.raises(ValueError, match="no mesh to place it on"):
         tp(x, "logits")
+
+
+def test_activation_sharder_redistributes_a_dtensor_to_its_spec(tmp_path):
+    """In a 4-rank (data 2, model 2) world, with seq_shard: each activation
+    lands on ``placements(spec(shape, name))`` with its values unchanged, and
+    one whose spec is None (``moe_in`` without ``moe_gather_tokens``) is
+    returned as it is."""
+    out = run_world("""
+        from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+        from repro_torch.runtime.elastic import build_mesh
+        from repro_torch.runtime.sharding import (ShardingRules, make_activation_sharder,
+                                                  placements)
+
+        mesh = build_mesh(None, 2, 2)
+        shard = make_activation_sharder(ShardingRules(mesh=mesh, seq_shard=True))
+        whole = torch.arange(8 * 16 * 6, dtype=torch.float32).reshape(8, 16, 6)
+        x = distribute_tensor(whole, mesh, (Replicate(), Replicate()))
+        want = {"embed": (Shard(0), Shard(1)), "residual": (Shard(0), Shard(1)),
+                "logits": (Shard(0), Shard(2))}
+        for name, pl in want.items():
+            y = shard(x, name)
+            assert tuple(y.placements) == pl == placements(shard.spec(tuple(x.shape), name), mesh)
+            assert torch.equal(y.full_tensor(), whole), name
+        assert shard.spec(tuple(x.shape), "moe_in") is None and shard(x, "moe_in") is x
+        step = distribute_tensor(whole[:, 0], mesh, (Replicate(), Replicate()))
+        assert tuple(shard(step, "logits").placements) == (Shard(0), Shard(1))
+        print("sharder ok")
+    """, 4, tmp_path)
+    assert "sharder ok" in out[0]
 
 
 def test_production_specs_on_the_mini_mesh_and_real_placement(tmp_path):

@@ -103,7 +103,7 @@ exits nonzero without printing its result line:
    prefix_scan_f32 nonzero after the phase;
 4h. serving: ``benchmarks.fig_concurrency`` at preset 4 with ``--impl
    kernel`` (Pathfinder and the f32 GEMM at lanes 1-32 under the single and
-   the threaded client, 0.3 s each, and the co-located pair), then mixed
+   the threaded client, 1 s each, and the co-located pair), then mixed
    serving of gemm_bf16_nn (p4 and p4 n=1024, max batch 4) and softmax (p2
    and p2 classes=16384, max batch 8): every (bucket, width) call checked
    against the width-1 call on each member's inputs, a saturating loop run,
@@ -381,7 +381,13 @@ TUNE_PATH = ("gemm_f32_nn", "gemm_f32_tn", "gemm_bf16_nn")
 # (every request's 8192 x 8192 or 8192 x 16384 normal draws) took ~140 s.
 SERVE_CONCURRENCY = ("pathfinder", "gemm_f32_nn")
 SERVE_LANES = (1, 2, 4, 8, 16, 32)
-SERVE_DURATION = 0.3
+# A closed-loop row excludes its first max(concurrency, lanes) requests as
+# warm-up (two a lane at 16 and 32 lanes) and fails with no measured
+# completion left. With 16-32 issuing threads contending for the GIL, a
+# loaded host can spend the reference's 0.3 s window on those alone (21
+# warm-up-only completions at gemm_f32_nn threaded l16 on one run), so the
+# window is 1 s: ~4x the warm-up's share of a normal run's ~80 requests.
+SERVE_DURATION = 1.0
 MIXED_SERVE = {
     "gemm_bf16_nn": (4, "4@1,4/n=1024@2", 4, 2e-2),
     "softmax": (2, "2@2,2/classes=16384@1", 8, 1e-5),
@@ -538,6 +544,13 @@ ATTN_DECODE = (8, 32, 8, 1, 1088, 128)
 # 4/2, head_dim 16; batch 4, 16-token prompts, a cache of 64 of which a
 # decode step sees at most 32): the prefill and a decode step.
 ATTN_SMOKE_PREFILL = (4, 4, 2, 16, 16, 16)
+# Each row's log-sum-exp (the split rule's partials): the decode kernel's and
+# the f32 kernel's against the plain version's, absolute; and the merge of a
+# full-width cache cut into this many slices (16: the production model
+# axis) at each kv_len (700 leaves the last slices of 4 and 16 empty).
+LSE_TOL = 1e-4
+KEY_SLICES = (2, 4, 16)
+KEY_SLICE_KV_LENS = (700, 1088)
 ATTN_SMOKE_DECODE = (4, 4, 2, 1, 32, 16)
 LM_ARCH = "granite-3-8b"
 LM_SMOKE_SERVE = dict(n_requests=8, batch=4, prompt_len=16, gen_len=16, max_len=64)
@@ -1429,6 +1442,77 @@ def _fused_decode_case(torch, fa, gen) -> float:
     return worst
 
 
+def _decode_lse_case(torch, fa, gen, shape, dt, splits=None) -> None:
+    """The entry's lse (``return_lse``) against the plain version's within
+    LSE_TOL, its output bit-equal to the call without it, one launch."""
+    b, hq, hkv, t, s, d = shape
+    q = torch.randn(b, hq, t, d, generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(dt) for _ in range(2))
+    key = fa._route(q, k, v)
+    before = dict(fa.launches)
+    if key == "flash_decode_bf16":
+        out, lse = fa.flash_decode_cuda(q, k, v, splits=splits, return_lse=True)
+        alone = fa.flash_decode_cuda(q, k, v, splits=splits)
+        _, want = fa.flash_decode_plain(q, k, v, splits=splits or 1, return_lse=True)
+    else:
+        out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+        alone = fa.flash_attention_cuda(q, k, v)
+        _, want = fa.flash_attention_plain(q, k, v, return_lse=True)
+    got = {n: fa.launches[n] - before[n] for n in before}
+    if got != {n: 2 * (n == key) for n in before}:
+        _fail(f"{key} with and without its lse: launches {got}, expected 2 of {key}")
+    what = (f"{key} B{b} Hq{hq} Hkv{hkv} T{t} S{s} D{d}"
+            + (f", {splits} splits" if key == "flash_decode_bf16" else ""))
+    _close_case(torch, what + ", lse vs plain", lse, want, 0.0, LSE_TOL)
+    _close_case(torch, what + ", output with lse vs without (bit-equal)", out.float(),
+                alone.float(), 0.0, 0.0)
+
+
+def _key_split_merge_case(torch, fa, gen) -> float:
+    """A full-width cache (ATTN_DECODE) cut into KEY_SLICES slices as the
+    split rule's ranks hold it: each slice's valid slots through the kernel
+    with its lse (an empty slice contributes 0 and -inf), merged by the
+    rule's own merge (``ops.merge_key_splits``, its reductions over the
+    stacked slices), against the unsplit kernel and the plain attention on
+    the first kv_len slots, at the reference's bf16 2e-2. -> max abs."""
+    from repro_torch.kernels import ops
+
+    b, hq, hkv, t, s, d = ATTN_DECODE
+    q = torch.randn(b, hq, t, d, generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+
+    def stacked(x, op):
+        return x.amax(0, keepdim=True) if op == "max" else x.sum(0, keepdim=True)
+
+    worst = 0.0
+    tol = ATTN_TOL["bfloat16"]
+    for kv_len in KEY_SLICE_KV_LENS:
+        whole = fa.flash_attention_cuda(q, k[:, :, :kv_len], v[:, :, :kv_len]).float()
+        plain = fa.flash_attention_plain(q, k[:, :, :kv_len], v[:, :, :kv_len]).float()
+        for m in KEY_SLICES:
+            outs, lses, empty = [], [], 0
+            for i in range(m):
+                lo, n = i * s // m, s // m
+                valid = max(0, min(kv_len - lo, n))
+                if valid:
+                    out, lse = fa.flash_attention_cuda(q, k[:, :, lo:lo + valid],
+                                                       v[:, :, lo:lo + valid], return_lse=True)
+                else:
+                    out = torch.zeros_like(q)
+                    lse = torch.full((b, hq, t), float("-inf"), device="cuda")
+                    empty += 1
+                outs.append(out)
+                lses.append(lse)
+            merged = ops.merge_key_splits(torch.stack(outs), torch.stack(lses), stacked)[0]
+            what = (f"flash_decode_bf16 B{b} Hq{hq} Hkv{hkv} S{s} D{d} kv_len {kv_len}, "
+                    f"{m} key slices ({empty} empty) merged")
+            _close_case(torch, what + " vs the unsplit kernel", merged.float(), whole, tol, tol)
+            worst = max(worst, _close_case(torch, what + " vs plain attention", merged.float(),
+                                           plain, tol, tol))
+    return worst
+
+
 def phase_kernels(torch) -> dict:
     from repro_torch.kernels import avgpool, lrn, matmul, softmax
     from repro_torch.kernels import bitonic_sort as sort
@@ -1618,6 +1702,18 @@ def phase_kernels(torch) -> dict:
     for case in DECODE_SPLIT_CASES:
         _decode_split_case(torch, fa, gen, *case)
     err["flash_decode_bf16"] = max(err["flash_decode_bf16"], _fused_decode_case(torch, fa, gen))
+    # Each row's log-sum-exp: the decode kernel at the paths' decode shapes
+    # (granite's, mixtral's group 6 over its ring, jamba's group 8), at one
+    # split and at the card's split count; the f32 kernel at the smoke
+    # decode; then the split rule's merge of a cache cut into key slices.
+    for shape in (ATTN_DECODE, ATTN_G6_DECODE, ATTN_G8_DECODE):
+        b, hq, hkv, t, s, _ = shape
+        lo, hi = fa.decode_tiles(t, s, hq // hkv, False, None)
+        for splits in (1, fa.decode_splits(b, hkv, hi - lo, fa._sm_count(0))):
+            _decode_lse_case(torch, fa, gen, shape, torch.bfloat16, splits)
+    _decode_lse_case(torch, fa, gen, ATTN_SMOKE_DECODE, torch.float32)
+    err["flash_decode_bf16"] = max(err["flash_decode_bf16"],
+                                   _key_split_merge_case(torch, fa, gen))
     # The f32 entries: every case above on the SIMT kernel too, every head
     # dim each compiles, the smoke LM's shapes and the full width (phase 5
     # times both there), and views the TMA kernel cannot read.
@@ -4015,7 +4111,9 @@ def phase_model_axis(torch, smi: str) -> tuple[dict, dict]:
     """The model axis's path over a world of one: TRAIN_ARCH's train steps,
     prefill and decode steps with every parameter, batch and cache entry a
     DTensor on a (pod, data, model) mesh, each against the same step on
-    plain tensors. -> (launches on the path, numbers)."""
+    plain tensors; the decode steps twice, on the cache split on head_dim
+    (the gathered rule) and on its sequence (``cache_seq_shard``, the split
+    rule). -> (launches on the path, numbers)."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -4038,6 +4136,7 @@ def phase_model_axis(torch, smi: str) -> tuple[dict, dict]:
         torch.cuda.reset_peak_memory_stats()
         mesh = build_pod_mesh(1, 1, 1)
         rules = ShardingRules(mesh=mesh, data_axes=("pod", "data"), seq_shard=True)
+        seq_rules = dataclasses.replace(rules, cache_seq_shard=True)
         cfg = get_config(TRAIN_ARCH)
         plain = Model(cfg, device="cuda")
         plain.init_weights(torch.Generator(device="cuda").manual_seed(0))
@@ -4046,8 +4145,8 @@ def phase_model_axis(torch, smi: str) -> tuple[dict, dict]:
         specs = place_params(meshed, mesh, rules)
         models = {"plain": plain, "meshed": meshed}
 
-        def place(tree, spec_fn):
-            return device_put(tree, named(mesh, spec_fn(tree, rules)), mesh)
+        def place(tree, spec_fn, with_rules=rules):
+            return device_put(tree, named(mesh, spec_fn(tree, with_rules)), mesh)
 
         gen = torch.Generator(device="cuda").manual_seed(1)
         b, t = MESH_TRAIN["batch"], MESH_TRAIN["seq"]
@@ -4113,24 +4212,33 @@ def phase_model_axis(torch, smi: str) -> tuple[dict, dict]:
                 launches[k] += n
         _mesh_held(torch, "prefill logits", {"logits": logits["meshed"]},
                    {"logits": logits["plain"]}, bitwise)
+        # The meshed prefill's cache twice: split on head_dim (the reference's
+        # default) and on its sequence; each layout's steps update their own.
+        caches["seq"] = place([{k: t.clone() for k, t in e.items()} for e in caches["meshed"]],
+                              cache_pspecs, seq_rules)
         caches["meshed"] = place(caches["meshed"], cache_pspecs)
+        models["seq"] = meshed
         tokens = logits["plain"][:, -1].argmax(-1)
-        decode_ms = {"plain": [], "meshed": []}
+        decode_ms = {"plain": [], "meshed": [], "seq": []}
         step_launches = {"flash_decode_bf16": cfg.n_layers}
+        step_rules = {"plain": {}, "meshed": {"attention/gathered": cfg.n_layers},
+                      "seq": {"attention/split": cfg.n_layers}}
         for i in range(d["steps"]):
             pos = d["prompt"] + i
-            args = {"plain": tokens, "meshed": place({"t": tokens}, batch_pspec)["t"]}
+            placed_tokens = place({"t": tokens}, batch_pspec)["t"]
+            args = {"plain": tokens, "meshed": placed_tokens, "seq": placed_tokens}
             out = {}
-            for name in (("plain", "meshed") if i % 2 == 0 else ("meshed", "plain")):
+            order = ("plain", "meshed", "seq")
+            for name in order if i % 2 == 0 else order[::-1]:
                 (out[name], _), ms, got = _mesh_counted(
                     torch, lambda n=name: models[n].decode_step(caches[n], args[n], pos),
-                    step_launches,
-                    {"attention/gathered": cfg.n_layers} if name == "meshed" else {},
-                    f"decode step {i} ({name})")
+                    step_launches, step_rules[name], f"decode step {i} ({name})")
                 decode_ms[name].append(ms)
                 for k, n in got.items():
                     launches[k] += n
             _mesh_held(torch, "decode logits", {"logits": out["meshed"]},
+                       {"logits": out["plain"]}, bitwise)
+            _mesh_held(torch, "decode logits, sequence-split cache", {"logits": out["seq"]},
                        {"logits": out["plain"]}, bitwise)
             tokens = out["plain"].argmax(-1)
         torch.cuda.synchronize()
@@ -4149,9 +4257,11 @@ def phase_model_axis(torch, smi: str) -> tuple[dict, dict]:
           f"plain {', '.join(f'{x:.2f}' for x in train_ms['plain'])} ms (median "
           f"{med['plain']:.2f}); meshed / plain {med['meshed'] / med['plain']:.4f} ({smi})")
     print(f"  decode steps (batch {d['batch']}, cache {d['cache']}) by events: median meshed "
-          f"{dmed['meshed']:.3f} ms, plain {dmed['plain']:.3f} ms, meshed / plain "
-          f"{dmed['meshed'] / dmed['plain']:.4f}; peak memory {peak_gb:.2f} GB above the "
-          f"phase's start (both models) ({smi})")
+          f"{dmed['meshed']:.3f} ms (cache split on head_dim, the gathered rule), "
+          f"{dmed['seq']:.3f} ms (split on its sequence, the split rule), plain "
+          f"{dmed['plain']:.3f} ms, meshed / plain {dmed['meshed'] / dmed['plain']:.4f} and "
+          f"{dmed['seq'] / dmed['plain']:.4f}; peak memory {peak_gb:.2f} GB above the "
+          f"phase's start (both models, three caches) ({smi})")
     print("  meshed against plain, (bit-equal, within the bound) tensors: "
           + "; ".join(f"{k} {v[0]}/{v[1]}" for k, v in bitwise.items())
           + f"; launches {_nonzero(launches)}")
@@ -5051,6 +5161,37 @@ def _attention_decode_scaling(torch, gen) -> None:
               f"{_ms_text(_device_ms(torch, call))})")
 
 
+def _lse_timing(torch, gen, hw) -> None:
+    """Each entry that writes each row's log-sum-exp, at its path's decode
+    shape (flash_decode_bf16 at ATTN_DECODE with the card's split count,
+    flash_attention_f32 at the smoke decode), with and without the lse, in
+    turns (without, with, with, without), event time over 50 calls each,
+    and the device's own time; the bound with the lse counts its B * Hq * T
+    * 4 bytes written besides q, k, v and o."""
+    from repro_torch.core.metrics import roofline_terms
+    from repro_torch.kernels import flash_attention as fa
+
+    for shape, dt in ((ATTN_DECODE, torch.bfloat16), (ATTN_SMOKE_DECODE, torch.float32)):
+        b, hq, hkv, t, s, d = shape
+        q = torch.randn(b, hq, t, d, generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(dt)
+                for _ in range(2))
+        key = fa._route(q, k, v)
+        calls = {"without": functools.partial(fa.flash_attention_cuda, q, k, v),
+                 "with": functools.partial(fa.flash_attention_cuda, q, k, v, return_lse=True)}
+        times = {"without": [], "with": []}
+        for name in ("without", "with", "with", "without"):
+            times[name].append(_time_ms(torch, calls[name], reps=50, warmup=5))
+        flops, nbytes = fa.kernel_cost(q, k, v, False, None)
+        for name, fn in calls.items():
+            extra = b * hq * t * 4 if name == "with" else 0
+            bound = roofline_terms(flops, nbytes + extra, dtype=dt, hw=hw).bound_s * 1e3
+            print(f"  {key} B{b} Hq{hq} Hkv{hkv} T{t} S{s} D{d} {name} lse: "
+                  f"{statistics.mean(times[name]):.4f} ms per call (runs "
+                  f"{', '.join(f'{x:.4f}' for x in times[name])}; device "
+                  f"{_ms_text(_device_ms(torch, fn))}; bound {bound:.4g} ms)")
+
+
 def _graph_ms(torch, fn, launches: int = 50, replays: int = 10) -> float:
     """ms a call of ``fn`` captured ``launches`` times back to back in one
     CUDA graph, over ``replays`` replays timed with CUDA events: the
@@ -5208,6 +5349,7 @@ def phase_yardstick(torch, launches: dict, errors: dict) -> list:
             out.append(entry)
     dp_status.check()  # every child grid of the timed DP calls launched
     _attention_decode_scaling(torch, gen)
+    _lse_timing(torch, gen, hw)
     _srad_launches(torch, gen, hw)
     _copy_floor(torch, gen, hw)
     return out
@@ -5316,8 +5458,9 @@ def main() -> int:
     tm, dm = axis["train_median_ms"], axis["decode_median_ms"]
     print(f"the model axis over one rank, {TRAIN_ARCH} full on a (1, 1, 1) mesh: train step median "
           f"{tm['meshed']:.2f} ms (plain {tm['plain']:.2f} ms), decode step median "
-          f"{dm['meshed']:.3f} ms (plain {dm['plain']:.3f} ms), peak memory {axis['peak_gb']:.2f} "
-          f"GB; phase 4p {axis['phase_s']:.1f} s ({smi})")
+          f"{dm['meshed']:.3f} ms, {dm['seq']:.3f} ms on a sequence-split cache (plain "
+          f"{dm['plain']:.3f} ms), peak memory {axis['peak_gb']:.2f} GB; phase 4p "
+          f"{axis['phase_s']:.1f} s ({smi})")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

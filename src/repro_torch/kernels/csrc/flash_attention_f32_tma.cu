@@ -69,6 +69,12 @@
 //   keys included (zeros, then masked): guarding them per row and key made
 //   a decode step of 2 rows and 32 keys slower, not faster (PERF.md).
 //
+// With an lse pointer the epilogue also writes each row's log-sum-exp of its
+// scaled scores (f32, (B, Hq, T), natural-log units, (m + log2 l) * ln 2
+// from the row state the loop keeps; -inf for a row that sees no key): a
+// store a row, nothing else changes. The split rule of kernels/ops.py
+// merges ranks' slices of a cache with it.
+//
 // Shared memory at D 128: 171 KB for 8 warps (one CTA an SM), 145 KB for the
 // decode variant. On an H100 at 700 W the full-width prefill runs at about
 // 0.48 of its bound (PERF.md, from chip_smoke.py phase 5). What holds it
@@ -89,6 +95,7 @@ using namespace hopper;
 constexpr int kBlockN = 64;        // keys per tile
 constexpr int kRowsPerWarp = 16;   // packed rows a consumer warp owns
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
 
 template <int D, int kWarps, int kStages>
@@ -120,6 +127,7 @@ struct Layout {
 struct Args {
   const float* q;
   float* o;
+  float* lse;  // (B, Hq, T), or nullptr: no log-sum-exp
   int T, S, Hkv, B, group, causal, window, row_blocks;
   float scale;
   long long sq[3], so[3];  // element strides over (b, h, t)
@@ -440,6 +448,10 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap map_k,
     const int p = row0 + wrow + lr + 4 * i;
     if (p >= n_rows) continue;
     const int h = kvh * a.group + p % a.group;
+    if (a.lse != nullptr && lk == 0) {  // m and l are the same on the row's 8 lanes
+      a.lse[(static_cast<long long>(b) * a.Hkv * a.group + h) * a.T + p / a.group] =
+          l[i] > 0.f ? (m[i] + log2f(l[i])) * kLn2 : -CUDART_INF_F;
+    }
     float* orow = a.o + b * a.so[0] + h * a.so[1] + static_cast<long long>(p / a.group) * a.so[2];
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
@@ -472,8 +484,9 @@ bool encode_kv(CUtensorMap* map, const void* base, int B, int Hkv, int S, const 
 }
 
 template <int D, int kWarps, int kStages>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int T,
-           int S, int causal, int window, float scale, const long long* st, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Hq, int Hkv,
+           int T, int S, int causal, int window, float scale, const long long* st,
+           cudaStream_t stream) {
   using L = Layout<D, kWarps, kStages>;
   CUtensorMap mk, mv;
   if (!encode_kv<D>(&mk, k, B, Hkv, S, st + 3) || !encode_kv<D>(&mv, v, B, Hkv, S, st + 6)) {
@@ -482,6 +495,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, 
   Args a;
   a.q = static_cast<const float*>(q);
   a.o = static_cast<float*>(o);
+  a.lse = static_cast<float*>(lse);
   a.T = T;
   a.S = S;
   a.Hkv = Hkv;
@@ -510,34 +524,37 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, 
 
 // At most 16 packed rows per KV head: the one-warp variant with a 2-stage ring.
 template <int D>
-int route(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int T,
-          int S, int causal, int window, float scale, const long long* st, cudaStream_t s) {
+int route(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Hq, int Hkv,
+          int T, int S, int causal, int window, float scale, const long long* st, cudaStream_t s) {
   if (Hq / Hkv * T <= kRowsPerWarp) {
-    return launch<D, 1, 2>(q, k, v, o, B, Hq, Hkv, T, S, causal, window, scale, st, s);
+    return launch<D, 1, 2>(q, k, v, o, lse, B, Hq, Hkv, T, S, causal, window, scale, st, s);
   }
-  return launch<D, 8, 1>(q, k, v, o, B, Hq, Hkv, T, S, causal, window, scale, st, s);
+  return launch<D, 8, 1>(q, k, v, o, lse, B, Hq, Hkv, T, S, causal, window, scale, st, s);
 }
 
 }  // namespace
 
 // C entry point (bound with ctypes): q (B, Hq, T, D), k and v (B, Hkv, S,
-// D), o (B, Hq, T, D), f32, unit last stride, 16-byte aligned bases;
+// D), o (B, Hq, T, D), f32, unit last stride, 16-byte aligned bases; lse
+// null, or each row's log-sum-exp out (f32, (B, Hq, T) contiguous);
 // `strides` holds 12 element strides (q's, k's, v's and o's over their
 // first three axes), each a multiple of 4 (the caller substitutes one for an
 // axis of extent 1). D in {8, 16, 32, 64, 128}; window < 0 is no window; S
 // >= 1. Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for a call it does not take or a tensor map that
 // cuTensorMapEncodeTiled refuses.
-extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* o, int B,
-                                   int Hq, int Hkv, int T, int S, int D, int causal, int window,
-                                   float scale, const long long* strides, void* stream) {
+extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
+                                   void* lse, int B, int Hq, int Hkv, int T, int S, int D,
+                                   int causal, int window, float scale, const long long* strides,
+                                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long* st = strides;
   switch (D) {
-    case 8: return route<8>(q, k, v, o, B, Hq, Hkv, T, S, causal, window, scale, strides, s);
-    case 16: return route<16>(q, k, v, o, B, Hq, Hkv, T, S, causal, window, scale, strides, s);
-    case 32: return route<32>(q, k, v, o, B, Hq, Hkv, T, S, causal, window, scale, strides, s);
-    case 64: return route<64>(q, k, v, o, B, Hq, Hkv, T, S, causal, window, scale, strides, s);
-    case 128: return route<128>(q, k, v, o, B, Hq, Hkv, T, S, causal, window, scale, strides, s);
+    case 8: return route<8>(q, k, v, o, lse, B, Hq, Hkv, T, S, causal, window, scale, st, s);
+    case 16: return route<16>(q, k, v, o, lse, B, Hq, Hkv, T, S, causal, window, scale, st, s);
+    case 32: return route<32>(q, k, v, o, lse, B, Hq, Hkv, T, S, causal, window, scale, st, s);
+    case 64: return route<64>(q, k, v, o, lse, B, Hq, Hkv, T, S, causal, window, scale, st, s);
+    case 128: return route<128>(q, k, v, o, lse, B, Hq, Hkv, T, S, causal, window, scale, st, s);
     default: return cudaErrorInvalidValue;
   }
 }

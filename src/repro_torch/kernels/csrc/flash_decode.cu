@@ -62,6 +62,14 @@
 //   of each (b, KV head) while other heads' CTAs still stream their keys.
 //   Then the last CTA sets its counter back to 0, so every launch leaves the
 //   counters as it found them (zero), which a CUDA graph replay needs.
+// - lse != nullptr: each row's log-sum-exp of its scaled scores, f32, laid
+//   out (B, Hq, T), in natural-log units: (m* + log2 l) * ln 2 from the
+//   row's final max and sum (at one split the CTA's own, else the merge's);
+//   -inf for a row that sees no key. The row state is already in registers,
+//   so this costs B * Hq * T * 4 bytes of stores and nothing else: the
+//   launch, the counters and the scratch are those of the call without it.
+//   Ranks that each hold a slice of a cache merge their outputs with it
+//   (the split rule of kernels/ops.py::attention).
 // - The counters are an int32 array of at least B * Hkv entries, zeroed
 //   once. The wrapper keeps one array (and one scratch buffer) per (device,
 //   stream): launches on one stream run in order, so they never see each
@@ -81,6 +89,7 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBlockN = 64;  // keys per tile
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct DecodeArgs {
@@ -88,6 +97,7 @@ struct DecodeArgs {
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;  // nullptr: write the partials only
+  float* lse;        // [B][Hq][T], or nullptr: no log-sum-exp
   float* part_o;     // [B][Hkv][splits][rows][D]
   float* part_ml;    // [B][Hkv][splits][rows][2]: m (log2 units), l
   int* counters;     // [B][Hkv] arrival counts, zero between launches
@@ -129,6 +139,12 @@ __device__ __forceinline__ void widen8(const __nv_bfloat16* src, float* out) {
   }
 }
 
+// A row's log-sum-exp in natural-log units from its max m (log2 units of
+// the scaled scores) and sum l; -inf where the row saw no key (l = 0).
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? (m + log2f(l)) * kLn2 : -CUDART_INF_F;
+}
+
 __device__ __forceinline__ bool visible(int key, int qpos, int S, int causal, int window) {
   return key < S && (!causal || key <= qpos) && (window < 0 || key > qpos - window);
 }
@@ -157,10 +173,13 @@ __device__ __forceinline__ void tile_range(const DecodeArgs& a, int& lo, int& hi
 // of this (b, KV head); orow0 is o advanced to (b, query head kvh * group,
 // position 0). The fields it reads are passed by value: taking the address
 // of the kernel's parameter would copy it to local memory.
+// lse0, when not null, is the lse output advanced to (b, query head kvh *
+// group, position 0); row r's entry lies (r % group) * T + r / group past it.
 template <int D>
 __device__ __noinline__ void merge_splits(const float* part_o, const float* part_ml,
                                           __nv_bfloat16* orow0, long long so_h, long long so_t,
-                                          int R, int group, int splits, int warp, int lane) {
+                                          float* lse0, int T, int R, int group, int splits,
+                                          int warp, int lane) {
   // The merge, warp w over rows w, w + 4, ...; lanes over the splits for m
   // and l, over d for acc. Sums in split order, each product and sum
   // rounded on its own. The first 8 splits' acc, and every lane's split's m
@@ -231,6 +250,8 @@ __device__ __noinline__ void merge_splits(const float* part_o, const float* part
     const float denom = fmaxf(l_sum, 1e-30f);
 #pragma unroll
     for (int c = 0; c < kCols; ++c) orow[32 * c] = __float2bfloat16(o_acc[c] / denom);
+    // m_star and l_sum are the same on every lane (shuffled): lane 0 writes.
+    if (lse0 != nullptr && lane == 0) lse0[(r % group) * T + r / group] = row_lse(m_star, l_sum);
   }
 }
 
@@ -388,7 +409,13 @@ __global__ void __launch_bounds__(kThreads, 3) flash_decode_kernel(const DecodeA
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
       const int r = warp + kWarps * i;
-      if (r < R && lane == 0) sCorr[r] = l[i];
+      if (r < R && lane == 0) {
+        sCorr[r] = l[i];
+        if (a.lse != nullptr) {
+          a.lse[(static_cast<long long>(b) * a.Hkv * a.group + h0 + r % a.group) * a.T +
+                r / a.group] = row_lse(m[i], l[i]);
+        }
+      }
     }
     __syncthreads();
     if (tid < D) {
@@ -446,8 +473,11 @@ __global__ void __launch_bounds__(kThreads, 3) flash_decode_kernel(const DecodeA
   if (!is_last) return;
 
   merge_splits<D>(a.part_o + part0 * D, a.part_ml + part0 * 2,
-                  a.o + b * a.so[0] + static_cast<long long>(h0) * a.so[1], a.so[1], a.so[2], R,
-                  a.group, a.splits, warp, lane);
+                  a.o + b * a.so[0] + static_cast<long long>(h0) * a.so[1], a.so[1], a.so[2],
+                  a.lse == nullptr
+                      ? nullptr
+                      : a.lse + (static_cast<long long>(b) * a.Hkv * a.group + h0) * a.T,
+                  a.T, R, a.group, a.splits, warp, lane);
 }
 
 template <int D, int kRows>
@@ -480,17 +510,19 @@ cudaError_t launch(const DecodeArgs& a, int B, cudaStream_t stream) {
 // rows * D floats, rows = Hq / Hkv * T) then part_ml (B * Hkv * splits *
 // rows * 2). `counters` holds at least B * Hkv int32 zeros, which the launch
 // leaves zero. o non-null: one launch computes the output (splits == 1 needs
-// neither part nor counters). o null: only the partials are written.
-// Returns cudaGetLastError() after the launch.
-extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v, void* o, void* part,
-                                 void* counters, int B, int Hq, int Hkv, int T, int S, int D,
-                                 int causal, int window, float scale, const long long* strides,
-                                 int splits, void* stream) {
+// neither part nor counters), and with lse non-null each row's log-sum-exp
+// (f32, (B, Hq, T) contiguous). o null: only the partials are written (lse
+// must be null). Returns cudaGetLastError() after the launch.
+extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
+                                 void* part, void* counters, int B, int Hq, int Hkv, int T, int S,
+                                 int D, int causal, int window, float scale,
+                                 const long long* strides, int splits, void* stream) {
   DecodeArgs a;
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k = static_cast<const __nv_bfloat16*>(k);
   a.v = static_cast<const __nv_bfloat16*>(v);
   a.o = static_cast<__nv_bfloat16*>(o);
+  a.lse = static_cast<float*>(lse);
   a.T = T;
   a.S = S;
   a.Hkv = Hkv;
@@ -513,7 +545,7 @@ extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v, vo
   }
   const bool needs_part = o == nullptr || splits > 1;
   if (a.rows < 1 || a.rows > 16 || splits < 1 || (needs_part && part == nullptr) ||
-      (o != nullptr && splits > 1 && counters == nullptr)) {
+      (o != nullptr && splits > 1 && counters == nullptr) || (o == nullptr && lse != nullptr)) {
     return cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -26,6 +26,13 @@ note at the top of each source for its bound and design:
 
 - :func:`flash_attention_cuda` launches the routed entry on q (B, Hq, T, D)
   and k, v (B, Hkv, S, D), float32 or bfloat16, D in :data:`HEAD_DIMS`.
+  With ``return_lse=True`` it returns ``(out, lse)``: lse (B, Hq, T) f32,
+  each row's log-sum-exp of its scaled scores (natural log; -inf for a row
+  that sees no key), which the decode kernel and the f32 TMA kernel write
+  in their epilogues, in the same launch (a rank's partial for the split
+  rule of ``ops.attention``). Another entry raises ``ValueError`` for it
+  before any launch; the plain versions and the meta route return the pair
+  too.
   It reads every operand through its strides and needs only a unit stride
   on the last axis, so transposed activations and a cache sliced to its
   valid length go in as views, never copied. The result is (B, Hq, T, D)
@@ -150,7 +157,13 @@ _TMA_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
 ]
 _SIMT = {torch.float32: "flash_attention_f32_simt", torch.bfloat16: "flash_attention_bf16_simt"}
-_DECODE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+# flash_attention_f32 takes an lse pointer after o.
+_F32_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
+]
+# The entries that can write each row's log-sum-exp.
+LSE_ENTRIES = ("flash_decode_bf16", "flash_attention_f32")
+_DECODE_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p,
 ]
 
@@ -292,6 +305,7 @@ def _split_bounds(lo: int, hi: int, splits: int, i: int) -> tuple[int, int]:
 
 
 _LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
 
 
 def flash_decode_partials_plain(
@@ -347,18 +361,22 @@ def flash_decode_partials_plain(
 
 
 def flash_decode_combine_plain(
-    part_o: torch.Tensor, part_ml: torch.Tensor, *, hq: int, t: int, dtype: torch.dtype
-) -> torch.Tensor:
+    part_o: torch.Tensor, part_ml: torch.Tensor, *, hq: int, t: int, dtype: torch.dtype,
+    return_lse: bool = False,
+):
     """The decode kernel's merge in plain PyTorch: m* = max m_i, w_i =
     2^(m_i - m*), l = sum l_i w_i, o = sum acc_i w_i / max(l, 1e-30), the
     packed rows put back as (B, Hq, T, D) in ``dtype``. The sums run in
     split order, one elementwise product and one sum at a time, each rounded
     on its own: the kernel's epilogue does the same arithmetic in the same
     order (``__fmul_rn``, ``__fadd_rn``), so on the card the two agree bit
-    for bit on the same partials."""
+    for bit on the same partials. ``return_lse``: also each row's
+    log-sum-exp (B, Hq, T), f32, (m* + log2 l) ln 2 as the kernel writes
+    it, -inf where l = 0."""
     b, hkv, splits, rows, d = part_o.shape
     m = part_ml[..., 0]
-    w = torch.exp2(m - m.amax(2, keepdim=True))
+    m_star = m.amax(2, keepdim=True)
+    w = torch.exp2(m - m_star)
     l_sum = torch.zeros_like(m[:, :, 0])
     o = torch.zeros_like(part_o[:, :, 0])
     for i in range(splits):
@@ -366,7 +384,12 @@ def flash_decode_combine_plain(
         o = o + part_o[:, :, i] * w[:, :, i, :, None]
     o = o / l_sum.clamp_min(1e-30)[..., None]
     group = hq // hkv
-    return o.reshape(b, hkv, t, group, d).transpose(2, 3).reshape(b, hq, t, d).to(dtype)
+    out = o.reshape(b, hkv, t, group, d).transpose(2, 3).reshape(b, hq, t, d).to(dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l_sum > 0, (m_star[:, :, 0] + torch.log2(l_sum)) * _LN2,
+                      float("-inf"))
+    return out, lse.reshape(b, hkv, t, group).transpose(2, 3).reshape(b, hq, t)
 
 
 def flash_decode_plain(
@@ -378,14 +401,16 @@ def flash_decode_plain(
     window: int | None = None,
     scale: float | None = None,
     splits: int = 1,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """The decode pair's arithmetic in plain PyTorch, split by split
     (:func:`flash_decode_partials_plain`) and merged
-    (:func:`flash_decode_combine_plain`). Used by the tests; any T."""
+    (:func:`flash_decode_combine_plain`, whose m and l give the lse under
+    ``return_lse``). Used by the tests; any T."""
     part_o, part_ml = flash_decode_partials_plain(q, k, v, causal=causal, window=window,
                                                   scale=scale, splits=splits)
     return flash_decode_combine_plain(part_o, part_ml, hq=q.shape[1], t=q.shape[2],
-                                      dtype=q.dtype)
+                                      dtype=q.dtype, return_lse=return_lse)
 
 
 @functools.lru_cache(maxsize=None)
@@ -470,17 +495,19 @@ class DecodeScratch:
 scratch = DecodeScratch()
 
 
-def _decode_launch(q, k, v, causal, window, scale, splits, part, counters, out, stream) -> None:
+def _decode_launch(q, k, v, causal, window, scale, splits, part, counters, out, stream,
+                   lse=None) -> None:
     """One launch of ``flash_decode_bf16``: into ``out`` when it is given
     (the merge in the epilogue; ``part`` and ``counters`` used only at more
-    than one split), else the partials into ``part`` (part_o, then part_ml).
+    than one split; each row's log-sum-exp into ``lse`` too where it is
+    given), else the partials into ``part`` (part_o, then part_ml).
     Operands already routed and checked, S >= 1."""
     b, hq, t, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     name = "flash_decode_bf16"
     status = _build.function(name, _DECODE_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if out is None else out.data_ptr(),
-        None if part is None else part.data_ptr(),
+        None if lse is None else lse.data_ptr(), None if part is None else part.data_ptr(),
         None if counters is None else counters.data_ptr(), b, hq, hkv, t, s, d,
         int(bool(causal)), _window_arg(window, s, t),
         float(d**-0.5 if scale is None else scale),
@@ -490,10 +517,11 @@ def _decode_launch(q, k, v, causal, window, scale, splits, part, counters, out, 
     _build.count(launches, name)
 
 
-def _decode(q, k, v, causal, window, scale, splits=None):
+def _decode(q, k, v, causal, window, scale, splits=None, return_lse=False):
     """One decode launch into a new output (operands already checked; S >=
     1); ``splits`` None picks :func:`decode_splits` for the card. Its
-    counters and scratch are the (device, stream) pair of :data:`scratch`."""
+    counters and scratch are the (device, stream) pair of :data:`scratch`.
+    ``return_lse``: -> (out, lse), the same launch."""
     b, hq, t, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     if splits is None:
@@ -505,8 +533,9 @@ def _decode(q, k, v, causal, window, scale, splits=None):
     if splits > 1:
         counters, part = scratch.get(q.device, stream,
                                      *decode_scratch_sizes(b, hq, hkv, t, d, splits))
-    _decode_launch(q, k, v, causal, window, scale, splits, part, counters, out, stream)
-    return out
+    lse = _empty_lse(q) if return_lse else None
+    _decode_launch(q, k, v, causal, window, scale, splits, part, counters, out, stream, lse)
+    return (out, lse) if return_lse else out
 
 
 def _check_decode(q, k, v, window, splits) -> None:
@@ -553,6 +582,11 @@ def _empty_out(q: torch.Tensor) -> torch.Tensor:
     return torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
 
 
+def _empty_lse(q: torch.Tensor) -> torch.Tensor:
+    """Each row's log-sum-exp, (B, Hq, T) f32 contiguous, as the entries write it."""
+    return torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+
+
 def flash_decode_cuda(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -562,12 +596,14 @@ def flash_decode_cuda(
     window: int | None = None,
     scale: float | None = None,
     splits: int | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """The decode kernel, one launch, the counterpart of
     :func:`flash_decode_plain`: ``splits`` None picks :func:`decode_splits`
-    for the card, as :func:`flash_attention_cuda` does."""
+    for the card, as :func:`flash_attention_cuda` does; ``return_lse`` ->
+    (out, lse) from the same launch."""
     _check_decode(q, k, v, window, splits)
-    return _decode(q, k, v, causal, window, scale, splits)
+    return _decode(q, k, v, causal, window, scale, splits, return_lse)
 
 
 def flash_attention_cuda(
@@ -580,45 +616,67 @@ def flash_attention_cuda(
     scale: float | None = None,
     block_q: int = 128,
     block_k: int = 128,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Launch the entry :func:`_route` names: attention of q (B, Hq, T, D)
-    over k, v (B, Hkv, S, D); returns (B, Hq, T, D) in q's dtype.
+    over k, v (B, Hkv, S, D); returns (B, Hq, T, D) in q's dtype, and with
+    ``return_lse`` also each row's log-sum-exp (:data:`LSE_ENTRIES` write
+    it; another entry raises ``ValueError`` before any launch).
     ``block_q``/``block_k`` name the prefill kernel's tile, the one there
     is a choice of (:func:`tune_space`)."""
     name = _route(q, k, v, window)
     if {"block_q": block_q, "block_k": block_k} != _TILE:
         raise ValueError(f"no compiled tile ({block_q}, {block_k}); compiled: {_TILE}")
+    _check_lse(name, return_lse)
     _check_devices(q, k, v)
-    return _run(name, q, k, v, causal, window, scale)
+    return _run(name, q, k, v, causal, window, scale, return_lse)
 
 
-def _launch(name: str, q, k, v, *, causal=False, window=None, scale=None) -> torch.Tensor:
+def _check_lse(name: str, return_lse: bool) -> None:
+    if return_lse and name not in LSE_ENTRIES:
+        raise ValueError(f"attention entry {name} writes no log-sum-exp (entries that do: "
+                         f"{LSE_ENTRIES})")
+
+
+def _launch(name: str, q, k, v, *, causal=False, window=None, scale=None,
+            return_lse=False):
     """Launch entry ``name``, one that takes these operands: the routed one,
     or the SIMT kernel of their dtype, which takes any (which is how a
     comparison times it at the shapes its successors take)."""
     routed = _route(q, k, v, window)
     if name not in (routed, _SIMT[q.dtype]):
         raise ValueError(f"attention entry {name} does not take these operands ({routed} does)")
+    _check_lse(name, return_lse)
     _check_devices(q, k, v)
-    return _run(name, q, k, v, causal, window, scale)
+    return _run(name, q, k, v, causal, window, scale, return_lse)
 
 
-def _run(name: str, q, k, v, causal, window, scale) -> torch.Tensor:
-    """Launch entry ``name`` on operands already routed and checked."""
+def _run(name: str, q, k, v, causal, window, scale, return_lse=False):
+    """Launch entry ``name`` on operands already routed and checked (with
+    ``return_lse``, one of :data:`LSE_ENTRIES`): -> out, or (out, lse)."""
     b, hq, t, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     if name == "flash_decode_bf16" and s > 0 and q.numel() > 0:
-        return _decode(q, k, v, causal, window, scale)
+        return _decode(q, k, v, causal, window, scale, return_lse=return_lse)
     out = _empty_out(q)
-    if out.numel() == 0:
-        return out
-    if s == 0:
-        return out.zero_()
+    lse = _empty_lse(q) if return_lse else None
+    if out.numel() == 0 or s == 0:
+        out.zero_()
+        if lse is not None:
+            lse.fill_(float("-inf"))
+        return (out, lse) if return_lse else out
     if scale is None:
         scale = d**-0.5
     win = _window_arg(window, s, t)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if name in ("flash_attention_bf16_wgmma", "flash_attention_f32"):
+    if name == "flash_attention_f32":
+        fn = _build.function(name, _F32_ARGTYPES)
+        status = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, hq, hkv, t, s, d,
+            int(bool(causal)), win, float(scale), _strides_arg(q, k, v, out, fill=d), stream,
+        )
+    elif name == "flash_attention_bf16_wgmma":
         fn = _build.function(name, _TMA_ARGTYPES)
         status = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, t, s, d,
@@ -638,7 +696,7 @@ def _run(name: str, q, k, v, causal, window, scale) -> torch.Tensor:
         )
     _build.check(status, name)
     _build.count(launches, name)
-    return out
+    return (out, lse) if return_lse else out
 
 
 # The meta route's active counters, each with a ``kernel(entry, flops,
@@ -681,16 +739,18 @@ def kernel_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     return 4.0 * d * pairs, float(nbytes)
 
 
-def _meta_route(q, k, v, causal, window) -> torch.Tensor:
+def _meta_route(q, k, v, causal, window, return_lse=False):
     """The kernel route on meta tensors: the routed entry's output shape and
-    layout, its cost to the active counters, nothing launched."""
+    layout (and the lse's, under ``return_lse``), its cost to the active
+    counters, nothing launched."""
     if not (q.is_meta and k.is_meta and v.is_meta):
         raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, {v.device}")
     name = _route(q, k, v, window)
+    _check_lse(name, return_lse)
     flops, nbytes = kernel_cost(q, k, v, causal, window)
     for counter in _META_COUNTERS:
         counter.kernel(name, flops, nbytes, q.dtype)
-    return _empty_out(q)
+    return (_empty_out(q), _empty_lse(q)) if return_lse else _empty_out(q)
 
 
 def flash_attention_kernel(
@@ -701,18 +761,21 @@ def flash_attention_kernel(
     causal: bool = False,
     window: int | None = None,
     scale: float | None = None,
+    return_lse: bool = False,
     **blocks,
-) -> torch.Tensor:
+):
     """The kernel route: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors (the only case it runs), the meta route for meta
-    tensors (shape and cost only)."""
+    tensors (shape and cost only). ``return_lse`` -> (out, lse) on each."""
     global plain_calls
     if q.device.type == "meta":
-        return _meta_route(q, k, v, causal, window)
+        return _meta_route(q, k, v, causal, window, return_lse)
     if q.device.type == "cpu":
         plain_calls += 1
-        return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
-    return flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale, **blocks)
+        return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale,
+                                     return_lse=return_lse)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale,
+                                return_lse=return_lse, **blocks)
 
 
 # -- the backward ---------------------------------------------------------------

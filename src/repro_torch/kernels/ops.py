@@ -70,15 +70,38 @@ is a DTensor, under either route:
   ``avgpool`` on batch or channels; ``attention`` with q, k and v sharded
   alike on the batch and the heads, the head rule: each rank's query heads
   over its own KV heads; any op whose operands are all replicated);
-- **gathered**: otherwise every operand is redistributed to ``Replicate``
-  first (a ``Partial`` one reduced) and the whole op runs on every rank,
-  its output replicated, as XLA runs a custom call it cannot partition.
-  ``prefix_scan``, ``sort_kv`` and ``srad_step`` gather whatever is
-  sharded.
+- **split** (``attention`` only): k and v sharded alike on the keys (dim
+  2, a cache split on its sequence, ``ShardingRules.cache_seq_shard``)
+  over some mesh dims, and perhaps on the batch and the heads, not on D;
+  no window, and causal only for one query a row (a decode step). q, in
+  any layout, is laid out on k's batch and head shards and replicated
+  elsewhere (an activation's redistribution; a ``Partial`` one reduced).
+  Each rank attends over its own slots below ``kv_len``, ``clamp(kv_len -
+  offset, 0, S_local)`` of them (offset: its first slot,
+  :func:`shard_offset`), through the routed entry with
+  ``return_lse=True``; a rank
+  with no valid slot launches nothing and contributes ``o = 0``, ``lse =
+  -inf``. :func:`merge_key_splits` then merges the ranks with one
+  all-reduce MAX of the lse and one all-reduce SUM of ``[w·o | w]`` in f32
+  (``w = exp(lse - max)``) over the split's mesh dims, ``o = Σw·o / Σw``
+  cast to q's dtype: flash-decoding's combine across ranks, the port's
+  counterpart of what GSPMD compiles from the reference's sequence-sharded
+  cache. No rank gathers the cache. The output is replicated over the
+  split's mesh dims and keeps k's batch and head shards. On one rank w = 1
+  and the merge divides by 1: the output is the entry's, bit for bit;
+- **gathered**: otherwise the operands are redistributed to ``Replicate``
+  first (a ``Partial`` one reduced) on every dim the op cannot take
+  sharded, and the op runs on every rank, as XLA runs a custom call it
+  cannot partition. ``prefix_scan``, ``sort_kv`` and ``srad_step`` gather
+  whatever is sharded, their output replicated; ``attention`` keeps the
+  batch and head shards q, k and v share (its output keeps them) and
+  gathers the rest: a cache split on head_dim gathers K and V over the
+  mesh dims of D alone, never the batch.
 
 Either way the op's own route runs on plain tensors: a CUDA DTensor
 launches the kernel (counted under its entry) or raises, a CPU one runs
-the plain versions. :data:`dtensor_rules` counts each (op, rule) taken.
+the plain versions. :data:`dtensor_rules` counts each (op, rule) taken
+(``local``, ``split``, ``gathered``).
 A layout (:func:`shard_dims`) names, per tensor dim, the mesh dims that
 shard it, so a rule holds on a mesh of any rank (the model's ``(pod,
 data, model)`` mesh: the batch over ``pod`` and ``data``, the heads over
@@ -118,6 +141,8 @@ __all__ = [
     "sharded",
     "shard_dims",
     "dtensor_rules",
+    "merge_key_splits",
+    "shard_offset",
 ]
 
 Mode = Literal["auto", "kernel", "ref"]
@@ -217,7 +242,7 @@ def tune_space(op: str) -> tuple[dict, ...]:
 
 # -- sharding rules -----------------------------------------------------------
 
-# (op, "local" or "gathered") -> calls that took that rule.
+# (op, "local", "split" or "gathered") -> calls that took that rule.
 dtensor_rules: collections.Counter = collections.Counter()
 
 Layout = dict  # tensor dim -> the mesh dims that shard it, in mesh order
@@ -258,35 +283,55 @@ def shard_dims(t) -> Layout | None:
     return {d: tuple(dims) for d, dims in out.items()}
 
 
-def sharded(name: str, local: Callable[..., Layout | None]):
+def _placements(layout: Layout, ndim: int) -> tuple:
+    """One placement a mesh dim: ``Shard(d)`` where ``layout`` names the
+    mesh dim for tensor dim ``d``, ``Replicate()`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    by_mesh_dim = {i: d for d, dims in layout.items() for i in dims}
+    return tuple(Shard(by_mesh_dim[i]) if i in by_mesh_dim else Replicate()
+                 for i in range(ndim))
+
+
+def sharded(name: str, local: Callable[..., Layout | None], *,
+            split: Callable | None = None, keep: Callable[..., Layout] | None = None):
     """Decorate ``fn`` (its tensor operands positional) with a sharding
     rule: a call with a DTensor operand runs ``fn`` on each rank's local
     shards when ``local(*operands, **kwargs)`` returns the output's layout
-    (a :func:`shard_dims` dict; every operand replicated needs no rule),
-    else on the operands gathered to ``Replicate``; plain calls go straight
-    to ``fn``. The output's placements have one entry a mesh dim."""
+    (a :func:`shard_dims` dict; every operand replicated needs no rule);
+    else ``split(fn, *operands, **kwargs)``, where given, runs the call its
+    own way and returns its output, or None where it does not apply; else
+    ``fn`` runs on the operands gathered: to ``Replicate`` on every mesh dim
+    but those of ``keep(*operands, **kwargs)``'s layout (every operand holds
+    it alike; the output keeps it), to ``Replicate`` everywhere without
+    ``keep``. Plain calls go straight to ``fn``. The output's placements
+    have one entry a mesh dim."""
 
     def wrap(fn):
         @functools.wraps(fn)
         def call(*args, **kwargs):
             if not _has_dtensor(args):
                 return fn(*args, **kwargs)
-            from torch.distributed.tensor import Replicate, Shard
-
             dtensor = _dtensor_type()
             mesh = next(a.device_mesh for a in args if isinstance(a, dtensor))
             if all(shard_dims(a) == {} for a in args):
                 out_layout = {}
             else:
                 out_layout = local(*args, **kwargs)
+            if out_layout is None and split is not None:
+                out = split(fn, *args, **kwargs)
+                if out is not None:
+                    _build.count(dtensor_rules, (name, "split"))
+                    return out
             rule = "gathered" if out_layout is None else "local"
-            by_mesh_dim = {i: d for d, dims in (out_layout or {}).items() for i in dims}
-            out_pl = tuple(Shard(by_mesh_dim[i]) if i in by_mesh_dim else Replicate()
-                           for i in range(mesh.ndim))
+            if rule == "gathered":
+                out_layout = keep(*args, **kwargs) if keep is not None else {}
+            out_pl = _placements(out_layout, mesh.ndim)
             _build.count(dtensor_rules, (name, rule))
             plain = tuple(
                 a if not isinstance(a, dtensor)
-                else a.to_local() if rule == "local" else a.full_tensor()
+                else a.to_local() if rule == "local"
+                else a.redistribute(mesh, out_pl).to_local()
                 for a in args
             )
             out = fn(*plain, **kwargs)
@@ -330,11 +375,84 @@ def _attention_local(q, k, v, **_):
     then attend to its own KV heads (the group Hq / Hkv maps a rank's query
     heads into its KV heads because the mesh dims divide Hkv evenly).
     Heads sharded on q alone, a KV head split, or any shard of T, S or D
-    gathers."""
+    does not stay local (a shard of S alone may take the split rule)."""
     lq, lk, lv = shard_dims(q), shard_dims(k), shard_dims(v)
     if not (lq == lk == lv and _free_of(lq, 2, 3)):
         return None
     return lq
+
+
+def _attention_keep(q, k, v, **_):
+    """The gathered rule's kept layout: the batch and head shards that q, k
+    and v share (the head rule's, on dims 0 and 1); D, S and T are
+    gathered."""
+    lq, lk, lv = shard_dims(q), shard_dims(k), shard_dims(v)
+    if lq is None or lk is None or lv is None:
+        return {}
+    return {d: lq[d] for d in (0, 1) if d in lq and lq[d] == lk.get(d) == lv.get(d)}
+
+
+def merge_key_splits(out: torch.Tensor, lse: torch.Tensor, reduce) -> torch.Tensor:
+    """Attention over slices of the keys merged into attention over all of
+    them: ``out`` (..., D) a slice's output and ``lse`` (...) its rows'
+    log-sum-exp (-inf where the slice holds no visible key, its ``out`` 0);
+    ``reduce(x, op)`` with op ``"max"`` or ``"sum"`` returns ``x`` reduced
+    over the slices (an all-reduce over the ranks that hold them, or a
+    reduction over a leading axis that stacks them, broadcastable against
+    ``x``). m = max lse; w = exp(lse - m) (0 for a slice of -inf, and for
+    every slice of a row no slice sees); then ``[w·o | w]`` in f32 reduced
+    by one sum; o = Σw·o / Σw (0 where Σw = 0) in ``out``'s dtype. One
+    slice: w = 1 and a division by 1, its ``out`` bit for bit."""
+    m = reduce(lse.float(), "max")
+    w = torch.exp(lse.float() - torch.where(torch.isfinite(m), m, 0.0))
+    both = reduce(torch.cat([out.float() * w[..., None], w[..., None]], dim=-1), "sum")
+    num, den = both[..., :-1], both[..., -1:]
+    return (num / torch.where(den > 0, den, 1.0)).to(out.dtype)
+
+
+def shard_offset(mesh, mesh_dims: tuple, size: int) -> int:
+    """This rank's first index along a tensor dim that ``mesh_dims`` (in
+    mesh order, as :func:`shard_dims` names them) shard evenly into
+    ``size`` local entries."""
+    coord = mesh.get_coordinate()
+    index = 0
+    for i in mesh_dims:
+        index = index * mesh.size(i) + coord[i]
+    return index * size
+
+
+def _attention_split(fn, q, k, v, *, causal=False, window=None, kv_len=None,
+                     return_lse=False, **kwargs):
+    """The split rule (the module docstring's), or None where it does not
+    apply."""
+    lk, lv = shard_dims(k), shard_dims(v)
+    if (return_lse or window is not None or (causal and q.shape[2] != 1) or lk is None
+            or lk != lv or 2 not in lk or 3 in lk):
+        return None
+    from torch.distributed._functional_collectives import all_reduce
+
+    mesh = k.device_mesh
+    seq = lk[2]
+    q_pl = _placements({d: lk[d] for d in (0, 1) if d in lk}, mesh.ndim)
+    ql = q.redistribute(mesh, q_pl).to_local() if isinstance(q, _dtensor_type()) else q
+    kl, vl = k.to_local(), v.to_local()
+    s_local = kl.shape[2]
+    total = k.shape[2] if kv_len is None else min(kv_len, k.shape[2])
+    valid = max(0, min(total - shard_offset(mesh, seq, s_local), s_local))
+    if valid:
+        out, lse = fn(ql, kl[:, :, :valid], vl[:, :, :valid], causal=causal,
+                      return_lse=True, **kwargs)
+    else:  # no slot of this rank is below kv_len: nothing to attend to
+        out = ql.new_zeros(ql.shape)
+        lse = torch.full(ql.shape[:3], float("-inf"), device=ql.device)
+
+    def reduce(x, op):
+        for i in seq:
+            x = all_reduce(x, op, (mesh, i))
+        return x
+
+    merged = merge_key_splits(out, lse, reduce)
+    return _dtensor_type().from_local(merged, mesh, q_pl, run_check=False)
 
 
 def _softmax_local(x, **_):
@@ -370,7 +488,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, mode: Mode = "auto", **blocks):
     return _ref.matmul_ref(a, b)
 
 
-@sharded("attention", _attention_local)
+@sharded("attention", _attention_local, split=_attention_split, keep=_attention_keep)
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -379,28 +497,43 @@ def attention(
     causal: bool = False,
     window: int | None = None,
     scale: float | None = None,
+    kv_len: int | None = None,
+    return_lse: bool = False,
     mode: Mode = "auto",
     **blocks,
 ):
     """GQA attention of q (B, Hq, T, D) over k, v (B, Hkv, S, D), the
-    queries at the last T of the S key positions.
+    queries at the last T of the S key positions; with ``kv_len``, over the
+    first ``kv_len`` slots only (the keys past it unseen, the queries at the
+    last T of those ``kv_len``: the reference's ``sdpa(..., kv_len=)`` on a
+    partly filled cache), on plain tensors the view ``[:, :, :kv_len]``.
+    ``return_lse`` -> (out, lse (B, Hq, T) f32), each row's log-sum-exp
+    (the split rule's partials; no batching or autograd rule takes it).
 
     On the kernel route, a call that autograd records (grad mode on, q, k
     or v requiring grad) goes through ``FlashAttentionFunction``: the
     kernel forward, the torch backward. Other calls keep the direct path."""
+    if kv_len is not None:
+        k, v = k[:, :, :kv_len], v[:, :, :kv_len]
     use, blocks = _resolve("attention", mode, q, blocks)
     if use:
-        if any(is_batched(t) for t in (q, k, v)):
+        batched = any(is_batched(t) for t in (q, k, v))
+        grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                            or v.requires_grad)
+        if return_lse and (batched or grad):
+            raise ValueError("attention's return_lse takes no batching or autograd rule")
+        if batched:
             params = _frozen(dict(blocks, causal=causal, window=window, scale=scale))
             return _KernelOp.apply("attention", params, q, k, v)
-        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                        or v.requires_grad):
+        if grad:
             return _attention_mod.FlashAttentionFunction.apply(
                 q, k, v, causal, window, scale, _frozen(blocks))
         return _attention_mod.flash_attention_kernel(
-            q, k, v, causal=causal, window=window, scale=scale, **blocks
+            q, k, v, causal=causal, window=window, scale=scale, return_lse=return_lse,
+            **blocks
         )
-    return _ref.attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    return _ref.attention_ref(q, k, v, causal=causal, window=window, scale=scale,
+                              return_lse=return_lse)
 
 
 @sharded("softmax", _softmax_local)

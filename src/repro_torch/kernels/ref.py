@@ -39,11 +39,15 @@ def attention_ref(
     causal: bool = False,
     window: int | None = None,
     scale: float | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Dense GQA attention; queries sit at the last T of the S key positions.
 
     ``window`` is sliding-window attention: the query at absolute position p
-    attends to keys in (p - window, p].
+    attends to keys in (p - window, p]. ``return_lse``: -> (out, lse), lse
+    (B, Hq, T) f32 each row's log-sum-exp of its masked scaled scores
+    (natural log; -inf for a row that sees no key), from the same f32
+    scores; ``out`` is the same either way.
     """
     _, hq, t, d = q.shape
     hkv, s_len = k.shape[1], k.shape[2]
@@ -66,7 +70,8 @@ def attention_ref(
     p = torch.softmax(s, dim=-1)
     # A fully masked row is NaN after softmax; define it as zeros.
     p = torch.where(mask.any(dim=-1)[None, None, :, None], p, 0.0)
-    return torch.einsum("bhts,bhsd->bhtd", p, vx).to(q.dtype)
+    out = torch.einsum("bhts,bhsd->bhtd", p, vx).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1)) if return_lse else out
 
 
 def softmax_ref(x: torch.Tensor) -> torch.Tensor:

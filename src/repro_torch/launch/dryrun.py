@@ -37,7 +37,7 @@ The record's fields:
   included where they are live), at the per-device batch and full widths.
   The model axis runs (item 16.6 (i)), but the trace is one device's on
   plain meta tensors, its activations undivided over that axis (a
-  per-rank trace is item 16.6 (i-b)), so on a model axis of more than 1
+  per-rank trace is item 16.6 (i-c)), so on a model axis of more than 1
   the value is an upper bound (``"temp_bound": "model axis undivided"``).
 - ``cost.flops`` and ``cost["bytes accessed"]``: the trace's counts split
   evenly over the model axis. FLOPs are ``torch.utils.flop_counter``'s
@@ -60,18 +60,28 @@ The record's fields:
   leaf by leaf, one all-reduce a data mesh dim (a dense block's two norm
   gains over the model axis too), clipping's sum of each sharded leaf one
   all-reduce a mesh dim its spec names; a dense block (attention and MLP)
-  6 all-gathers, 3 all-reduces and 2 reduce-scatters a train step, 16
-  all-gathers and 2 reduce-scatters a decode step, with a fixed part
-  besides (``_DENSE_BLOCK``, ``_DENSE_FIXED``), on a mesh whose every axis
-  exceeds 1. Other blocks, shapes and meshes keep GSPMD's pattern,
-  unmeasured: each block all-reduces its mixer's output and its FFN's
-  output once a pass (forward, the remat recomputation, backward), and
-  where the experts shard over the model axis the FFN's all-reduce becomes
-  two all-to-alls of the dispatched tokens. Bytes follow the reference's
-  convention (``repro/core/metrics.py::collective_ops_from_hlo``): an
-  all-reduce 2 × its result, an all-gather or a reduce-scatter the
-  gathered bytes, an all-to-all its result; a measured block's are an
-  activation (B·T·d) an operation, an estimate.
+  6 all-gathers, 3 all-reduces and 2 reduce-scatters a train step, with a
+  fixed part besides (``_DENSE_BLOCK``, ``_DENSE_FIXED``), each an
+  activation's bytes (B·T·d), an estimate; a decode step's counts and
+  bytes tensor by tensor as that world moves them (:func:`_dense_decode`,
+  both cache layouts; the test holds each count and byte): a dense block
+  gathers its input three times for its projections and twice for its
+  FFN, the step's K and V rows for the cache write and q on its heads,
+  reduce-scatters its mixer's and its FFN's outputs, and then, with the
+  cache split on head_dim (the default), gathers K and V over the model
+  axis (B·Hkv·S·D each: the cache's order), or, split on its sequence
+  (``cache_seq_shard``), all-reduces each row's log-sum-exp and the
+  weighted outputs (the split rule of ``kernels/ops.py``: the combine's
+  order, no cache byte); the first block's input and FFN and the logits
+  add a fixed part. These hold on a mesh whose every axis exceeds 1.
+  Other blocks, shapes and meshes keep GSPMD's pattern, unmeasured: each
+  block all-reduces its mixer's output and its FFN's output once a pass
+  (forward, the remat recomputation, backward), and where the experts
+  shard over the model axis the FFN's all-reduce becomes two all-to-alls
+  of the dispatched tokens. Bytes follow the reference's convention
+  (``repro/core/metrics.py::collective_ops_from_hlo``): an all-reduce 2 ×
+  its result, an all-gather or a reduce-scatter the gathered bytes, an
+  all-to-all its result.
 - ``roofline`` and ``useful_compute_ratio``: as the reference's, at the
   peaks of the card the run sees, each product at its dtype's peak (the
   f32 unembedding at the f32 peak); with ``--device cpu``, the H100 SXM's
@@ -118,6 +128,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch.mesh import data_axes, make_production_mesh
 from repro_torch.launch.specs import SHAPES, ShapeSpec, applicability, input_specs
 from repro_torch.models import Model, ssm
+from repro_torch.models.model import _cache_len
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.moe import capacity
 from repro_torch.optim import AdamW, warmup_cosine
@@ -597,25 +608,68 @@ def _names_model(spec, model_axis: str) -> bool:
     return any(model_axis in _axis_names(e) for e in spec)
 
 
-# Collectives a dense block (attention, then the SwiGLU MLP) issues on a mesh
-# whose data and model axes all exceed 1, as the port's DTensor execution
-# issues them (counted under CommDebugMode on a (pod 2, data 2, model 2)
-# world, tests/test_torch_model_axis_decode.py): a train step (forward,
-# remat recomputation, backward) and a decode step; the step's fixed part
-# besides the blocks and the gradient reduction.
-_DENSE_BLOCK = {"train": {"all-gather": 6, "all-reduce": 3, "reduce-scatter": 2},
-                "decode": {"all-gather": 16, "reduce-scatter": 2}}
-_DENSE_FIXED = {"train": {"all-gather": 4, "all-reduce": 2},
-                # the first block's input needs one all-gather fewer
-                "decode": {"all-gather": -1, "all-reduce": 2, "reduce-scatter": 1}}
+# Collectives a dense block (attention, then the SwiGLU MLP) issues in a
+# train step (forward, remat recomputation, backward) on a mesh whose data
+# and model axes all exceed 1, as the port's DTensor execution issues them
+# (counted under CommDebugMode on a (pod 2, data 2, model 2) world,
+# tests/test_torch_model_axis_train.py); the step's fixed part besides the
+# blocks and the gradient reduction. A decode step's: _dense_decode.
+_DENSE_BLOCK = {"train": {"all-gather": 6, "all-reduce": 3, "reduce-scatter": 2}}
+_DENSE_FIXED = {"train": {"all-gather": 4, "all-reduce": 2}}
+
+
+def _dense_decode(cfg, rules: ShardingRules, batch: int, seq: int,
+                  cache_len: int) -> tuple[list, list]:
+    """(a dense block's collectives, the step's fixed part) of a decode
+    step, each a list of (op, count, bytes a call), as the DTensor step
+    issues them on a mesh whose every axis exceeds 1 (each collective's
+    operand and result recorded on a (pod 2, data 2, model 2) gloo world at
+    2 and 3 layers, both cache layouts; ``tests/test_torch_model_axis_
+    decode.py`` holds every count and byte). ``batch`` is one device's batch, ``seq`` the
+    queries a row (1), ``cache_len`` the cache's slots. Bytes: an
+    all-gather its result, a reduce-scatter its input, an all-reduce 2 ×
+    its result."""
+    it = dtype_of(cfg).itemsize
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = batch * seq * cfg.d_model * it  # the block's input or a sublayer's output
+    s = _cache_len(cfg, cache_len)
+    block = [
+        ("all-gather", 3, x),  # the input for wq, wk and wv
+        ("all-gather", 2, batch * seq * hkv * hd * it),  # the step's K and V rows, to write
+        ("all-gather", 1, batch * seq * hq * hd * it),  # q, all its heads
+        ("reduce-scatter", 2, x),  # the mixer's and the FFN's outputs to the residual
+        ("all-gather", 2, x),  # the FFN's input for w_gate and w_up
+    ]
+    if rules.cache_seq_shard:
+        # The split rule: each row's log-sum-exp (MAX), then [w·o | w] (SUM), f32.
+        block += [("all-reduce", 1, 2 * batch * seq * hq * 4),
+                  ("all-reduce", 1, 2 * batch * seq * hq * (hd + 1) * 4)]
+    else:
+        block += [("all-gather", 2, batch * s * hkv * hd * it)]  # K and V, whole D
+    m = rules.model_size
+    fixed = [
+        # The first block: its input needs no gathers; its FFN gathers the
+        # three weights whole, all-reduces twice and reduce-scatters the
+        # hidden rows, and only its FFN's output is reduce-scattered.
+        ("all-gather", -5, x),
+        ("all-gather", 3, cfg.d_model * cfg.d_ff * it),
+        ("all-reduce", 2, 2 * x),
+        ("reduce-scatter", 2, batch * seq * cfg.d_ff * it),
+        ("reduce-scatter", -1, x),
+        # The f32 logits onto the vocab's shards (padded to the model axis).
+        ("all-gather", 1, batch * seq * -(-cfg.vocab // m) * m * 4),
+    ]
+    return block, fixed
 
 
 def collectives(cfg, kind: str, rules: ShardingRules, *, params: Mapping[str, Any],
                 p_specs: Mapping[str, Any], batch: int, seq: int, zero: bool = False,
-                zero3: bool = False, remat: bool = True, accum: int = 1) -> dict:
+                zero3: bool = False, remat: bool = True, accum: int = 1,
+                cache_len: int = 0) -> dict:
     """Per-device collectives of one step, ``{op: {"count", "bytes"}}``, by
     the module docstring's rules: ``batch`` is one device's batch, ``seq``
-    the tokens a sequence (1 for a decode step)."""
+    the tokens a sequence (1 for a decode step), ``cache_len`` a decode
+    step's cache slots."""
     sizes = rules.axis_sizes
     hist: dict[str, dict] = {}
 
@@ -663,16 +717,20 @@ def collectives(cfg, kind: str, rules: ShardingRules, *, params: Mapping[str, An
     calls = passes * accum
     tokens = batch * seq
     kinds = cfg.block_kinds()
-    measured = kind in _DENSE_BLOCK and all(sizes[a] > 1 for a in sizes)
+    measured = kind in ("train", "decode") and all(sizes[a] > 1 for a in sizes)
+    if kind == "decode":
+        dense_block, dense_fixed = _dense_decode(cfg, rules, batch, seq, cache_len)
+    else:
+        dense_block = [(op, n * accum, (2.0 if op == "all-reduce" else 1.0) * act)
+                       for op, n in _DENSE_BLOCK["train"].items()]
+        dense_fixed = [(op, n * accum, act) for op, n in _DENSE_FIXED["train"].items()]
     if measured and "attn_mlp" in kinds:
-        steps = accum if kind == "train" else 1
-        for op, n in _DENSE_FIXED[kind].items():
-            add(op, n * steps, n * steps * act)
+        for op, n, nbytes in dense_fixed:
+            add(op, n, n * nbytes)
     for i, block in enumerate(kinds):
         if measured and block == "attn_mlp":
-            steps = accum if kind == "train" else 1
-            for op, n in _DENSE_BLOCK[kind].items():
-                add(op, n * steps, n * steps * (2.0 if op == "all-reduce" else 1.0) * act)
+            for op, n, nbytes in dense_block:
+                add(op, n, n * nbytes)
             continue
         # Not measured on a world: GSPMD's pattern, one all-reduce of the
         # mixer's output and one of the FFN's a block and pass.
@@ -787,7 +845,7 @@ def build_cell(arch: str, shape: str | ShapeSpec, multi_pod: bool = False, *,
     }
     step_seq = spec.seq if spec.kind != "decode" else 1
     coll_kw = dict(params=params, p_specs=p_specs, batch=b_local, seq=step_seq, zero=zero,
-                   zero3=zero3, remat=remat, accum=accum)
+                   zero3=zero3, remat=remat, accum=accum, cache_len=spec.seq)
 
     if spec.kind == "train":
         opt = AdamW(moment_dtype=_moment_dtype(cfg))

@@ -55,7 +55,11 @@ decode step only at ``logits``, as the reference's. Each mixer and FFN
 reads the whole sequence of its rows (``layers.whole_sequence``); the
 embedding, the loss and the recurrences run on each rank's batch rows
 (``layers.on_rows``); a decode step writes its cache entries in their own
-placements; serving runs under ``no_grad`` instead of ``inference_mode``.
+placements (a cache split on its sequence, ``cache_seq_shard``, by the
+rank that holds the slot, into its own shard: ``_write_slot``), and its
+attention reads the whole entry with ``kv_len`` (the split rule of
+``ops.attention`` on such a cache); serving runs under ``no_grad`` instead
+of ``inference_mode``.
 """
 
 from __future__ import annotations
@@ -201,6 +205,32 @@ def _copy_state(entry: dict, state: dict) -> None:
     (a DTensor state first redistributed to its entry's placements)."""
     for name, value in state.items():
         entry[name].copy_(_like_entry(value, entry[name]))
+
+
+def _write_slot(entry: torch.Tensor, slot: int, value: torch.Tensor) -> None:
+    """``value`` (B, Hkv, D) written in place into slot ``slot`` of the KV
+    cache tensor ``entry`` (B, S, Hkv, D). A DTensor cache split on its
+    sequence (``cache_seq_shard``) is written by the rank that holds the
+    slot alone, into its own shard: ``value`` is laid out as the entry
+    without its sequence dim (an activation's redistribution) and the cache
+    moves nowhere. Any other DTensor cache takes the value in the slot's
+    placements."""
+    if not is_dtensor(entry):
+        entry[:, slot] = value
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    dims = [p.dim % entry.dim() if p.is_shard() else None for p in entry.placements]
+    seq = tuple(i for i, d in enumerate(dims) if d == 1)
+    if not seq:
+        entry[:, slot] = _like_entry(value, entry[:, slot])
+        return
+    mesh = entry.device_mesh
+    row = tuple(Replicate() if d is None or d == 1 else Shard(d - (d > 1)) for d in dims)
+    local, value = entry.to_local(), value.redistribute(mesh, row).to_local()
+    first = ops.shard_offset(mesh, seq, local.shape[1])
+    if first <= slot < first + local.shape[1]:
+        local[:, slot - first] = value
 
 
 def _like_entry(value: torch.Tensor, entry: torch.Tensor) -> torch.Tensor:
@@ -437,17 +467,18 @@ class Model(nn.Module):
         q, k, v = project_qkv(block.mixer, cfg, xn[:, None, :], positions_t)
         s = entry["k"].shape[1]
         slot = pos % s
-        entry["k"][:, slot] = _like_entry(k[:, 0], entry["k"][:, slot])
-        entry["v"][:, slot] = _like_entry(v[:, 0], entry["v"][:, slot])
+        _write_slot(entry["k"], slot, k[:, 0])
+        _write_slot(entry["v"], slot, v[:, 0])
         # Slots [0, kv_len) hold exactly the valid past tokens, in the linear
         # and the ring layout alike (RoPE was applied at absolute positions,
-        # and attention does not depend on the keys' order).
-        kv_len = min(pos + 1, s)
+        # and attention does not depend on the keys' order). The whole entry
+        # goes in: a cache split on its sequence takes the split rule there.
         out = ops.attention(
             q.transpose(1, 2),
-            entry["k"][:, :kv_len].transpose(1, 2),
-            entry["v"][:, :kv_len].transpose(1, 2),
+            entry["k"].transpose(1, 2),
+            entry["v"].transpose(1, 2),
             causal=False,
+            kv_len=min(pos + 1, s),
         )
         return out.reshape(b, cfg.n_heads * cfg.head_dim) @ block.mixer["wo"]
 

@@ -739,6 +739,46 @@ def test_decode_kernel_at_every_split_count(card, b, hq, hkv, t, s, d, causal, w
             assert not bool(counters.any())
 
 
+@pytest.mark.parametrize("b,hq,hkv,t,s,d,causal,window", DECODE_CASES)
+def test_decode_kernels_lse_matches_the_plain_lse(card, b, hq, hkv, t, s, d, causal, window):
+    """flash_decode_bf16 with ``return_lse`` at 1 split up to more splits
+    than visible tiles: each row's log-sum-exp within 1e-4 of
+    flash_decode_plain's (-inf where a row sees no key), its output
+    bit-equal to the same call without it, one launch either way."""
+    q, k, v = _attention_inputs(card, b, hq, hkv, t, s, d, torch.bfloat16)
+    lo, hi = flash_attention.decode_tiles(t, s, hq // hkv, causal, window)
+    for splits in sorted({1, 3, hi - lo, hi - lo + 2} - {0}):
+        before = flash_attention.launches["flash_decode_bf16"]
+        out, lse = flash_attention.flash_decode_cuda(q, k, v, causal=causal, window=window,
+                                                     splits=splits, return_lse=True)
+        assert flash_attention.launches["flash_decode_bf16"] == before + 1
+        alone = flash_attention.flash_decode_cuda(q, k, v, causal=causal, window=window,
+                                                  splits=splits)
+        _, want = flash_attention.flash_decode_plain(q, k, v, causal=causal, window=window,
+                                                     splits=splits, return_lse=True)
+        torch.cuda.synchronize()
+        assert torch.equal(out, alone), f"{splits} splits"
+        assert lse.shape == (b, hq, t) and lse.dtype == torch.float32
+        torch.testing.assert_close(lse, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,s,d,causal,window", ATTENTION_CASES + ATTENTION_MORE[:6])
+def test_f32_kernels_lse_matches_the_plain_lse(card, b, hq, hkv, t, s, d, causal, window):
+    """flash_attention_f32 with ``return_lse``: each row's log-sum-exp within
+    1e-4 of the plain attention's, its output bit-equal to the call
+    without it."""
+    q, k, v = _attention_inputs(card, b, hq, hkv, t, s, d, torch.float32)
+    assert flash_attention._route(q, k, v, window) == "flash_attention_f32"
+    out, lse = flash_attention.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                                    return_lse=True)
+    alone = flash_attention.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    _, want = flash_attention.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                                    return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, alone)
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-4)
+
+
 def test_fused_decode_on_two_streams_equals_serial_calls(card):
     """Two decode calls in flight on two streams, each with its own counters,
     give what the same calls give one after another."""

@@ -356,6 +356,40 @@ def test_collectives_follow_the_stated_rules():
     assert meta["collectives"] == {}
 
 
+@pytest.mark.parametrize("cache_seq_shard", (False, True))
+def test_a_decode_cells_collective_bytes_follow_its_cache_layout(cache_seq_shard):
+    """granite-3-8b's decode_32k on the production pod (data 16, model 16:
+    8 rows a device, a cache of 32768): each collective's count and bytes by
+    the rule a decode step's DTensor execution follows (the measured world
+    holds it, tests/test_torch_model_axis_decode.py), written out here. A
+    cache split on head_dim gathers K and V whole over the model axis, each
+    attention layer (the cache's order); split on its sequence, no cache
+    byte moves and the combine's two all-reduces take their place."""
+    cfg = get_config("granite-3-8b")
+    meta = dryrun.build_cell("granite-3-8b", "decode_32k", False,
+                             cache_seq_shard=cache_seq_shard).meta
+    hist = meta["collectives"]
+    n, b, s, m, it = cfg.n_layers, 8, 32768, 16, 2
+    x = b * cfg.d_model * it
+    kv_row, q = b * cfg.n_kv_heads * cfg.head_dim * it, b * cfg.n_heads * cfg.head_dim * it
+    cache = b * s * cfg.n_kv_heads * cfg.head_dim * it  # one layer's K (or V), whole D
+    logits = b * -(-cfg.vocab // m) * m * 4
+    gathers = n * (5 * x + 2 * kv_row + q) - 5 * x + 3 * cfg.d_model * cfg.d_ff * it + logits
+    want = {
+        "all-gather": {"count": 8 * n - 1, "bytes": gathers},
+        "reduce-scatter": {"count": 2 * n + 1, "bytes": 2 * n * x + 2 * b * cfg.d_ff * it - x},
+        "all-reduce": {"count": 2, "bytes": 2 * 2 * x},
+    }
+    if cache_seq_shard:
+        merge = 2 * b * cfg.n_heads * 4 + 2 * b * cfg.n_heads * (cfg.head_dim + 1) * 4
+        want["all-reduce"] = {"count": 2 + 2 * n, "bytes": 4 * x + n * merge}
+    else:
+        want["all-gather"] = {"count": 10 * n - 1, "bytes": gathers + 2 * n * cache}
+        assert hist["all-gather"]["bytes"] >= 2 * n * cache  # at least the cache, gathered
+    assert hist == want
+    assert meta["cache_seq_shard"] is cache_seq_shard
+
+
 # -- the meta route ----------------------------------------------------------------
 
 

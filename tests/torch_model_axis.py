@@ -12,10 +12,13 @@ ranks through ``convert.model_state_from_reference`` as files in the
 world's ``OUT``, with the batch (a numpy generator of a fixed seed). The
 ranks (``tests/torch_world.py``, gloo, one interpreter a rank) place the
 model, batch and caches by ``param_pspecs``, ``batch_pspec`` and
-``cache_pspecs`` through ``runtime/sharding.py`` and run the port's steps
-on DTensors; rank 0 writes every result read back whole
-(``full_tensor()``), every rank the DTensor rules its attention took and
-the model-sharded leaves it holds whole (none expected).
+``cache_pspecs`` (under ``rules``, or ``seq_rules``: the cache split on its
+sequence, ``cache_seq_shard``) through ``runtime/sharding.py`` and run the
+port's steps on DTensors; rank 0 writes every result read back whole
+(``full_tensor()``) and ``COMM_ARCH``'s collectives (``CommLog``: each
+one's count, operand, bytes and mesh dim), every rank the DTensor rules its
+attention took and the model-sharded leaves it holds whole (none
+expected).
 """
 
 from __future__ import annotations
@@ -95,6 +98,7 @@ import json
 
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.debug import CommDebugMode
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import ops
@@ -104,10 +108,13 @@ from repro_torch.runtime import (ShardingRules, batch_pspec, build_pod_mesh, cac
 
 mesh = build_pod_mesh(*MESH)
 rules = ShardingRules(mesh=mesh, data_axes=("pod", "data"), seq_shard=True)
+# The same, with a decode cache split on its sequence instead of head_dim.
+seq_rules = ShardingRules(mesh=mesh, data_axes=("pod", "data"), seq_shard=True,
+                          cache_seq_shard=True)
 
 
-def place(tree, spec_fn):
-    return device_put(tree, named(mesh, spec_fn(tree, rules)), mesh)
+def place(tree, spec_fn, with_rules=rules):
+    return device_put(tree, named(mesh, spec_fn(tree, with_rules)), mesh)
 
 
 def whole(t):
@@ -128,6 +135,44 @@ def placed_model(arch):
 
 def counts(mode):
     return {str(op).split(".")[-1]: n for op, n in mode.get_comm_counts().items() if n}
+
+
+COMM_OPS = ("all_gather_into_tensor", "all_reduce", "reduce_scatter_tensor", "all_to_all_single")
+# A collective's process group by name -> the mesh dim it spans.
+GROUPS = {mesh.get_group(i).group_name: name for i, name in enumerate(mesh.mesh_dim_names)}
+
+
+# Each functional collective a step issues: [op, its operand's elements, its
+# bytes by the reference's convention (an all-gather its result, a
+# reduce-scatter its operand, an all-reduce 2 x its result), the mesh dim it
+# spans]. A dispatch mode of its own: CommDebugMode's module tracker fails
+# on some of the models' modules when used more than once a step kind.
+class CommLog(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented  # DTensor runs first and issues the collectives
+        out = func(*args, **(kwargs or {}))
+        op = func._overloadpacket.__name__
+        if func.namespace in ("_c10d_functional", "c10d_functional") and op in COMM_OPS:
+            x = args[0]
+            result = out.numel() * out.element_size()
+            nbytes = {"all_reduce": 2 * result,
+                      "reduce_scatter_tensor": x.numel() * x.element_size()}.get(op, result)
+            self.calls.append([op, x.numel(), nbytes, GROUPS.get(args[-1])])
+        return out
+
+
+def write_comm(mode, what):  # rank 0's counts and calls of a CommLog
+    if RANK == 0:
+        n = {}
+        for call in mode.calls:
+            n[call[0]] = n.get(call[0], 0) + 1
+        with open(os.path.join(OUT, f"comm-{what}.json"), "w") as f:
+            json.dump({"counts": n, "calls": mode.calls}, f)
 
 
 def report(arch, what, **fields):
@@ -151,23 +196,36 @@ def rank_reports(out: Path, arch: str, what: str) -> list[dict]:
             for r in range(int(np.prod(MESH)))]
 
 
-def held_to_the_dry_run(out: Path, kind: str) -> None:
-    """COMM_ARCH's counted step (``comm-<kind>.json``, rank 0's
-    ``CommDebugMode``) against ``dryrun.collectives`` for the same mesh
-    sizes, per-device batch and sequence: each collective's count."""
+COMM_NAMES = {"all_gather_into_tensor": "all-gather", "all_reduce": "all-reduce",
+              "reduce_scatter_tensor": "reduce-scatter", "all_to_all_single": "all-to-all"}
+
+
+def held_to_the_dry_run(out: Path, kind: str, what: str | None = None,
+                        cache_seq_shard: bool = False) -> list:
+    """COMM_ARCH's counted step (``comm-<what>.json``, ``what`` the kind by
+    default; rank 0's ``CommDebugMode``) against ``dryrun.collectives`` for
+    the same mesh sizes, per-device batch, sequence and cache: each
+    collective's count, and where the step kept its calls (a
+    :class:`CommLog`), each collective's bytes. -> the calls ([] without)."""
     from repro_torch.launch import dryrun
     from repro_torch.runtime.sharding import ShardingRules, param_pspecs
 
-    measured = json.loads((out / f"comm-{kind}.json").read_text())
-    names = {"all_gather_into_tensor": "all-gather", "all_reduce": "all-reduce",
-             "reduce_scatter_tensor": "reduce-scatter", "all_to_all_single": "all-to-all"}
-    got = {names[k]: n for k, n in measured.items()}
+    measured = json.loads((out / f"comm-{what or kind}.json").read_text())
+    calls = measured.get("calls", []) if "counts" in measured else []
+    got = {COMM_NAMES[k]: n for k, n in measured.get("counts", measured).items()}
     cfg = configs(COMM_ARCH)[1]
     sizes = dict(zip(("pod", "data", "model"), MESH))
-    rules = ShardingRules(mesh=sizes, data_axes=("pod", "data"), seq_shard=True)
+    rules = ShardingRules(mesh=sizes, data_axes=("pod", "data"), seq_shard=True,
+                          cache_seq_shard=cache_seq_shard)
     params = dict(Model(cfg, device="meta").named_parameters())
     want = dryrun.collectives(cfg, kind, rules, params=params,
                               p_specs=param_pspecs(params, rules),
                               batch=B // (sizes["pod"] * sizes["data"]),
-                              seq=T if kind == "train" else 1)
+                              seq=T if kind == "train" else 1, cache_len=MAX_LEN)
     assert got == {op: int(h["count"]) for op, h in want.items()}, (got, want)
+    if calls:
+        nbytes = {}
+        for op, _, n, _ in calls:
+            nbytes[COMM_NAMES[op]] = nbytes.get(COMM_NAMES[op], 0) + n
+        assert nbytes == {op: h["bytes"] for op, h in want.items()}, (nbytes, want)
+    return calls

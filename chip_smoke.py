@@ -258,7 +258,16 @@ exits nonzero without printing its result line:
    jamba-1.5-large-398b long_500k and hubert-xlarge decode_32k (a skip),
    then ``benchmarks.roofline_table.rows`` over it: each cell's seconds,
    memory and kernel entries (flash_attention_bf16_wgmma for granite's
-   group 4, flash_decode_bf16 for jamba's prefill-free decode);
+   group 4, flash_decode_bf16 for jamba's prefill-free decode), each traced
+   cell as rank 0 of the 256-rank mesh on DTensors (its temp per rank)
+   beside one device's trace of it (the model axis undivided, an upper
+   bound); (d) the meshed train step of 4p at (a)'s shape, traced as rank 0
+   of a (pod 1, data 1, model 1) world on DTensors (a "fake" process
+   group): its argument bytes and FLOPs equal (a)'s; phase 4p runs it once
+   more after its steps and holds it as (a) is held (argument bytes exact,
+   the peak above what is allocated before it plus the arguments it holds
+   in DRYRUN_PEAK_BAND, entries equal to launches, the step at least its
+   bound);
 4p. the model axis over a world of one (NCCL): qwen1.5-0.5b at full width
    in bf16 on a (pod 1, data 1, model 1) mesh (``runtime/elastic.py::
    build_pod_mesh``), every parameter (``place_params``), batch and cache
@@ -552,6 +561,9 @@ LSE_TOL = 1e-4
 KEY_SLICES = (2, 4, 16)
 KEY_SLICE_KV_LENS = (700, 1088)
 ATTN_SMOKE_DECODE = (4, 4, 2, 1, 32, 16)
+# The log-sum-exp of the library call phase 5 times beside the kernel's
+# against the kernel's: the same function (f32 rounding of max + log l).
+LSE_LIBRARY_TOL = 1e-3
 LM_ARCH = "granite-3-8b"
 LM_SMOKE_SERVE = dict(n_requests=8, batch=4, prompt_len=16, gen_len=16, max_len=64)
 LM_SERVE = dict(n_requests=16, batch=8, prompt_len=1024, gen_len=64, max_len=1096)
@@ -4107,13 +4119,14 @@ def _mesh_counted(torch, fn, want_launches: dict, want_rules: dict, what: str):
     return out, start.elapsed_time(end), launched
 
 
-def phase_model_axis(torch, smi: str) -> tuple[dict, dict]:
+def phase_model_axis(torch, smi: str, mesh_rec: dict) -> tuple[dict, dict]:
     """The model axis's path over a world of one: TRAIN_ARCH's train steps,
     prefill and decode steps with every parameter, batch and cache entry a
     DTensor on a (pod, data, model) mesh, each against the same step on
     plain tensors; the decode steps twice, on the cache split on head_dim
     (the gathered rule) and on its sequence (``cache_seq_shard``, the split
-    rule). -> (launches on the path, numbers)."""
+    rule); one more meshed train step held to ``mesh_rec``, the dry run's
+    prediction of it (phase 4o (d)). -> (launches on the path, numbers)."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -4150,8 +4163,9 @@ def phase_model_axis(torch, smi: str) -> tuple[dict, dict]:
 
         gen = torch.Generator(device="cuda").manual_seed(1)
         b, t = MESH_TRAIN["batch"], MESH_TRAIN["seq"]
-        batch = {k: torch.randint(0, cfg.vocab, (b, t), generator=gen, device="cuda")
-                 for k in ("tokens", "labels")}
+        # int32, the dry run's token dtype (launch/specs.py), as 4o's.
+        batch = {k: torch.randint(0, cfg.vocab, (b, t), generator=gen, device="cuda",
+                                  dtype=torch.int32) for k in ("tokens", "labels")}
         batches = {"plain": batch, "meshed": place(batch, batch_pspec)}
         wgmma = {"flash_attention_bf16_wgmma": 2 * cfg.n_layers}  # forward and remat
         train_rules = {"meshed": {"attention/local": 2 * cfg.n_layers}, "plain": {}}
@@ -4190,7 +4204,6 @@ def phase_model_axis(torch, smi: str) -> tuple[dict, dict]:
                                           **{f"v.{k}": v for k, v in states["meshed"].v.items()}},
                        {**{f"m.{k}": v for k, v in states["plain"].m.items()},
                         **{f"v.{k}": v for k, v in states["plain"].v.items()}}, bitwise)
-        del states, steps, batches
         small = [k for k, p in meshed.named_parameters()
                  if any(e is not None for e in specs[k]) and p.to_local().numel() != p.numel()]
         if small:  # a world of one holds every leaf whole
@@ -4243,7 +4256,23 @@ def phase_model_axis(torch, smi: str) -> tuple[dict, dict]:
             tokens = out["plain"].argmax(-1)
         torch.cuda.synchronize()
         peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
-        del caches, logits, models, plain, meshed
+        # 4o (d), last (its steps update the meshed model past the plain one):
+        # two more meshed steps, the second held to the dry run's prediction,
+        # its peak read above what is allocated before it (both models, their
+        # states and caches) plus the arguments it holds, as _dryrun_on_card
+        # reads one.
+        st = states["meshed"]
+        held = {"params": sum(p.to_local().nbytes for p in meshed.parameters()),
+                "opt_state": sum(x.to_local().nbytes for x in (*st.m.values(), *st.v.values()))
+                + st.step.nbytes,
+                "batch": sum(x.to_local().nbytes for x in batches["meshed"].values())}
+        info["dryrun_d"] = _dryrun_on_card(
+            torch, "4o d: the meshed train step, batch 8 x 1024, rank 0 of a world of one",
+            mesh_rec, lambda: steps["meshed"](states["meshed"], batches["meshed"]), held,
+            torch.cuda.memory_allocated() - sum(held.values()), smi)
+        for k, n in info["dryrun_d"]["launches"].items():
+            launches[k] += n
+        del caches, logits, models, plain, meshed, states, steps, batches
     finally:
         dist.destroy_process_group()
         rendezvous.unlink(missing_ok=True)
@@ -4276,10 +4305,12 @@ def _dryrun_on_card(torch, what: str, rec: dict, run, held: dict, base: int,
     by events with the peak above ``base`` read; the argument bytes in
     ``held`` against the record's, exactly; predicted peak / measured in
     DRYRUN_PEAK_BAND; launches equal to the trace's kernel entries; the step
-    at least its roofline bound."""
+    at least its roofline bound. The result's ``launches`` are both runs'."""
     arg = rec["argument_bytes"]
+    _zero_launches()
     run()
     torch.cuda.synchronize()
+    warm = _read_launches()
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -4314,7 +4345,25 @@ def _dryrun_on_card(torch, what: str, rec: dict, run, held: dict, base: int,
     if ms < bound_ms:
         _fail(f"{what}: the step took {ms:.3f} ms, under its bound {bound_ms:.3f} ms")
     return dict(ms=ms, bound_ms=bound_ms, ratio=ratio, predicted_gb=predicted / 1e9,
-                measured_gb=measured / 1e9, trace_s=rec["trace_s"])
+                measured_gb=measured / 1e9, trace_s=rec["trace_s"],
+                launches={k: warm[k] + launched.get(k, 0) for k in warm})
+
+
+def _dryrun_train_shape():
+    from repro_torch.launch import specs
+
+    return specs.ShapeSpec("train_8x1024", DRYRUN_TRAIN["seq"], DRYRUN_TRAIN["batch"], "train")
+
+
+def _meshed_prediction(train_shape) -> dict:
+    """The dry run's record of TRAIN_ARCH's train step at ``train_shape`` as
+    rank 0 of a (pod 1, data 1, model 1) world on DTensors, the meshed
+    step phase 4p runs."""
+    from repro_torch.launch import dryrun
+
+    return dryrun.cell_record(dryrun.build_cell(
+        TRAIN_ARCH, train_shape, mesh={"pod": 1, "data": 1, "model": 1}, dtensor=True),
+        device="cuda")
 
 
 def phase_dryrun(torch, smi: str) -> dict:
@@ -4333,8 +4382,7 @@ def phase_dryrun(torch, smi: str) -> dict:
     info = {}
     world = {"data": 1, "model": 1}
     cfg = get_config(TRAIN_ARCH)
-    train_shape = specs.ShapeSpec("train_8x1024", DRYRUN_TRAIN["seq"], DRYRUN_TRAIN["batch"],
-                                  "train")
+    train_shape = _dryrun_train_shape()
     decode_shape = specs.ShapeSpec("decode_8x1096", DRYRUN_DECODE["cache"],
                                    DRYRUN_DECODE["batch"], "decode")
     train_rec = dryrun.cell_record(dryrun.build_cell(TRAIN_ARCH, train_shape, mesh=world),
@@ -4382,7 +4430,26 @@ def phase_dryrun(torch, smi: str) -> dict:
     del model, params, cache, tokens
     torch.cuda.empty_cache()
 
-    # (c) The CLI at production shapes, one pod, into a temporary directory.
+    # (d) The meshed train step of phase 4p at (a)'s shape, predicted as rank
+    # 0 of a (pod 1, data 1, model 1) world on DTensors (a "fake" process
+    # group, made and destroyed here, before 4p's NCCL world); 4p holds it.
+    mesh_rec = _meshed_prediction(train_shape)
+    same = {k: (mesh_rec[k], train_rec[k]) for k in ("argument_bytes", "flops_by_dtype")}
+    mem = mesh_rec["memory"]
+    print(f"  (d) the meshed step, rank 0 of a world of one ({mesh_rec['analysis']}): argument "
+          f"{mem['argument_size_in_bytes'] / 1e9:.4f} GB + temp "
+          f"{mem['temp_size_in_bytes'] / 1e9:.4f} GB (one device's trace, (a): temp "
+          f"{train_rec['memory']['temp_size_in_bytes'] / 1e9:.4f} GB); FLOPs "
+          f"{mesh_rec['cost']['flops']:.6e}, (a)'s {train_rec['cost']['flops']:.6e}; kernel "
+          f"entries {mesh_rec['kernel_entries']}; collectives {mesh_rec['collectives'] or 'none'}; "
+          f"trace {mesh_rec['trace_s']:.2f} s; phase 4p runs it")
+    if any(a != b for a, b in same.values()):
+        _fail(f"(d): the world of one's trace differs from one device's: {same}")
+    info["meshed_rec"] = mesh_rec
+
+    # (c) The CLI at production shapes, one pod, into a temporary directory;
+    # each traced cell again as one device's trace (its model axis undivided,
+    # the upper bound the dry run gave before it traced a rank).
     cells = {}
     with tempfile.TemporaryDirectory() as tmp:
         for arch, shape, entries in DRYRUN_CELLS:
@@ -4391,7 +4458,9 @@ def phase_dryrun(torch, smi: str) -> dict:
             seconds = time.perf_counter() - t0
             with open(os.path.join(tmp, f"{arch}__{shape}__single__baseline.json")) as f:
                 rec = json.load(f)
-            cells[(arch, shape)] = (seconds, rec)
+            undivided = None if "skip" in rec else dryrun.cell_record(
+                dryrun.build_cell(arch, shape, False, dtensor=False), device="cuda")
+            cells[(arch, shape)] = (seconds, rec, undivided)
             if rc != 0 or (entries is None) != ("skip" in rec) or (
                     entries is not None and rec["kernel_entries"] != entries):
                 _fail(f"dry run of {arch} {shape}: exit {rc}, record "
@@ -4402,22 +4471,31 @@ def phase_dryrun(torch, smi: str) -> dict:
             rows = roofline_table.rows("single")
         finally:
             roofline_table.DRYRUN_DIR = saved_dir
-    for (arch, shape), (seconds, rec) in cells.items():
+    for (arch, shape), (seconds, rec, undivided) in cells.items():
         if "skip" in rec:
             print(f"  (c) {arch} {shape}: {seconds:.2f} s, skip: {rec['skip']}")
             continue
         mem = rec["memory"]
-        print(f"  (c) {arch} {shape}: {seconds:.2f} s (trace {rec['trace_s']:.2f}); per device "
-              f"{sum(mem.values()) / 2**30:.2f} GiB (argument "
+        counts = {k: int(h["count"]) for k, h in rec["collectives"].items()}
+        print(f"  (c) {arch} {shape}: {seconds:.2f} s (trace {rec['trace_s']:.2f}; "
+              f"{rec['analysis']}); per device {sum(mem.values()) / 2**30:.2f} GiB (argument "
               f"{mem['argument_size_in_bytes'] / 2**30:.2f} + temp "
-              f"{mem['temp_size_in_bytes'] / 2**30:.2f}, an upper bound); kernel entries "
+              f"{mem['temp_size_in_bytes'] / 2**30:.2f} per rank; one device's trace, the model "
+              f"axis undivided: temp {undivided['memory']['temp_size_in_bytes'] / 2**30:.2f}, "
+              f"trace {undivided['trace_s']:.2f} s); collectives {counts}; kernel entries "
               f"{rec['kernel_entries']}; {rec['roofline']['dominant']}-bound, fraction "
               f"{rec['roofline']['roofline_fraction']:.3f}; peaks {rec['peaks']}")
+        if rec["analysis"] != "per-rank-trace" or rec["temp_bound"] is not None:
+            _fail(f"(c) {arch} {shape}: not traced as a rank ({rec['analysis']}, "
+                  f"{rec['temp_bound']})")
     for name, us, derived in rows:
         print(f"  {name},{us:.2f},{derived}")
     if [r[0] for r in rows] != sorted(f"roofline.{a}.{s}.single" for a, s, _ in DRYRUN_CELLS):
         _fail(f"roofline_table.rows over the CLI's records: {[r[0] for r in rows]}")
     info["cli_s"] = {f"{a} {s}": c[0] for (a, s), c in cells.items()}
+    info["cli_temp"] = {f"{a} {s}": (c[1]["memory"]["temp_size_in_bytes"],
+                                     c[2]["memory"]["temp_size_in_bytes"])
+                        for (a, s), c in cells.items() if c[2] is not None}
     info["phase_s"] = time.perf_counter() - t_phase
     print(f"  phase 4o {info['phase_s']:.1f} s")
     return info
@@ -5161,13 +5239,33 @@ def _attention_decode_scaling(torch, gen) -> None:
               f"{_ms_text(_device_ms(torch, call))})")
 
 
+def _lse_library(torch, q, k, v):
+    """The PyTorch call that returns each row's log-sum-exp beside the
+    output: SDPA's flash backend for bf16, its memory-efficient backend
+    with ``compute_log_sumexp`` for f32 (whose lse is padded on T: the
+    first T are compared), on K and V expanded to the query heads (GQA)
+    here, outside any timed window. -> (the call, its lse from its
+    result)."""
+    g = q.shape[1] // k.shape[1]
+    ke, ve = (t.repeat_interleave(g, dim=1).contiguous() for t in (k, v))
+    if q.dtype == torch.bfloat16:
+        call = functools.partial(torch.ops.aten._scaled_dot_product_flash_attention, q, ke, ve)
+        return call, lambda out: out[1]
+    call = functools.partial(torch.ops.aten._scaled_dot_product_efficient_attention, q, ke, ve,
+                             None, True)
+    return call, lambda out: out[1][..., :q.shape[2]]
+
+
 def _lse_timing(torch, gen, hw) -> None:
     """Each entry that writes each row's log-sum-exp, at its path's decode
     shape (flash_decode_bf16 at ATTN_DECODE with the card's split count,
     flash_attention_f32 at the smoke decode), with and without the lse, in
     turns (without, with, with, without), event time over 50 calls each,
-    and the device's own time; the bound with the lse counts its B * Hq * T
-    * 4 bytes written besides q, k, v and o."""
+    and the device's own time; the plain version with the lse and the
+    library call that returns it (:func:`_lse_library`; its lse held to
+    the kernel's within LSE_LIBRARY_TOL), each over 50 calls; the bound
+    with the lse counts its B * Hq * T * 4 bytes written besides q, k, v
+    and o."""
     from repro_torch.core.metrics import roofline_terms
     from repro_torch.kernels import flash_attention as fa
 
@@ -5182,14 +5280,27 @@ def _lse_timing(torch, gen, hw) -> None:
         times = {"without": [], "with": []}
         for name in ("without", "with", "with", "without"):
             times[name].append(_time_ms(torch, calls[name], reps=50, warmup=5))
+        library, lse_of = _lse_library(torch, q, k, v)
+        lse_err = (lse_of(library()) - calls["with"]()[1]).abs().max().item()
+        if not lse_err <= LSE_LIBRARY_TOL:
+            _fail(f"{key}: the library's lse is {lse_err:.3e} from the kernel's "
+                  f"(> {LSE_LIBRARY_TOL}): not the same function")
+        plain = functools.partial(fa.flash_attention_plain, q, k, v, return_lse=True)
+        plain_ms = _time_ms(torch, plain, reps=50, warmup=5)
+        lib_ms = _time_ms(torch, library, reps=50, warmup=5)
         flops, nbytes = fa.kernel_cost(q, k, v, False, None)
         for name, fn in calls.items():
             extra = b * hq * t * 4 if name == "with" else 0
             bound = roofline_terms(flops, nbytes + extra, dtype=dt, hw=hw).bound_s * 1e3
+            ms = statistics.mean(times[name])
+            tail = (f"; plain with lse {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+                    f"({'SDPA flash' if dt == torch.bfloat16 else 'SDPA efficient'}, K and V "
+                    f"expanded to {hq} heads beforehand; its lse within {lse_err:.3e}), "
+                    f"x lib {ms / lib_ms:.2f}" if name == "with" else "")
             print(f"  {key} B{b} Hq{hq} Hkv{hkv} T{t} S{s} D{d} {name} lse: "
-                  f"{statistics.mean(times[name]):.4f} ms per call (runs "
+                  f"{ms:.4f} ms per call (runs "
                   f"{', '.join(f'{x:.4f}' for x in times[name])}; device "
-                  f"{_ms_text(_device_ms(torch, fn))}; bound {bound:.4g} ms)")
+                  f"{_ms_text(_device_ms(torch, fn))}; bound {bound:.4g} ms){tail}")
 
 
 def _graph_ms(torch, fn, launches: int = 50, replays: int = 10) -> float:
@@ -5373,7 +5484,7 @@ def main() -> int:
     smi = clock(phase_card(torch))
     clock(phase_build())
     if sys.argv[1:] == ["--only", "4p"]:  # a development aid: the build and phase 4p alone
-        clock(phase_model_axis(torch, smi))
+        clock(phase_model_axis(torch, smi, _meshed_prediction(_dryrun_train_shape())))
         return 0
     errors = clock(phase_kernels(torch))
     main_launches = clock(phase_main_path(torch))
@@ -5392,7 +5503,7 @@ def main() -> int:
     vlm_launches, vlm = clock(phase_vlm_encoder(torch, smi))
     placement_launches, placed = clock(phase_placement(torch, smi))
     dry = clock(phase_dryrun(torch, smi))
-    axis_launches, axis = clock(phase_model_axis(torch, smi))
+    axis_launches, axis = clock(phase_model_axis(torch, smi, dry["meshed_rec"]))
     # Every count was checked per path; a kernel's launches are the sum over
     # the paths that run it (SRAD's three entries: phases 4c and 4f).
     launches = {k: main_launches[k] + dnn_launches[k] + level_launches[k] + lm_launches[k]
@@ -5461,6 +5572,13 @@ def main() -> int:
           f"{dm['meshed']:.3f} ms, {dm['seq']:.3f} ms on a sequence-split cache (plain "
           f"{dm['plain']:.3f} ms), peak memory {axis['peak_gb']:.2f} GB; phase 4p "
           f"{axis['phase_s']:.1f} s ({smi})")
+    d = axis["dryrun_d"]
+    print(f"dry run as rank 0 of a world of one (4o d), the meshed train step: {d['ms']:.2f} ms "
+          f"(bound {d['bound_ms']:.2f} ms), peak predicted / measured {d['ratio']:.4f} "
+          f"({d['predicted_gb']:.4f} / {d['measured_gb']:.4f} GB); trace {d['trace_s']:.2f} s; "
+          "per rank against the undivided temp (GiB): "
+          + ", ".join(f"{k} {r / 2**30:.2f} / {u / 2**30:.2f}"
+                      for k, (r, u) in dry["cli_temp"].items()) + f" ({smi})")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

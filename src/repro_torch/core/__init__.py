@@ -13,8 +13,9 @@
 #   compiled program to lower and analyse; the engine's build stage makes
 #   the callable and characterize() gives its roofline terms;
 # - collective_bytes_from_hlo: left out. There is no HLO to read; the dry
-#   run counts collectives from the placement specs
-#   (repro_torch.launch.dryrun.collectives).
+#   run reads a step's collectives off its trace as one rank of the mesh
+#   (repro_torch.launch.dryrun.Trace), and states them for a step off
+#   DTensors (repro_torch.launch.dryrun.collectives).
 #
 # run_suite is loaded on first use (PEP 562): the suite module is also the
 # CLI (python -m repro_torch.core.suite), which must not find itself

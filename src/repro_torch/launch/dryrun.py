@@ -1,29 +1,55 @@
-"""Dry run: every (arch × shape × mesh) cell traced on the meta device, its
-per-device memory and its roofline terms.
+"""Dry run: every (arch × shape × mesh) cell traced on the meta device, one
+device's memory, its roofline terms and its collectives.
 
 Counterpart of ``repro/launch/dryrun.py``. The reference lowers and compiles
 each cell's SPMD program for 256 or 512 forced host devices and reads
-``memory_analysis()`` and ``cost_analysis()``. PyTorch has no SPMD compiler,
-so the port traces the cell's step eagerly on tensors of the ``meta``
-device (shapes and dtypes, no storage) at the per-device batch and the
-model's full widths, with a ``TorchDispatchMode`` (:class:`Trace`) counting
-every ATen operation. For each cell it:
+``memory_analysis()`` and the collectives of its HLO. The port's
+counterpart of "compile and read the program" is to run one rank of it: a
+cell on a model axis is traced as rank 0 of its production mesh, on the
+DTensor execution the port runs there (``runtime/sharding.py``,
+``runtime/steps.py``, the model's DTensor path), with a
+``TorchDispatchMode`` (:class:`Trace`) counting every ATen operation the
+rank runs on its shards. For each cell it:
 
 1. builds ``Model(cfg, device="meta")`` (AdamW moments in bf16 above 30e9
    parameters, the reference's ``_moment_dtype``), the production mesh's
    axis sizes (``launch/mesh.py``) and the sharding rules of
-   ``runtime/sharding.py`` over them;
-2. cuts the batch of ``launch/specs.py`` to one device's share under
-   ``batch_pspec``;
+   ``runtime/sharding.py`` over them, and the argument bytes from the
+   specs;
+2. on a model axis (:func:`_rank_trace`): makes a ``"fake"`` process group
+   of the mesh's size, rank 0, and its ``(pod, data, model)``
+   ``DeviceMesh`` (``launch/mesh.py::mesh_rank``; a single pod is a pod
+   axis of 1; the group is destroyed after the cell), places the
+   parameters by ``place_params``, the AdamW moments as their parameters,
+   the batch by ``batch_pspec`` and a decode cache by ``cache_pspecs``
+   (``device_put``), the activations by ``make_activation_sharder``, all
+   before the traced window, and checks that the shards the rank holds
+   sum to the specs' bytes; without a model axis (``--dp-only``, a model
+   axis of 1), or with a knob the DTensor execution has no counterpart for
+   (:data:`NO_DTENSOR`: ``--zero``, ``--zero3``, ``--accum``), one device's
+   batch on plain meta tensors at full widths, as before;
 3. traces ``make_train_step`` (train_4k), ``prefill`` or an encoder's
    ``forward`` (prefill_32k) or ``decode_step`` at the cache's last
    position (decode_32k, long_500k) under ``ops.force_impl("kernel")``, so
-   attention takes its meta route (``kernels/flash_attention.py``): the
-   flash kernel's output shape and analytic cost, the entry ``_route``
-   would take, no score matrix;
+   attention takes its meta route (``kernels/flash_attention.py``) on the
+   local q, k and v its DTensor rule hands it: the flash kernel's output
+   shape and analytic cost, the entry ``_route`` would take, no score
+   matrix;
 4. writes one JSON record per cell under ``artifacts/dryrun_torch/`` (never
    the reference's ``artifacts/dryrun/``), with the reference's keys, so
    ``benchmarks/roofline_table.rows`` renders them.
+
+**The rank's trace.** An operation on DTensors goes to DTensor first (the
+mode returns ``NotImplemented``), whose local operations on the rank's
+shards come back to the mode; DTensor's sharding propagation runs each
+operation it has not seen on fake tensors of the *global* shapes, which
+the mode does not count (:func:`_outside_propagation`); each functional
+collective (``_c10d_functional``: all-gather, reduce-scatter, all-reduce,
+all-to-all) is kept with its bytes and the mesh dim its group spans (one
+over a group of one rank moves nothing and is not kept). The fake group's
+collectives return at once: the trace is rank 0's, and rank 0 stands for
+every rank (the shards are even; under a sequence-split cache rank 0 holds
+the first slots, so its decode attends to a full shard).
 
 The record's fields:
 
@@ -31,70 +57,62 @@ The record's fields:
   shard under ``param_pspecs`` (``zero_pspecs`` under ``--zero3``), the
   AdamW moments' specs (``zero_pspecs`` under ``--zero``) and step,
   ``cache_pspecs`` and ``batch_pspec`` (a decode step's tokens and ``pos``
-  replicated, as the reference passes them); ``argument_bytes`` splits it.
+  counted whole, as the reference passes them; the rank's trace places
+  the tokens over the data axes, as the run time does); ``argument_bytes``
+  splits it.
 - ``memory.temp_size_in_bytes``: the peak of the bytes the trace allocated
   and still held (storages tracked from allocation to release; gradients
-  included where they are live), at the per-device batch and full widths.
-  The model axis runs (item 16.6 (i)), but the trace is one device's on
-  plain meta tensors, its activations undivided over that axis (a
-  per-rank trace is item 16.6 (i-c)), so on a model axis of more than 1
-  the value is an upper bound (``"temp_bound": "model axis undivided"``).
-- ``cost.flops`` and ``cost["bytes accessed"]``: the trace's counts split
-  evenly over the model axis. FLOPs are ``torch.utils.flop_counter``'s
-  formulas (products, convolutions) plus the kernel ops' analytic counts,
-  and :func:`untraced_scan_flops`, the part of the reference's
+  included where they are live): the rank's own on a model axis. One
+  device's trace on a model axis (a knob of :data:`NO_DTENSOR`) keeps its
+  activations undivided, an upper bound, and ``temp_bound`` says why; else
+  ``temp_bound`` is null. ``analysis`` names the trace: ``per-rank-trace``
+  or ``meta-trace``.
+- ``cost.flops`` and ``cost["bytes accessed"]``: the trace's counts, the
+  rank's own (one device's trace on a model axis divides them evenly over
+  it). FLOPs are ``torch.utils.flop_counter``'s formulas (products,
+  convolutions) plus the kernel ops' analytic counts, and
+  :func:`untraced_scan_flops`, the part of the reference's
   :func:`inner_scan_correction` (the recurrences' elementwise chains) that
-  no formula sees. Bytes are the inputs plus the outputs of every operation
-  that is not a view or an allocation (``empty``), as XLA's "bytes
-  accessed" counts them; a gather (an embedding lookup) reads the rows it
-  returns, not its whole table; an in-place write counts once.
-- ``collectives``: the reference's histogram keys, counted from the specs
-  (:func:`collectives`). Without a model axis, training reduces the
-  gradients over the data axes as ``runtime/steps.py::_mean_over`` does
-  (one all-reduce a dtype of one flat buffer, the loss in the f32 one), or
-  reduce-scatters them and all-gathers the parameters under ``--zero``
-  (once) or ``--zero3`` (once a pass). On a model axis of more than 1 the
-  step runs on DTensors, and the rules are what that execution issues,
-  held to a measured world (``tests/test_torch_model_axis_decode.py``,
-  ``CommDebugMode`` on (pod 2, data 2, model 2)): each gradient reduced
-  leaf by leaf, one all-reduce a data mesh dim (a dense block's two norm
-  gains over the model axis too), clipping's sum of each sharded leaf one
-  all-reduce a mesh dim its spec names; a dense block (attention and MLP)
-  6 all-gathers, 3 all-reduces and 2 reduce-scatters a train step, with a
-  fixed part besides (``_DENSE_BLOCK``, ``_DENSE_FIXED``), each an
-  activation's bytes (B·T·d), an estimate; a decode step's counts and
-  bytes tensor by tensor as that world moves them (:func:`_dense_decode`,
-  both cache layouts; the test holds each count and byte): a dense block
-  gathers its input three times for its projections and twice for its
-  FFN, the step's K and V rows for the cache write and q on its heads,
-  reduce-scatters its mixer's and its FFN's outputs, and then, with the
-  cache split on head_dim (the default), gathers K and V over the model
-  axis (B·Hkv·S·D each: the cache's order), or, split on its sequence
-  (``cache_seq_shard``), all-reduces each row's log-sum-exp and the
-  weighted outputs (the split rule of ``kernels/ops.py``: the combine's
-  order, no cache byte); the first block's input and FFN and the logits
-  add a fixed part. These hold on a mesh whose every axis exceeds 1.
-  Other blocks, shapes and meshes keep GSPMD's pattern, unmeasured: each
-  block all-reduces its mixer's output and its FFN's output once a pass
-  (forward, the remat recomputation, backward), and where the experts
-  shard over the model axis the FFN's all-reduce becomes two all-to-alls
-  of the dispatched tokens. Bytes follow the reference's convention
+  no formula sees, for the rows each recurrence runs on. Bytes are the
+  inputs plus the outputs of every operation that is not a view, an
+  allocation (``empty``) or a collective, as XLA's "bytes accessed" counts
+  them; a gather (an embedding lookup) reads the rows it returns, not its
+  whole table; an in-place write counts once.
+- ``collectives``: the reference's histogram keys. On a model axis, read
+  off the trace, for every block kind and kind of step
+  (``collectives_by_mesh_dim`` splits them by the mesh dim they span),
+  held count for count and byte for byte to rank 0's collectives of
+  8-rank gloo worlds running the same steps
+  (``tests/test_torch_model_axis_{train,decode}.py``). Stated, for a step
+  off DTensors (:func:`collectives`): training reduces the gradients over
+  the data axes as ``runtime/steps.py::_mean_over`` does (one all-reduce a
+  dtype of one flat buffer, the loss in the f32 one), or reduce-scatters
+  them and all-gathers the parameters under ``--zero`` (once) or
+  ``--zero3`` (once a pass). Bytes follow the reference's convention
   (``repro/core/metrics.py::collective_ops_from_hlo``): an all-reduce 2 ×
-  its result, an all-gather or a reduce-scatter the gathered bytes, an
-  all-to-all its result.
+  its result, an all-gather its result, a reduce-scatter or an all-to-all
+  its input. The mesh's device type is ``cpu``, so a redistribution from
+  one shard to another takes gloo's all-gather and chunk where NCCL would
+  take an all-to-all (DTensor's ``shard_dim_alltoall``), as in the worlds
+  that hold it.
 - ``roofline`` and ``useful_compute_ratio``: as the reference's, at the
   peaks of the card the run sees, each product at its dtype's peak (the
   f32 unembedding at the f32 peak); with ``--device cpu``, the H100 SXM's
   data-sheet peaks, which every record then names in ``peaks``.
 
 **Recurrences.** The recurrent mixers (``models/ssm.py``) loop over time
-in Python, one step a token: tracing them at 32768 tokens would take
+in Python, one step a token, inside ``layers.on_rows`` (on a mesh, a rank's
+batch rows with every width whole): tracing them at 32768 tokens would take
 hours. Their counts are affine in T, but for the backward's bytes, which
-are quadratic, so :func:`mixer_plan` traces each mixer alone at four short
+are quadratic, so :func:`mixer_plan` traces each mixer's scan alone (the
+function it hands ``on_rows``, on the operands it hands it) at four short
 lengths and extrapolates its forward and backward FLOPs and bytes, the
-bytes autograd saves, and the transient peaks to the cell's T; in the model's trace a stand-in (:class:`_StandIn`)
-returns outputs of the right shapes and adds that cost, holding the saved
-bytes as the real mixer would.
+bytes autograd saves, and the transient peaks to the cell's T; in the
+model's trace a stand-in (:class:`_StandIn`) takes the scan's place inside
+``on_rows`` (whose own layout of the operands, and its collectives, are
+traced), returns outputs of the right shapes and adds that cost, holding
+the saved bytes as the real scan would. Up to 96 tokens the scan itself is
+traced.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-3-8b --shape train_4k
@@ -119,24 +137,27 @@ from typing import Any, Mapping
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten, tree_unflatten
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.metrics import model_flops, peaks_for, roofline_terms
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import data_axes, make_production_mesh
+from repro_torch.launch.mesh import data_axes, make_production_mesh, mesh_rank
 from repro_torch.launch.specs import SHAPES, ShapeSpec, applicability, input_specs
 from repro_torch.models import Model, ssm
-from repro_torch.models.model import _cache_len
 from repro_torch.models.layers import dtype_of
-from repro_torch.models.moe import capacity
 from repro_torch.optim import AdamW, warmup_cosine
 from repro_torch.runtime.sharding import (
     ShardingRules,
     batch_pspec,
     cache_pspecs,
+    device_put,
+    make_activation_sharder,
+    named,
     param_pspecs,
+    place_params,
     zero_pspecs,
 )
 from repro_torch.runtime.steps import make_train_step
@@ -167,8 +188,17 @@ _GATHERS = {aten.index.Tensor, aten.embedding.default, aten.index_select.default
 # Operations without a decomposition (found on their first call), and
 # prim.device, which the mode must not decompose.
 _WHOLE = {torch.ops.prim.device.default}
-# The recurrent mixers the stand-ins replace, by block kind.
-_MIXERS = {"mamba": "apply_mamba", "mlstm": "apply_mlstm", "slstm": "apply_slstm"}
+# The recurrent mixers' scans, by block kind: the ``ssm`` function whose one
+# ``on_rows`` call runs its scan, and the place of the scan's sequence
+# output (the one its gradient flows back through) in what the scan returns.
+_SCANS = {"mamba": ("apply_mamba", 0), "mlstm": ("apply_mlstm", 0), "slstm": ("apply_slstm", 1)}
+# The train-step knobs the DTensor execution has no counterpart for: a cell
+# with one of them on a model axis keeps the one-device trace.
+NO_DTENSOR = ("zero", "zero3", "accum")
+# The functional collectives a DTensor step issues -> the reference's
+# histogram keys.
+COLLECTIVES = {"all_gather_into_tensor": "all-gather", "reduce_scatter_tensor": "reduce-scatter",
+               "all_reduce": "all-reduce", "all_to_all_single": "all-to-all"}
 
 
 def _moment_dtype(cfg) -> str:
@@ -205,26 +235,107 @@ def _dtype_key(dtype: torch.dtype) -> str:
     return "bfloat16" if dtype in (torch.bfloat16, torch.float16) else "float32"
 
 
+def _collective_bytes(op: str, args: tuple, out) -> int:
+    """A collective's bytes by the reference's convention
+    (``repro/core/metrics.py::collective_ops_from_hlo``): an all-gather its
+    result, a reduce-scatter and an all-to-all their input, an all-reduce
+    2 × its result."""
+    if op in ("reduce-scatter", "all-to-all"):
+        return _nbytes(args[0])
+    return (2 if op == "all-reduce" else 1) * _nbytes(out)
+
+
+@functools.cache
+def _dtensor_type():
+    from torch.distributed.tensor import DTensor
+
+    return DTensor
+
+
+# Depth of DTensor sharding propagation the trace is inside (see
+# :func:`_outside_propagation`).
+_PROPAGATING = [0]
+
+
+@contextlib.contextmanager
+def _outside_propagation():
+    """While DTensor decides an op's output placements it runs the op on
+    fake tensors of the *global* shapes (``ShardingPropagator``; on a cache
+    miss only), which reach a dispatch mode as meta operations: the whole
+    mesh's work, not the rank's. Inside, every propagation entry point
+    holds :data:`_PROPAGATING` up, and :class:`Trace` counts nothing while
+    it is."""
+    prop = _dtensor_type()._op_dispatcher.sharding_propagator
+    names = tuple(name for name in ("propagate", "propagate_op_sharding",
+                                    "propagate_op_sharding_non_cached",
+                                    "_propagate_tensor_meta_non_cached")
+                  if hasattr(prop, name))  # as this torch names them
+    own = {name: prop.__dict__[name] for name in names if name in prop.__dict__}
+
+    def held(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            _PROPAGATING[0] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                _PROPAGATING[0] -= 1
+
+        return call
+
+    for name in names:
+        setattr(prop, name, held(getattr(prop, name)))
+    try:
+        yield
+    finally:
+        for name in names:
+            if name in own:
+                setattr(prop, name, own[name])
+            else:
+                delattr(prop, name)
+
+
 class Trace(TorchDispatchMode):
     """Counts the operations of a trace on meta tensors: FLOPs by their
     inputs' dtype (``flop_registry``'s formulas), bytes (inputs plus new
-    outputs of every operation but views and allocations), and the live and
-    peak bytes of the storages the trace allocated, each tracked until it is
-    released. It is also the attention meta route's counter
-    (``kernel(entry, flops, nbytes, dtype)``; ``entries`` counts each entry).
-    Operations without a meta tensor (the dry run's own bookkeeping) are not
-    counted."""
+    outputs of every operation but views, allocations and collectives), and
+    the live and peak bytes of the storages the trace allocated, each
+    tracked until it is released. It is also the attention meta route's
+    counter (``kernel(entry, flops, nbytes, dtype)``; ``entries`` counts
+    each entry). Operations without a meta tensor (the dry run's own
+    bookkeeping) are not counted.
 
-    def __init__(self) -> None:
+    On DTensors (one rank of a mesh) it sees what the rank runs: an
+    operation on DTensors goes to DTensor first (``NotImplemented``), whose
+    local operations on the rank's shards come back here; sharding
+    propagation's global-shape operations are not counted
+    (:func:`_outside_propagation`); each functional collective is kept in
+    ``calls`` as ``[op, bytes, mesh dim]`` (``groups`` maps a process
+    group's name to its mesh dim and size; a collective over a group of one
+    rank moves nothing and is not kept)."""
+
+    def __init__(self, groups: Mapping[str, tuple[str, int]] | None = None) -> None:
         super().__init__()
         self.flops: collections.Counter = collections.Counter()
         self.bytes = 0.0
         self.entries: collections.Counter = collections.Counter()
         self.live = 0
         self.peak = 0
+        self.calls: list = []
+        self.groups = dict(groups or {})
         self._storages: dict[int, int] = {}
         self._memo: dict = {}
         self.replays = 0
+
+    def collectives(self, by_dim: bool = False) -> dict:
+        """``{op: {"count", "bytes"}}`` of the kept collectives (by_dim:
+        ``{"<op> over <mesh dim>": ...}``)."""
+        hist: dict[str, dict] = {}
+        for op, nbytes, dim in self.calls:
+            h = hist.setdefault(f"{op} over {dim}" if by_dim else op, {"count": 0, "bytes": 0})
+            h["count"] += 1
+            h["bytes"] += nbytes
+        return hist
 
     def memo(self, key, fn):
         """``fn()`` (returning a tuple of tensors), traced the first time
@@ -284,7 +395,13 @@ class Trace(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if func not in _WHOLE and func._overloadpacket not in flop_registry:
+        if _PROPAGATING[0] or any(t is not torch.Tensor and issubclass(t, _dtensor_type())
+                                  for t in types):
+            # Sharding propagation's global shapes run uncounted; a DTensor
+            # operation dispatches first and sends its local ones back here.
+            return NotImplemented if not _PROPAGATING[0] else func(*args, **kwargs)
+        collective = func.namespace == "_c10d_functional"
+        if not collective and func not in _WHOLE and func._overloadpacket not in flop_registry:
             # Under inference mode a composite (``matmul``) reaches the mode
             # whole: count what it decomposes into, as FlopCounterMode does.
             with self:
@@ -298,17 +415,23 @@ class Trace(TorchDispatchMode):
             [out] if isinstance(out, torch.Tensor) else [])
         if not any(t.is_meta for t in ins + outs):
             return out
-        packet = func._overloadpacket
-        if packet in flop_registry:
-            self.flops[_dtype_key(ins[0].dtype)] += flop_registry[packet](
-                *args, **kwargs, out_val=out)
         in_keys = {t.untyped_storage()._cdata for t in ins}
-        if not (func.is_view or func in _ALLOCATIONS):
-            read = sum(_nbytes(t) for t in ins)
-            if func in _GATHERS:
-                read += sum(_nbytes(t) for t in outs) - _nbytes(ins[0])
-            self.bytes += read + sum(_nbytes(t) for t in outs
-                                     if t.untyped_storage()._cdata not in in_keys)
+        if collective:
+            op = COLLECTIVES.get(func._overloadpacket.__name__)
+            dim, size = self.groups.get(args[-1], (None, 0))
+            if op is not None and size != 1:
+                self.calls.append([op, _collective_bytes(op, args, out), dim])
+        else:
+            packet = func._overloadpacket
+            if packet in flop_registry:
+                self.flops[_dtype_key(ins[0].dtype)] += flop_registry[packet](
+                    *args, **kwargs, out_val=out)
+            if not (func.is_view or func in _ALLOCATIONS):
+                read = sum(_nbytes(t) for t in ins)
+                if func in _GATHERS:
+                    read += sum(_nbytes(t) for t in outs) - _nbytes(ins[0])
+                self.bytes += read + sum(_nbytes(t) for t in outs
+                                         if t.untyped_storage()._cdata not in in_keys)
         for t in outs:
             self._track(t, in_keys)
         return out
@@ -365,32 +488,62 @@ def _storage_bytes(tensors) -> int:
     return sum(seen.values())
 
 
+class _Scan(Exception):
+    """The capturing ``on_rows``'s exit: the scan function and its operands."""
+
+
+def _scan_of(name: str, params: dict, cfg, b: int, t: int):
+    """(the scan of ``ssm.<name>`` at (b, t), its parameters, its
+    activations): what the mixer hands ``on_rows``, on meta tensors, the
+    mixer run up to there."""
+
+    def capture(fn, acts, p=None):
+        raise _Scan(fn, p, acts)
+
+    x = torch.empty((b, t, cfg.d_model), dtype=dtype_of(cfg), device="meta")
+    saved = ssm.on_rows
+    ssm.on_rows = capture
+    try:
+        with torch.no_grad():
+            getattr(ssm, name)(params, cfg, x)
+    except _Scan as e:
+        return e.args
+    finally:
+        ssm.on_rows = saved
+    raise AssertionError(f"{name} ran no scan through on_rows")
+
+
 def _mixer_cost(name: str, params: dict, cfg, b: int, t: int, grad: bool):
-    """The real mixer ``ssm.<name>`` alone at (b, t): its counts, its
-    outputs' (shape, dtype)s, and its final state's keys."""
-    fn = getattr(ssm, name)
-    p = {k: v.detach().requires_grad_(grad and v.is_floating_point())
-         for k, v in params.items()}
-    x = torch.empty((b, t, cfg.d_model), dtype=dtype_of(cfg), device="meta",
-                    requires_grad=grad)
+    """The scan of ``ssm.<name>`` alone at (b, t), on the operands the mixer
+    hands ``on_rows`` (one process's, or a rank's rows with every width
+    whole): its counts, its outputs' (shape, dtype)s and their pytree spec
+    (the backward from its sequence output, :data:`_SCANS`)."""
+    fn, p, acts = _scan_of(name, params, cfg, b, t)
+    acts = [a.detach().requires_grad_(grad and a.is_floating_point()) for a in acts]
+    p = p and {k: v.detach().requires_grad_(grad and v.is_floating_point()) for k, v in p.items()}
     trace = Trace()
     ctx = contextlib.nullcontext() if grad else torch.inference_mode()
     with ctx, trace:
-        y, state = fn(p, cfg, x)
-        outs = [y, *state.values()]
+        out = fn(p, *acts)
+        leaves, spec = tree_flatten(out)
         cost = _Cost(dict(trace.flops), trace.bytes, trace.peak)
         if grad:
-            cost.saved = trace.live - _storage_bytes(outs)
+            cost.saved = trace.live - _storage_bytes(leaves)
+            y = out[_seq_out(name)]
             dy = torch.empty_like(y)
             before = trace.live
             trace.peak, trace.flops, trace.bytes = before, collections.Counter(), 0.0
-            wrt = [x, *(v for v in p.values() if v.requires_grad)]
+            wrt = [v for v in (*acts, *(p or {}).values()) if v.requires_grad]
             grads = torch.autograd.grad(y, wrt, grad_outputs=dy, allow_unused=True)
             cost.bwd_flops, cost.bwd_nbytes = dict(trace.flops), trace.bytes
             cost.bwd_peak = trace.peak - before - _storage_bytes(
                 [g for g in grads if g is not None])
             del grads, dy
-    return cost, [(tuple(o.shape), o.dtype) for o in outs], tuple(state)
+    return cost, [(tuple(o.shape), o.dtype) for o in leaves], spec
+
+
+def _seq_out(name: str) -> int:
+    return next(i for n, i in _SCANS.values() if n == name)
 
 
 def _chunked(cfg, t: int) -> bool:
@@ -413,13 +566,14 @@ def _short_lengths(cfg, name: str, t: int, m: int) -> tuple[int, int, int, int]:
 
 @dataclasses.dataclass
 class _Plan:
-    """A mixer's stand-in at one (batch, length): its extrapolated cost, its
-    outputs' shapes and dtypes (y first, then the final state's, under
-    ``state_keys``), and whether autograd records it."""
+    """A scan's stand-in at one (batch, length): its extrapolated cost, its
+    outputs' shapes and dtypes (flattened, ``spec`` their pytree), which of
+    them is the sequence output, and whether autograd records it."""
 
     cost: _Cost
     outputs: list
-    state_keys: tuple
+    spec: Any
+    seq_leaf: int
     grad: bool
 
 
@@ -436,16 +590,23 @@ def _close(a: _Cost, b: _Cost) -> bool:
 
 
 def mixer_plan(name: str, params: dict, cfg, b: int, t: int, grad: bool) -> _Plan:
-    """``ssm.<name>`` at (b, t) from traces at four short lengths. The
-    forward's counts are affine in T (a peak once its largest part is the
-    one that grows fastest); the backward's bytes are quadratic (each step's
-    ``select`` of the sequence has a gradient of the whole sequence, which
-    autograd adds up). The parabola through the first three lengths must
-    meet the fourth, else the lengths double; the one through the last three
-    is read at t. The outputs' shapes are the short traces' with T set."""
+    """The scan of ``ssm.<name>`` at (b, t) from traces at four short
+    lengths. The forward's counts are affine in T (a peak once its largest
+    part is the one that grows fastest); the backward's bytes are quadratic
+    (each step's ``select`` of the sequence has a gradient of the whole
+    sequence, which autograd adds up). The parabola through the first three
+    lengths must meet the fourth, else the lengths double; the one through
+    the last three is read at t. A peak is a maximum over the run, which
+    may follow one line at short lengths and another past them; where the
+    doubled lengths would reach t, the scan is traced at t itself. An output
+    whose shape changes with the length (the sequence output, (b, T, ...))
+    takes T = t; the others (the final state) must not change."""
     m = 2 if name == "apply_mlstm" and _chunked(cfg, t) else 24
     for _ in range(5):
         lengths = _short_lengths(cfg, name, t, m)
+        if lengths[3] >= t:
+            cost, outputs, spec = _mixer_cost(name, params, cfg, b, t, grad)
+            return _Plan(cost, outputs, spec, _seq_leaf(name, spec), grad)
         runs = [_mixer_cost(name, params, cfg, b, n, grad) for n in lengths]
         costs = [c for c, _, _ in runs]
         if _close(_Cost.through(costs[:3], lengths[:3], lengths[3]), costs[3]):
@@ -453,75 +614,95 @@ def mixer_plan(name: str, params: dict, cfg, b: int, t: int, grad: bool) -> _Pla
         m *= 2
     else:
         raise RuntimeError(f"{name}: its counts do not fit a parabola in T up to {lengths}")
-    (_, o2, keys), (_, o3, _) = runs[2], runs[3]
-    (y_shape, y_dtype), states = o2[0], o2[1:]
-    if states != o3[1:] or o3[0] != ((b, lengths[3], *y_shape[2:]), y_dtype):
-        raise AssertionError(f"{name}: a state's shape depends on T ({o2} / {o3})")
-    return _Plan(_Cost.through(costs[1:], lengths[1:], t),
-                 [((b, t, *y_shape[2:]), y_dtype), *states], keys, grad)
+    (_, o2, spec), (_, o3, _) = runs[2], runs[3]
+    outputs = []
+    for (s2, d2), (s3, _) in zip(o2, o3, strict=True):
+        if s2 != s3 and (s2[:1], s2[2:], s3[1:2]) != (s3[:1], s3[2:], (lengths[3],)):
+            raise AssertionError(f"{name}: an output's shape depends on T other than on its "
+                                 f"dim 1 ({o2} / {o3})")
+        outputs.append(((s2[0], t, *s2[2:]) if s2 != s3 else s2, d2))
+    return _Plan(_Cost.through(costs[1:], lengths[1:], t), outputs, spec, _seq_leaf(name, spec),
+                 grad)
+
+
+def _seq_leaf(name: str, spec) -> int:
+    """The flattened index of the scan's sequence output."""
+    leaves = tree_unflatten(list(range(spec.num_leaves)), spec)
+    return len(tree_flatten(leaves[:_seq_out(name)])[0])
 
 
 class _StandIn(torch.autograd.Function):
-    """A recurrent mixer in the model's trace: outputs of the planned shapes,
-    the planned cost added to the trace, the saved bytes held for backward
-    as one buffer, each part's transient peak allocated and released."""
+    """A recurrent mixer's scan in the model's trace, on the plain tensors
+    ``on_rows`` hands it: outputs of the planned shapes, the planned cost
+    added to the trace, the saved bytes held for backward as one buffer,
+    each part's transient peak allocated and released."""
 
     @staticmethod
-    def forward(ctx, plan, trace, x, *params):
+    def forward(ctx, plan, trace, *inputs):
         cost = plan.cost
         trace.add(cost.flops, cost.nbytes)
         out_bytes = sum(math.prod(s) * d.itemsize for s, d in plan.outputs)
         trace.transient(int(cost.peak - out_bytes - cost.saved))
-        outs = [x.new_empty(s, dtype=d) for s, d in plan.outputs]
+        ref = inputs[0]
+        outs = [ref.new_empty(s, dtype=d) for s, d in plan.outputs]
         if plan.grad:
-            ctx.save_for_backward(x.new_empty((max(int(cost.saved), 0),), dtype=torch.uint8))
+            ctx.save_for_backward(ref.new_empty((max(int(cost.saved), 0),), dtype=torch.uint8))
         ctx.plan, ctx.trace = plan, trace
-        ctx.shapes = [(tuple(p.shape), p.dtype, p.requires_grad) for p in params]
-        ctx.x = (tuple(x.shape), x.dtype)
-        ctx.mark_non_differentiable(*outs[1:])
+        ctx.inputs = [(tuple(i.shape), i.dtype, i.requires_grad) for i in inputs]
+        ctx.mark_non_differentiable(*(o for i, o in enumerate(outs) if i != plan.seq_leaf))
         return tuple(outs)
 
     @staticmethod
-    def backward(ctx, dy, *_):
+    def backward(ctx, *douts):
         (saved,) = ctx.saved_tensors
         cost = ctx.plan.cost
         ctx.trace.add(cost.bwd_flops, cost.bwd_nbytes)
         ctx.trace.transient(int(cost.bwd_peak))
         del saved
-        dx = dy.new_empty(ctx.x[0], dtype=ctx.x[1])
-        grads = [dy.new_empty(s, dtype=d) if rg else None for s, d, rg in ctx.shapes]
-        return (None, None, dx, *grads)
+        dy = douts[ctx.plan.seq_leaf]
+        return (None, None, *(dy.new_empty(s, dtype=d) if rg else None
+                              for s, d, rg in ctx.inputs))
 
 
 @contextlib.contextmanager
 def _stand_ins(plans: dict, trace: Trace):
-    """``ssm.apply_*`` replaced by their stand-ins for the block (the model
-    calls them through the module)."""
-    saved = {name: getattr(ssm, name) for name in plans}
+    """Each planned scan replaced by its stand-in: ``ssm.on_rows`` (through
+    which every scan runs) hands a planned mixer's scan (by the mixer its
+    function belongs to) the stand-in instead, after its own layout of the
+    operands (a rank's rows, their widths whole, and their collectives, all
+    traced); a decode step's one-token updates and any other call go
+    through as they are."""
+    real = ssm.on_rows
 
-    def stand_in(plan):
-        def apply(p, cfg, x):
-            y, *states = _StandIn.apply(plan, trace, x, *p.values())
-            return y, dict(zip(plan.state_keys, states, strict=True))
+    def on_rows(fn, acts, params=None):
+        plan = plans.get(fn.__qualname__.partition(".")[0])
+        if plan is None:
+            return real(fn, acts, params)
 
-        return apply
+        def stand_in(p, *local):
+            leaves = _StandIn.apply(plan, trace, *local, *(p or {}).values())
+            return tree_unflatten(list(leaves), plan.spec)
 
+        return real(stand_in, acts, params)
+
+    ssm.on_rows = on_rows
     try:
-        for name, plan in plans.items():
-            setattr(ssm, name, stand_in(plan))
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(ssm, name, fn)
+        ssm.on_rows = real
 
 
 def _plans(model: Model, b: int, t: int, grad: bool) -> dict:
     """A plan for each recurrent mixer the model has, from its first block
-    of that kind."""
+    of that kind, keyed by its ``ssm`` function; ``b`` the rows each scan
+    runs on (one device's, or one rank's). None up to the shortest plan's
+    longest length (96 tokens): there the scan itself is traced."""
     plans = {}
+    if t <= 96:
+        return plans
     for block in model.blocks:
         mixer = "mamba" if block.kind.startswith("mamba") else block.kind
-        name = _MIXERS.get(mixer)
+        name = _SCANS.get(mixer, (None,))[0]
         if name is None or name in plans:
             continue
         params = dict(block.mixer.items()) if mixer == "mamba" else block.params()
@@ -604,154 +785,42 @@ def _local_bytes(tensors: Mapping[str, Any], specs: Mapping[str, Any], sizes) ->
                for k, t in tensors.items())
 
 
-def _names_model(spec, model_axis: str) -> bool:
-    return any(model_axis in _axis_names(e) for e in spec)
-
-
-# Collectives a dense block (attention, then the SwiGLU MLP) issues in a
-# train step (forward, remat recomputation, backward) on a mesh whose data
-# and model axes all exceed 1, as the port's DTensor execution issues them
-# (counted under CommDebugMode on a (pod 2, data 2, model 2) world,
-# tests/test_torch_model_axis_train.py); the step's fixed part besides the
-# blocks and the gradient reduction. A decode step's: _dense_decode.
-_DENSE_BLOCK = {"train": {"all-gather": 6, "all-reduce": 3, "reduce-scatter": 2}}
-_DENSE_FIXED = {"train": {"all-gather": 4, "all-reduce": 2}}
-
-
-def _dense_decode(cfg, rules: ShardingRules, batch: int, seq: int,
-                  cache_len: int) -> tuple[list, list]:
-    """(a dense block's collectives, the step's fixed part) of a decode
-    step, each a list of (op, count, bytes a call), as the DTensor step
-    issues them on a mesh whose every axis exceeds 1 (each collective's
-    operand and result recorded on a (pod 2, data 2, model 2) gloo world at
-    2 and 3 layers, both cache layouts; ``tests/test_torch_model_axis_
-    decode.py`` holds every count and byte). ``batch`` is one device's batch, ``seq`` the
-    queries a row (1), ``cache_len`` the cache's slots. Bytes: an
-    all-gather its result, a reduce-scatter its input, an all-reduce 2 ×
-    its result."""
-    it = dtype_of(cfg).itemsize
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    x = batch * seq * cfg.d_model * it  # the block's input or a sublayer's output
-    s = _cache_len(cfg, cache_len)
-    block = [
-        ("all-gather", 3, x),  # the input for wq, wk and wv
-        ("all-gather", 2, batch * seq * hkv * hd * it),  # the step's K and V rows, to write
-        ("all-gather", 1, batch * seq * hq * hd * it),  # q, all its heads
-        ("reduce-scatter", 2, x),  # the mixer's and the FFN's outputs to the residual
-        ("all-gather", 2, x),  # the FFN's input for w_gate and w_up
-    ]
-    if rules.cache_seq_shard:
-        # The split rule: each row's log-sum-exp (MAX), then [w·o | w] (SUM), f32.
-        block += [("all-reduce", 1, 2 * batch * seq * hq * 4),
-                  ("all-reduce", 1, 2 * batch * seq * hq * (hd + 1) * 4)]
-    else:
-        block += [("all-gather", 2, batch * s * hkv * hd * it)]  # K and V, whole D
-    m = rules.model_size
-    fixed = [
-        # The first block: its input needs no gathers; its FFN gathers the
-        # three weights whole, all-reduces twice and reduce-scatters the
-        # hidden rows, and only its FFN's output is reduce-scattered.
-        ("all-gather", -5, x),
-        ("all-gather", 3, cfg.d_model * cfg.d_ff * it),
-        ("all-reduce", 2, 2 * x),
-        ("reduce-scatter", 2, batch * seq * cfg.d_ff * it),
-        ("reduce-scatter", -1, x),
-        # The f32 logits onto the vocab's shards (padded to the model axis).
-        ("all-gather", 1, batch * seq * -(-cfg.vocab // m) * m * 4),
-    ]
-    return block, fixed
-
-
 def collectives(cfg, kind: str, rules: ShardingRules, *, params: Mapping[str, Any],
-                p_specs: Mapping[str, Any], batch: int, seq: int, zero: bool = False,
-                zero3: bool = False, remat: bool = True, accum: int = 1,
-                cache_len: int = 0) -> dict:
-    """Per-device collectives of one step, ``{op: {"count", "bytes"}}``, by
-    the module docstring's rules: ``batch`` is one device's batch, ``seq``
-    the tokens a sequence (1 for a decode step), ``cache_len`` a decode
-    step's cache slots."""
-    sizes = rules.axis_sizes
+                p_specs: Mapping[str, Any], zero: bool = False, zero3: bool = False,
+                remat: bool = True) -> dict:
+    """The stated collectives of a train step that does not run on DTensors
+    (a cell without a model axis, ``--dp-only``, or a knob the DTensor
+    execution has no counterpart for), ``{op: {"count", "bytes"}}`` a
+    device: the gradients summed over the data axes as ``runtime/steps.py::
+    _mean_over`` sums them (one all-reduce a dtype of one flat buffer, the
+    loss in the f32 one), or, under ``--zero``, reduce-scattered with the
+    parameters all-gathered once (``--zero3``: once a pass). Bytes by the
+    reference's convention (:func:`_collective_bytes`). Nothing else: a
+    cell on DTensors reads its collectives off its trace."""
     hist: dict[str, dict] = {}
+    if kind != "train" or rules.data_size <= 1:
+        return hist
 
     def add(op: str, count: float, nbytes: float) -> None:
-        if count:
-            h = hist.setdefault(op, {"count": 0.0, "bytes": 0.0})
-            h["count"] += count
-            h["bytes"] += nbytes
+        h = hist.setdefault(op, {"count": 0.0, "bytes": 0.0})
+        h["count"] += count
+        h["bytes"] += nbytes
 
-    def local_bytes(k: str, t) -> int:
-        return math.prod(_local_shape(tuple(t.shape), p_specs[k], sizes)) * t.element_size()
-
-    passes = (3 if remat else 2) if kind == "train" else 1
-    model_axis = rules.model_axis
-    on_mesh = rules.model_size > 1 and model_axis not in rules.data_axes
-    act = batch * seq * cfg.d_model * dtype_of(cfg).itemsize
-    if kind == "train" and on_mesh and not (zero or zero3):
-        # The DTensor step (runtime/steps.py): each gradient laid out as its
-        # parameter, one all-reduce a data mesh dim it is a partial sum
-        # over (the norm gains ahead of a block's column-parallel products
-        # also over the model axis), and clipping's whole sum of a sharded
-        # leaf, one all-reduce a mesh dim its spec names.
-        n_data = sum(sizes[a] > 1 for a in rules.data_axes)
-        for k, t in params.items():
-            gains = k.rsplit(".", 1)[-1] in ("ln1", "ln2") and ".mixer." not in k
-            n = n_data + (gains and _block_kind(cfg, k) == "attn_mlp")
-            add("all-reduce", n, n * 2.0 * local_bytes(k, t))
-            named = sum(sizes[a] > 1 for e in p_specs[k] for a in _axis_names(e))
-            add("all-reduce", named, named * 2.0 * 4)
-    elif kind == "train" and rules.data_size > 1:
-        by_dtype: dict[torch.dtype, int] = collections.Counter()
-        for k, t in params.items():
-            by_dtype[t.dtype] += local_bytes(k, t)
-        if zero or zero3:
-            gathers = passes if zero3 else 1
-            for n in by_dtype.values():
-                add("reduce-scatter", 1, n)
-                add("all-gather", gathers, gathers * n)
-        else:
-            by_dtype[torch.float32] += 4  # the loss joins the f32 buffer
-            for n in by_dtype.values():
-                add("all-reduce", 1, 2.0 * n)
-    if not on_mesh:
-        return hist
-    calls = passes * accum
-    tokens = batch * seq
-    kinds = cfg.block_kinds()
-    measured = kind in ("train", "decode") and all(sizes[a] > 1 for a in sizes)
-    if kind == "decode":
-        dense_block, dense_fixed = _dense_decode(cfg, rules, batch, seq, cache_len)
+    sizes = rules.axis_sizes
+    by_dtype: dict[torch.dtype, int] = collections.Counter()
+    for k, t in params.items():
+        by_dtype[t.dtype] += math.prod(_local_shape(tuple(t.shape), p_specs[k], sizes)) \
+            * t.element_size()
+    if zero or zero3:
+        gathers = (3 if remat else 2) if zero3 else 1
+        for n in by_dtype.values():
+            add("reduce-scatter", 1, n)
+            add("all-gather", gathers, gathers * n)
     else:
-        dense_block = [(op, n * accum, (2.0 if op == "all-reduce" else 1.0) * act)
-                       for op, n in _DENSE_BLOCK["train"].items()]
-        dense_fixed = [(op, n * accum, act) for op, n in _DENSE_FIXED["train"].items()]
-    if measured and "attn_mlp" in kinds:
-        for op, n, nbytes in dense_fixed:
-            add(op, n, n * nbytes)
-    for i, block in enumerate(kinds):
-        if measured and block == "attn_mlp":
-            for op, n, nbytes in dense_block:
-                add(op, n, n * nbytes)
-            continue
-        # Not measured on a world: GSPMD's pattern, one all-reduce of the
-        # mixer's output and one of the FFN's a block and pass.
-        add("all-reduce", calls, calls * 2.0 * act)  # the mixer's output
-        if block in ("mamba", "mlstm", "slstm"):
-            continue
-        if block.endswith("_moe") and _names_model(p_specs[f"blocks.{i}.ffn.w_gate"][:1],
-                                                    model_axis):
-            g = min(cfg.moe_group_size, tokens)
-            dispatched = (tokens // g) * cfg.n_experts * cfg.moe_split * capacity(cfg, g) \
-                * cfg.d_model * dtype_of(cfg).itemsize
-            add("all-to-all", 2 * calls, 2 * calls * dispatched)
-        else:
-            add("all-reduce", calls, calls * 2.0 * act)  # the FFN's output
+        by_dtype[torch.float32] += 4  # the loss joins the f32 buffer
+        for n in by_dtype.values():
+            add("all-reduce", 1, 2.0 * n)
     return hist
-
-
-def _block_kind(cfg, leaf: str) -> str | None:
-    """The kind of the block a ``blocks.<i>.`` leaf belongs to."""
-    parts = leaf.split(".")
-    return cfg.block_kinds()[int(parts[1])] if parts[0] == "blocks" else None
 
 
 # ---------------------------------------------------------------------------
@@ -763,7 +832,8 @@ def _block_kind(cfg, leaf: str) -> str | None:
 class Cell:
     """One cell, ready to trace: ``trace()`` traces its step and returns
     (:class:`Trace`, seconds); ``meta`` holds the record's cell fields, its
-    exact argument bytes and its collectives; ``cfg`` the config traced."""
+    exact argument bytes and its collectives (a per-rank cell's once
+    traced); ``cfg`` the config traced."""
 
     trace: Any
     meta: dict
@@ -774,6 +844,83 @@ def _mesh_label(sizes: Mapping[str, int]) -> str:
     return "x".join(str(n) for n in sizes.values())
 
 
+def _held(tensors) -> int:
+    """The bytes of the shards this rank holds of ``tensors``."""
+    return sum(_nbytes(t.to_local()) for t in tensors)
+
+
+def _check_held(what: str, held: int, predicted: int) -> None:
+    if held != predicted:
+        raise AssertionError(f"{what}: the rank holds {held} bytes, its specs give {predicted}")
+
+
+def _rank_trace(cfg, spec: ShapeSpec, sizes: Mapping[str, int], rules: ShardingRules, *,
+                remat: bool, arg: dict, b_local: int, meta: dict):
+    """The cell's step traced as rank 0 of its mesh (:func:`mesh_rank`) on
+    DTensors, as the run time places and runs it: the parameters by
+    ``place_params``, the AdamW moments laid out as their parameters, the
+    batch by ``batch_pspec`` and the cache by ``cache_pspecs`` through
+    ``device_put``, the activations by ``make_activation_sharder``, all
+    placed before the traced window; the shards the rank holds must sum to
+    the argument bytes of the specs. -> (Trace, seconds); the trace's
+    collectives go into ``meta["collectives"]``."""
+    batch = input_specs(cfg, spec)
+    batch.pop("pos", None)
+    with mesh_rank(sizes) as mesh:
+        rules = dataclasses.replace(rules, mesh=mesh)
+        model = Model(cfg, device="meta", remat=remat,
+                      shard_activation=make_activation_sharder(rules))
+        plans = {} if spec.kind == "decode" else _plans(model, b_local, spec.seq,
+                                                         spec.kind == "train")
+        place_params(model, mesh, rules)
+        params = dict(model.named_parameters())
+        _check_held("params", _held(params.values()), arg["params"])
+        b_specs = batch_pspec(batch, rules)
+        placed = device_put(batch, named(mesh, b_specs), mesh)
+        # A decode step's tokens arrive over the data axes, as the run time
+        # places them; the record keeps the reference's whole tokens and pos.
+        _check_held("batch", _held(placed.values()), _local_bytes(batch, b_specs, rules.axis_sizes))
+        if spec.kind == "train":
+            opt = AdamW(moment_dtype=meta["moment_dtype"])
+            opt_state = opt.init(params)
+            _check_held("opt_state", _held((*opt_state.m.values(), *opt_state.v.values()))
+                        + _nbytes(opt_state.step), arg["opt_state"])
+            step_fn = make_train_step(model, opt, _schedule())
+
+            def run():
+                step_fn(opt_state, placed)
+        elif spec.kind == "prefill":
+            def run():
+                with torch.no_grad():
+                    if cfg.encoder_only:
+                        model.forward(placed)
+                    else:
+                        model.prefill(placed, spec.seq)
+        else:
+            cache = model.init_cache(spec.batch, spec.seq)
+            cache = device_put(cache, named(mesh, cache_pspecs(cache, rules)), mesh)
+            _check_held("cache", sum(_held(e.values()) for e in cache), arg["cache"])
+
+            def run():
+                model.decode_step(cache, placed["tokens"], spec.seq - 1)
+
+        groups = {mesh.get_group(i).group_name: (name, mesh.size(i))
+                  for i, name in enumerate(mesh.mesh_dim_names)}
+        trace = Trace(groups)
+        t0 = time.perf_counter()
+        with _stand_ins(plans, trace), ops.force_impl("kernel"), fa.counting_meta(trace), \
+                _outside_propagation(), trace:
+            run()
+        seconds = time.perf_counter() - t0
+    meta["collectives"] = trace.collectives()
+    meta["collectives_by_mesh_dim"] = trace.collectives(by_dim=True)
+    return trace, seconds
+
+
+def _schedule():
+    return functools.partial(warmup_cosine, peak_lr=3e-4, warmup_steps=100, total_steps=10000)
+
+
 def build_cell(arch: str, shape: str | ShapeSpec, multi_pod: bool = False, *,
                mesh: Mapping[str, int] | None = None, zero: bool = False,
                zero3: bool = False, seq_shard: bool = True, accum: int = 1,
@@ -781,13 +928,19 @@ def build_cell(arch: str, shape: str | ShapeSpec, multi_pod: bool = False, *,
                replicate_below: int = 0, moe_group: int = 0, capacity_factor: float = 0.0,
                moe_gather: bool = False, dp_only: bool = False, moe_split: int = 0,
                xlstm_chunk: int = 0, cache_seq_shard: bool = False,
-               config=None) -> Cell:
+               dtensor: bool | None = None, config=None) -> Cell:
     """One cell. ``shape`` is a name in ``SHAPES`` or a ``ShapeSpec``;
-    ``mesh`` an axis-size mapping (its axes but ``model`` the data axes) in
-    place of the production mesh; ``config`` an ``ArchConfig`` in place of
-    ``arch``'s published one (a smoke config). The knobs are the
-    reference's; the port refuses ``attn_chunk`` and ``score_dtype`` away
-    from their defaults (its attention is the flash kernel)."""
+    ``mesh`` an axis-size mapping (``data`` and ``model``, with or without
+    ``pod``; its axes but ``model`` the data axes) in place of the
+    production mesh; ``config`` an ``ArchConfig`` in place of ``arch``'s
+    published one (a smoke config). The knobs are the reference's;
+    the port refuses ``attn_chunk`` and ``score_dtype`` away from their
+    defaults (its attention is the flash kernel). A cell on a model axis
+    traces as one rank of its mesh on DTensors (:func:`_rank_trace`) unless
+    a knob of :data:`NO_DTENSOR` is set; any other cell, one device's step
+    on plain meta tensors. ``dtensor=True`` asks for the rank's trace
+    whatever the model axis (a world of one: the meshed step of phase 4o),
+    ``False`` for one device's."""
     cfg = get_config(arch) if config is None else config
     knobs = dict(attn_chunk=attn_chunk, score_dtype=score_dtype,
                  moe_group_size=moe_group, capacity_factor=capacity_factor,
@@ -828,6 +981,11 @@ def build_cell(arch: str, shape: str | ShapeSpec, multi_pod: bool = False, *,
     arg = {"params": _local_bytes(params, p_specs, sizes),
            "batch": _local_bytes(batch, b_specs, sizes) + (0 if pos is None else pos.nbytes)}
     split = 1 if rules.model_axis in rules.data_axes else rules.model_size
+    on = {"zero": zero, "zero3": zero3, "accum": accum > 1}
+    knob = next((k for k in NO_DTENSOR if on[k]), None) if spec.kind == "train" else None
+    per_rank = split > 1 and knob is None if dtensor is None else dtensor
+    if per_rank and (knob or dp_only):
+        raise ValueError(f"--{knob or 'dp-only'} has no DTensor counterpart: no rank to trace")
     counts = cfg.param_counts()
     meta = {
         "arch": arch, "shape": spec.name, "mesh": _mesh_label(sizes),
@@ -842,10 +1000,11 @@ def build_cell(arch: str, shape: str | ShapeSpec, multi_pod: bool = False, *,
         "capacity_factor": capacity_factor or None, "moe_gather": moe_gather,
         "dp_only": dp_only, "moe_split": moe_split or None, "xlstm_chunk": xlstm_chunk or None,
         "cache_seq_shard": cache_seq_shard,
+        "analysis": "per-rank-trace" if per_rank else "meta-trace",
+        "temp_bound": None if per_rank or split == 1 else (
+            f"--{knob}: no DTensor counterpart, the model axis undivided" if knob
+            else "one device's trace asked for, the model axis undivided"),
     }
-    step_seq = spec.seq if spec.kind != "decode" else 1
-    coll_kw = dict(params=params, p_specs=p_specs, batch=b_local, seq=step_seq, zero=zero,
-                   zero3=zero3, remat=remat, accum=accum, cache_len=spec.seq)
 
     if spec.kind == "train":
         opt = AdamW(moment_dtype=_moment_dtype(cfg))
@@ -855,9 +1014,7 @@ def build_cell(arch: str, shape: str | ShapeSpec, multi_pod: bool = False, *,
                             + _local_bytes(opt_state.v, m_specs, sizes)
                             + opt_state.step.element_size())
         meta["moment_dtype"] = opt.moment_dtype
-        sched = functools.partial(warmup_cosine, peak_lr=3e-4, warmup_steps=100,
-                                  total_steps=10000)
-        step_fn = make_train_step(model, opt, sched, accum=accum)
+        step_fn = make_train_step(model, opt, _schedule(), accum=accum)
 
         def run(trace):
             with _stand_ins(_plans(model, b_local // accum, spec.seq, True), trace):
@@ -881,7 +1038,13 @@ def build_cell(arch: str, shape: str | ShapeSpec, multi_pod: bool = False, *,
             model.decode_step(local_cache, local_batch["tokens"], spec.seq - 1)
 
     meta["argument_bytes"] = arg
-    meta["collectives"] = collectives(cfg, spec.kind, rules, **coll_kw)
+    if per_rank:
+        meta["collectives"] = None  # read off the trace
+        trace_fn = functools.partial(_rank_trace, cfg, spec, sizes, rules, remat=remat, arg=arg,
+                                     b_local=b_local, meta=meta)
+        return Cell(trace_fn, meta, cfg)
+    meta["collectives"] = collectives(cfg, spec.kind, rules, params=params, p_specs=p_specs,
+                                      zero=zero, zero3=zero3, remat=remat)
 
     def trace_fn():
         trace = Trace()
@@ -902,14 +1065,21 @@ def _peaks(device: str):
 
 def cell_record(cell: Cell, *, device: str = "cpu", tag: str | None = None,
                 variant: str = "baseline") -> dict:
-    """Trace one cell built by :func:`build_cell` and return its record."""
+    """Trace one cell built by :func:`build_cell` and return its record. A
+    per-rank cell's counts are the rank's own; a one-device trace on a model
+    axis (a knob without a DTensor counterpart) divides its FLOPs and bytes
+    evenly over that axis, as before the per-rank trace."""
     meta, cfg = cell.meta, cell.cfg
-    coll_hist = meta["collectives"]
     trace, seconds = cell.trace()
-    split, chips = meta["model_split"], meta["chips"]
+    coll_hist = meta["collectives"]
+    per_rank = meta["analysis"] == "per-rank-trace"
+    split, chips = (1 if per_rank else meta["model_split"]), meta["chips"]
     flops_by_dtype = {k: v / split for k, v in trace.flops.items() if v}
-    scan_fix = untraced_scan_flops(cfg, meta["batch"], meta["seq"], meta["kind"], chips,
-                                   remat=meta["remat"])
+    # A rank runs each recurrence on its own rows with every width whole.
+    scan_fix = (untraced_scan_flops(cfg, meta["batch_per_device"], meta["seq"], meta["kind"], 1,
+                                    remat=meta["remat"]) if per_rank else
+                untraced_scan_flops(cfg, meta["batch"], meta["seq"], meta["kind"], chips,
+                                    remat=meta["remat"]))
     if scan_fix:
         flops_by_dtype["float32"] = flops_by_dtype.get("float32", 0.0) + scan_fix
     flops = float(sum(flops_by_dtype.values()))
@@ -929,7 +1099,6 @@ def cell_record(cell: Cell, *, device: str = "cpu", tag: str | None = None,
     record = {
         "tag": tag, "variant": variant, **meta,
         "compile_ok": True,
-        "analysis": "meta-trace",
         "lower_s": round(seconds, 2),
         "compile_s": 0.0,
         "trace_s": seconds,
@@ -937,7 +1106,6 @@ def cell_record(cell: Cell, *, device: str = "cpu", tag: str | None = None,
         "peaks": peaks_name,
         "memory": {"argument_size_in_bytes": float(sum(arg.values())),
                    "temp_size_in_bytes": float(trace.peak)},
-        "temp_bound": "model axis undivided" if split > 1 else None,
         "cost": {"flops": flops, "bytes accessed": nbytes},
         "flops_by_dtype": flops_by_dtype,
         "inner_scan_correction_flops": scan_fix,
@@ -984,7 +1152,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str, *, force: boo
     print(f"[dryrun] OK {tag}: trace {rec['trace_s']:.2f}s, mem/device ≈ "
           f"{sum(mem.values()) / 2**30:.2f} GiB (args {mem['argument_size_in_bytes'] / 2**30:.2f}"
           f" + temp {mem['temp_size_in_bytes'] / 2**30:.2f}"
-          f"{', an upper bound' if rec['temp_bound'] else ''}), "
+          f"{', an upper bound' if rec['temp_bound'] else ''}; {rec['analysis']}), "
           f"dominant={rec['roofline']['dominant']} "
           f"fraction={rec['roofline']['roofline_fraction']:.3f}; kernel entries "
           f"{rec['kernel_entries'] or 'none'}", flush=True)

@@ -21,6 +21,8 @@ positions) follows the reference's section rule (:func:`rope_angles`).
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -43,6 +45,8 @@ __all__ = [
     "is_dtensor",
     "replicated_like",
     "whole_sequence",
+    "split_heads",
+    "merge_heads",
     "on_rows",
 ]
 
@@ -120,6 +124,43 @@ def whole_sequence(x: torch.Tensor) -> torch.Tensor:
     pl = tuple(p if p.is_shard() and p.dim % x.dim() == 0 else Replicate()
                for p in x.placements)
     return x if pl == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
+def split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """x (..., n·hd) viewed as (..., n, hd). A DTensor whose last dim is
+    sharded over mesh dims that do not divide ``n`` (8 KV heads on a model
+    axis of 16: each rank holds half a head) has that dim gathered over
+    them first, since a part of a head cannot be viewed as heads."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+
+        last = [i for i, p in enumerate(x.placements)
+                if p.is_shard() and p.dim % x.dim() == x.dim() - 1]
+        if n % math.prod(x.device_mesh.size(i) for i in last):
+            x = x.redistribute(x.device_mesh, tuple(Replicate() if i in last else p
+                                                    for i, p in enumerate(x.placements)))
+    return x.reshape(*x.shape[:-1], n, hd)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """x (..., n, hd) viewed as (..., n·hd). A DTensor held whole over a mesh
+    dim that does not divide ``n`` (the heads of an attention that gathered
+    them: 12 on a model axis of 16) is laid out on the merged dim over it
+    (a local slice): a product against rows split over that dim would
+    split it so all the same, and the backward's gradient would then come
+    split inside a head, which no view back to heads takes; this way the
+    gradient is gathered (the redistribution's backward) before that
+    view."""
+    n = x.shape[-2]
+    y = x.reshape(*x.shape[:-2], n * x.shape[-1])
+    if not is_dtensor(y):
+        return y
+    from torch.distributed.tensor import Shard
+
+    mesh = y.device_mesh
+    pl = tuple(Shard(y.dim() - 1) if p.is_replicate() and n % mesh.size(i) else p
+               for i, p in enumerate(y.placements))
+    return y if pl == tuple(y.placements) else y.redistribute(mesh, pl)
 
 
 def on_rows(fn, acts: tuple, params: dict | None = None):
@@ -250,16 +291,15 @@ def init_attention(generator: torch.Generator | None, cfg: ArchConfig) -> dict:
 
 def project_qkv(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
     """x (B, T, d) -> q (B, T, H, hd), k/v (B, T, KV, hd), RoPE applied."""
-    b, t, _ = x.shape
     hd = cfg.head_dim
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, t, cfg.n_heads, hd)
-    k = k.reshape(b, t, cfg.n_kv_heads, hd)
-    v = v.reshape(b, t, cfg.n_kv_heads, hd)
+    q = split_heads(q, cfg.n_heads, hd)
+    k = split_heads(k, cfg.n_kv_heads, hd)
+    v = split_heads(v, cfg.n_kv_heads, hd)
     if cfg.rope != "none":
         cos, sin = rope_angles(cfg, positions)
         q = apply_rope(q, cos, sin)
@@ -274,15 +314,13 @@ def apply_attention(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor
     The reference's ``sdpa`` becomes one ``ops.attention`` call on
     (B, H, T, hd) views of the projections: the kernel reads them through
     their strides and writes its output laid out as (B, T, H, hd), so the
-    reshape below costs no copy.
+    merge of its heads below costs no copy.
     """
     check_supported(cfg)
-    b, t, _ = x.shape
     q, k, v = project_qkv(p, cfg, x, positions)
     out = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                         causal=cfg.causal, window=cfg.window)
-    out = out.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.head_dim)
-    return out @ p["wo"], (k, v)
+    return merge_heads(out.transpose(1, 2)) @ p["wo"], (k, v)
 
 
 # ---------------------------------------------------------------------------

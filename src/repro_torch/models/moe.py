@@ -198,7 +198,11 @@ def _apply_moe_mesh(p, cfg: ArchConfig, x) -> torch.Tensor:
         cols = slice(index * n_held, (index + 1) * n_held)
         combine_w, keep, pos = combine_w[..., cols], keep[..., cols], pos[..., cols]
     y = _experts(held, cfg, xf, combine_w, keep, pos)
-    return DTensor.from_local(y, mesh, partial, run_check=False).redistribute(mesh, x.placements)
+    # Into x's layout; where x is a partial sum over a mesh dim the experts
+    # do not split (a decode step's single row), y is whole there already.
+    out = tuple(Replicate() if p.is_partial() and q.is_replicate() else p
+                for p, q in zip(x.placements, partial, strict=True))
+    return DTensor.from_local(y, mesh, partial, run_check=False).redistribute(mesh, out)
 
 
 def moe_oracle(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:

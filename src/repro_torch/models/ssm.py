@@ -54,8 +54,10 @@ from repro_torch.models.layers import (
     dtype_of,
     init_dense,
     is_dtensor,
+    merge_heads,
     on_rows,
     rms_norm,
+    split_heads,
 )
 
 __all__ = [
@@ -273,9 +275,9 @@ def _mlstm_parallel_inputs(p, cfg: ArchConfig, xm: torch.Tensor):
     b, t, du = xm.shape
     dh = du // heads
     xc = F.silu(_mamba_conv_full({"conv_w": p["conv_w"], "conv_b": p["conv_b"]}, xm))
-    q = (xc @ p["wq"]).reshape(b, t, heads, dh).float() * dh**-0.5
-    k = (xc @ p["wk"]).reshape(b, t, heads, dh).float() * dh**-0.5
-    v = (xm @ p["wv"]).reshape(b, t, heads, dh).float()
+    q = split_heads(xc @ p["wq"], heads, dh).float() * dh**-0.5
+    k = split_heads(xc @ p["wk"], heads, dh).float() * dh**-0.5
+    v = split_heads(xm @ p["wv"], heads, dh).float()
     gates = xc.float() @ p["w_gates"] + p["b_gates"]
     i_raw, f_raw = gates.chunk(2, dim=-1)  # (B, T, H)
     f_raw = _logsigmoid(f_raw)  # f = sigmoid in log space
@@ -290,7 +292,7 @@ def _group_norm_heads(h: torch.Tensor, gamma: torch.Tensor, heads: int) -> torch
     mu = hh.mean(-1, keepdim=True)
     var = hh.var(-1, keepdim=True, correction=0)
     out = (hh - mu) * torch.rsqrt(var + 1e-5)
-    return out.reshape(shp).to(gamma.dtype) * gamma
+    return merge_heads(out).to(gamma.dtype) * gamma
 
 
 def _mlstm_chunk_body(carry, inp):
@@ -387,9 +389,9 @@ def step_mlstm(p, cfg: ArchConfig, x_t: torch.Tensor, state: dict):
     dh = du // heads
     window = torch.cat([state["conv"], xm[:, None, :]], dim=1)
     xc = _conv_step(p, window, x_t.dtype)
-    q = (xc @ p["wq"]).reshape(b, heads, dh).float() * dh**-0.5
-    k = (xc @ p["wk"]).reshape(b, heads, dh).float() * dh**-0.5
-    v = (xm @ p["wv"]).reshape(b, heads, dh).float()
+    q = split_heads(xc @ p["wq"], heads, dh).float() * dh**-0.5
+    k = split_heads(xc @ p["wk"], heads, dh).float() * dh**-0.5
+    v = split_heads(xm @ p["wv"], heads, dh).float()
     gates = xc.float() @ p["w_gates"] + p["b_gates"]
     i_raw, f_raw = gates.chunk(2, dim=-1)
     f_raw = _logsigmoid(f_raw)

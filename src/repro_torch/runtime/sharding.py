@@ -306,7 +306,8 @@ def device_put(tree, placement_tree, mesh):
     """``tree`` (a dict of tensors, or a list of them) as DTensors with the
     placements of ``placement_tree`` (:func:`named`): a plain tensor is
     distributed (every rank holds the same values, as the seeded inputs
-    do), a DTensor redistributed."""
+    do; a ``meta`` tensor stays on ``meta``, the dry run's shards), a
+    DTensor redistributed."""
     from torch.distributed.tensor import DTensor, distribute_tensor
 
     if not isinstance(tree, Mapping):
@@ -317,7 +318,7 @@ def device_put(tree, placement_tree, mesh):
         if isinstance(t, DTensor):
             out[k] = t.redistribute(mesh, pl)
         else:
-            out[k] = distribute_tensor(t.to(mesh.device_type), mesh, pl)
+            out[k] = distribute_tensor(t if t.is_meta else t.to(mesh.device_type), mesh, pl)
     return out
 
 

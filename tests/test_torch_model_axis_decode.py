@@ -19,12 +19,14 @@ alone; on the sequence-split cache it takes the split rule (each rank its
 own slots, two all-reduces), and a recurrent state of rank 4 (xlstm's mLSTM
 ``C``) is split on its heads, as the reference's ``cache_pspecs`` does.
 
-granite's decode steps at position 16 run under ``CommLog`` (a
-``CommDebugMode``): each collective's count and bytes must be what
-``launch/dryrun.py::collectives`` gives for the same mesh, batch, sequence
-and cache layout (the train step's counts: the train file); the
-sequence-split step moves no cache shard, the head_dim one gathers K and V
-over ``model`` only.
+Each arch's decode steps at position 16, and a prefill of the batch under
+the production rules (no sequence sharding, a cache of its own length), run
+under ``CommLog``: each collective's count and bytes, by operation and by
+mesh dim, must be what ``launch/dryrun.py`` traces for rank 0 of the same
+mesh, batch, sequence, cache layout and position on a ``"fake"`` process
+group (the train steps': the train file); granite's sequence-split step
+moves no cache shard, its head_dim one gathers K and V over ``model``
+only.
 """
 
 from __future__ import annotations
@@ -66,6 +68,12 @@ for arch in ARCHS_HERE:
     cache, prefill = model.prefill(placed, MAX_LEN)
     report(arch, "prefill", whole_here=whole_here)
     result = {"prefill": whole(prefill)}
+    # The prefill the dry run traces: the production rules, its own length.
+    model.shard = make_activation_sharder(serve_rules)
+    with CommLog() as mode:
+        model.prefill(placed, T)
+    write_comm(mode, f"{arch}-prefill")
+    model.shard = make_activation_sharder(rules)
     # Each layout's steps start from the prefill's cache as it came: a step
     # updates its cache in place (a recurrent state, the step's slot).
     caches = {"": cache, "-seq": [{k: t.clone() for k, t in e.items()} for e in cache]}
@@ -76,8 +84,7 @@ for arch in ARCHS_HERE:
         placed_cache = place(caches[layout], cache_pspecs, with_rules)
         with CommLog() as mode:
             at16, _ = model.decode_step(placed_cache, last, T)
-        if arch == COMM_ARCH:
-            write_comm(mode, "decode" + layout)
+        write_comm(mode, f"{arch}-decode{layout}")
         report(arch, "decode" + layout,
                cache_specs=[{k: str(v.placements) for k, v in e.items()} for e in placed_cache])
         result.update({"at0" + layout: whole(at0), "at16" + layout: whole(at16)})
@@ -179,14 +186,16 @@ def test_decode_on_a_sequence_split_cache_takes_the_split_rule(world, arch):
                 assert entry["C"] == "(Shard(dim=0), Shard(dim=0), Shard(dim=1))", entry
 
 
-def _held_decode_collectives(out, cache_seq_shard: bool) -> None:
-    """granite's decode step at position 16, each collective as ``CommLog``
-    recorded it on rank 0 (count and bytes), against ``dryrun.collectives``
-    for its cache layout; the collectives of a cache shard's operand: on
-    the head_dim cache the gathers of K and V, two an attention layer, each
+def _held_decode_collectives(out, arch: str, cache_seq_shard: bool) -> None:
+    """``arch``'s decode step at position 16, each collective as ``CommLog``
+    recorded it on rank 0, against the dry run's per-rank trace for its
+    cache layout; granite's collectives of a cache shard's operand: on the
+    head_dim cache the gathers of K and V, two an attention layer, each
     over ``model`` alone; on the sequence-split cache none."""
     layout = "-seq" if cache_seq_shard else ""
-    calls = held_to_the_dry_run(out, "decode", "decode" + layout, cache_seq_shard)
+    calls = held_to_the_dry_run(out, arch, "decode", "decode" + layout, cache_seq_shard)
+    if arch != COMM_ARCH:
+        return
     cfg = configs(COMM_ARCH)[1]
     shard = B // (MESH[0] * MESH[1]) * MAX_LEN * cfg.n_kv_heads * cfg.head_dim // MESH[2]
     of_cache = [c for c in calls if c[1] == shard]
@@ -198,17 +207,28 @@ def _held_decode_collectives(out, cache_seq_shard: bool) -> None:
         assert all(c[0] == "all_gather_into_tensor" and c[3] == "model" for c in of_cache), calls
 
 
-def test_the_dry_runs_decode_collectives_match_the_measured_world(world):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_the_dry_runs_decode_collectives_match_the_measured_world(world, arch):
     """On the head_dim cache (the reference's default): counts and bytes as
-    the dry run gives them; K and V gathered over ``model`` only."""
-    _held_decode_collectives(world[0], cache_seq_shard=False)
+    the dry run traces them; granite's K and V gathered over ``model``
+    only."""
+    _held_decode_collectives(world[0], arch, cache_seq_shard=False)
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 def test_the_dry_runs_decode_collectives_on_a_sequence_split_cache_match_the_measured_world(
-        world):
+        world, arch):
     """On the cache split on its sequence: counts and bytes as the dry run
-    gives them; the split rule's all-reduces over ``model``, no cache byte."""
-    _held_decode_collectives(world[0], cache_seq_shard=True)
+    traces them; granite's split rule all-reduces over ``model``, no cache
+    byte."""
+    _held_decode_collectives(world[0], arch, cache_seq_shard=True)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_the_dry_runs_prefill_collectives_match_the_measured_world(world, arch):
+    """A prefill under the production rules: counts and bytes, by operation
+    and by mesh dim, as the dry run traces them."""
+    assert held_to_the_dry_run(world[0], arch, "prefill")
 
 
 def test_the_head_rule_on_a_world_of_one(tmp_path):

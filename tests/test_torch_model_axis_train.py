@@ -12,10 +12,10 @@ gradient and every updated parameter match ``jax.grad`` of the reference's
 loss and one step of ``repro.runtime.steps.make_train_step`` on one CPU
 device, and the port's one-process run, within 2e-4 + 2e-4·|ref|. On every
 rank each leaf whose spec names ``model`` is smaller than whole, and every
-attention call took the head rule (``("attention", "local")``). granite's
-step runs under ``CommDebugMode``: each collective's count must be what
-``launch/dryrun.py::collectives`` gives for the same mesh, batch and
-sequence.
+attention call took the head rule (``("attention", "local")``). Each
+arch's step runs under ``CommLog``: each collective's count and bytes, by
+operation and by mesh dim, must be what ``launch/dryrun.py`` traces for
+rank 0 of the same mesh, batch and sequence on a ``"fake"`` process group.
 """
 
 from __future__ import annotations
@@ -59,11 +59,9 @@ for arch in ARCHS_HERE:
     grads = torch.autograd.grad(loss, list(params.values()))
     opt = AdamW(weight_decay=0.0)
     step = make_train_step(model, opt, lambda step: torch.tensor(LR))
-    with CommDebugMode() as mode:
+    with CommLog() as mode:
         state, metrics = step(opt.init(params), placed)
-    if arch == COMM_ARCH and RANK == 0:
-        with open(os.path.join(OUT, "comm-train.json"), "w") as f:
-            json.dump(counts(mode), f)
+    write_comm(mode, f"{arch}-train")
     report(arch, "train", whole_here=whole_here,
            batch_local=list(placed["tokens"].to_local().shape))
     result = {"loss": whole(loss.detach()), "grad_norm": whole(metrics["grad_norm"]),
@@ -170,7 +168,9 @@ def test_the_model_axis_splits_and_attention_takes_the_head_rule(world, arch):
         assert rep["rules"] == ({"attention/local": 4 * n} if n else {}), (r, rep["rules"])
 
 
-def test_the_dry_runs_train_collectives_match_the_measured_world(world):
-    """granite's train step on the 8-rank mesh, each collective as
-    ``CommDebugMode`` counted it on rank 0, against ``dryrun.collectives``."""
-    held_to_the_dry_run(world[0], "train")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_the_dry_runs_train_collectives_match_the_measured_world(world, arch):
+    """Each arch's train step on the 8-rank mesh, each collective as
+    ``CommLog`` recorded it on rank 0, against the dry run's per-rank trace
+    of the same step: count and bytes by operation and by mesh dim."""
+    assert held_to_the_dry_run(world[0], arch, "train")

@@ -15,10 +15,14 @@ model, batch and caches by ``param_pspecs``, ``batch_pspec`` and
 ``cache_pspecs`` (under ``rules``, or ``seq_rules``: the cache split on its
 sequence, ``cache_seq_shard``) through ``runtime/sharding.py`` and run the
 port's steps on DTensors; rank 0 writes every result read back whole
-(``full_tensor()``) and ``COMM_ARCH``'s collectives (``CommLog``: each
-one's count, operand, bytes and mesh dim), every rank the DTensor rules its
+(``full_tensor()``) and each arch's collectives (``CommLog``: each one's
+operation, operand, bytes and mesh dim) of its train step, its prefill
+under the production rules (no sequence sharding: ``serve_rules``) and its
+decode step on each cache layout, every rank the DTensor rules its
 attention took and the model-sharded leaves it holds whole (none
-expected).
+expected). :func:`held_to_the_dry_run` holds each log, count for count and
+byte for byte, to the dry run's trace of rank 0 of the same mesh on a
+``"fake"`` process group (``launch/dryrun.py``).
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ TOL = 2e-4  # rtol and atol: the training path's bound (ROADMAP.md, "Parity")
 # Seconds a world may take: alone one takes ~80 s, beside the other test
 # workers of a parallel run several times that.
 DEADLINE = 480.0
-COMM_ARCH = "granite-3-8b"  # the world whose collectives are counted
+COMM_ARCH = "granite-3-8b"  # the arch whose cache collectives are checked one by one
 
 
 def configs(arch: str):
@@ -97,7 +101,6 @@ import dataclasses
 import json
 
 from torch.distributed.tensor import DTensor
-from torch.distributed.tensor.debug import CommDebugMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import get_smoke_config
@@ -108,6 +111,8 @@ from repro_torch.runtime import (ShardingRules, batch_pspec, build_pod_mesh, cac
 
 mesh = build_pod_mesh(*MESH)
 rules = ShardingRules(mesh=mesh, data_axes=("pod", "data"), seq_shard=True)
+# A prefill's production rules (the dry run's: the sequence is not sharded).
+serve_rules = ShardingRules(mesh=mesh, data_axes=("pod", "data"))
 # The same, with a decode cache split on its sequence instead of head_dim.
 seq_rules = ShardingRules(mesh=mesh, data_axes=("pod", "data"), seq_shard=True,
                           cache_seq_shard=True)
@@ -133,10 +138,6 @@ def placed_model(arch):
     return model, specs, batch, whole_here
 
 
-def counts(mode):
-    return {str(op).split(".")[-1]: n for op, n in mode.get_comm_counts().items() if n}
-
-
 COMM_OPS = ("all_gather_into_tensor", "all_reduce", "reduce_scatter_tensor", "all_to_all_single")
 # A collective's process group by name -> the mesh dim it spans.
 GROUPS = {mesh.get_group(i).group_name: name for i, name in enumerate(mesh.mesh_dim_names)}
@@ -144,9 +145,10 @@ GROUPS = {mesh.get_group(i).group_name: name for i, name in enumerate(mesh.mesh_
 
 # Each functional collective a step issues: [op, its operand's elements, its
 # bytes by the reference's convention (an all-gather its result, a
-# reduce-scatter its operand, an all-reduce 2 x its result), the mesh dim it
-# spans]. A dispatch mode of its own: CommDebugMode's module tracker fails
-# on some of the models' modules when used more than once a step kind.
+# reduce-scatter and an all-to-all their operand, an all-reduce 2 x its
+# result), the mesh dim it spans]. A dispatch mode of its own:
+# CommDebugMode's module tracker fails on some of the models' modules when
+# used more than once a step kind.
 class CommLog(TorchDispatchMode):
     def __init__(self):
         super().__init__()
@@ -160,19 +162,17 @@ class CommLog(TorchDispatchMode):
         if func.namespace in ("_c10d_functional", "c10d_functional") and op in COMM_OPS:
             x = args[0]
             result = out.numel() * out.element_size()
-            nbytes = {"all_reduce": 2 * result,
-                      "reduce_scatter_tensor": x.numel() * x.element_size()}.get(op, result)
+            operand = x.numel() * x.element_size()
+            nbytes = {"all_reduce": 2 * result, "reduce_scatter_tensor": operand,
+                      "all_to_all_single": operand}.get(op, result)
             self.calls.append([op, x.numel(), nbytes, GROUPS.get(args[-1])])
         return out
 
 
-def write_comm(mode, what):  # rank 0's counts and calls of a CommLog
+def write_comm(mode, what):  # rank 0's calls of a CommLog
     if RANK == 0:
-        n = {}
-        for call in mode.calls:
-            n[call[0]] = n.get(call[0], 0) + 1
         with open(os.path.join(OUT, f"comm-{what}.json"), "w") as f:
-            json.dump({"counts": n, "calls": mode.calls}, f)
+            json.dump(mode.calls, f)
 
 
 def report(arch, what, **fields):
@@ -200,32 +200,36 @@ COMM_NAMES = {"all_gather_into_tensor": "all-gather", "all_reduce": "all-reduce"
               "reduce_scatter_tensor": "reduce-scatter", "all_to_all_single": "all-to-all"}
 
 
-def held_to_the_dry_run(out: Path, kind: str, what: str | None = None,
-                        cache_seq_shard: bool = False) -> list:
-    """COMM_ARCH's counted step (``comm-<what>.json``, ``what`` the kind by
-    default; rank 0's ``CommDebugMode``) against ``dryrun.collectives`` for
-    the same mesh sizes, per-device batch, sequence and cache: each
-    collective's count, and where the step kept its calls (a
-    :class:`CommLog`), each collective's bytes. -> the calls ([] without)."""
-    from repro_torch.launch import dryrun
-    from repro_torch.runtime.sharding import ShardingRules, param_pspecs
+def _histogram(calls) -> tuple[dict, dict]:
+    """({op: {"count", "bytes"}}, {"<op> over <mesh dim>": {"count", "bytes"}})."""
+    by_op, by_dim = {}, {}
+    for op, nbytes, dim in calls:
+        for hist, key in ((by_op, op), (by_dim, f"{op} over {dim}")):
+            h = hist.setdefault(key, {"count": 0, "bytes": 0})
+            h["count"] += 1
+            h["bytes"] += nbytes
+    return by_op, by_dim
 
-    measured = json.loads((out / f"comm-{what or kind}.json").read_text())
-    calls = measured.get("calls", []) if "counts" in measured else []
-    got = {COMM_NAMES[k]: n for k, n in measured.get("counts", measured).items()}
-    cfg = configs(COMM_ARCH)[1]
-    sizes = dict(zip(("pod", "data", "model"), MESH))
-    rules = ShardingRules(mesh=sizes, data_axes=("pod", "data"), seq_shard=True,
-                          cache_seq_shard=cache_seq_shard)
-    params = dict(Model(cfg, device="meta").named_parameters())
-    want = dryrun.collectives(cfg, kind, rules, params=params,
-                              p_specs=param_pspecs(params, rules),
-                              batch=B // (sizes["pod"] * sizes["data"]),
-                              seq=T if kind == "train" else 1, cache_len=MAX_LEN)
-    assert got == {op: int(h["count"]) for op, h in want.items()}, (got, want)
-    if calls:
-        nbytes = {}
-        for op, _, n, _ in calls:
-            nbytes[COMM_NAMES[op]] = nbytes.get(COMM_NAMES[op], 0) + n
-        assert nbytes == {op: h["bytes"] for op, h in want.items()}, (nbytes, want)
+
+def held_to_the_dry_run(out: Path, arch: str, kind: str, what: str | None = None,
+                        cache_seq_shard: bool = False) -> list:
+    """``arch``'s logged step (``comm-<arch>-<what>.json``, ``what`` the
+    kind by default; rank 0's ``CommLog``) against the dry run's per-rank
+    trace of the same smoke config, batch, sequence and cache on a fake
+    world of ``MESH`` (a decode step at the cache's last position, where
+    the world's is at ``T``: no collective depends on it, the split rule's
+    rank 0 holding no slot at either): each collective's count and bytes,
+    by operation and by mesh dim, equal. -> the logged calls."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import ShapeSpec
+
+    calls = json.loads((out / f"comm-{arch}-{what or kind}.json").read_text())
+    got = _histogram([(COMM_NAMES[op], nbytes, dim) for op, _, nbytes, dim in calls])
+    shape = ShapeSpec(f"smoke_{kind}", MAX_LEN if kind == "decode" else T, B, kind)
+    cell = dryrun.build_cell(arch, shape, mesh=dict(zip(("pod", "data", "model"), MESH)),
+                             config=configs(arch)[1], cache_seq_shard=cache_seq_shard)
+    rec = dryrun.cell_record(cell)
+    assert rec["analysis"] == "per-rank-trace" and rec["temp_bound"] is None, rec["analysis"]
+    want = (rec["collectives"], rec["collectives_by_mesh_dim"])
+    assert got == want, (arch, what or kind, got, want)
     return calls

@@ -283,6 +283,21 @@ exits nonzero without printing its result line:
    the meshed and plain medians by events and the peak memory.
    ``python3 chip_smoke.py --only 4p`` runs the build and this phase alone
    (a development aid; with no arguments every phase runs);
+4q. the pod-axis GPipe pipeline, the examples and the tables tool: (a)
+   ``runtime/pipeline.py::gpipe_forward`` over a world of one (NCCL, a
+   (pod 1, data 1, model 1) mesh) running qwen1.5-0.5b's 24 layers as
+   published (bf16, ``stacked_blocks``: the model's own block code on each
+   layer's slice) on 4 microbatches of 2 x 1024 embeddings, its forward and
+   the gradient of its output's sum bit-equal to the same blocks in a loop
+   (96 flash_attention_bf16_wgmma launches each, none in the backward), then
+   the reference test's tanh stack (L 8, d 16, 3 x 4) within 2e-5; (b) the
+   five examples through their ``main`` on cuda (quickstart; serve_lm;
+   run_suite over five rows at preset 0 into temporary reports; train_lm at
+   100m for 200 steps, then ``--resume --steps 300``: the loss falls, the
+   resumed run restarts at step 200; feature_analysis), each one's launches
+   exact; (c) the tables tool over 4o (c)'s records, each row equal to its
+   record. ``python3 chip_smoke.py --only 4q`` runs the build, phase 4o (for
+   its records) and this phase alone (a development aid);
 5. yardstick: each kernel of the paths, its plain version and the one
    PyTorch call that computes the same function (where there is one),
    timed with CUDA events at the paths' shapes (and the kernel's own device
@@ -721,6 +736,18 @@ DRYRUN_CELLS = (("granite-3-8b", "train_4k", {"flash_attention_bf16_wgmma": 80})
 MESH_TRAIN = dict(steps=3, batch=8, seq=1024)
 MESH_DECODE = dict(batch=8, prompt=1080, cache=1096, steps=16)
 MESH_BOUND = 2e-4
+# The pipeline and the examples (phase 4q). (a) TRAIN_ARCH's layers as
+# published through gpipe_forward on a (pod 1, data 1, model 1) mesh, against
+# the same blocks in a loop; then the reference test's tanh stack at its
+# tolerance. (b) The five examples through their main on cuda: run_suite over
+# EXAMPLE_SUITE at preset 0 (impl torch: no kernel), train_lm at the
+# reference's "assignment-scale" size for TRAIN_LM["steps"] steps, then
+# resumed up to TRAIN_LM["resume_steps"]. (c) The tables tool over 4o (c)'s
+# records.
+PIPE = dict(microbatches=4, batch=2, seq=1024)
+PIPE_TANH = dict(layers=8, d=16, microbatches=3, batch=4, tol=2e-5)
+EXAMPLE_SUITE = ("gemm_bf16_nn", "softmax", "srad", "where", "sort")
+TRAIN_LM = dict(size="100m", steps=200, resume_steps=300)
 PLACEMENT_ROWS = ("gemm_f32_nn", "gemm_bf16_nn", "connected", "softmax", "lrn", "pooling",
                   "convolution_im2col", "kmeans", "devicemem_stream")
 PLACEMENT_SUITE = ("gemm_f32_nn", "softmax")
@@ -4493,12 +4520,294 @@ def phase_dryrun(torch, smi: str) -> dict:
     if [r[0] for r in rows] != sorted(f"roofline.{a}.{s}.single" for a, s, _ in DRYRUN_CELLS):
         _fail(f"roofline_table.rows over the CLI's records: {[r[0] for r in rows]}")
     info["cli_s"] = {f"{a} {s}": c[0] for (a, s), c in cells.items()}
+    info["cli_records"] = {f"{a}__{s}__single__baseline": c[1] for (a, s), c in cells.items()}
     info["cli_temp"] = {f"{a} {s}": (c[1]["memory"]["temp_size_in_bytes"],
                                      c[2]["memory"]["temp_size_in_bytes"])
                         for (a, s), c in cells.items() if c[2] is not None}
     info["phase_s"] = time.perf_counter() - t_phase
     print(f"  phase 4o {info['phase_s']:.1f} s")
     return info
+
+
+def _pipeline_on_card(torch, smi: str) -> tuple[dict, dict]:
+    """4q (a): TRAIN_ARCH's layers through ``gpipe_forward`` on a (pod 1,
+    data 1, model 1) mesh against the same blocks in a loop, forward and the
+    gradient of the output's sum, bit for bit, each with its launches; then
+    the reference test's tanh stack, forward and gradient, at its tolerance.
+    -> (launches, numbers)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.runtime import build_pod_mesh, gpipe_forward, stacked_blocks
+
+    info = {}
+    launches = {k: 0 for k in _read_launches()}
+    rendezvous = _join_world_of_one(torch)
+    try:
+        mesh = build_pod_mesh(1, 1, 1)
+        cfg = get_config(TRAIN_ARCH)
+        model = Model(cfg, device="cuda", remat=False)
+        model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+        stacked, stage_fn = stacked_blocks(model)
+        for leaf in stacked.values():
+            leaf.requires_grad_()
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        m, b, t = PIPE["microbatches"], PIPE["batch"], PIPE["seq"]
+        x = torch.randn(m, b, t, cfg.d_model, generator=gen, device="cuda").to(torch.bfloat16)
+        positions = torch.arange(t, device="cuda").expand(b, t)
+        forward = {"flash_attention_bf16_wgmma": cfg.n_layers * m}
+
+        def loop():
+            outs = []
+            for i in range(m):
+                h = x[i]
+                for block in model.blocks:
+                    h = model._block(block, h, positions)[0]
+                outs.append(h)
+            return torch.stack(outs)
+
+        # Warm-up, untimed and uncounted: the first microbatch through each,
+        # without autograd (NCCL's communicator is made at its first
+        # collective, cuBLAS picks its algorithms at a shape's first call).
+        with torch.no_grad():
+            gpipe_forward(stage_fn, mesh)(stacked, x[:1])
+            model._block(model.blocks[0], x[0], positions)
+        torch.cuda.synchronize()
+        out, ms = {}, {}
+        for name, fn in (("pipeline", lambda: gpipe_forward(stage_fn, mesh)(stacked, x)),
+                         ("loop", loop)):
+            _zero_launches()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out[name] = fn()
+            end.record()
+            end.synchronize()
+            ms[name] = start.elapsed_time(end)
+            got = _nonzero(_read_launches())
+            if got != forward:
+                _fail(f"phase 4q (a), the {name}'s forward: launches {got}, expected {forward}")
+            for k, n in got.items():
+                launches[k] += n
+        if not _same_bytes(torch, out["pipeline"], out["loop"]):
+            _fail("phase 4q (a): the pipeline's forward differs from the loop's: max |diff| "
+                  f"{(out['pipeline'].float() - out['loop'].float()).abs().max().item():.3e}")
+        _zero_launches()
+        for name in ("pipeline", "loop"):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out[name].sum().backward()
+            end.record()
+            end.synchronize()
+            ms[name + "_backward"] = start.elapsed_time(end)
+        if _nonzero(_read_launches()):  # attention's backward is torch's
+            _fail(f"phase 4q (a): the backward launched {_nonzero(_read_launches())}")
+        grads = {name: (leaf.grad, torch.stack([dict(blk.named_parameters())[name].grad
+                                                for blk in model.blocks]))
+                 for name, leaf in stacked.items()}
+        differ = [k for k, (g, w) in grads.items() if not _same_bytes(torch, g, w)]
+        if differ:
+            _fail(f"phase 4q (a): the pipeline's gradient differs from the loop's in {differ}")
+        print(f"  (a) {TRAIN_ARCH} as published, {cfg.n_layers} layers bf16, {m} microbatches of "
+              f"{b} x {t}: the pipeline's forward and the gradient of its sum bit-equal to the "
+              f"loop's ({len(grads)} stacked leaves); forward {ms['pipeline']:.2f} ms (loop "
+              f"{ms['loop']:.2f}), backward {ms['pipeline_backward']:.2f} ms (loop "
+              f"{ms['loop_backward']:.2f}) by events; launches {forward} each ({smi})")
+        info["ms"] = ms
+        del out, grads, stacked, model, x
+
+        # The reference test's case (tests/test_distributed.py): a tanh stack.
+        c = PIPE_TANH
+        w = (0.3 * torch.randn(c["layers"], c["d"], c["d"], generator=gen, device="cuda"))
+        w.requires_grad_()
+        xt = torch.randn(c["microbatches"], c["batch"], c["d"], generator=gen, device="cuda")
+
+        def tanh_stack(ws, h):
+            for i in range(ws.shape[0]):
+                h = torch.tanh(h @ ws[i])
+            return h
+
+        y = gpipe_forward(tanh_stack, mesh)(w, xt)
+        y.sum().backward()
+        w2 = w.detach().clone().requires_grad_()
+        want = tanh_stack(w2, xt)
+        want.sum().backward()
+        errs = [(y - want).abs().max().item(), (w.grad - w2.grad).abs().max().item()]
+        for what, (g, v) in (("forward", (y, want)), ("gradient", (w.grad, w2.grad))):
+            if not torch.allclose(g, v, rtol=c["tol"], atol=c["tol"]):
+                _fail(f"phase 4q (a), the tanh stack's {what}: beyond {c['tol']}")
+        print(f"  (a) the reference test's tanh stack (L {c['layers']}, d {c['d']}, "
+              f"{c['microbatches']} x {c['batch']}), f32: forward within {errs[0]:.3e}, "
+              f"gradient within {errs[1]:.3e} of the loop [{c['tol']}]")
+        info["tanh_err"] = errs
+    finally:
+        dist.destroy_process_group()
+        rendezvous.unlink(missing_ok=True)
+    torch.cuda.empty_cache()
+    return launches, info
+
+
+def _run_main(main, argv) -> tuple[list[str], dict]:
+    """An example's ``main(argv)`` on cuda, its output captured and printed
+    indented, with the launch counters set to 0 just before and read just
+    after. -> (its lines, its launches)."""
+    import io
+
+    buf = io.StringIO()
+    _zero_launches()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+    finally:
+        print("\n".join("    " + line for line in buf.getvalue().splitlines()))
+    if rc != 0:
+        _fail(f"phase 4q (b): {main.__module__} {argv} exited {rc}")
+    return buf.getvalue().splitlines(), _nonzero(_read_launches())
+
+
+def _examples_on_card(torch, smi: str) -> tuple[dict, dict]:
+    """4q (b): the five examples through their main on cuda, each one's
+    launches exactly as its run makes them. -> (launches, numbers)."""
+    import re
+
+    from repro_torch.benchmarks import feat_coop_groups as cg
+    from repro_torch.benchmarks import feat_dynamic_parallelism as dp
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.examples import feature_analysis, quickstart, run_suite, serve_lm, train_lm
+
+    launches = {k: 0 for k in _read_launches()}
+    info = {}
+    f32 = "flash_attention_f32"
+
+    def serve_calls(layers, requests, batch, prompt, gen, max_len):
+        """The f32 attention calls of a smoke serve: each round's prefill
+        and decode steps, one a layer."""
+        steps = len(range(prompt, min(prompt + gen - 1, max_len - 1)))
+        return layers * -(-requests // batch) * (1 + steps)
+
+    qwen = get_smoke_config("qwen1.5-0.5b").n_layers
+    mixtral = get_smoke_config("mixtral-8x22b").n_layers
+    cg_calls = len(cg.SIZES) * (1 + cg.ITERS + cg.WARMUP)
+    dp_calls = len(dp.SIZES) * (1 + dp.ITERS + dp.WARMUP)
+    l100 = train_lm.SIZES[TRAIN_LM["size"]][0]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        runs = (
+            ("quickstart", quickstart.main, [],
+             {f32: qwen * 40 + serve_calls(qwen, 4, 2, 8, 8, 24)}),
+            ("serve_lm", serve_lm.main, [], {f32: serve_calls(mixtral, 8, 4, 32, 24, 64)}),
+            ("run_suite", run_suite.main,
+             ["--names", *EXAMPLE_SUITE, "--preset", "0", "--report",
+              os.path.join(tmp, "report.json"), "--jsonl", os.path.join(tmp, "suite.jsonl")], {}),
+            ("train_lm", train_lm.main,
+             ["--size", TRAIN_LM["size"], "--steps", str(TRAIN_LM["steps"]), "--ckpt", ckpt],
+             {f32: l100 * TRAIN_LM["steps"]}),
+            ("train_lm --resume", train_lm.main,
+             ["--size", TRAIN_LM["size"], "--steps", str(TRAIN_LM["resume_steps"]), "--resume",
+              "--ckpt", ckpt], {f32: l100 * (TRAIN_LM["resume_steps"] - TRAIN_LM["steps"])}),
+            ("feature_analysis", feature_analysis.main, [],
+             {"srad_fused_f32": cg_calls, "srad_phase1_f32": cg_calls,
+              "srad_phase2_f32": cg_calls, "mandelbrot_flat_i32": dp_calls,
+              "mandelbrot_dp_i32": dp_calls}),
+        )
+        lines = {}
+        for label, main, argv, want in runs:
+            t0 = time.perf_counter()
+            print(f"  (b) {label} {' '.join(argv)}")
+            lines[label], got = _run_main(main, argv)
+            info[label + "_s"] = time.perf_counter() - t0
+            print(f"  (b) {label}: {info[label + '_s']:.1f} s; launches {got}")
+            if got != want:
+                _fail(f"phase 4q (b), {label}: launches {got}, expected {want}")
+            for k, n in got.items():
+                launches[k] += n
+        jsonl = [json.loads(line) for line in open(os.path.join(tmp, "suite.jsonl"))]
+    if sum(r.get("kind") == "record" for r in jsonl) < len(EXAMPLE_SUITE):
+        _fail(f"phase 4q (b), run_suite: {len(jsonl)} JSONL lines")
+    summary = [x for x in lines["run_suite"] if " rows (" in x]
+    if not summary or " (0 errors); backend=cuda " not in summary[0]:
+        _fail(f"phase 4q (b), run_suite: {summary}")
+
+    # train_lm: the loss falls, the resumed run restarts at the first's last
+    # step, and its lines print tokens/s.
+    first, resumed = lines["train_lm"], lines["train_lm --resume"]
+    step0 = re.search(r"step +0 loss ([0-9.]+)", "\n".join(first))
+    final = re.search(r"final loss ([0-9.]+)", "\n".join(resumed))
+    restart = f"[train_lm] resumed at step {TRAIN_LM['steps']}"
+    tok = [x for x in first + resumed if "tok/s" in x]
+    if (step0 is None or final is None or not float(final.group(1)) < float(step0.group(1))
+            or restart not in resumed or not tok):
+        _fail(f"phase 4q (b), train_lm: {first[-2:]} {resumed[:3]} {resumed[-1:]}")
+    info["train_lm_loss"] = (float(step0.group(1)), float(final.group(1)))
+    info["train_lm_rates"] = [x for x in first + resumed if "tokens in" in x]
+    print(f"  (b) train_lm {TRAIN_LM['size']}: loss {info['train_lm_loss'][0]:.4f} at step 0 -> "
+          f"{info['train_lm_loss'][1]:.4f} at step {TRAIN_LM['resume_steps']}; "
+          + "; ".join(x.split('] ', 1)[1] for x in info["train_lm_rates"]) + f" ({smi})")
+    return launches, info
+
+
+def _tables_on_card(records: dict) -> None:
+    """4q (c): the tables tool over 4o (c)'s records; each row equals its
+    record."""
+    from repro_torch.tools import render_experiments as tables
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dry, out = os.path.join(tmp, "dryrun"), os.path.join(tmp, "tables")
+        os.makedirs(dry)
+        for name, rec in records.items():
+            with open(os.path.join(dry, name + ".json"), "w") as f:
+                json.dump(rec, f)
+        _run_main(lambda argv: tables.main(argv, dry=dry, out=out), [])
+        text = {n: open(os.path.join(out, n + ".md")).read().splitlines()
+                for n in ("dryrun", "roofline", "variants")}
+    rows = {n: {tuple(c.strip() for c in line.strip("|").split("|")[:2]):
+                [c.strip() for c in line.strip("|").split("|")] for line in lines[2:]}
+            for n, lines in text.items()}
+    if rows["variants"] or len(rows["dryrun"]) != len(records) or len(rows["roofline"]) != len(
+            records):
+        _fail(f"phase 4q (c): tables of {[len(r) for r in rows.values()]} rows for "
+              f"{len(records)} records")
+    for rec in records.values():
+        key = (rec["arch"], rec["shape"])
+        d, r = rows["dryrun"][key], rows["roofline"][key]
+        if "skip" in rec:
+            want_d = ["—"] * 4 + [f"*skip: {rec['skip']}*"]
+            want_r = ["—"] * 6 + [f"*skip: {rec['skip']}*"]
+        else:
+            mem, rl = rec["memory"], rec["roofline"]
+            gib = (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]) / 2**30
+            top = sorted(rec["collectives"].items(), key=lambda kv: -kv[1]["bytes"])[:3]
+            want_d = [f"{round(rec['trace_s'], 2)}s ✓", "—", f"{gib:.1f} GiB",
+                      "✅" if gib <= 80 else f"❌ ({gib / 80:.1f}×)",
+                      " ".join(f"{k}:{int(v['count'])}×/{v['bytes'] / 1e9:.1f}GB" for k, v in top)
+                      or "-"]
+            want_r = [f"{rl['compute_s']:.3g}", f"{rl['memory_s']:.3g}",
+                      f"{rl['collective_s']:.3g}", f"**{rl['dominant']}**",
+                      f"{rl['roofline_fraction']:.3f}", f"{rec['useful_compute_ratio']:.2f}",
+                      tables._MOVE_HINT[rl["dominant"]]]
+        if d[2:] != want_d or r[2:] != want_r:
+            _fail(f"phase 4q (c), {key}: rows {d} / {r}; the record says {want_d} / {want_r}")
+    print(f"  (c) the tables tool over 4o (c)'s {len(records)} records: dryrun, roofline and "
+          "variants tables, each row equal to its record")
+
+
+def phase_pipeline_examples(torch, smi: str, records: dict) -> tuple[dict, dict]:
+    """Phase 4q: the pod-axis pipeline over a world of one, the five
+    examples and the tables tool on the card. -> (launches, numbers)."""
+    print(f"== phase 4q: the GPipe pipeline ({TRAIN_ARCH}, NCCL world of one), the examples, "
+          "the tables tool")
+    t_phase = time.perf_counter()
+    pipe_launches, info = _pipeline_on_card(torch, smi)
+    info["pipeline_s"] = time.perf_counter() - t_phase
+    example_launches, info["examples"] = _examples_on_card(torch, smi)
+    _tables_on_card(records)
+    info["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 4q {info['phase_s']:.1f} s (pipeline {info['pipeline_s']:.1f} s; "
+          + ", ".join(f"{k[:-2]} {v:.1f} s" for k, v in info["examples"].items()
+                      if k.endswith("_s")) + ")")
+    return {k: pipe_launches[k] + example_launches[k] for k in pipe_launches}, info
 
 
 def _same_bytes(torch, a, b) -> bool:
@@ -5486,6 +5795,10 @@ def main() -> int:
     if sys.argv[1:] == ["--only", "4p"]:  # a development aid: the build and phase 4p alone
         clock(phase_model_axis(torch, smi, _meshed_prediction(_dryrun_train_shape())))
         return 0
+    if sys.argv[1:] == ["--only", "4q"]:  # a development aid: the build, 4o for its records, 4q
+        dry = clock(phase_dryrun(torch, smi))
+        clock(phase_pipeline_examples(torch, smi, dry["cli_records"]))
+        return 0
     errors = clock(phase_kernels(torch))
     main_launches = clock(phase_main_path(torch))
     dnn_launches = clock(phase_dnn(torch))
@@ -5504,12 +5817,13 @@ def main() -> int:
     placement_launches, placed = clock(phase_placement(torch, smi))
     dry = clock(phase_dryrun(torch, smi))
     axis_launches, axis = clock(phase_model_axis(torch, smi, dry["meshed_rec"]))
+    pipe_launches, pipe = clock(phase_pipeline_examples(torch, smi, dry["cli_records"]))
     # Every count was checked per path; a kernel's launches are the sum over
     # the paths that run it (SRAD's three entries: phases 4c and 4f).
     launches = {k: main_launches[k] + dnn_launches[k] + level_launches[k] + lm_launches[k]
                 + feature_launches[k] + report_launches[k] + serve_launches[k]
                 + dist_launches[k] + train_launches[k] + moe_launches[k] + recurrent_launches[k]
-                + vlm_launches[k] + placement_launches[k] + axis_launches[k]
+                + vlm_launches[k] + placement_launches[k] + axis_launches[k] + pipe_launches[k]
                 for k in main_launches}
     kernels = clock(phase_yardstick(torch, launches, errors))
     # One row per kernel and shape (matmul_bf16 has three, nn and tn at
@@ -5579,6 +5893,13 @@ def main() -> int:
           "per rank against the undivided temp (GiB): "
           + ", ".join(f"{k} {r / 2**30:.2f} / {u / 2**30:.2f}"
                       for k, (r, u) in dry["cli_temp"].items()) + f" ({smi})")
+    ex = pipe["examples"]
+    print(f"the GPipe pipeline over one rank, {TRAIN_ARCH} full, {PIPE['microbatches']} x "
+          f"{PIPE['batch']} x {PIPE['seq']}: forward {pipe['ms']['pipeline']:.2f} ms (loop "
+          f"{pipe['ms']['loop']:.2f}), backward {pipe['ms']['pipeline_backward']:.2f} ms (loop "
+          f"{pipe['ms']['loop_backward']:.2f}), bit-equal; train_lm {TRAIN_LM['size']}: loss "
+          f"{ex['train_lm_loss'][0]:.4f} -> {ex['train_lm_loss'][1]:.4f}; phase 4q "
+          f"{pipe['phase_s']:.1f} s ({smi})")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

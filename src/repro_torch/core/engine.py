@@ -214,6 +214,10 @@ class RunResult:
     def ok_records(self) -> list[BenchmarkRecord]:
         return [r for r in self.records if r.status == "ok"]
 
+    @property
+    def error_records(self) -> list[BenchmarkRecord]:
+        return [r for r in self.records if r.status != "ok"]
+
 
 def bind_impl(
     fn: Callable[..., Any], workload: Workload, impl: str, params: dict | None = None

@@ -1,9 +1,10 @@
 # Training runtime: the train/eval step factory (runtime/steps.py), sharding
 # rules and placement over a DeviceMesh (runtime/sharding.py), elastic
 # re-mesh arithmetic and meshes (runtime/elastic.py) and straggler
-# monitoring (runtime/straggler.py); counterparts of repro/runtime/. The
-# model axis runs (tensor, sequence and expert parallel, item 16.6 (i)); the
-# pod-axis pipeline is ROADMAP.md queue 1, item 16.6 (ii).
+# monitoring (runtime/straggler.py) and the pod-axis GPipe pipeline
+# (runtime/pipeline.py); counterparts of repro/runtime/. The model axis runs
+# (tensor, sequence and expert parallel, item 16.6 (i)), and so does the
+# pod-axis pipeline, forward and backward (item 16.6 (ii)).
 
 from repro_torch.runtime.elastic import (  # noqa: F401
     build_mesh,
@@ -11,6 +12,8 @@ from repro_torch.runtime.elastic import (  # noqa: F401
     choose_submesh,
     plan_remesh,
 )
+from repro_torch.runtime.pipeline import gpipe_forward, stacked_blocks  # noqa: F401
+from repro_torch.runtime.pipeline import gpipe_forward, stacked_blocks  # noqa: F401
 from repro_torch.runtime.sharding import (  # noqa: F401
     ShardingRules,
     batch_pspec,

@@ -84,6 +84,11 @@ def test_port_imports_no_jax_and_no_reference_module():
         "repro_torch.checkpoint.checkpointer", "repro_torch.runtime",
         "repro_torch.runtime.steps", "repro_torch.runtime.straggler",
         "repro_torch.runtime.elastic", "repro_torch.launch.train", "repro_torch.convert",
+        "repro_torch.runtime.pipeline", "repro_torch.examples",
+        "repro_torch.examples.quickstart", "repro_torch.examples.run_suite",
+        "repro_torch.examples.serve_lm", "repro_torch.examples.train_lm",
+        "repro_torch.examples.feature_analysis", "repro_torch.tools",
+        "repro_torch.tools.render_experiments",
     } <= set(mods)
     script = textwrap.dedent(f"""
         import importlib, sys
